@@ -41,6 +41,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)

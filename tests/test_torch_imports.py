@@ -1,0 +1,61 @@
+"""Import hygiene of the PyTorch port: no JAX, no Flax, nothing of the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "denseclip_vit_multimodal_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "denseclip_vit_multimodal_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def test_import_leaves_jax_out_of_sys_modules():
+    """`import` of the package and every submodule, in a fresh interpreter
+    (this test process already holds jax), adds no JAX module."""
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "before = set(sys.modules)\n"
+        "import denseclip_vit_multimodal_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "added = set(sys.modules) - before\n"
+        "bad = sorted(m for m in added if m.split('.')[0] in {'jax', 'jaxlib', 'flax', 'optax'}\n"
+        "             or m.split('.')[0] == 'denseclip_vit_multimodal_tpu')\n"
+        "assert len(names) >= 20, names\n"
+        "assert not bad, bad\n"
+        "assert 'jax' not in sys.modules\n"
+        "print('ok', len(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: str(p.relative_to(PKG)))
+def test_no_forbidden_import_in_source(path):
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def test_chip_smoke_imports_no_jax():
+    roots = {n.split(".")[0] for n in _imported_roots(ROOT / "chip_smoke.py")}
+    assert not roots & set(FORBIDDEN), roots
