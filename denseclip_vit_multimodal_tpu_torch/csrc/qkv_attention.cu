@@ -36,47 +36,23 @@
 // 3.35 TB/s): compute- (and exp2-) bound.  This first version is simple:
 // synchronous tile loads, no wgmma, no TMA, no warp specialisation.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
+
+using namespace dclip;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = 16 * kWarps;  // query rows per block
 constexpr int kBlockK = 64;           // keys per K/V tile
 constexpr int kPad = 8;               // bf16 row padding (16 bytes) against bank conflicts
-constexpr int kVec = 8;               // bf16 per 16-byte global load
-
-union Vec8 {
-  uint4 u;
-  __nv_bfloat16 h[kVec];
-};
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two fp32 values rounded to bf16; `lo` lands in the low half (lower index).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
-                     __nv_bfloat16* __restrict__ out, int n, int heads,
+                     __nv_bfloat16* __restrict__ out,
+                     float2* __restrict__ stats, int n, int heads,
                      int kv_len, float q_scale) {
   constexpr int kLdQK = D + kPad;       // sQ / sK row stride
   constexpr int kLdV = kBlockK + kPad;  // sVt row stride (one row per head dim)
@@ -246,6 +222,11 @@ qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
   }
   const int row0 = q0 + wr + g;
   const int row1 = row0 + 8;
+  if (stats != nullptr && t == 0) {  // (max, sum) of every row, for the backward
+    float2* st = stats + ((long long)b * heads + h) * n;
+    if (row0 < n) st[row0] = make_float2(m_run[0], l_run[0]);
+    if (row1 < n) st[row1] = make_float2(m_run[1], l_run[1]);
+  }
   const long long out_stride = (long long)heads * D;
   __nv_bfloat16* out_b = out + (long long)b * n * out_stride + h * D;
 #pragma unroll
@@ -261,8 +242,8 @@ qkv_attention_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 template <int D>
-cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads,
-                   int kv_len, float q_scale, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, void* out, void* stats, int batch, int n,
+                   int heads, int kv_len, float q_scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       ((size_t)(kBlockQ + kBlockK) * (D + kPad) +
                        (size_t)D * (kBlockK + kPad));
@@ -273,7 +254,7 @@ cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads,
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
   qkv_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out),
-      n, heads, kv_len, q_scale);
+      static_cast<float2*>(stats), n, heads, kv_len, q_scale);
   return cudaGetLastError();
 }
 
@@ -281,16 +262,19 @@ cudaError_t launch(const void* qkv, void* out, int batch, int n, int heads,
 
 // Plain C entry point for ctypes.  Pointers are device pointers of
 // contiguous bf16 tensors (16-byte aligned); `stream` is a cudaStream_t.
+// `stats` is null, or an fp32 [B, H, N, 2] buffer that receives each query
+// row's softmax max (log2 units) and row sum, which the backward
+// (qkv_attention_bwd.cu) reads instead of recomputing them.
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
-extern "C" int qkv_attention_bf16(const void* qkv, void* out, int batch, int n,
-                                  int heads, int head_dim, int kv_len,
-                                  float q_scale, void* stream) {
+extern "C" int qkv_attention_bf16(const void* qkv, void* out, void* stats,
+                                  int batch, int n, int heads, int head_dim,
+                                  int kv_len, float q_scale, void* stream) {
   if (batch < 1 || n < 1 || heads < 1 || kv_len < 1 || kv_len > n)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return (int)launch<64>(qkv, out, batch, n, heads, kv_len, q_scale, s);
+    return (int)launch<64>(qkv, out, stats, batch, n, heads, kv_len, q_scale, s);
   if (head_dim == 128)
-    return (int)launch<128>(qkv, out, batch, n, heads, kv_len, q_scale, s);
+    return (int)launch<128>(qkv, out, stats, batch, n, heads, kv_len, q_scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,1 +1,1 @@
-"""Data helpers of the port (normalisation; the data pipeline is not ported yet)."""
+"""Data pipeline of the port: synthetic dataset, threaded loader, on-device augmentation."""

@@ -1,5 +1,7 @@
-"""DenseCLIP composite segmentor, inference (PyTorch port of the JAX package's
-`models/denseclip.py`).
+"""DenseCLIP composite segmentor (PyTorch port of the JAX package's
+`models/denseclip.py`): inference, and the training forward (`train=True`:
+batch-statistics BatchNorm, head dropout and backbone drop path drawn from a
+`torch.Generator`).
 
 NHWC images in, NHWC logits out.  What differs from the JAX module, and why
 the outputs stay identical:
@@ -95,14 +97,20 @@ class DenseCLIP(nn.Module):
 
     def forward(self, image: torch.Tensor, texts, gt_hw: Optional[Tuple[int, int]] = None,
                 return_features: bool = False, resize_outputs: bool = True,
-                cached_text: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                cached_text: Optional[torch.Tensor] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """image NHWC [B, H, W, 3] -> {'seg': [B,h,w,K], 'depth': [B,h,w,1], ...}.
 
         Outputs are resized to `gt_hw` when given, else to the image size;
         `resize_outputs=False` returns head-resolution logits (the slide
-        engine upsamples per window itself).
+        engine upsamples per window itself).  `train=True` is the JAX
+        training forward; `gen` then draws its dropout and drop-path masks
+        (none are drawn without it).  The score map is skipped in training
+        too, so `contexts`, `vis_proj` and `global_proj` get no gradient,
+        as in the JAX program (the trainer fills their gradients with 0).
         """
-        feats = list(self.backbone(image.to(self.dtype)))
+        gen = gen if train else None
+        feats = list(self.backbone(image.to(self.dtype), deterministic=not train, gen=gen))
         smap = text_embeddings = None
         if return_features:
             visual = feats[-1]
@@ -111,9 +119,9 @@ class DenseCLIP(nn.Module):
             text_embeddings = self.encode_text(texts, visual.shape[0], cached_text)
             smap = compute_score_map(visual, text_embeddings)  # [B, h, w, K] fp32
 
-        head_input = self.neck(feats) if self.neck is not None else feats[-1]
-        seg = self.decode_head(head_input) if self.decode_head is not None else None
-        depth = self.depth_head(head_input) if self.depth_head is not None else None
+        head_input = self.neck(feats, train) if self.neck is not None else feats[-1]
+        seg = self.decode_head(head_input, train, gen) if self.decode_head is not None else None
+        depth = self.depth_head(head_input, train, gen) if self.depth_head is not None else None
 
         target_hw = tuple(gt_hw) if gt_hw is not None else (image.shape[1], image.shape[2])
         if resize_outputs:
@@ -173,8 +181,8 @@ def build_denseclip(
     backbone = CLIPVisionTransformer(
         patch_size=int(bb.get("patch_size", 16)), width=width, layers=layers,
         heads=int(bb.get("heads", 12)), input_resolution=int(bb.get("input_resolution", 224)),
-        out_indices=out_indices,
-        attn_impl=attn_impl, dtype=dtype, gen=gen,
+        out_indices=out_indices, attn_impl=attn_impl, dtype=dtype, gen=gen,
+        drop_path_rate=float(bb.get("drop_path_rate", 0.0)),
     )
 
     te = dict(cfg["text_encoder"])
@@ -220,7 +228,7 @@ def build_denseclip(
         num_classes = int(dh.get("num_classes", num_classes))
         decode_head = FCNHead(
             int(dh.get("in_channels", head_in_channels)), int(dh.get("channels", 256)),
-            num_classes, dtype=dtype, gen=gen,
+            num_classes, dropout_ratio=float(dh.get("dropout_ratio", 0.1)), dtype=dtype, gen=gen,
         )
     depth_head = None
     if cfg.get("depth_head"):
@@ -228,9 +236,9 @@ def build_denseclip(
         dph_type = dph.pop("type")
         if dph_type not in ("FCNHeadDepth", "FCNHead"):
             raise _not_ported("depth_head", dph_type)
-        depth_head = FCNHead(
+        depth_head = FCNHead(  # torchvision's FCNHead hard-codes Dropout(0.1)
             int(dph.get("in_channels", head_in_channels)), int(dph.get("channels", 128)), 1,
-            dtype=dtype, gen=gen,
+            dropout_ratio=float(dph.get("dropout_ratio", 0.1)), dtype=dtype, gen=gen,
         )
 
     texts = tokenize(list(class_names), context_length=fixed_len)

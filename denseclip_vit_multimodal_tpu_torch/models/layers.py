@@ -10,14 +10,21 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
   * `MultiHeadAttention` — fused [D, 3D] qkv projection; for long non-causal
     bf16 sequences on CUDA the attention runs in the hand-written kernel
     (`ops/mha_kernel.py`), otherwise in plain PyTorch (`plain_attention`).
-  * `MLP`, `ResidualAttentionBlock` (inference forward) and `Transformer`,
-    a loop over its blocks that returns `(final, taps[L, B, N, D])`.
-  * `ConvBNReLU` — conv + eval-mode BatchNorm + ReLU on NHWC tensors.
+  * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
+    training) and `Transformer`, a loop over its blocks that returns
+    `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
+    the layers.
+  * `ConvBNReLU` — conv + BatchNorm + ReLU on NHWC tensors; BatchNorm in
+    training normalises by the batch statistics and updates the running
+    ones with Flax's rule (`batch_norm_nhwc`).
+  * `drop_path`, `dropout` — Flax semantics (keep with probability 1 - rate,
+    scale by 1 / (1 - rate)), drawn from an explicit `torch.Generator`.
   * `resize_bilinear` — half-pixel centres, no antialias by default.
 
 Initialisers draw from the same distributions as the Flax ones, from a
 `torch.Generator` (the numbers differ from JAX's; tests carry JAX weights
-over with `convert.py`).
+over with `convert.py`).  Random masks cannot reproduce `jax.random`'s
+streams either: a forward is deterministic unless it is handed a generator.
 """
 
 from __future__ import annotations
@@ -258,8 +265,37 @@ class MLP(nn.Module):
         return self.c_proj(quick_gelu(self.c_fc(x)))
 
 
+def _keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def drop_path(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (the JAX package's `drop_path`): a sample's
+    branch survives with probability 1 - rate, scaled by 1 / (1 - rate).
+    The identity without a generator (deterministic) or at rate 0."""
+    if gen is None or rate <= 0.0:
+        return x
+    mask = _keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), rate, gen, x.device)
+    return torch.where(mask, x * (1.0 / max(1.0 - rate, 1e-8)), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax `nn.Dropout`: each element kept with probability 1 - rate and
+    scaled by 1 / (1 - rate).  The identity without a generator or at rate 0."""
+    if gen is None or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    mask = _keep_mask(x.shape, rate, gen, x.device)
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class ResidualAttentionBlock(nn.Module):
-    """Pre-LN transformer block, inference forward (no drop path)."""
+    """Pre-LN transformer block: LN, attention, residual; LN, MLP, residual.
+
+    With a generator each residual branch goes through `drop_path` at
+    `drop_path_rate` (the JAX block's training branch).
+    """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  attn_impl: str = ATTN_AUTO, dtype: torch.dtype = torch.float32,
@@ -272,33 +308,38 @@ class ResidualAttentionBlock(nn.Module):
         self.ln_2 = LayerNorm(dim)
         self.mlp = MLP(dim, dtype=dtype, gen=gen)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln_1(x).to(self.dtype), valid_len=valid_len)
-        return x + self.mlp(self.ln_2(x).to(self.dtype))
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                drop_path_rate: float = 0.0, gen: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        attn_out = self.attn(self.ln_1(x).to(self.dtype), valid_len=valid_len)
+        x = x + drop_path(attn_out, drop_path_rate, gen)
+        return x + drop_path(self.mlp(self.ln_2(x).to(self.dtype)), drop_path_rate, gen)
 
 
 class Transformer(nn.Module):
     """Stack of residual attention blocks, applied once each.
 
     Returns `(final, taps)` with `taps` [layers, B, N, D] holding every
-    block's output, as the JAX package's scanned stack does.
+    block's output, as the JAX package's scanned stack does.  Block i's
+    drop-path rate is linspace(0, drop_path_rate, layers)[i].
     """
 
     def __init__(self, width: int, layers: int, heads: int, causal: bool = False,
                  attn_impl: str = ATTN_AUTO, dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rates = [float(r) for r in torch.linspace(0.0, drop_path_rate, layers)]
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal, attn_impl=attn_impl,
                                    dtype=dtype, gen=gen)
             for _ in range(layers)
         )
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         taps: List[torch.Tensor] = []
-        for block in self.blocks:
-            x = block(x, valid_len=valid_len)
+        for block, rate in zip(self.blocks, self.drop_path_rates):
+            x = block(x, valid_len=valid_len, drop_path_rate=rate, gen=gen)
             taps.append(x)
         return x, torch.stack(taps)
 
@@ -317,12 +358,26 @@ def set_attn_impl(module: nn.Module, impl: str) -> None:
 # --------------------------------------------------------------------------
 
 
-def batch_norm_nhwc(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference BatchNorm in fp32 on an NHWC tensor: always the running
-    statistics, whatever the module's train/eval mode (training is not
-    ported yet).  Same arithmetic as Flax: (x - mean) * (rsqrt(var + eps) * scale) + bias."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return (x.float() - bn.running_mean) * mul + bn.bias
+def batch_norm_nhwc(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) -> torch.Tensor:
+    """BatchNorm in fp32 on an NHWC tensor with Flax's arithmetic:
+    (x - mean) * (rsqrt(var + eps) * scale) + bias.
+
+    Inference (`train=False`, whatever the module's own mode) uses the running
+    statistics.  Training uses the batch's mean and BIASED variance (Flax's
+    one-pass E[x^2] - E[x]^2, clamped at 0) and updates the running
+    statistics in place as Flax does, momentum 0.9 on the old value and the
+    biased variance.  `F.batch_norm` would store the unbiased variance.
+    """
+    xf = x.float()
+    if not train:
+        mean, var = bn.running_mean, bn.running_var
+    else:
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.mul_(0.9).add_(0.1 * mean.detach())
+            bn.running_var.mul_(0.9).add_(0.1 * var.detach())
+    return (xf - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
 
 
 class ConvBNReLU(nn.Module):
@@ -334,8 +389,8 @@ class ConvBNReLU(nn.Module):
         self.conv = Conv2d(in_channels, features, kernel_size, bias=False, dtype=dtype, gen=gen)
         self.bn = nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(batch_norm_nhwc(self.conv(x), self.bn))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.relu(batch_norm_nhwc(self.conv(x), self.bn, train))
 
 
 def resize_bilinear(x: torch.Tensor, size: Tuple[int, int], antialias: bool = False

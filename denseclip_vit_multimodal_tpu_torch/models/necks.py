@@ -1,7 +1,8 @@
 """ViT multi-level fusion neck (PyTorch port of the JAX package's `models/necks.py`).
 
 `ViTFeatureFusionNeck`: per-level 3x3 ConvBNReLU(width -> inter), channel
-concat, 1x1 ConvBNReLU fuse to `out_channels`.  NHWC in and out.  The FPN
+concat, 1x1 ConvBNReLU fuse to `out_channels`.  NHWC in and out; `train`
+switches every BatchNorm to the batch statistics (and their update).  The FPN
 neck of the ResNet presets is not ported yet.
 """
 
@@ -30,8 +31,8 @@ class ViTFeatureFusionNeck(nn.Module):
         )
         self.fuse = ConvBNReLU(num_inputs * inter, out_channels, kernel_size=1, dtype=dtype, gen=gen)
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor], train: bool = False) -> torch.Tensor:
         if len(features) != self.num_inputs:
             raise ValueError(f"neck expected {self.num_inputs} inputs, got {len(features)}")
-        processed = [proc(feat) for proc, feat in zip(self.process, features)]
-        return self.fuse(torch.cat(processed, dim=-1))
+        processed = [proc(feat, train) for proc, feat in zip(self.process, features)]
+        return self.fuse(torch.cat(processed, dim=-1), train)

@@ -13,6 +13,8 @@
     returned as NHWC maps [B, H/P, W/P, width] (CLS token dropped).
 
 `proj` is kept for checkpoint parity and unused in the dense forward.
+`deterministic=False` with a generator applies drop path in the blocks at
+rates linspace(0, drop_path_rate, layers), as the JAX training forward does.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class CLIPVisionTransformer(nn.Module):
                  heads: int = 12, input_resolution: int = 224,
                  out_indices: Sequence[int] = (11,), clip_proj_dim: int = 512,
                  attn_impl: str = ATTN_AUTO, dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0):
         super().__init__()
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         self.patch_size = patch_size
@@ -62,12 +64,16 @@ class CLIPVisionTransformer(nn.Module):
         self.positional_embedding = nn.Parameter(normal((self.base_grid**2 + 1, width), scale, gen))
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, layers, heads, causal=False,
-                                       attn_impl=attn_impl, dtype=dtype, gen=gen)
+                                       attn_impl=attn_impl, dtype=dtype, gen=gen,
+                                       drop_path_rate=drop_path_rate)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(normal((width, clip_proj_dim), scale, gen))
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """x: NHWC image [B, H, W, 3] -> tuple of [B, H/P, W/P, width] maps."""
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        """x: NHWC image [B, H, W, 3] -> tuple of [B, H/P, W/P, width] maps.
+
+        `gen` draws the drop-path masks when `deterministic` is False."""
         b, h, w, c = x.shape
         p = self.patch_size
         if h % p or w % p:
@@ -87,7 +93,8 @@ class CLIPVisionTransformer(nn.Module):
             n_padded = -(-n_tokens // 128) * 128
             seq = torch.nn.functional.pad(seq, (0, 0, 0, n_padded - n_tokens))
             valid_len = n_tokens
-        _, taps = self.transformer(seq, valid_len=valid_len)  # [L, B, N(+pad), width]
+        _, taps = self.transformer(seq, valid_len=valid_len,
+                                   gen=None if deterministic else gen)  # [L, B, N(+pad), width]
 
         out = []
         for idx in self.out_indices:

@@ -3,8 +3,9 @@
 Each kernel source under `csrc/` has a plain C entry point that returns the
 launch's `cudaError_t`.  At first use the source is compiled for Hopper
 (`sm_90a`) into `build/kernels/` at the root of the checkout, under a name
-that carries a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is.  Nothing is compiled when a
+that carries a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  Nothing is compiled when a
 module is imported: the CPU tests import every module and have no nvcc.
 """
 
@@ -50,7 +51,10 @@ def load_library(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # every header under csrc/ enters the hash: an edited header rebuilds
+    # each library that may include it
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

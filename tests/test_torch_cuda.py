@@ -6,6 +6,8 @@ JAX-only conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -84,3 +86,48 @@ def test_attention_dispatch_rule(cuda, n, dtype, causal, impl, launches):
         out = mha(x.to(dtype), valid_len=n - 3)
     assert torch.isfinite(out.float()).all()
     assert mha_kernel.LAUNCHES["qkv_attention"] - before == launches
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len", [(2, 1100, 12, 64, 1025), (1, 300, 4, 128, None)])
+def test_backward_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len):
+    """K2 through the autograd binding against the plain backward on K1's output."""
+    qkv = _qkv(b, n, heads, d, seed=2).requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dout = torch.randn(b, n, heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(mha_kernel.LAUNCHES)
+    out = mha_kernel.mha_qkv_attention(qkv, heads, valid_len=valid_len)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["qkv_attention"] == before["qkv_attention"] + 1
+    assert mha_kernel.LAUNCHES["qkv_attention_bwd"] == before["qkv_attention_bwd"] + 1
+    ref = mha_kernel.mha_qkv_attention_bwd_reference(qkv.detach(), out.detach(), dout, heads,
+                                                      valid_len=valid_len)
+    got = qkv.grad
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 2e-3  # chip_smoke.py's limit (measured 1.0e-4 to 2.2e-4)
+    kv = n if valid_len is None else valid_len
+    assert not got[:, kv:, heads * d:].any()  # dk, dv of masked keys: exactly 0
+
+
+def test_two_step_bf16_training_on_the_card(cuda, tmp_path):
+    """The heritage preset cut to 2 layers of width 128 at crop 512 (1025
+    tokens: the pad-once branch and the kernels), 2 steps through `train()`."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train
+
+    cfg = load_config("configs/denseclip_vitb16_640x640_80k.yaml", overrides=[
+        "model.backbone.width=128", "model.backbone.layers=2", "model.backbone.heads=2",
+        "model.backbone.out_indices=[0,1]", "model.text_encoder.transformer_layers=1",
+        "model.neck.inter_channels=16", "model.neck.out_channels=32",
+        "model.decode_head.in_channels=32", "model.decode_head.channels=32",
+        "model.depth_head.in_channels=32", "model.depth_head.channels=16",
+        "data.synthetic=true", "data.synthetic_options.image_size=[512,1024]",
+        "data.synthetic_options.length=4", "data.crop_size=[512,512]",
+        "training.batch_size=2", "training.workers=2"])
+    before = dict(mha_kernel.LAUNCHES)
+    out = train(cfg, str(tmp_path), max_steps=2, no_validate=True, device="cuda")
+    assert out["step"] == 2 and np.isfinite(out["loss_total"]) and out["skipped"] == 0.0
+    assert mha_kernel.LAUNCHES["qkv_attention"] - before["qkv_attention"] == 2 * 2
+    assert mha_kernel.LAUNCHES["qkv_attention_bwd"] - before["qkv_attention_bwd"] == 2 * 2
+    assert os.path.islink(os.path.join(tmp_path, "checkpoints", "latest"))
