@@ -8,31 +8,42 @@ phases that each print one JSON line:
   1. device     — card name and power limit, torch / CUDA versions, TF32 off;
   2. build      — compiles every kernel source under `csrc/` (one nvcc each,
                   all started together), with ptxas registers and spills;
-  3. kernel     — K1 (attention forward) against its plain PyTorch version
-                  on the card (bf16, seeded unit-normal inputs) at the main
-                  path's shapes and others, with kernel / plain / library /
+  3. kernel     — K1 (qkv attention forward) against its plain PyTorch
+                  version on the card (bf16, seeded unit-normal inputs) at the
+                  paths' shapes and others, with kernel / plain / library /
                   bound times;
   4. kernel_bwd — K2 (attention backward) the same way, per gradient dq, dk,
                   dv, with dk / dv of masked keys held to exactly 0;
-  5. reference  — the full-width model in bf16 on the card against the same
+  5. kernel_flash — K4 (long-sequence flash attention forward) the same way
+                  at the three long evaluation shapes (views of a fused qkv),
+                  a ragged head-dim-128 case and a causal case;
+  6. reference  — the full-width model in bf16 on the card against the same
                   model in fp32 on the CPU (plain attention) on one 512x512
                   window;
-  6. main_path  — the flagship ViT-B/16 seg+depth preset at full width from a
+  7. main_path  — the flagship ViT-B/16 seg+depth preset at full width from a
                   seeded init, slide inference (crop 624, stride 426, window
                   batch 20) over 3 seeded 1024x2048 requests; launch counts,
                   img/s (CUDA events), peak memory, and one frame against
                   plain attention;
-  7. profile    — the same 3 requests again under torch.profiler: device time
+  8. profile    — the same 3 requests again under torch.profiler: device time
                   per frame by kernel group, the top kernels, and the device's
                   busy share (kernel time over CUDA-event wall time; one
                   stream, so kernels do not overlap);
-  8. train_path — the heritage preset (backbone trained at lr x0.1) at full
+  9. train_path — the heritage preset (backbone trained at lr x0.1) at full
                   width, batch 4, crop 640, on synthetic 1024x2048 frames
                   augmented on the card: 1 warm-up and 5 timed steps (CUDA
                   events; ms/step, samples/s, peak memory, K1 / K2 launches
                   per step, losses), one step with the kernels against plain
-                  attention and fp32, a profile of 2 steps, and 2 steps
-                  through the user entry point `train()`.
+                  attention and fp32, a profile of 2 steps, and 2 steps plus
+                  a validation through the user entry point `train()`, whose
+                  checkpoint the next phase evaluates;
+ 10. eval_path  — the user entry point `tools/test.py` on that checkpoint
+                  (the flagship model: the heritage preset's `_base_`):
+                  multi-scale (0.5-1.75) + flip whole-frame evaluation with
+                  mIoU and depth metrics over 3 synthetic 1024x2048 frames
+                  (the first untimed); seconds per frame, peak memory, K1 /
+                  K4 launches per frame; one frame at scale 1.25 with the
+                  kernels against plain attention; a profile of one frame.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -96,6 +107,24 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def launch_tables():
+    """Every kernel wrapper's launch counter (K1 / K2, K4)."""
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES as FLASH_LAUNCHES
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import LAUNCHES
+
+    return LAUNCHES, FLASH_LAUNCHES
+
+
+def reset_launches() -> None:
+    for table in launch_tables():
+        for key in table:
+            table[key] = 0
+
+
+def read_launches() -> dict:
+    return {k: v for table in launch_tables() for k, v in table.items()}
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
@@ -116,20 +145,14 @@ def phase_device() -> str:
     return smi
 
 
-KERNEL_SOURCES = ("qkv_attention", "qkv_attention_bwd")  # csrc/<name>.cu
-
-
 def phase_build() -> None:
     """Compile every kernel source, one nvcc each, all started together."""
-    from concurrent.futures import ThreadPoolExecutor
-
     from denseclip_vit_multimodal_tpu_torch.ops import _build
 
     start = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        list(pool.map(_build.load_library, KERNEL_SOURCES))
+    _build.build_all()
     seconds = time.perf_counter() - start
-    for name in KERNEL_SOURCES:
+    for name in _build.SOURCES:
         ptxas = [ln.strip() for ln in _build.BUILD_LOG.get(name, "").splitlines()
                  if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
         emit({"phase": "build", "kernel": name, "seconds": seconds,
@@ -180,7 +203,9 @@ def phase_kernels() -> dict:
     cases = [
         (10, 1536, 12, 64, 1522, 50),  # slide window batch (crop 624, padded once)
         (4, 1664, 12, 64, 1601, 50),  # heritage training: batch 4, crop 640, padded once
-        (1, 8320, 12, 64, 8193, 10),  # whole 1024x2048 frame
+        (1, 8320, 12, 64, 8193, 10),  # whole 1024x2048 frame (and aug-test scale 1.0, at B 2)
+        (2, 2176, 12, 64, 2049, 20),  # aug-test scale 0.5 with its flipped view
+        (2, 4736, 12, 64, 4609, 10),  # aug-test scale 0.75
         (2, 640, 8, 128, 640, 50),  # head dim 128
         (4, 777, 12, 64, None, 50),  # ragged N, valid_len None
     ]
@@ -192,7 +217,7 @@ def phase_kernels() -> dict:
                 and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
             raise AssertionError(f"qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results[0]  # the slide shape is the main path's
+    return results  # the slide shape (the first) is the main path's
 
 
 def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
@@ -269,6 +294,75 @@ def phase_kernel_bwd() -> dict:
     return results[0]  # the training shape is the main path's
 
 
+def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
+                         iters: int) -> dict:
+    """K4 (its launching wrapper: `flash_attention` would send a short
+    non-causal case to the K3 branch) against its plain version on views of
+    one fused qkv, as the ViT hands them over; errors on the rows below
+    `valid_len` (the rest are unspecified), every row finite."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import (
+        _launch,
+        flash_attention_reference,
+    )
+
+    hd = heads * head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
+    kv = n if valid_len is None else valid_len
+    run = lambda: _launch(q, k, v, causal, head_dim**-0.5, kv)
+    plain = lambda: flash_attention_reference(q, k, v, causal=causal, valid_len=valid_len)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = (out[:, :kv].float() - ref[:, :kv].float())
+    # the library yardstick: one fused-attention call on head-split copies
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
+    library = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    flops = 4.0 * b * heads * kv * kv * head_dim * (0.5 if causal else 1.0)
+    nbytes = 2.0 * (qkv.numel() + out.numel())
+    res = {
+        "phase": "kernel_flash", "name": "flash_attention", "shape": [b, n, heads, head_dim],
+        "valid_len": valid_len, "causal": causal,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
+        "finite": bool(torch.isfinite(out.float()).all()),
+        "ms": cuda_ms(run, iters),
+        "plain_ms": cuda_ms(plain, 2, warmup=1),
+        "library_ms": cuda_ms(library, iters),
+        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+    }
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+# The three long views of multi-scale evaluation on a 1024x2048 frame (scales
+# 1.25 / 1.5 / 1.75, with the flipped view: B 2; tokens padded to 128), a
+# ragged head-dim-128 case and a causal case.
+FLASH_CASES = [
+    (2, 12928, 12, 64, 12801, False, 10),
+    (2, 18560, 12, 64, 18433, False, 5),
+    (2, 25216, 12, 64, 25089, False, 3),
+    (2, 1100, 8, 128, 1050, False, 50),
+    (2, 2048, 12, 64, None, True, 50),
+]
+
+
+def phase_kernel_flash() -> list:
+    results = []
+    for case in FLASH_CASES:
+        res = flash_attention_case(*case)
+        emit(res)
+        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
+                and res["rel_l2_err"] <= KERNEL_REL_TOL):
+            raise AssertionError(f"flash_attention disagrees with its plain version: {res}")
+        results.append(res)
+    return results
+
+
 def phase_reference(model, texts) -> None:
     from denseclip_vit_multimodal_tpu_torch.core.config import load_config
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
@@ -317,15 +411,14 @@ def phase_main_path() -> dict:
     predict(frames[0], "argmax")  # warm-up: cuDNN plans, the cached text tower
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     outs = [predict(frame, fetch) for frame, fetch in zip(frames, ("argmax", "packed", "argmax"))]
     end.record()
     torch.cuda.synchronize()
     elapsed = start.elapsed_time(end) / 1e3  # every request ends in a device-to-host copy
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     for out in outs:
@@ -369,6 +462,7 @@ TRAIN_CONFIG = "configs/denseclip_vitb16_640x640_80k.yaml"
 TRAIN_OVERRIDES = ["data.synthetic=true", "data.synthetic_options.image_size=[1024,2048]",
                    "data.synthetic_options.length=40"]
 TRAIN_TIMED_STEPS = 5
+TRAIN_WORK_DIR = "build/train_smoke"  # gitignored; removed by phase eval_path
 # One training step on the same weights, batch and dropout masks with the
 # kernels, with plain attention (both bf16) and in fp32 (plain attention):
 #  * the total loss, kernels vs plain: relative difference <= TRAIN_TOL;
@@ -424,8 +518,7 @@ def phase_train_path() -> dict:
     step(state, to_device(next(batches), "cuda"))  # warm-up: cuDNN / cuBLAS plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    reset_launches()
     begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     data_wait_s, metrics = 0.0, []
     begin.record()
@@ -436,13 +529,14 @@ def phase_train_path() -> dict:
         metrics.append(step(state, to_device(host, "cuda")))
     end.record()
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches = read_launches()
     elapsed = begin.elapsed_time(end) / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     for m in metrics:
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite training step: {m}")
-    want = {"qkv_attention": 12 * TRAIN_TIMED_STEPS, "qkv_attention_bwd": 12 * TRAIN_TIMED_STEPS}
+    want = {"qkv_attention": 12 * TRAIN_TIMED_STEPS, "qkv_attention_bwd": 12 * TRAIN_TIMED_STEPS,
+            "flash_attention": 0}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {TRAIN_TIMED_STEPS} steps, got {launches}")
 
@@ -510,16 +604,20 @@ def phase_train_path() -> dict:
     del model, state
     torch.cuda.empty_cache()
 
-    # the user entry point, end to end: loop, loader, checkpoint
-    work_dir = "build/train_smoke"
-    shutil.rmtree(work_dir, ignore_errors=True)
-    summary = train(cfg, work_dir, max_steps=2, no_validate=True, device="cuda")
-    ckpt_ok = os.path.exists(os.path.join(work_dir, "checkpoints", "latest"))
-    shutil.rmtree(work_dir, ignore_errors=True)
+    # the user entry point, end to end: loop, loader, validation, checkpoint
+    # (8 synthetic frames: 2 training batches, and 2 validation batches at crop 640);
+    # the checkpoint stays for phase eval_path
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    entry_cfg = load_config(TRAIN_CONFIG,
+                            overrides=TRAIN_OVERRIDES + ["data.synthetic_options.length=8"])
+    summary = train(entry_cfg, TRAIN_WORK_DIR, max_steps=2, no_validate=False, device="cuda")
+    ckpt_ok = os.path.exists(os.path.join(TRAIN_WORK_DIR, "checkpoints", "latest"))
     res["train_entry_point"] = {"summary": summary, "checkpoint_written": ckpt_ok}
     emit(res)
-    if not (summary["step"] == 2 and ckpt_ok and np.isfinite(summary["loss_total"])):
-        raise AssertionError(f"train() did not run 2 finite steps and save: {summary}")
+    val_keys = ("miou", "pixel_acc", "depth_abs_rel", "depth_rmse", "val_loss_seg")
+    if not (summary["step"] == 2 and ckpt_ok and np.isfinite(summary["loss_total"])
+            and all(np.isfinite(summary.get(k, float("nan"))) for k in val_keys)):
+        raise AssertionError(f"train() did not run 2 finite steps, validate and save: {summary}")
     if not (res["loss_rel_diff_vs_plain"] <= TRAIN_TOL
             and res["backbone_seg_grad_rel_l2_kernel_vs_fp32"]
             <= TRAIN_GRAD_RATIO * res["backbone_seg_grad_rel_l2_plain_vs_fp32"]):
@@ -527,9 +625,112 @@ def phase_train_path() -> dict:
     return res
 
 
+EVAL_FRAMES = 3  # the first pays the one-time set-up and is not timed
+EVAL_OVERRIDES = ["data.synthetic=true", "data.synthetic_options.image_size=[1024,2048]",
+                  f"data.synthetic_options.length={EVAL_FRAMES}"]
+# per frame: 3 scales (0.5 / 0.75 / 1.0: K1; 1.25 / 1.5 / 1.75: K4) x 12 layers
+AUG_VIEW_LAUNCHES = {"qkv_attention": 36, "flash_attention": 36}
+TEXT_TOKENS = 22  # the text tower's context length (6 fixed + 16 learnable)
+
+
+def phase_eval_path() -> dict:
+    """Multi-scale + flip evaluation through the user entry point
+    `tools/test.py`, on the checkpoint phase train_path wrote."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.ops import attention
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES as FLASH_LAUNCHES
+    from denseclip_vit_multimodal_tpu_torch.tools.test import main as test_main
+
+    # count the plain-attention calls of the evaluation (the text tower's,
+    # cached once per model, included): the ViT's must all go to K1 / K4
+    plain_calls = collections.Counter()
+    plain = attention.plain_attention
+
+    def counted_plain(q, *args, **kwargs):
+        plain_calls[q.shape[1]] += 1
+        return plain(q, *args, **kwargs)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    layers.plain_attention = attention.plain_attention = counted_plain
+    try:
+        results = test_main([CONFIG, TRAIN_WORK_DIR, "--aug-test", "--mode", "whole",
+                             "--eval", "mIoU", "depth", "--set", *EVAL_OVERRIDES])
+    finally:
+        layers.plain_attention = attention.plain_attention = plain
+    wall_s = time.perf_counter() - start
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    keys = ["mIoU", "pixel_acc"] + [f"depth/{k}" for k in
+                                    ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")]
+    res = {
+        "phase": "eval_path", "config": CONFIG, "checkpoint": "phase train_path's train()",
+        "protocol": "aug_test whole, scales 0.5-1.75, flip", "frames": EVAL_FRAMES,
+        "timed_frames": EVAL_FRAMES - 1, "frame": [1024, 2048],
+        "s_per_frame": 1.0 / results["images_per_sec"],
+        "images_per_sec": results["images_per_sec"], "entry_point_wall_s": wall_s,
+        "peak_mem_gib": peak_gib, "launches": launches,
+        "launches_per_frame": {k: v / EVAL_FRAMES for k, v in launches.items()},
+        "plain_attention_calls_by_tokens": dict(plain_calls),
+        "metrics": {k: results.get(k) for k in keys},
+    }
+    emit(res)
+    want = {k: n * EVAL_FRAMES for k, n in AUG_VIEW_LAUNCHES.items()}
+    if {k: launches[k] for k in want} != want or launches["qkv_attention_bwd"]:
+        raise AssertionError(f"expected {want} launches over {EVAL_FRAMES} frames, got {launches}")
+    if set(plain_calls) - {TEXT_TOKENS}:  # only the text tower's 22 tokens may take it
+        raise AssertionError(f"ViT attention reached plain attention: {dict(plain_calls)}")
+    if not all(results.get(k) is not None and np.isfinite(results[k]) for k in keys):
+        raise AssertionError(f"non-finite evaluation metrics: {res['metrics']}")
+
+    # one frame at scale 1.25 (12928 tokens: K4), kernels against plain attention
+    cfg = load_config(CONFIG)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    engine = Inferencer(model, texts, num_classes=19)
+    frame = np.random.RandomState(SEED).randint(0, 256, (1, 1024, 2048, 3), dtype=np.uint8)
+    one_view = lambda: engine.aug_test(frame, scales=(1.25,), flip=False, fetch="device")
+    before = FLASH_LAUNCHES["flash_attention"]
+    kernel_out = one_view()
+    flash_launched = FLASH_LAUNCHES["flash_attention"] - before
+    set_attn_impl(model, "xla")
+    plain_out = one_view()
+    set_attn_impl(model, "auto")
+    check = {
+        "phase": "eval_path_vs_plain", "scale": 1.25, "flip": False, "tokens": 12801,
+        "flash_launches": flash_launched,
+        "seg_rel_l2_vs_plain": rel_l2(kernel_out["seg_logits"], plain_out["seg_logits"]),
+        "depth_rel_l2_vs_plain": rel_l2(kernel_out["depth"], plain_out["depth"]),
+        "tol": PATH_TOL,
+    }
+    emit(check)
+    del kernel_out, plain_out
+    if flash_launched != 12 or FLASH_LAUNCHES["flash_attention"] != before + 12:
+        raise AssertionError(f"the kernel view did not run K4 in every layer: {check}")
+    if not max(check["seg_rel_l2_vs_plain"], check["depth_rel_l2_vs_plain"]) <= PATH_TOL:
+        raise AssertionError(f"aug_test with the kernels disagrees with plain attention: {check}")
+    torch.cuda.empty_cache()
+    phase_profile(lambda f: engine.aug_test(f, fetch="device"), [frame], path="aug_test")
+    res["vs_plain"] = check
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("qkv_attention_bwd (K2)", ("qkv_bwd_",)),
     ("qkv_attention (K1)", ("qkv_attention_kernel",)),
+    ("flash_attention (K4)", ("flash_attention_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
     ("matmul", ("gemm", "nvjet", "xmma", "cutlass", "wgmma", "sm90")),
     ("layer_norm", ("layer_norm",)),
@@ -588,17 +789,21 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
-    slide = phase_kernels()
+    slide = phase_kernels()[0]
     train_shape = phase_kernel_bwd()
+    longest = phase_kernel_flash()[2]  # the aug-test scale 1.75 shape
     main_res = phase_main_path()
     train_res = phase_train_path()
+    eval_res = phase_eval_path()
+    by_path = lambda name: {"slide_serving": main_res["launches"][name],
+                            "training": train_res["launches"][name],
+                            "aug_test": eval_res["launches"][name]}
     emit({"kernels": [{
         "name": "qkv_attention", "route": "cuda",
         "source": "denseclip_vit_multimodal_tpu_torch/csrc/qkv_attention.cu",
         "replaces": "denseclip_vit_multimodal_tpu/ops/mha_kernel.py:400",
         "launches": main_res["launches"]["qkv_attention"],
-        "launches_by_path": {"slide_serving": main_res["launches"]["qkv_attention"],
-                             "training": train_res["launches"]["qkv_attention"]},
+        "launches_by_path": by_path("qkv_attention"),
         "max_abs_err": slide["max_abs_err"], "ms": slide["ms"], "kernel_ms": slide["ms"],
         "plain_ms": slide["plain_ms"],
         "bound_ms": slide["bound_ms"], "bound_by": slide["bound_by"],
@@ -608,12 +813,21 @@ def main() -> int:
         "source": "denseclip_vit_multimodal_tpu_torch/csrc/qkv_attention_bwd.cu",
         "replaces": "denseclip_vit_multimodal_tpu/ops/mha_kernel.py:240",
         "launches": train_res["launches"]["qkv_attention_bwd"],
-        "launches_by_path": {"slide_serving": main_res["launches"]["qkv_attention_bwd"],
-                             "training": train_res["launches"]["qkv_attention_bwd"]},
+        "launches_by_path": by_path("qkv_attention_bwd"),
         "max_abs_err": train_shape["max_abs_err"], "ms": train_shape["ms"],
         "kernel_ms": train_shape["ms"], "plain_ms": train_shape["plain_ms"],
         "bound_ms": train_shape["bound_ms"], "bound_by": train_shape["bound_by"],
         "library_ms": train_shape["library_ms"],
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "denseclip_vit_multimodal_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "denseclip_vit_multimodal_tpu/ops/attention.py:130",
+        "launches": eval_res["launches"]["flash_attention"],
+        "launches_by_path": by_path("flash_attention"),
+        "max_abs_err": longest["max_abs_err"], "ms": longest["ms"], "kernel_ms": longest["ms"],
+        "plain_ms": longest["plain_ms"],
+        "bound_ms": longest["bound_ms"], "bound_by": longest["bound_by"],
+        "library_ms": longest["library_ms"],
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,9 @@ array (`out = Wy @ src @ Wx^T`); the geometry (scale, integer crop offset,
 flip) is drawn per sample on the host from a `torch.Generator`, so the
 device never waits on a random number.  The depth mask is depth > 0 after
 the transform.  ColorJitter is not ported: asking for it raises.
+
+`eval_preprocess_batch` is the validation transform: resize to the crop
+(antialiased, as `jax.image.resize`) and normalise; labels keep their size.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from denseclip_vit_multimodal_tpu_torch.models.layers import resize_bilinear
 
 Geometry = Tuple[float, float, float, float, bool]  # (sy, sx, oy, ox, flip)
 
@@ -161,18 +166,36 @@ def augment_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig, gen: torch
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
-def augment_config_from_data_cfg(data_cfg) -> AugmentConfig:
-    """The training AugmentConfig from the `data:` config section (the JAX
-    package's keys)."""
+def eval_preprocess_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """Validation path: resize to the crop size, then normalise.
+
+    The reference's val transform Resize(crop) -> Normalize; labels and
+    depth stay at their own resolution (predictions are resized back to them
+    before scoring).  Adds `depth_mask` = depth > 0 when depth is present.
+    """
+    img = batch["image"].float()
+    if tuple(img.shape[1:3]) != tuple(cfg.crop_size):
+        img = resize_bilinear(img, tuple(cfg.crop_size), antialias=True)
+    out = dict(batch)
+    out["image"] = normalize_image(img, cfg.norm_mean, cfg.norm_std)
+    if "depth" in batch:
+        out["depth_mask"] = batch["depth"] > 0.0
+    return out
+
+
+def augment_config_from_data_cfg(data_cfg, train: bool = True) -> AugmentConfig:
+    """The AugmentConfig from the `data:` config section (the JAX package's
+    keys); `train=False` gives the evaluation one (no flip, no jitter)."""
     aug = data_cfg.get("augment", {}) or {}
     jitter = bool(data_cfg.get("color_jitter", False)) or any(
         float(aug.get(k, 0.0)) for k in ("brightness", "contrast", "saturation", "hue"))
-    if jitter:
+    if jitter and train:
         raise ValueError("ColorJitter is not yet ported to the PyTorch package")
     return AugmentConfig(
         crop_size=tuple(data_cfg.get("crop_size", (512, 1024))),
         scale_range=tuple(data_cfg.get("scale_range", (0.5, 2.0))),
-        hflip_prob=float(aug.get("hflip_prob", 0.5)),
+        hflip_prob=float(aug.get("hflip_prob", 0.5)) if train else 0.0,
         norm_mean=tuple(data_cfg.get("norm_mean", AugmentConfig().norm_mean)),
         norm_std=tuple(data_cfg.get("norm_std", AugmentConfig().norm_std)),
         ignore_index=int(data_cfg.get("ignore_label", 255)),

@@ -3,7 +3,8 @@
   * decode threads instead of worker processes (the augmentation math runs on
     the device, `data/augment.py`, so the host only decodes and stacks);
   * an epoch-seeded shuffle, `np.random.RandomState(seed + epoch)`, the same
-    order as the JAX loader's; the last partial batch is dropped;
+    order as the JAX loader's (`shuffle=False`: dataset order, for
+    evaluation); the last partial batch is dropped unless `drop_last=False`;
   * failed samples are resampled (next index), so every batch keeps its shape;
   * `to_device` copies a host batch into pinned memory and then to the card
     with `non_blocking`, so the copy overlaps the previous step's kernels.
@@ -29,14 +30,19 @@ def _stack_batch(samples) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Epoch-based loader over a map-style dataset returning dict samples."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0, num_threads: int = 8):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, num_threads: int = 8,
+                 shuffle: bool = True, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.num_threads = max(1, num_threads)
+        self.shuffle = shuffle
+        self.drop_last = drop_last
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
 
     def _fetch(self, idx: int) -> Dict[str, np.ndarray]:
         n = len(self.dataset)
@@ -48,7 +54,9 @@ class DataLoader:
 
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Yield stacked host batches for one epoch, decoding in threads."""
-        indices = np.random.RandomState(self.seed + epoch).permutation(len(self.dataset))
+        n = len(self.dataset)
+        indices = (np.random.RandomState(self.seed + epoch).permutation(n) if self.shuffle
+                   else np.arange(n))
         nb = len(self)
         with cf.ThreadPoolExecutor(self.num_threads) as pool:
             window = collections.deque()  # ~2 batches of decodes in flight

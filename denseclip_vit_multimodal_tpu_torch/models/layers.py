@@ -7,9 +7,11 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
   * `LayerNorm` / `layer_norm_apply` — fp32 statistics, eps 1e-5, result cast
     back to the input dtype.
   * `quick_gelu` — x * sigmoid(1.702 x).
-  * `MultiHeadAttention` — fused [D, 3D] qkv projection; for long non-causal
-    bf16 sequences on CUDA the attention runs in the hand-written kernel
-    (`ops/mha_kernel.py`), otherwise in plain PyTorch (`plain_attention`).
+  * `MultiHeadAttention` — fused [D, 3D] qkv projection; for non-causal bf16
+    sequences of 1024..8448 tokens on CUDA the attention runs in the qkv
+    kernel (`ops/mha_kernel.py`, K1), otherwise through `attention_core`:
+    the flash kernel (`ops/attention.py`, K4) for causal or longer bf16
+    sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.
   * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
@@ -36,19 +38,21 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from denseclip_vit_multimodal_tpu_torch.ops.attention import (
+    _FLASH_MIN_SEQ,
+    _ONESHOT_MAX_SEQ,
+    flash_attention,
+    flash_supported,
+    plain_attention,
+)
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     mha_qkv_attention,
     qkv_supported,
 )
 
 ATTN_XLA = "xla"  # plain PyTorch attention everywhere (name kept from the JAX package)
-ATTN_AUTO = "auto"  # the qkv kernel where the dispatch rule holds
+ATTN_AUTO = "auto"  # the kernels where the dispatch rules hold
 ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA)
-
-# The kernel serves 1024 <= N <= 8448 tokens, as on the TPU
-# (JAX package ops/attention.py: _FLASH_MIN_SEQ, _ONESHOT_MAX_SEQ).
-_FLASH_MIN_SEQ = 1024
-_ONESHOT_MAX_SEQ = 8448
 
 
 # --------------------------------------------------------------------------
@@ -180,30 +184,21 @@ class Conv2d(nn.Conv2d):
 # --------------------------------------------------------------------------
 
 
-def plain_attention(
+def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    causal: bool,
+    *,
+    causal: bool = False,
+    impl: str = ATTN_AUTO,
     valid_len: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain attention on [B, N, H, Dh] inputs with an fp32 softmax.
-
-    Counterpart of the JAX package's `_xla_attention`: fp32 scores (the
-    inputs' products accumulated in fp32), min-float masking of causal and
-    `valid_len` positions, softmax in fp32 cast back to the input dtype.
-    """
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bnhd,bmhd->bhnm", q.float(), k.float()) * scale
-    n, m = logits.shape[-2:]
-    neg = torch.finfo(torch.float32).min
-    if causal:
-        mask = torch.ones(n, m, dtype=torch.bool, device=q.device).tril()
-        logits = logits.masked_fill(~mask, neg)
-    if valid_len is not None and valid_len < m:
-        logits[..., valid_len:] = neg
-    weights = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhnm,bmhd->bnhd", weights, v)
+    """Attention on [B, N, H, Dh] by the configured impl (the JAX package's
+    `attention_core` for `auto` and `xla`): `auto` takes `flash_attention`
+    where `flash_supported` holds, and plain attention elsewhere."""
+    if impl == ATTN_AUTO and flash_supported(q):
+        return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
+    return plain_attention(q, k, v, causal, valid_len)
 
 
 class MultiHeadAttention(nn.Module):
@@ -246,9 +241,11 @@ class MultiHeadAttention(nn.Module):
         qkv = self.qkv(x)
         if self._qkv_kernel_applicable(qkv, dim):
             return self.out(mha_qkv_attention(qkv, self.num_heads, valid_len=valid_len))
-        heads = lambda t: t.reshape(b, n, self.num_heads, dim // self.num_heads)
+        # strided views of the fused projection (row stride 3 * dim), no copy
+        heads = lambda t: t.view(b, n, self.num_heads, dim // self.num_heads)
         q, k, v = (heads(t) for t in qkv.split(dim, dim=-1))
-        out = plain_attention(q, k, v, self.causal, valid_len)
+        out = attention_core(q, k, v, causal=self.causal, impl=self.attn_impl,
+                             valid_len=valid_len)
         return self.out(out.reshape(b, n, dim))
 
 

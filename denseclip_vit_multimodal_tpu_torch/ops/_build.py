@@ -28,6 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# Every kernel source (csrc/<name>.cu): K1, K2, K4.
+SOURCES = ("qkv_attention", "qkv_attention_bwd", "flash_attention")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc and its -Xptxas -v report, per library built in this
 # process (empty when the library was already on disk).
@@ -73,3 +76,11 @@ def load_library(name: str) -> ctypes.CDLL:
         BUILD_LOG[name] = proc.stdout + proc.stderr
     _LIBS[name] = ctypes.CDLL(str(lib_path))
     return _LIBS[name]
+
+
+def build_all() -> None:
+    """Compile every source in `SOURCES`, one nvcc each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(load_library, SOURCES))

@@ -4,8 +4,8 @@
         configs/denseclip_vitb16_640x640_80k.yaml --no-validate --max-steps 10 \
         --set data.synthetic=true "data.synthetic_options.image_size=[1024,2048]"
 
-Runs on `cuda` unless `--device cpu`.  `--load` and validation are not
-ported yet: `--no-validate` is required.
+Runs on `cuda` unless `--device cpu`.  Validates every `eval_interval`
+epochs unless `--no-validate`.  `--load` is not ported yet.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ ported): one `torch.save` file per save holding the model's `state_dict`
 count of applied updates), the global step, the epoch and the best metric.
 Files are written to a temporary name and renamed, and `latest` / `best` are
 symlinks repointed atomically, so a crash never leaves a torn file.  The
-newest five epoch files are kept, and any an alias points at.  (Nothing
-saves a `best` yet: it is picked by validation, which is not ported.)
+newest five epoch files are kept, and any an alias points at; `best` is the
+epoch with the highest validation mIoU.  `load_model_weights` restores the
+model alone (evaluation: `tools/test.py`).
 """
 
 from __future__ import annotations
@@ -64,16 +65,29 @@ def save_checkpoint(work_dir: str, state: TrainState, epoch: int,
     return path
 
 
+def _load_payload(path_or_work_dir: str, which: str, device) -> dict:
+    """A checkpoint file, or a work dir's `checkpoints/{which}` (latest or best)."""
+    path = os.path.abspath(path_or_work_dir)
+    if os.path.isdir(path):
+        path = os.path.join(_ckpt_dir(path), which)
+    return torch.load(path, map_location=device, weights_only=True)
+
+
 def restore_checkpoint(path_or_work_dir: str, state: TrainState, which: str = "latest"
                        ) -> Tuple[int, float]:
     """Load a checkpoint file, or a work dir's `checkpoints/{which}` (latest
     or best), into `state` in place.  Returns (epoch, best_metric)."""
-    path = os.path.abspath(path_or_work_dir)
-    if os.path.isdir(path):
-        path = os.path.join(_ckpt_dir(path), which)
-    device = next(state.model.parameters()).device
-    payload = torch.load(path, map_location=device, weights_only=True)
+    payload = _load_payload(path_or_work_dir, which, next(state.model.parameters()).device)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return int(payload["epoch"]), float(payload["best_metric"])
+
+
+def load_model_weights(path_or_work_dir: str, model: torch.nn.Module, which: str = "latest"
+                       ) -> int:
+    """Load only the model's weights and BatchNorm statistics from a
+    checkpoint (no optimizer); returns the checkpoint's epoch."""
+    payload = _load_payload(path_or_work_dir, which, next(model.parameters()).device)
+    model.load_state_dict(payload["model"])
+    return int(payload["epoch"])

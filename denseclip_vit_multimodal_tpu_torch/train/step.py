@@ -1,4 +1,5 @@
-"""The train step (PyTorch port of the JAX package's `train/step.py::make_train_step`).
+"""The train and eval steps (PyTorch port of the JAX package's `train/step.py`:
+`make_train_step`, `make_eval_step`).
 
 One step: on-device augmentation (data/augment.py) -> training forward (bf16
 hot path) -> CE + masked SILog -> backward over the trainable parameters ->
@@ -16,17 +17,27 @@ Randomness: augmentation geometry comes from a host generator and dropout /
 drop-path masks from a generator on the model's device, both reseeded every
 step from (seed, state.step), so a resumed run draws what an uninterrupted
 one would.  They cannot reproduce the JAX package's `jax.random` streams.
+
+The eval step follows the reference's validate protocol: the input resized to
+the crop, predictions resized back to the labels' size, then the confusion
+matrix, the depth error sums and the validation losses, all on the device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from denseclip_vit_multimodal_tpu_torch.data.augment import AugmentConfig, augment_batch
+from denseclip_vit_multimodal_tpu_torch.data.augment import (
+    AugmentConfig,
+    augment_batch,
+    eval_preprocess_batch,
+)
+from denseclip_vit_multimodal_tpu_torch.models.layers import resize_bilinear
 from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss, silog_loss
+from denseclip_vit_multimodal_tpu_torch.train.metrics import confusion_matrix, depth_errors
 from denseclip_vit_multimodal_tpu_torch.train.state import TrainState
 
 
@@ -99,5 +110,52 @@ def make_train_step(
         opt.zero_grad()
         state.step += 1
         return {**values, "skipped": 0.0 if finite else 1.0, "lr": lr}
+
+    return step
+
+
+def make_eval_step(
+    texts,
+    aug_cfg: AugmentConfig,
+    num_classes: int,
+    depth_max: float = 80.0,
+    silog_lambd: float = 0.5,
+) -> Callable[..., Dict[str, Any]]:
+    """Build `step(state, batch) -> results` for validation.
+
+    `batch` holds device tensors: image [B,H,W,3] uint8, seg [B,H,W], optional
+    depth [B,H,W].  Results (device tensors): seg_pred, confusion, loss_seg;
+    depth_pred, depth_sums, depth_count, loss_silog.  The text tower does not
+    run: only the score map reads it, and the eval forward computes none (the
+    JAX step hoists it out of its program instead).
+    """
+
+    @torch.inference_mode()
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+        pre = eval_preprocess_batch(batch, aug_cfg)
+        gt_hw = tuple((batch["seg"] if "seg" in batch else batch["image"]).shape[1:3])
+        out = state.model(pre["image"], texts)
+        results: Dict[str, Any] = {}
+        if out.get("seg") is not None and "seg" in batch:
+            logits = out["seg"].float()
+            if tuple(logits.shape[1:3]) != gt_hw:
+                logits = resize_bilinear(logits, gt_hw, antialias=True)
+            preds = logits.argmax(dim=-1).to(torch.int32)
+            results["seg_pred"] = preds
+            results["confusion"] = confusion_matrix(preds, batch["seg"], num_classes,
+                                                    aug_cfg.ignore_index)
+            results["loss_seg"] = cross_entropy_loss(logits, batch["seg"],
+                                                     ignore_index=aug_cfg.ignore_index)
+        if out.get("depth") is not None and "depth" in batch:
+            depth_pred = out["depth"].float()
+            if tuple(depth_pred.shape[1:3]) != gt_hw:
+                depth_pred = resize_bilinear(depth_pred, gt_hw, antialias=True)
+            depth_pred = depth_pred[..., 0]
+            results["depth_pred"] = depth_pred
+            mask = batch["depth"] > 0.0
+            results["depth_sums"], results["depth_count"] = depth_errors(
+                depth_pred, batch["depth"], mask, max_depth=depth_max)
+            results["loss_silog"] = silog_loss(depth_pred, batch["depth"], mask, lambd=silog_lambd)
+        return results
 
     return step

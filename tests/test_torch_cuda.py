@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.models.layers import MultiHeadAttention
-from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
+from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -75,7 +75,7 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
     (1100, torch.bfloat16, False, "auto", 1),
     (500, torch.bfloat16, False, "auto", 0),  # short: plain attention
     (1100, torch.float32, False, "auto", 0),  # the kernel takes bf16 only
-    (1100, torch.bfloat16, True, "auto", 0),  # causal: plain attention
+    (1100, torch.bfloat16, True, "auto", 0),  # causal: not K1 (K4: see below)
     (1100, torch.bfloat16, False, "xla", 0),  # forced plain
 ])
 def test_attention_dispatch_rule(cuda, n, dtype, causal, impl, launches):
@@ -131,3 +131,57 @@ def test_two_step_bf16_training_on_the_card(cuda, tmp_path):
     assert mha_kernel.LAUNCHES["qkv_attention"] - before["qkv_attention"] == 2 * 2
     assert mha_kernel.LAUNCHES["qkv_attention_bwd"] - before["qkv_attention_bwd"] == 2 * 2
     assert os.path.islink(os.path.join(tmp_path, "checkpoints", "latest"))
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,causal,strided", [
+    (2, 1100, 2, 128, 1050, False, True),  # ragged, views of a fused qkv
+    (1, 2048, 4, 64, None, True, False),  # causal
+    (2, 1100, 3, 64, 1050, True, True),  # causal and ragged
+])
+def test_flash_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, causal, strided):
+    """K4 (through its launching wrapper: the dispatcher would send the short
+    non-causal case to the K3 branch) against its plain version on the rows
+    below `valid_len`; pad rows finite."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    if strided:
+        qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.view(b, n, heads, d) for t in qkv.split(heads * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+    rows = n if valid_len is None else valid_len
+    before = attention.LAUNCHES["flash_attention"]
+    out = attention._launch(q, k, v, causal, d**-0.5, rows)
+    ref = attention.flash_attention_reference(q, k, v, causal=causal, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["flash_attention"] == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    err = out[:, :rows].float() - ref[:, :rows].float()
+    assert float(err.abs().max()) <= KERNEL_TOL
+    assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
+
+
+def test_flash_wrapper_raises_instead_of_falling_back(cuda):
+    q = torch.zeros(1, 9000, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        attention.flash_attention(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):
+        h32 = torch.zeros(1, 9000, 4, 32, device="cuda", dtype=torch.bfloat16)
+        attention.flash_attention(h32, h32, h32)  # head dim 32
+
+
+@pytest.mark.parametrize("n,causal,qkv_launches,flash_launches", [
+    (8448, False, 1, 0),  # the qkv kernel's window
+    (8449, False, 0, 1),  # longer: the flash kernel
+    (1100, True, 0, 1),  # causal: the flash kernel
+])
+def test_long_and_causal_attention_dispatch(cuda, n, causal, qkv_launches, flash_launches):
+    mha = MultiHeadAttention(128, 2, causal=causal, dtype=torch.bfloat16).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, n, 128).astype(np.float32)).to(cuda)
+    before = (mha_kernel.LAUNCHES["qkv_attention"], attention.LAUNCHES["flash_attention"])
+    with torch.inference_mode():
+        out = mha(x.to(torch.bfloat16), valid_len=n - 3)
+    assert torch.isfinite(out.float()).all()
+    assert mha_kernel.LAUNCHES["qkv_attention"] - before[0] == qkv_launches
+    assert attention.LAUNCHES["flash_attention"] - before[1] == flash_launches

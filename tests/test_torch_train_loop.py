@@ -109,8 +109,16 @@ def test_constant_lr_loss_falls_and_cli_runs(tmp_path):
 
 
 def test_validation_is_not_yet_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="no_validate=True"):
-        loop.train(_cfg(), str(tmp_path), max_steps=1, device="cpu")
+    """Validation is ported now: `no_validate=False` validates after the
+    epoch, returns its metrics and saves `best` at the first mIoU."""
+    out = loop.train(_cfg("data.synthetic_options.length=4"), str(tmp_path), max_steps=1,
+                     device="cpu")
+    assert out["step"] == 1
+    for key in ("miou", "pixel_acc", "depth_abs_rel", "depth_rmse", "depth_a1",
+                "val_loss_seg", "val_loss_silog"):
+        assert np.isfinite(out[key]), key
+    assert 0.0 <= out["miou"] <= 1.0 and 0.0 <= out["pixel_acc"] <= 1.0
+    assert os.path.islink(os.path.join(tmp_path, "checkpoints", "best"))
 
 
 def test_checkpoint_best_alias_and_pruning(tmp_path):
