@@ -43,7 +43,24 @@ phases that each print one JSON line:
                   mIoU and depth metrics over 3 synthetic 1024x2048 frames
                   (the first untimed); seconds per frame, peak memory, K1 /
                   K4 launches per frame; one frame at scale 1.25 with the
-                  kernels against plain attention; a profile of one frame.
+                  kernels against plain attention; a profile of one frame;
+ 11. kernel_int8 — K5 (int8 attention) against its plain version on the
+                  same quantized operands at the serving shape, the whole
+                  frame, head dim 128 and the adversarial pad case, with
+                  kernel / prologue / plain / bound times and, for context,
+                  the bf16 K1 and SDPA at the same shape;
+ 12. serve_path — the user entry points `tools/serve.py` (`build_service` on
+                  the checkpoint of train_path, `--set tpu.attn_impl=int8`)
+                  and `make_server` on 127.0.0.1: one warm-up, 3 seeded
+                  1024x2048 frames POSTed as PNG (slide), one `mode=whole`
+                  request, /healthz, /metrics, a bad request and one frame
+                  with Paeth-filtered rows (the decoder's anti-diagonal
+                  path); latency, img/s, PNG decode ms (filter 0 and
+                  Paeth), device seconds, peak memory, K5 / K1 /
+                  K4 launches per request; the HTTP answer against
+                  `predict_array`; one frame with K5 against its plain
+                  version (and, reported only, against the bf16 K1 path); a
+                  profile of one int8 slide frame.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -55,15 +72,18 @@ from __future__ import annotations
 import collections
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
 import traceback
+import zlib
 
 import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 KERNEL_TOL = 2e-2  # max abs error, bf16 kernel vs bf16 plain version, unit-normal inputs
 # Mean abs error and relative L2 of the same comparison, held tight so that a
@@ -462,7 +482,7 @@ TRAIN_CONFIG = "configs/denseclip_vitb16_640x640_80k.yaml"
 TRAIN_OVERRIDES = ["data.synthetic=true", "data.synthetic_options.image_size=[1024,2048]",
                    "data.synthetic_options.length=40"]
 TRAIN_TIMED_STEPS = 5
-TRAIN_WORK_DIR = "build/train_smoke"  # gitignored; removed by phase eval_path
+TRAIN_WORK_DIR = "build/train_smoke"  # gitignored; removed by phase serve_path
 # One training step on the same weights, batch and dropout masks with the
 # kernels, with plain attention (both bf16) and in fp32 (plain attention):
 #  * the total loss, kernels vs plain: relative difference <= TRAIN_TOL;
@@ -536,7 +556,7 @@ def phase_train_path() -> dict:
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite training step: {m}")
     want = {"qkv_attention": 12 * TRAIN_TIMED_STEPS, "qkv_attention_bwd": 12 * TRAIN_TIMED_STEPS,
-            "flash_attention": 0}
+            "flash_attention": 0, "qkv_attention_int8": 0}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {TRAIN_TIMED_STEPS} steps, got {launches}")
 
@@ -636,8 +656,6 @@ TEXT_TOKENS = 22  # the text tower's context length (6 fixed + 16 learnable)
 def phase_eval_path() -> dict:
     """Multi-scale + flip evaluation through the user entry point
     `tools/test.py`, on the checkpoint phase train_path wrote."""
-    import shutil
-
     from denseclip_vit_multimodal_tpu_torch.core.config import load_config
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
@@ -672,7 +690,6 @@ def phase_eval_path() -> dict:
     wall_s = time.perf_counter() - start
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
     keys = ["mIoU", "pixel_acc"] + [f"depth/{k}" for k in
                                     ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")]
     res = {
@@ -688,7 +705,8 @@ def phase_eval_path() -> dict:
     }
     emit(res)
     want = {k: n * EVAL_FRAMES for k, n in AUG_VIEW_LAUNCHES.items()}
-    if {k: launches[k] for k in want} != want or launches["qkv_attention_bwd"]:
+    if ({k: launches[k] for k in want} != want or launches["qkv_attention_bwd"]
+            or launches["qkv_attention_int8"]):
         raise AssertionError(f"expected {want} launches over {EVAL_FRAMES} frames, got {launches}")
     if set(plain_calls) - {TEXT_TOKENS}:  # only the text tower's 22 tokens may take it
         raise AssertionError(f"ViT attention reached plain attention: {dict(plain_calls)}")
@@ -727,8 +745,286 @@ def phase_eval_path() -> dict:
     return res
 
 
+def qkv_attention_int8_case(b: int, n: int, heads: int, head_dim: int, valid_len,
+                            adversarial: bool, iters: int) -> dict:
+    """K5 (its launching wrapper) against its plain version on the same
+    quantized operands; errors on the rows below `valid_len`, every row
+    finite.  The prologue (quantization and V's key-major copy) is timed
+    apart; the bf16 K1 and SDPA at the same shape are context."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        _launch,
+        _launch_int8,
+        int8_attention_plain,
+        quantize_qkv_int8,
+        value_key_major,
+    )
+
+    hd = heads * head_dim
+    kv = n if valid_len is None else valid_len
+    scale = head_dim**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda")
+    if adversarial:  # every real score far below zero; zero pad rows past valid_len
+        qkv[..., :hd] = -qkv[..., :hd].abs() * 20.0
+        qkv[..., hd:2 * hd] = qkv[..., hd:2 * hd].abs()
+        qkv[:, kv:] = 0.0
+    qkv = qkv.to(torch.bfloat16)
+    prologue = lambda: quantize_qkv_int8(qkv, heads, kv)
+    q8, scales = prologue()
+    vt = value_key_major(q8, heads)
+    run = lambda: _launch_int8(q8, vt, scales, heads, scale, kv, qkv.dtype)
+    plain = lambda: int8_attention_plain(q8, scales, heads, scale, kv, qkv.dtype)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = out[:, :kv].float() - ref[:, :kv].float()
+    ops = 4.0 * b * heads * n * kv * head_dim  # int8 Q K^T and P V
+    nbytes = q8.numel() + 4.0 * scales.numel() + out.numel() * out.element_size()
+    # the prologue reads qkv twice (amax, then the rounding) and writes q8 and V's copy
+    prologue_bytes = 2.0 * qkv.numel() * qkv.element_size() + q8.numel() + vt.numel()
+    qh, kh, vh = (t.reshape(b, n, heads, head_dim).transpose(1, 2).contiguous()
+                  for t in qkv.split(hd, dim=-1))
+    kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
+    res = {
+        "phase": "kernel_int8", "name": "qkv_attention_int8", "shape": [b, n, 3 * hd],
+        "heads": heads, "head_dim": head_dim, "valid_len": valid_len, "adversarial": adversarial,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
+        "max_abs_out": float(out[:, :kv].float().abs().max()),
+        "finite": bool(torch.isfinite(out.float()).all()),
+        "ms": cuda_ms(run, iters),
+        "prologue_ms": cuda_ms(lambda: value_key_major(prologue()[0], heads), iters),
+        "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
+        "library_ms": None,  # no PyTorch call computes int8 attention
+        "bound_ms": max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes",
+        "prologue_bound_ms": prologue_bytes / PEAK_BYTES * 1e3,
+        "k1_bf16_ms": cuda_ms(lambda: _launch(qkv, heads, scale, kv), iters),
+        "sdpa_bf16_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
+    }
+    res["tops"] = ops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+INT8_CASES = [
+    # (b, n, heads, head_dim, valid_len, adversarial, iters)
+    (10, 1536, 12, 64, 1522, False, 50),  # slide window batch: the serving shape
+    (1, 8320, 12, 64, 8193, False, 10),  # a mode=whole request (8193 tokens, padded once)
+    (2, 1100, 8, 128, 1050, False, 50),  # head dim 128
+    (1, 256, 2, 64, 200, True, 50),  # adversarial pads (tests/test_int8_attention.py)
+]
+
+
+def phase_kernel_int8() -> list:
+    results = []
+    for case in INT8_CASES:
+        res = qkv_attention_int8_case(*case)
+        emit(res)
+        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
+                and res["rel_l2_err"] <= KERNEL_REL_TOL and res["max_abs_out"] > 1e-3):
+            raise AssertionError(f"qkv_attention_int8 disagrees with its plain version: {res}")
+        results.append(res)
+    return results  # the serving shape (the first) is the main path's
+
+
+SERVE_FRAMES = 3
+SERVE_ARGS = ["--mode", "slide", "--device-timeout", "120", "--set", "tpu.attn_impl=int8"]
+
+
+def _paeth_png(frame: np.ndarray) -> bytes:
+    """`frame` as a PNG whose rows all carry the Paeth filter, as encoders
+    pick it for most rows of a photograph: the decoder's anti-diagonal path
+    (the server's own bodies above use filter 0)."""
+    from denseclip_vit_multimodal_tpu_torch.utils import png
+
+    x = frame.astype(np.int16)
+    a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]  # left
+    b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]  # up
+    c = np.pad(x, ((1, 0), (1, 0), (0, 0)))[:-1, :-1]  # upper left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) % 256).astype(np.uint8).reshape(frame.shape[0], -1)
+    raw = np.concatenate([np.full((frame.shape[0], 1), 4, np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", frame.shape[1], frame.shape[0], 8, 2, 0, 0, 0)
+    return (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
+            + png._chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + png._chunk(b"IEND", b""))
+
+
+def _http(port: int, method: str, path: str, body=None):
+    from http.client import HTTPConnection
+
+    conn = HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request(method, path, body=body)
+    resp = conn.getresponse()
+    out = resp.status, resp.getheader("Content-Type"), resp.read()
+    conn.close()
+    return out
+
+
+def phase_serve_path() -> dict:
+    """The flagship served over HTTP with the int8 attention: the user entry
+    points `tools/serve.py` (`build_service`) and `make_server`, on the
+    checkpoint phase train_path wrote."""
+    import io
+    import shutil
+    import threading
+
+    from denseclip_vit_multimodal_tpu_torch.infer.server import make_server
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        LAUNCHES,
+        mha_qkv_attention_int8_reference,
+    )
+    from denseclip_vit_multimodal_tpu_torch.tools import serve as serve_tool
+    from denseclip_vit_multimodal_tpu_torch.utils import png
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    service, epoch = serve_tool.build_service(
+        serve_tool.parse_args([CONFIG, TRAIN_WORK_DIR] + SERVE_ARGS))
+    build_s = time.perf_counter() - start
+    shutil.rmtree(TRAIN_WORK_DIR, ignore_errors=True)
+    rs = np.random.RandomState(SEED + 1)
+    frames = [rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8) for _ in range(SERVE_FRAMES)]
+    bodies = [png.encode_png(f, level=1) for f in frames]  # the client's side, untimed
+    decode_s = []
+    for body in bodies:
+        tick = time.perf_counter()
+        png.decode_png(body)
+        decode_s.append(time.perf_counter() - tick)
+    paeth_body = _paeth_png(frames[0])
+    paeth_decode_s = []
+    for _ in range(3):
+        tick = time.perf_counter()
+        pixels = png.decode_png(paeth_body)
+        paeth_decode_s.append(time.perf_counter() - tick)
+    if not np.array_equal(pixels, frames[0]):
+        raise AssertionError("the Paeth-filtered PNG does not decode to its frame")
+    start = time.perf_counter()
+    service.warmup((1024, 2048))
+    warmup_s = time.perf_counter() - start
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        device_s0 = service.stats.device_seconds_total
+        reset_launches()
+        latencies, per_request, answers = [], [], []
+        for body in bodies:
+            before = read_launches()
+            tick = time.perf_counter()
+            status, ctype, data = _http(port, "POST", "/v1/predict", body)
+            latencies.append(time.perf_counter() - tick)
+            after = read_launches()
+            per_request.append({k: after[k] - before[k] for k in after})
+            if status != 200 or ctype != "application/octet-stream":
+                raise AssertionError(f"slide request answered {status}: {data[:200]}")
+            answers.append(np.load(io.BytesIO(data)))
+        launches = read_launches()
+        device_s = service.stats.device_seconds_total - device_s0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        before = read_launches()
+        tick = time.perf_counter()
+        status, _, data = _http(port, "POST", "/v1/predict?mode=whole", bodies[0])
+        whole_s = time.perf_counter() - tick
+        whole = {k: v - before[k] for k, v in read_launches().items()}
+        whole_ok = status == 200 and np.load(io.BytesIO(data))["seg"].shape == (1024, 2048)
+        health = json.loads(_http(port, "GET", "/healthz")[2])
+        metrics = _http(port, "GET", "/metrics")[2].decode()
+        bad_status = _http(port, "POST", "/v1/predict?format=bmp", bodies[0])[0]
+        tick = time.perf_counter()
+        status, _, data = _http(port, "POST", "/v1/predict", paeth_body)
+        paeth_s = time.perf_counter() - tick
+        paeth_ok = status == 200 and np.load(io.BytesIO(data))["seg"].shape == (1024, 2048)
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+
+    for ans in answers:
+        for key in ("seg", "depth"):
+            arr = ans[key]
+            if arr.shape != (1024, 2048) or not np.isfinite(arr.astype(np.float32)).all():
+                raise AssertionError(f"bad {key} over HTTP: shape {arr.shape}")
+        if not (0 <= ans["seg"].min() and ans["seg"].max() < 19):
+            raise AssertionError("seg labels out of range")
+    direct = service.predict_array(frames[0], timeout=None)  # the same frame, no HTTP
+    http_equal = (np.array_equal(answers[0]["seg"], direct["seg"])
+                  and np.allclose(answers[0]["depth"], direct["depth"], rtol=1e-6, atol=0.0))
+
+    # one frame: K5 against its plain version, then (reported only) the bf16 K1 path
+    engine = service.inferencer
+    predict = lambda: engine.predict(frames[0][None], mode="slide", crop=service.crop,
+                                     stride=service.stride, window_batch=service.window_batch,
+                                     fetch="device")
+    kernel_out = predict()
+    fused = layers.mha_qkv_attention_int8
+    layers.mha_qkv_attention_int8 = mha_qkv_attention_int8_reference
+    before = LAUNCHES["qkv_attention_int8"]
+    try:
+        plain_out = predict()
+    finally:
+        layers.mha_qkv_attention_int8 = fused
+    plain_launched = LAUNCHES["qkv_attention_int8"] - before
+    set_attn_impl(engine.model.backbone, "auto")
+    before = LAUNCHES["qkv_attention"]
+    bf16_out = predict()
+    k1_launched = LAUNCHES["qkv_attention"] - before
+    set_attn_impl(engine.model.backbone, "int8")
+    res = {
+        "phase": "serve_path", "config": CONFIG, "checkpoint": "phase train_path's train()",
+        "epoch": epoch, "args": SERVE_ARGS, "crop": list(service.crop),
+        "stride": list(service.stride), "window_batch": service.window_batch,
+        "frames": SERVE_FRAMES, "frame": [1024, 2048], "build_s": build_s, "warmup_s": warmup_s,
+        "latency_ms": [t * 1e3 for t in latencies],
+        "img_per_s": SERVE_FRAMES / sum(latencies),
+        "device_s_per_request": device_s / SERVE_FRAMES,
+        "png_bytes": len(bodies[0]), "png_decode_ms": [t * 1e3 for t in decode_s],
+        "paeth_png_bytes": len(paeth_body),
+        "paeth_png_decode_ms": [t * 1e3 for t in paeth_decode_s],
+        "paeth_request": {"ok": paeth_ok, "latency_ms": paeth_s * 1e3},
+        "peak_mem_gib": peak_gib, "launches": launches, "launches_per_request": per_request,
+        "whole_request": {"ok": whole_ok, "latency_ms": whole_s * 1e3, "launches": whole},
+        "healthz": health, "metrics": metrics.splitlines(), "bad_request_status": bad_status,
+        "http_equals_predict_array": http_equal,
+        "seg_rel_l2_vs_int8_plain": rel_l2(kernel_out["seg_logits"], plain_out["seg_logits"]),
+        "depth_rel_l2_vs_int8_plain": rel_l2(kernel_out["depth"], plain_out["depth"]),
+        "int8_plain_launches": plain_launched,
+        "seg_rel_l2_int8_vs_bf16_k1": rel_l2(kernel_out["seg_logits"], bf16_out["seg_logits"]),
+        "depth_rel_l2_int8_vs_bf16_k1": rel_l2(kernel_out["depth"], bf16_out["depth"]),
+        "seg_argmax_agreement_int8_vs_bf16_k1": float(
+            (kernel_out["seg"] == bf16_out["seg"]).float().mean()),
+        "k1_launches_bf16_run": k1_launched, "tol": PATH_TOL,
+    }
+    emit(res)
+    del kernel_out, plain_out, bf16_out
+    want = {"qkv_attention_int8": 12, "qkv_attention": 0, "qkv_attention_bwd": 0,
+            "flash_attention": 0}
+    if any(r != want for r in per_request) or whole != want:
+        raise AssertionError(f"expected {want} launches per request: {per_request}, whole {whole}")
+    if not (whole_ok and paeth_ok and health["status"] == "ok" and bad_status == 400
+            and http_equal and "denseclip_requests_total" in metrics):
+        raise AssertionError(f"the server broke its contract: {res}")
+    if plain_launched or k1_launched != 12:
+        raise AssertionError(f"the comparison runs took the wrong route: {res}")
+    if not max(res["seg_rel_l2_vs_int8_plain"], res["depth_rel_l2_vs_int8_plain"]) <= PATH_TOL:
+        raise AssertionError(f"serving with K5 disagrees with its plain version: {res}")
+    phase_profile(lambda frame: engine.predict(frame[None], mode="slide", crop=service.crop,
+                                               stride=service.stride,
+                                               window_batch=service.window_batch,
+                                               fetch="argmax"),
+                  frames[:2], path="int8_serving")
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("qkv_attention_bwd (K2)", ("qkv_bwd_",)),
+    ("qkv_attention_int8 (K5)", ("qkv_attention_int8_kernel",)),
     ("qkv_attention (K1)", ("qkv_attention_kernel",)),
     ("flash_attention (K4)", ("flash_attention_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
@@ -792,43 +1088,34 @@ def main() -> int:
     slide = phase_kernels()[0]
     train_shape = phase_kernel_bwd()
     longest = phase_kernel_flash()[2]  # the aug-test scale 1.75 shape
+    serving = phase_kernel_int8()[0]
     main_res = phase_main_path()
     train_res = phase_train_path()
     eval_res = phase_eval_path()
+    serve_res = phase_serve_path()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
-                            "aug_test": eval_res["launches"][name]}
-    emit({"kernels": [{
-        "name": "qkv_attention", "route": "cuda",
-        "source": "denseclip_vit_multimodal_tpu_torch/csrc/qkv_attention.cu",
-        "replaces": "denseclip_vit_multimodal_tpu/ops/mha_kernel.py:400",
-        "launches": main_res["launches"]["qkv_attention"],
-        "launches_by_path": by_path("qkv_attention"),
-        "max_abs_err": slide["max_abs_err"], "ms": slide["ms"], "kernel_ms": slide["ms"],
-        "plain_ms": slide["plain_ms"],
-        "bound_ms": slide["bound_ms"], "bound_by": slide["bound_by"],
-        "library_ms": slide["library_ms"],
-    }, {
-        "name": "qkv_attention_bwd", "route": "cuda",
-        "source": "denseclip_vit_multimodal_tpu_torch/csrc/qkv_attention_bwd.cu",
-        "replaces": "denseclip_vit_multimodal_tpu/ops/mha_kernel.py:240",
-        "launches": train_res["launches"]["qkv_attention_bwd"],
-        "launches_by_path": by_path("qkv_attention_bwd"),
-        "max_abs_err": train_shape["max_abs_err"], "ms": train_shape["ms"],
-        "kernel_ms": train_shape["ms"], "plain_ms": train_shape["plain_ms"],
-        "bound_ms": train_shape["bound_ms"], "bound_by": train_shape["bound_by"],
-        "library_ms": train_shape["library_ms"],
-    }, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "denseclip_vit_multimodal_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "denseclip_vit_multimodal_tpu/ops/attention.py:130",
-        "launches": eval_res["launches"]["flash_attention"],
-        "launches_by_path": by_path("flash_attention"),
-        "max_abs_err": longest["max_abs_err"], "ms": longest["ms"], "kernel_ms": longest["ms"],
-        "plain_ms": longest["plain_ms"],
-        "bound_ms": longest["bound_ms"], "bound_by": longest["bound_by"],
-        "library_ms": longest["library_ms"],
-    }]})
+                            "aug_test": eval_res["launches"][name],
+                            "int8_http_serving": serve_res["launches"][name]}
+    entry = lambda name, source, replaces, res, launches: {
+        "name": name, "route": "cuda",
+        "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
+        "replaces": f"denseclip_vit_multimodal_tpu/{replaces}",
+        "launches": launches, "launches_by_path": by_path(name),
+        "max_abs_err": res["max_abs_err"], "ms": res["ms"], "kernel_ms": res["ms"],
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+        "library_ms": res["library_ms"],
+    }
+    emit({"kernels": [
+        entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
+              main_res["launches"]["qkv_attention"]),
+        entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240", train_shape,
+              train_res["launches"]["qkv_attention_bwd"]),
+        entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
+              eval_res["launches"]["flash_attention"]),
+        entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586", serving,
+              serve_res["launches"]["qkv_attention_int8"]),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

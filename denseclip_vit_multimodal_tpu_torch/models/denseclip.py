@@ -159,6 +159,8 @@ def build_denseclip(
 
     Weights come from a seeded `torch.Generator` with the Flax initialisers'
     distributions (load real weights with `convert.load_flax_variables`).
+    `attn_impl` ("auto", "xla" or "int8") reaches the ViT only: the text
+    tower keeps plain attention (`xla`), as in the JAX package.
     Returns (model, texts[int32 K x N1]).
     """
     cfg = dict(model_cfg)

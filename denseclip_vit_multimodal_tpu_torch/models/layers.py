@@ -12,6 +12,9 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     kernel (`ops/mha_kernel.py`, K1), otherwise through `attention_core`:
     the flash kernel (`ops/attention.py`, K4) for causal or longer bf16
     sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.
+    With `attn_impl="int8"` (the opt-in quantized serving path) non-causal
+    sequences of at most 8448 tokens on CUDA take the int8 kernel (K5)
+    instead, and everything else the `auto` rules.
   * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
@@ -38,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from denseclip_vit_multimodal_tpu_torch.ops import attention as _attention
 from denseclip_vit_multimodal_tpu_torch.ops.attention import (
     _FLASH_MIN_SEQ,
     _ONESHOT_MAX_SEQ,
@@ -47,12 +51,14 @@ from denseclip_vit_multimodal_tpu_torch.ops.attention import (
 )
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     mha_qkv_attention,
+    mha_qkv_attention_int8,
     qkv_supported,
 )
 
 ATTN_XLA = "xla"  # plain PyTorch attention everywhere (name kept from the JAX package)
 ATTN_AUTO = "auto"  # the kernels where the dispatch rules hold
-ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA)
+ATTN_INT8 = "int8"  # the opt-in quantized serving path (K5; inference only)
+ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA, ATTN_INT8)
 
 
 # --------------------------------------------------------------------------
@@ -194,8 +200,12 @@ def attention_core(
     valid_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention on [B, N, H, Dh] by the configured impl (the JAX package's
-    `attention_core` for `auto` and `xla`): `auto` takes `flash_attention`
-    where `flash_supported` holds, and plain attention elsewhere."""
+    `attention_core` for `auto`, `xla` and `int8`): `auto` takes
+    `flash_attention` where `flash_supported` holds, and plain attention
+    elsewhere.  `int8` quantizes only in the fused-qkv path, so what reaches
+    this core (causal, more than 8448 tokens, the CPU) takes `auto`."""
+    if impl == ATTN_INT8:
+        impl = ATTN_AUTO
     if impl == ATTN_AUTO and flash_supported(q):
         return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
     return plain_attention(q, k, v, causal, valid_len)
@@ -206,7 +216,8 @@ class MultiHeadAttention(nn.Module):
 
     Parameters: `qkv` Linear(D, 3D) and `out` Linear(D, D).  The kernel
     dispatch rule is the JAX package's (`_qkv_kernel_applicable`) with "on
-    the TPU" read as "on CUDA", plus the kernel's one dtype, bf16.
+    the TPU" read as "on CUDA", plus K1's one dtype, bf16 (K5 takes bf16 and
+    fp32).
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
@@ -226,21 +237,22 @@ class MultiHeadAttention(nn.Module):
         self.out = Linear(dim, dim, dtype=dtype, kernel_init=xavier, gen=gen)
 
     def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int) -> bool:
+        if self.attn_impl == ATTN_XLA or self.causal:
+            return False
         n = qkv.shape[1]
-        return (
-            self.attn_impl == ATTN_AUTO
-            and not self.causal
-            and qkv.is_cuda
-            and qkv.dtype == torch.bfloat16
-            and _FLASH_MIN_SEQ <= n <= _ONESHOT_MAX_SEQ
-            and qkv_supported(self.num_heads, dim)
-        )
+        if self.attn_impl == ATTN_INT8:  # no 1024-token floor, any dtype K5 writes
+            regime = _attention._on_cuda(qkv) and n <= _ONESHOT_MAX_SEQ
+        else:
+            regime = (_attention._on_cuda(qkv) and qkv.dtype == torch.bfloat16
+                      and _FLASH_MIN_SEQ <= n <= _ONESHOT_MAX_SEQ)
+        return regime and qkv_supported(self.num_heads, dim)
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
         b, n, dim = x.shape
         qkv = self.qkv(x)
         if self._qkv_kernel_applicable(qkv, dim):
-            return self.out(mha_qkv_attention(qkv, self.num_heads, valid_len=valid_len))
+            attn = mha_qkv_attention_int8 if self.attn_impl == ATTN_INT8 else mha_qkv_attention
+            return self.out(attn(qkv, self.num_heads, valid_len=valid_len))
         # strided views of the fused projection (row stride 3 * dim), no copy
         heads = lambda t: t.view(b, n, self.num_heads, dim // self.num_heads)
         q, k, v = (heads(t) for t in qkv.split(dim, dim=-1))
@@ -342,7 +354,8 @@ class Transformer(nn.Module):
 
 
 def set_attn_impl(module: nn.Module, impl: str) -> None:
-    """Switch every attention layer under `module` to `impl` ("auto"/"xla")."""
+    """Switch every attention layer under `module` to `impl` ("auto", "xla"
+    or "int8"; a causal layer under "int8" keeps the `auto` rules)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not yet ported (have {ATTN_IMPLS})")
     for m in module.modules():

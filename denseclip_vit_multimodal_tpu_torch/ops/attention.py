@@ -42,11 +42,18 @@ _REF_CHUNK = 4096  # query rows per step of the plain version
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 
 
+def _on_cuda(x: torch.Tensor) -> bool:
+    """Whether `x` lies on a CUDA device: the kernels' side of every dispatch
+    rule (the JAX package's `_on_tpu`; tests patch it to reach the kernels'
+    plain versions on the CPU)."""
+    return x.is_cuda
+
+
 def flash_supported(q: torch.Tensor) -> bool:
     """Whether the flash path serves `q` [B, N, H, D]: CUDA, bf16 (K4's one
     dtype), N >= 1024, head dim 64 or 128 (the JAX rule also allows 256;
     K4 does not take it yet)."""
-    return (q.is_cuda and q.dtype == torch.bfloat16 and q.shape[1] >= _FLASH_MIN_SEQ
+    return (_on_cuda(q) and q.dtype == torch.bfloat16 and q.shape[1] >= _FLASH_MIN_SEQ
             and q.shape[-1] in (64, 128))
 
 

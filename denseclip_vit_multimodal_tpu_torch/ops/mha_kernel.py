@@ -18,7 +18,22 @@ its bound on an H100.
 * `mha_qkv_attention_bwd_reference` is the plain backward with K2's
   rounding points (those of the JAX `_bwd_kernel`; see the CUDA source).
 * `LAUNCHES` counts kernel launches (never plain calls): "qkv_attention"
-  for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one).
+  for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
+  "qkv_attention_int8" for K5.
+
+The opt-in int8 serving path (`tpu.attn_impl: int8`) ports the JAX
+`mha_qkv_attention_int8` and its TPU kernel `_qkv_int8_kernel` (K5,
+`csrc/qkv_attention_int8.cu`):
+
+* `quantize_qkv_int8` is the JAX prologue with its exact arithmetic
+  (symmetric per-(batch, q/k/v, head) scales), plus the clamp to [-128, 127]
+  that JAX's saturating cast does implicitly (torch's cast wraps).
+* `int8_attention_plain` is the kernel body in plain PyTorch; both products
+  are exact (fp64 holds every int32 sum), so only exp2 ulps and the order of
+  the fp32 denominator sum separate it from the kernel.
+* `mha_qkv_attention_int8` launches K5 for a CUDA tensor and runs the plain
+  version for a CPU tensor.  It is inference only: the JAX straight-through
+  backward is not ported, so it raises when autograd records it.
 """
 
 from __future__ import annotations
@@ -32,7 +47,11 @@ import torch
 _LANE = 128
 _LOG2E = 1.4426950408889634
 
-LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0}
+# K5 accumulates P V in int32: at most this many keys of p8 <= 127 times |v8| <= 128
+INT8_MAX_KEYS = (2**31 - 1) // (127 * 128)
+_INT8_CHUNK = 4096  # query rows per step of the int8 plain version
+_V_ALIGN = 16  # K5 reads V key-major in 16-byte chunks: rows padded to this many keys
 
 
 def qkv_supported(num_heads: int, model_dim: int) -> bool:
@@ -132,6 +151,9 @@ def _kernel_fn(name: str):
     if name == "qkv_attention":
         fn = load_library("qkv_attention").qkv_attention_bf16
         fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
+    elif name == "qkv_attention_int8":
+        fn = load_library("qkv_attention_int8").qkv_attention_int8
+        fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
     else:
         fn = load_library("qkv_attention_bwd").qkv_attention_bwd_bf16
         fn.argtypes = [ptr] * 6 + [i] * 5 + [f, f, ptr]
@@ -252,3 +274,172 @@ def mha_qkv_attention(
     if qkv.device.type != "cuda":
         raise ValueError(f"no qkv attention for device {qkv.device}")
     return _launch(qkv, num_heads, scale, kv_len)[0]
+
+
+# --------------------------------------------------------------------------
+# Opt-in int8 attention (K5)
+# --------------------------------------------------------------------------
+
+
+def _f32(x: torch.Tensor, value: float) -> torch.Tensor:
+    """`value` rounded to fp32 (as JAX's weak typing rounds a Python float
+    against fp32), as a tensor like `x`: dividing by it is a true division
+    (CUDA turns division by a Python scalar into a reciprocal multiply, one
+    rounding more)."""
+    return torch.full_like(x, value, dtype=torch.float32)
+
+
+def quantize_qkv_int8(
+    qkv: torch.Tensor, num_heads: int, valid_len: Optional[int] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX prologue of the int8 path: (q8 [B, N, 3*H*D] int8, scales [B, 3, H] fp32).
+
+    Rows at or past `valid_len` are zeroed first (a select, so that inf or
+    NaN padding cannot reach the scales).  amax over (tokens, head dim) of
+    each (batch, q/k/v, head) in the input dtype; scales = max(amax, 1e-6) /
+    127 in fp32; inv = 127 / max(amax, 1e-6) rounded to the input dtype;
+    q8 = rint(x * inv) in the input dtype, clamped to [-128, 127] (the
+    element at amax can round to 128, which JAX's cast saturates to 127 and
+    torch's would wrap to -128).
+    """
+    b, n, hd, d = _split_shape(qkv, num_heads)
+    kv_len = _kv_len(valid_len, n)
+    x = qkv
+    if kv_len < n:
+        row = torch.arange(n, device=qkv.device) < kv_len
+        x = torch.where(row[None, :, None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    grouped = x.reshape(b, n, 3, num_heads, d)
+    floor = torch.tensor(1e-6, dtype=torch.float32, device=qkv.device)
+    amax = torch.maximum(grouped.abs().amax(dim=(1, 4)).float(), floor)
+    scales = amax / _f32(amax, 127.0)
+    inv = (_f32(amax, 127.0) / amax).to(x.dtype)
+    q8 = torch.round(grouped * inv[:, None, :, :, None]).clamp_(-128, 127).to(torch.int8)
+    return q8.reshape(b, n, 3 * hd), scales
+
+
+def int8_attention_plain(
+    q8: torch.Tensor,
+    scales: torch.Tensor,
+    num_heads: int,
+    sm_scale: float,
+    kv_len: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Plain PyTorch version of K5 on quantized operands; [B, N, H*D] in `out_dtype`.
+
+    The TPU kernel's arithmetic: s = q8 k8^T (exact); sf = s * (((sq * sk) *
+    scale) * log2 e) in fp32; P = exp2(sf - max) in fp32 over the valid keys
+    (the kernel's fp32-min mask gives masked keys exactly 0 there, so they are
+    left out); the fp32 denominator from the unquantized P; p8 = trunc(P * 127
+    + 0.5); o = p8 v8 (exact); out = (float(o) * (sv / 127)) / max(denom,
+    1e-20).  One head and at most 4096 query rows at a time.
+    """
+    b, n, hd, d = _split_shape(q8, num_heads)
+    g = q8.view(b, n, 3, num_heads, d)
+    sq, sk, sv = scales.unbind(dim=1)  # [B, H] each
+    mult = ((sq * sk) * _f32(sq, sm_scale)) * _f32(sq, _LOG2E)
+    sv127 = sv / _f32(sv, 127.0)
+    out = torch.empty(b, n, num_heads, d, dtype=out_dtype, device=q8.device)
+    for h in range(num_heads):
+        kh = g[:, :kv_len, 1, h].double()
+        vh = g[:, :kv_len, 2, h].double()
+        for r0 in range(0, n, _INT8_CHUNK):
+            r1 = min(r0 + _INT8_CHUNK, n)
+            s = (g[:, r0:r1, 0, h].double() @ kh.transpose(-1, -2)).float()
+            sf = s * mult[:, h, None, None]
+            p = torch.exp2(sf - sf.amax(dim=-1, keepdim=True))
+            denom = p.sum(dim=-1, keepdim=True)
+            p8 = torch.trunc(p * 127.0 + 0.5)
+            o = (p8.double() @ vh).float()
+            out[:, r0:r1, h] = ((o * sv127[:, h, None, None]) / denom.clamp_min(1e-20)).to(out_dtype)
+    return out.reshape(b, n, hd)
+
+
+def mha_qkv_attention_int8_reference(
+    qkv: torch.Tensor,
+    num_heads: int,
+    *,
+    sm_scale: Optional[float] = None,
+    valid_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the int8 path: prologue, then the kernel body."""
+    _, n, _, d = _split_shape(qkv, num_heads)
+    scale = d**-0.5 if sm_scale is None else float(sm_scale)
+    kv_len = _kv_len(valid_len, n)
+    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
+    return int8_attention_plain(q8, scales, num_heads, scale, kv_len, qkv.dtype)
+
+
+def value_key_major(q8: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """V of every head key-major, [B, H, D, N'] int8 with N' = N rounded up
+    to 16 (zero-filled): K5's B operand of P V takes four consecutive keys of
+    one head dim per 32-bit register."""
+    b, n, hd, d = _split_shape(q8, num_heads)
+    ldv = -(-n // _V_ALIGN) * _V_ALIGN
+    vt = q8.new_zeros(b, num_heads, d, ldv)
+    vt[..., :n] = q8[..., 2 * hd:].view(b, n, num_heads, d).permute(0, 2, 3, 1)
+    return vt
+
+
+def _launch_int8(q8: torch.Tensor, vt: torch.Tensor, scales: torch.Tensor, num_heads: int,
+                 scale: float, kv_len: int, out_dtype: torch.dtype) -> torch.Tensor:
+    """K5 on the prologue's operands; returns [B, N, H*D] in `out_dtype`."""
+    b, n, hd, d = _split_shape(q8, num_heads)
+    if q8.dtype != torch.int8 or not q8.is_contiguous() or q8.data_ptr() % 16:
+        raise ValueError("the int8 attention kernel takes a contiguous, 16-byte aligned int8 q8")
+    if d not in (64, 128):
+        raise ValueError(f"the int8 attention kernel takes head dim 64 or 128, got {d}")
+    ldv = -(-n // _V_ALIGN) * _V_ALIGN
+    if (vt.dtype != torch.int8 or tuple(vt.shape) != (b, num_heads, d, ldv)
+            or not vt.is_contiguous() or vt.data_ptr() % 16):
+        raise ValueError(f"the int8 attention kernel takes V as contiguous int8 "
+                         f"{(b, num_heads, d, ldv)} (value_key_major)")
+    if (scales.dtype != torch.float32 or tuple(scales.shape) != (b, 3, num_heads)
+            or not scales.is_contiguous()):
+        raise ValueError(f"the int8 attention kernel takes fp32 scales {(b, 3, num_heads)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the int8 attention kernel writes bfloat16 or float32, not {out_dtype}")
+    if not (q8.device == vt.device == scales.device):
+        raise ValueError("q8, V and the scales must be on one device")
+    fn = _kernel_fn("qkv_attention_int8")
+    out = torch.empty(b, n, hd, dtype=out_dtype, device=q8.device)
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        err = fn(q8.data_ptr(), vt.data_ptr(), scales.data_ptr(), out.data_ptr(),
+                 int(out_dtype == torch.bfloat16), b, n, num_heads, d, kv_len, ldv, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"int8 attention kernel launch failed: cudaError {err}")
+    LAUNCHES["qkv_attention_int8"] += 1
+    return out
+
+
+def mha_qkv_attention_int8(
+    qkv: torch.Tensor,  # [B, N, 3*H*D] fused projection output
+    num_heads: int,
+    *,
+    sm_scale: Optional[float] = None,
+    valid_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Quantized attention straight off the fused projection; [B, N, H*D] in qkv's dtype.
+
+    The opt-in serving path (`tpu.attn_impl: int8`): int8 Q K^T and P V with
+    int32 sums, fp32 softmax.  Keys at or beyond `valid_len` are masked and
+    left out of the scales; output rows past `valid_len` are left to the
+    caller.  Inference only.
+    """
+    _, n, _, d = _split_shape(qkv, num_heads)
+    scale = d**-0.5 if sm_scale is None else float(sm_scale)
+    kv_len = _kv_len(valid_len, n)
+    if kv_len > INT8_MAX_KEYS:
+        raise ValueError(f"int32 sums of P V hold at most {INT8_MAX_KEYS} keys, got {kv_len}")
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        raise NotImplementedError("the int8 attention's straight-through backward is not ported")
+    if qkv.device.type == "cpu":
+        return mha_qkv_attention_int8_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no int8 qkv attention for device {qkv.device}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the int8 attention path takes bfloat16 or float32 qkv, got {qkv.dtype}")
+    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
+    return _launch_int8(q8, value_key_major(q8, num_heads), scales, num_heads, scale, kv_len,
+                        qkv.dtype)

@@ -185,3 +185,58 @@ def test_long_and_causal_attention_dispatch(cuda, n, causal, qkv_launches, flash
     assert torch.isfinite(out.float()).all()
     assert mha_kernel.LAUNCHES["qkv_attention"] - before[0] == qkv_launches
     assert attention.LAUNCHES["flash_attention"] - before[1] == flash_launches
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,dtype", [
+    (2, 300, 12, 64, 290, torch.bfloat16),
+    (10, 1536, 12, 64, 1522, torch.bfloat16),  # the serving shape
+    (3, 65, 2, 64, None, torch.float32),  # fp32 qkv: fp32 output
+    (1, 1100, 8, 128, 1025, torch.bfloat16),
+    (2, 7, 1, 128, None, torch.float32),
+    (1, 1, 2, 64, None, torch.bfloat16),
+])
+def test_int8_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, dtype):
+    """K5 through `mha_qkv_attention_int8` against the int8 plain version:
+    the same quantized operands and arithmetic, so the output rounding (and a
+    rare exp2 ulp moving a p8 by one step) is all that separates them."""
+    qkv = _qkv(b, n, heads, d, seed=5).to(dtype)
+    before = mha_kernel.LAUNCHES["qkv_attention_int8"]
+    out = mha_kernel.mha_qkv_attention_int8(qkv, heads, valid_len=valid_len)
+    ref = mha_kernel.mha_qkv_attention_int8_reference(qkv, heads, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["qkv_attention_int8"] == before + 1
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert torch.isfinite(out.float()).all()
+    rows = n if valid_len is None else valid_len
+    err = out[:, :rows].float() - ref[:, :rows].float()
+    assert float(err.abs().max()) <= KERNEL_TOL
+    assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
+
+
+def test_int8_wrapper_raises_instead_of_falling_back(cuda):
+    qkv = _qkv(1, 64, 2, 64)
+    with pytest.raises(TypeError):
+        mha_kernel.mha_qkv_attention_int8(qkv.half(), 2)
+    with pytest.raises(ValueError):
+        mha_kernel.mha_qkv_attention_int8(_qkv(1, 64, 4, 32), 4)  # head dim 32
+    with pytest.raises(NotImplementedError):
+        mha_kernel.mha_qkv_attention_int8(qkv.float().requires_grad_(True), 2)
+
+
+@pytest.mark.parametrize("n,causal,dtype,int8_launches,flash_launches", [
+    (300, False, torch.bfloat16, 1, 0),  # no 1024-token floor
+    (8448, False, torch.float32, 1, 0),  # fp32 too, up to the one-shot limit
+    (8449, False, torch.bfloat16, 0, 1),  # longer: the flash kernel
+    (1100, True, torch.bfloat16, 0, 1),  # causal: never quantized
+])
+def test_int8_attention_dispatch(cuda, n, causal, dtype, int8_launches, flash_launches):
+    mha = MultiHeadAttention(128, 2, causal=causal, attn_impl="int8", dtype=dtype).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, n, 128).astype(np.float32)).to(cuda)
+    before = (mha_kernel.LAUNCHES["qkv_attention_int8"], mha_kernel.LAUNCHES["qkv_attention"],
+              attention.LAUNCHES["flash_attention"])
+    with torch.inference_mode():
+        out = mha(x.to(dtype), valid_len=n - 3)
+    assert torch.isfinite(out.float()).all()
+    assert mha_kernel.LAUNCHES["qkv_attention_int8"] - before[0] == int8_launches
+    assert mha_kernel.LAUNCHES["qkv_attention"] == before[1]  # never K1 under int8
+    assert attention.LAUNCHES["flash_attention"] - before[2] == flash_launches

@@ -56,6 +56,37 @@ def test_no_forbidden_import_in_source(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+def test_serving_png_needs_no_pillow_or_matplotlib():
+    """The port's server answers PNG in every format (npz, json, seg and
+    depth panels) with neither Pillow nor matplotlib imported."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from denseclip_vit_multimodal_tpu_torch.infer.server import InferenceService\n"
+        "from denseclip_vit_multimodal_tpu_torch.utils import png\n"
+        "class Fake:\n"
+        "    num_classes, with_depth = 19, True\n"
+        "    def predict(self, img, **kw):\n"
+        "        h, w = img.shape[1:3]\n"
+        "        return {'seg': np.ones((1, h, w), np.int32),\n"
+        "                'depth': np.full((1, h, w), 7.0, np.float32)}\n"
+        "svc = InferenceService(Fake(), mode='whole')\n"
+        "body = png.encode_png(np.zeros((8, 8, 3), np.uint8))\n"
+        "for q in ({}, {'format': ['json']}, {'format': ['png']},\n"
+        "          {'format': ['png'], 'target': ['depth']}):\n"
+        "    assert svc.handle_predict(body, q)[0] == 200, q\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'PIL', 'matplotlib'})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")
+
+
 def test_chip_smoke_imports_no_jax():
     roots = {n.split(".")[0] for n in _imported_roots(ROOT / "chip_smoke.py")}
     assert not roots & set(FORBIDDEN), roots
