@@ -60,7 +60,25 @@ phases that each print one JSON line:
                   K4 launches per request; the HTTP answer against
                   `predict_array`; one frame with K5 against its plain
                   version (and, reported only, against the bf16 K1 path); a
-                  profile of one int8 slide frame.
+                  profile of one int8 slide frame;
+ 13. kernel_oneshot — K3 (one-shot attention on [B, N, H, D]) against its
+                  plain version at the slide shape (views of a fused qkv),
+                  the self-test's shape, head dim 128 and head dim 256, with
+                  kernel / plain / SDPA / bound times;
+ 14. kernel_lnqkv — K6 (fused LayerNorm + qkv projection + attention)
+                  against its plain version at the slide shape, head dim 128
+                  and the largest N its rule admits, with kernel / plain /
+                  bound times, the unfused chain in PyTorch's own calls
+                  (layer_norm + linear + SDPA: `library_ms`) and the port's
+                  unfused chain (LayerNorm + Linear + K1);
+ 15. lnqkv_path — main_path's slide protocol with DENSECLIP_FUSED_LNQKV=1
+                  (set only inside this phase): 3 requests, img/s, peak
+                  memory, 12 K6 and 0 K1 launches per frame; one frame
+                  against the unfused K1 path and against K6's plain
+                  version; a `mode=whole` request (8193 tokens: the rule
+                  sends it to K1) equal to its unfused answer; a profile;
+ 16. selftest   — the port's GPU self-test (`tools/selftest.py`), whose
+                  checks must all pass.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -128,11 +146,12 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def launch_tables():
-    """Every kernel wrapper's launch counter (K1 / K2, K4)."""
+    """Every kernel wrapper's launch counter (K1 / K2 / K5 / K3, K4, K6)."""
     from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES as FLASH_LAUNCHES
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import LAUNCHES as LNQKV_LAUNCHES
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import LAUNCHES
 
-    return LAUNCHES, FLASH_LAUNCHES
+    return LAUNCHES, FLASH_LAUNCHES, LNQKV_LAUNCHES
 
 
 def reset_launches() -> None:
@@ -556,7 +575,8 @@ def phase_train_path() -> dict:
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite training step: {m}")
     want = {"qkv_attention": 12 * TRAIN_TIMED_STEPS, "qkv_attention_bwd": 12 * TRAIN_TIMED_STEPS,
-            "flash_attention": 0, "qkv_attention_int8": 0}
+            "flash_attention": 0, "qkv_attention_int8": 0, "mha_attention": 0,
+            "ln_qkv_attention": 0}
     if launches != want:
         raise AssertionError(f"expected {want} launches over {TRAIN_TIMED_STEPS} steps, got {launches}")
 
@@ -706,7 +726,8 @@ def phase_eval_path() -> dict:
     emit(res)
     want = {k: n * EVAL_FRAMES for k, n in AUG_VIEW_LAUNCHES.items()}
     if ({k: launches[k] for k in want} != want or launches["qkv_attention_bwd"]
-            or launches["qkv_attention_int8"]):
+            or launches["qkv_attention_int8"] or launches["mha_attention"]
+            or launches["ln_qkv_attention"]):
         raise AssertionError(f"expected {want} launches over {EVAL_FRAMES} frames, got {launches}")
     if set(plain_calls) - {TEXT_TOKENS}:  # only the text tower's 22 tokens may take it
         raise AssertionError(f"ViT attention reached plain attention: {dict(plain_calls)}")
@@ -826,6 +847,286 @@ def phase_kernel_int8() -> list:
             raise AssertionError(f"qkv_attention_int8 disagrees with its plain version: {res}")
         results.append(res)
     return results  # the serving shape (the first) is the main path's
+
+
+def mha_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, strided: bool,
+                       iters: int) -> dict:
+    """K3 (through `mha_attention`) against its plain version; errors on the
+    rows below `valid_len` (the rest are unspecified), every row finite."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        mha_attention,
+        mha_attention_reference,
+    )
+
+    hd = heads * head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if strided:  # views of one fused qkv projection, as the ViT hands them over
+        qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, n, heads, head_dim, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(3))
+    kv = n if valid_len is None else valid_len
+    run = lambda: mha_attention(q, k, v, valid_len=valid_len)
+    plain = lambda: mha_attention_reference(q, k, v, valid_len=valid_len)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = out[:, :kv].float() - ref[:, :kv].float()
+    # the library yardstick: one fused-attention call on head-split copies
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
+    flops = 4.0 * b * heads * n * kv * head_dim
+    nbytes = 2.0 * (3 * q.numel() + out.numel())
+    res = {
+        "phase": "kernel_oneshot", "name": "mha_attention", "shape": [b, n, heads, head_dim],
+        "valid_len": valid_len, "strided": strided,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
+        "finite": bool(torch.isfinite(out.float()).all()),
+        "ms": cuda_ms(run, iters),
+        "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
+        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+    }
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+ONESHOT_CASES = [
+    # (b, n, heads, head_dim, valid_len, strided, iters)
+    (10, 1536, 12, 64, 1522, True, 50),  # the slide shape, views of a fused qkv
+    (2, 1601, 12, 64, None, False, 50),  # the self-test's shape
+    (2, 1100, 8, 128, 1050, True, 50),  # head dim 128, ragged
+    (2, 2048, 3, 256, None, False, 50),  # head dim 256 (the JAX rule admits it; K1 does not)
+]
+
+
+def phase_kernel_oneshot() -> list:
+    results = []
+    for case in ONESHOT_CASES:
+        res = mha_attention_case(*case)
+        emit(res)
+        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
+                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
+            raise AssertionError(f"mha_attention disagrees with its plain version: {res}")
+        results.append(res)
+    return results  # the slide shape (the first) is the K3 row's
+
+
+def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters: int) -> dict:
+    """K6 against its plain version on a seeded x and seeded ln_1 / qkv
+    parameters at the scale of the model's init (W bf16, handed over as the
+    transposed view of the torch Linear layout: no cast inside the timing);
+    beside it, the same function unfused in PyTorch's own calls and in the
+    port's (LayerNorm, Linear, K1)."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.models.layers import layer_norm_apply
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import (
+        ln_qkv_attention,
+        ln_qkv_attention_reference,
+    )
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention
+
+    hd, d = dim, dim // heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(b, n, dim, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    limit = (6.0 / (4 * dim)) ** 0.5  # xavier-uniform of the [D, 3D] kernel
+    w16 = ((torch.rand(3 * dim, dim, generator=gen, device="cuda") * 2 - 1) * limit).to(torch.bfloat16)
+    bias = 0.02 * torch.randn(3 * dim, generator=gen, device="cuda")
+    kv = n if valid_len is None else valid_len
+    args = (x, gamma, beta, w16.t(), bias, heads)
+    run = lambda: ln_qkv_attention(*args, valid_len=valid_len)
+    plain = lambda: ln_qkv_attention_reference(*args, valid_len=valid_len)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = out[:, :kv].float() - ref[:, :kv].float()
+    g16, b16, bias16 = gamma.to(torch.bfloat16), beta.to(torch.bfloat16), bias.to(torch.bfloat16)
+
+    def library():  # F.layer_norm + F.linear + SDPA, bf16 parameters
+        qkv = F.linear(F.layer_norm(x, (dim,), g16, b16, 1e-5), w16, bias16)
+        q, k, v = (t.view(b, n, heads, d).transpose(1, 2) for t in qkv.split(hd, dim=-1))
+        return F.scaled_dot_product_attention(q, k[:, :, :kv], v[:, :, :kv])
+
+    qkv = F.linear(layer_norm_apply(x, gamma, beta), w16, bias16)
+    port_unfused = lambda: mha_qkv_attention(
+        F.linear(layer_norm_apply(x, gamma, beta), w16, bias16), heads, valid_len=valid_len)
+    proj_flops = 2.0 * b * n * dim * 3 * hd
+    attn_flops = 4.0 * b * heads * n * kv * d
+    flops = proj_flops + attn_flops
+    nbytes = 2.0 * (x.numel() + w16.numel() + out.numel()) + 4.0 * (2 * dim + 3 * hd)
+    res = {
+        "phase": "kernel_lnqkv", "name": "ln_qkv_attention", "shape": [b, n, dim], "heads": heads,
+        "head_dim": d, "valid_len": valid_len,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
+        "finite": bool(torch.isfinite(out.float()).all()),
+        "ms": cuda_ms(run, iters),
+        "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
+        "library_ms": cuda_ms(library, iters),
+        "port_unfused_ms": cuda_ms(port_unfused, iters),
+        "k1_alone_ms": cuda_ms(lambda: mha_qkv_attention(qkv, heads, valid_len=valid_len), iters),
+        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        "projection_bound_ms": proj_flops / PEAK_BF16_FLOPS * 1e3,
+    }
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+LNQKV_CASES = [
+    # (b, n, dim, heads, valid_len, iters)
+    (10, 1536, 768, 12, 1522, 50),  # the slide window batch: the fused path's shape
+    (2, 1100, 768, 6, 1050, 50),  # head dim 128
+    (1, 3968, 768, 12, None, 20),  # the largest N lnqkv_supported admits at D 768
+]
+
+
+def phase_kernel_lnqkv() -> list:
+    results = []
+    for case in LNQKV_CASES:
+        res = ln_qkv_attention_case(*case)
+        emit(res)
+        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
+                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
+            raise AssertionError(f"ln_qkv_attention disagrees with its plain version: {res}")
+        results.append(res)
+    return results  # the slide shape (the first) is the main path's
+
+
+FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
+
+
+def phase_lnqkv_path() -> dict:
+    """main_path's slide protocol with the fused LN + qkv + attention kernel
+    (DENSECLIP_FUSED_LNQKV=1, set here and unset on the way out)."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import ln_qkv_attention_reference
+
+    cfg = load_config(CONFIG)
+    crop, stride, window_batch = resolve_test_protocol(cfg)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    engine = Inferencer(model, texts, num_classes=19)
+    rs = np.random.RandomState(SEED)  # main_path's frames
+    frames = [rs.randint(0, 256, (1, 1024, 2048, 3), dtype=np.uint8) for _ in range(3)]
+    predict = lambda frame, fetch, mode="slide": engine.predict(
+        frame, mode=mode, crop=crop, stride=stride, window_batch=window_batch, fetch=fetch)
+    delta = lambda before: {k: v - before[k] for k, v in read_launches().items()}
+
+    torch.cuda.empty_cache()
+    previous = os.environ.get(FUSED_ENV)
+    os.environ[FUSED_ENV] = "1"
+    try:
+        predict(frames[0], "argmax")  # warm-up: cuDNN plans, the cached text tower
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [predict(f, fetch) for f, fetch in zip(frames, ("argmax", "packed", "argmax"))]
+        end.record()
+        torch.cuda.synchronize()
+        elapsed = start.elapsed_time(end) / 1e3
+        launches = read_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        fused_out = predict(frames[0], "device")
+        kernel_fn = layers.ln_qkv_attention
+        layers.ln_qkv_attention = ln_qkv_attention_reference  # K6's plain version, same frame
+        before = read_launches()
+        try:
+            plain_out = predict(frames[0], "device")
+        finally:
+            layers.ln_qkv_attention = kernel_fn
+        plain_launches = delta(before)
+        before = read_launches()
+        whole_fused = predict(frames[0], "device", mode="whole")
+        whole_launches = delta(before)
+        phase_profile(lambda f: predict(f, "argmax"), frames[:2], path="fused_lnqkv_serving")
+    finally:
+        if previous is None:
+            os.environ.pop(FUSED_ENV, None)
+        else:
+            os.environ[FUSED_ENV] = previous
+    before = read_launches()
+    unfused_out = predict(frames[0], "device")  # the K1 path: the variable unset
+    unfused_launches = delta(before)
+    whole_unfused = predict(frames[0], "device", mode="whole")
+
+    for out in outs:
+        for key in ("seg", "depth"):
+            arr = out[key]
+            if arr.shape != (1, 1024, 2048) or not np.isfinite(arr.astype(np.float32)).all():
+                raise AssertionError(f"bad {key}: shape {arr.shape}")
+        if not (0 <= out["seg"].min() and out["seg"].max() < 19):
+            raise AssertionError("seg labels out of range")
+    # the same unfused computation twice: equal up to any run-to-run order of the
+    # library kernels' sums
+    whole_diff = max(float((whole_fused[k].float() - whole_unfused[k].float()).abs().max())
+                     for k in ("seg_logits", "depth"))
+    whole_equal = max(rel_l2(whole_fused[k], whole_unfused[k]) for k in ("seg_logits", "depth")) <= 1e-6
+    res = {
+        "phase": "lnqkv_path", "config": CONFIG, "env": {FUSED_ENV: "1"}, "crop": crop,
+        "stride": stride, "window_batch": window_batch, "frames": len(frames),
+        "frame": [1024, 2048], "launches": launches,
+        "launches_per_frame": {k: v / len(frames) for k, v in launches.items()},
+        "img_per_s": len(frames) / elapsed, "ms_per_frame": elapsed / len(frames) * 1e3,
+        "peak_mem_gib": peak_gib,
+        "seg_rel_l2_vs_unfused": rel_l2(fused_out["seg_logits"], unfused_out["seg_logits"]),
+        "depth_rel_l2_vs_unfused": rel_l2(fused_out["depth"], unfused_out["depth"]),
+        "seg_rel_l2_vs_k6_plain": rel_l2(fused_out["seg_logits"], plain_out["seg_logits"]),
+        "depth_rel_l2_vs_k6_plain": rel_l2(fused_out["depth"], plain_out["depth"]),
+        "seg_argmax_agreement_vs_unfused": float(
+            (fused_out["seg"] == unfused_out["seg"]).float().mean()),
+        "k6_plain_run_launches": plain_launches, "unfused_run_launches": unfused_launches,
+        "whole_request": {"tokens": 8193, "launches": whole_launches,
+                          "equals_unfused": whole_equal, "max_abs_diff_vs_unfused": whole_diff},
+        "tol": PATH_TOL,
+    }
+    emit(res)
+    want = {k: 0 for k in launches}
+    if launches != dict(want, ln_qkv_attention=12 * len(frames)):
+        raise AssertionError(f"expected 12 ln_qkv_attention launches per frame and no other: "
+                             f"{launches}")
+    if plain_launches != want or unfused_launches != dict(want, qkv_attention=12):
+        raise AssertionError(f"the comparison runs took the wrong route: {res}")
+    if whole_launches != dict(want, qkv_attention=12) or not whole_equal:
+        raise AssertionError(f"the whole-frame request did not take the unfused K1 path: {res}")
+    if not max(res["seg_rel_l2_vs_unfused"], res["depth_rel_l2_vs_unfused"],
+               res["seg_rel_l2_vs_k6_plain"], res["depth_rel_l2_vs_k6_plain"]) <= PATH_TOL:
+        raise AssertionError(f"the fused path disagrees: {res}")
+    return res
+
+
+def phase_selftest() -> dict:
+    """The port's GPU self-test through its `main()`: every check must pass."""
+    import contextlib
+    import io
+
+    from denseclip_vit_multimodal_tpu_torch.tools.selftest import main as selftest_main
+
+    reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = selftest_main([])
+    launches = read_launches()
+    lines = buf.getvalue().splitlines()
+    res = {"phase": "selftest", "rc": rc, "lines": lines, "launches": launches}
+    emit(res)
+    if rc != 0 or "SELFTEST OK" not in lines or not launches["mha_attention"]:
+        raise AssertionError(f"the self-test failed: {res}")
+    return res
 
 
 SERVE_FRAMES = 3
@@ -1004,7 +1305,7 @@ def phase_serve_path() -> dict:
     emit(res)
     del kernel_out, plain_out, bf16_out
     want = {"qkv_attention_int8": 12, "qkv_attention": 0, "qkv_attention_bwd": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "mha_attention": 0, "ln_qkv_attention": 0}
     if any(r != want for r in per_request) or whole != want:
         raise AssertionError(f"expected {want} launches per request: {per_request}, whole {whole}")
     if not (whole_ok and paeth_ok and health["status"] == "ok" and bad_status == 400
@@ -1023,6 +1324,8 @@ def phase_serve_path() -> dict:
 
 
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("ln_qkv_attention (K6)", ("ln_qkv_",)),
+    ("mha_attention (K3)", ("mha_attention_kernel",)),
     ("qkv_attention_bwd (K2)", ("qkv_bwd_",)),
     ("qkv_attention_int8 (K5)", ("qkv_attention_int8_kernel",)),
     ("qkv_attention (K1)", ("qkv_attention_kernel",)),
@@ -1089,14 +1392,20 @@ def main() -> int:
     train_shape = phase_kernel_bwd()
     longest = phase_kernel_flash()[2]  # the aug-test scale 1.75 shape
     serving = phase_kernel_int8()[0]
+    oneshot = phase_kernel_oneshot()[0]
+    fused = phase_kernel_lnqkv()[0]
     main_res = phase_main_path()
+    lnqkv_res = phase_lnqkv_path()
     train_res = phase_train_path()
     eval_res = phase_eval_path()
     serve_res = phase_serve_path()
+    selftest_res = phase_selftest()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
-                            "int8_http_serving": serve_res["launches"][name]}
+                            "int8_http_serving": serve_res["launches"][name],
+                            "fused_lnqkv_serving": lnqkv_res["launches"][name],
+                            "selftest": selftest_res["launches"][name]}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
@@ -1115,6 +1424,10 @@ def main() -> int:
               eval_res["launches"]["flash_attention"]),
         entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586", serving,
               serve_res["launches"]["qkv_attention_int8"]),
+        entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
+              selftest_res["launches"]["mha_attention"]),
+        entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
+              lnqkv_res["launches"]["ln_qkv_attention"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

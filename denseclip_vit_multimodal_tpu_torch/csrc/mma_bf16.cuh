@@ -1,7 +1,6 @@
-// Warp-level bf16 tensor-core helpers shared by the attention kernels
-// (qkv_attention.cu, qkv_attention_bwd.cu).  ops/_build.py hashes this header
-// into the name of every library built from csrc/, so an edit here rebuilds
-// both.
+// Warp-level bf16 tensor-core helpers shared by the kernels under csrc/.
+// ops/_build.py hashes this header into the name of every library built
+// from csrc/, so an edit here rebuilds them all.
 //
 // Fragment layout of mma.sync m16n8k16 (g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (row g, cols 2t..2t+1), a1 (row g+8, cols 2t..),
@@ -65,6 +64,41 @@ __device__ __forceinline__ void load_b(uint32_t& b0, uint32_t& b1,
   const __nv_bfloat16* p = s + (n0 + g) * ld + k0 + 2 * t;
   b0 = ld_u32(p);
   b1 = ld_u32(p + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Four 8x8 bf16 matrices from shared memory (lane l addresses row l of the
+// four stacked matrices): the A fragment of a 16x16 tile, or the B
+// fragments of two 8-wide n-tiles of an N-major operand.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 }  // namespace dclip

@@ -14,7 +14,10 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.
     With `attn_impl="int8"` (the opt-in quantized serving path) non-causal
     sequences of at most 8448 tokens on CUDA take the int8 kernel (K5)
-    instead, and everything else the `auto` rules.
+    instead, and everything else the `auto` rules.  With
+    `DENSECLIP_FUSED_LNQKV=1` the block's LayerNorm, the qkv projection and
+    the attention run as one kernel (`ops/lnqkv_kernel.py`, K6) on the
+    inference path, where the rule below holds.
   * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
@@ -35,6 +38,7 @@ streams either: a forward is deterministic unless it is handed a generator.
 from __future__ import annotations
 
 import math
+import os
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -49,6 +53,7 @@ from denseclip_vit_multimodal_tpu_torch.ops.attention import (
     flash_supported,
     plain_attention,
 )
+from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import ln_qkv_attention, lnqkv_supported
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     mha_qkv_attention,
     mha_qkv_attention_int8,
@@ -236,19 +241,52 @@ class MultiHeadAttention(nn.Module):
         self.qkv = Linear(dim, 3 * dim, dtype=dtype, kernel_init=xavier, gen=gen)
         self.out = Linear(dim, dim, dtype=dtype, kernel_init=xavier, gen=gen)
 
-    def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int) -> bool:
+    def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int,
+                               dtype: Optional[torch.dtype] = None) -> bool:
+        """`dtype`: the compute dtype the kernel would see (default qkv's)."""
         if self.attn_impl == ATTN_XLA or self.causal:
             return False
         n = qkv.shape[1]
         if self.attn_impl == ATTN_INT8:  # no 1024-token floor, any dtype K5 writes
             regime = _attention._on_cuda(qkv) and n <= _ONESHOT_MAX_SEQ
         else:
-            regime = (_attention._on_cuda(qkv) and qkv.dtype == torch.bfloat16
+            regime = (_attention._on_cuda(qkv) and (dtype or qkv.dtype) == torch.bfloat16
                       and _FLASH_MIN_SEQ <= n <= _ONESHOT_MAX_SEQ)
         return regime and qkv_supported(self.num_heads, dim)
 
-    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None) -> torch.Tensor:
+    def _lnqkv_applicable(self, x: torch.Tensor, dim: int) -> bool:
+        """The JAX rule for the fused LN + qkv + attention kernel (K6), read
+        on every call: `DENSECLIP_FUSED_LNQKV=1`, not causal (the qkv
+        projection always has a bias here), K1's regime for the attn_impl
+        (under `int8` that is K6 at any N up to 8448, unquantized: JAX checks
+        the fused branch first), `qkv_supported` and `lnqkv_supported` at N.
+        K6 takes bf16 only where it runs, on a CUDA tensor; a CPU tensor (the
+        tests patch `_on_cuda`) runs its plain version, which takes fp32 too.
+        The JAX package keeps the fusion opt-in: it lost 7% end to end on a
+        TPU v5e."""
+        if os.environ.get("DENSECLIP_FUSED_LNQKV", "0") != "1" or self.causal:
+            return False
+        if x.is_cuda and self.qkv.compute_dtype != torch.bfloat16:
+            return False
+        return (self._qkv_kernel_applicable(x, dim, torch.bfloat16)
+                and lnqkv_supported(self.num_heads, dim, n=x.shape[1]))
+
+    def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
+                pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
+                ) -> torch.Tensor:
+        """Self-attention.  `pre_ln=(scale, bias, eps)` hands the preceding
+        LayerNorm's affine parameters in unapplied, so that K6 can serve the
+        whole chain; where it does not, the norm is applied here and the
+        other routes follow.  The parameters are the same either way."""
         b, n, dim = x.shape
+        if pre_ln is not None:
+            ln_scale, ln_bias, ln_eps = pre_ln
+            if self._lnqkv_applicable(x, dim):
+                out = ln_qkv_attention(x.to(self.qkv.compute_dtype), ln_scale, ln_bias,
+                                       self.qkv.weight.t(), self.qkv.bias, self.num_heads,
+                                       eps=ln_eps, valid_len=valid_len)
+                return self.out(out)
+            x = layer_norm_apply(x, ln_scale, ln_bias, ln_eps).to(self.qkv.compute_dtype)
         qkv = self.qkv(x)
         if self._qkv_kernel_applicable(qkv, dim):
             attn = mha_qkv_attention_int8 if self.attn_impl == ATTN_INT8 else mha_qkv_attention
@@ -303,7 +341,10 @@ class ResidualAttentionBlock(nn.Module):
     """Pre-LN transformer block: LN, attention, residual; LN, MLP, residual.
 
     With a generator each residual branch goes through `drop_path` at
-    `drop_path_rate` (the JAX block's training branch).
+    `drop_path_rate` (the JAX block's training branch).  Without one (the
+    JAX block's `deterministic`, inference) a non-causal block hands ln_1's
+    parameters to the attention unapplied, so that the fused kernel (K6)
+    can serve LN + qkv + attention where its rule holds.
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
@@ -320,7 +361,11 @@ class ResidualAttentionBlock(nn.Module):
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
                 drop_path_rate: float = 0.0, gen: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
-        attn_out = self.attn(self.ln_1(x).to(self.dtype), valid_len=valid_len)
+        if gen is None and not self.attn.causal:
+            attn_out = self.attn(x, valid_len=valid_len,
+                                 pre_ln=(self.ln_1.weight, self.ln_1.bias, self.ln_1.epsilon))
+        else:
+            attn_out = self.attn(self.ln_1(x).to(self.dtype), valid_len=valid_len)
         x = x + drop_path(attn_out, drop_path_rate, gen)
         return x + drop_path(self.mlp(self.ln_2(x).to(self.dtype)), drop_path_rate, gen)
 

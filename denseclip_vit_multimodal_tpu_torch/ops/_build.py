@@ -28,8 +28,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Every kernel source (csrc/<name>.cu): K1, K2, K4, K5.
-SOURCES = ("qkv_attention", "qkv_attention_bwd", "flash_attention", "qkv_attention_int8")
+# Every kernel source (csrc/<name>.cu): K1, K2, K4, K5, K3, K6.
+SOURCES = ("qkv_attention", "qkv_attention_bwd", "flash_attention", "qkv_attention_int8",
+           "mha_attention", "ln_qkv_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc and its -Xptxas -v report, per library built in this

@@ -6,12 +6,16 @@ sends non-causal sequences of at most 8448 tokens to its one-shot kernel
 longer: the 1.25 / 1.5 / 1.75 scales of multi-scale evaluation) to the
 bundled Pallas flash kernel (K4).  Here:
 
-* `flash_attention` follows the same dispatch.  The K3 branch keeps plain
-  attention (`plain_attention`) until K3 is ported.  The K4 branch launches
-  `csrc/flash_attention.cu` for a CUDA tensor, or raises on anything the
-  kernel does not take; for a tensor on the CPU it runs the plain version.
-  q / k / v may be strided views (the split of the fused qkv projection,
-  row stride 3*H*D): the kernel reads them by stride, with no copy.
+* `flash_attention` follows the same dispatch.  The K3 branch runs
+  `ops/mha_kernel.py::mha_attention`: K3 (`csrc/mha_attention.cu`) for
+  CUDA tensors, its plain version for CPU tensors; while autograd records,
+  it takes plain attention (`plain_attention`), since K3's backward is not
+  ported.  The K4 branch launches `csrc/flash_attention.cu` for a CUDA
+  tensor, or raises on anything the kernel does not take; for a tensor on
+  the CPU it runs the plain version.  At head dim 256, which K4 does not
+  take yet, it keeps plain attention.  q / k / v may be strided views (the
+  split of the fused qkv projection, row stride 3*H*D): both kernels read
+  them by stride, with no copy.
 * `flash_attention_reference` is the plain PyTorch version of K4 with the
   bundled kernel's rounding points (see the CUDA source), one head at a time
   and chunked over query rows, so that it runs at N = 25216 without a
@@ -28,9 +32,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
+
+from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+    bnhd_strides,
+    check_bnhd,
+    mha_attention,
+)
 
 # Below this sequence length plain attention serves (JAX package
 # `_FLASH_MIN_SEQ`); non-causal sequences up to `_ONESHOT_MAX_SEQ` take the
@@ -50,23 +60,10 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def flash_supported(q: torch.Tensor) -> bool:
-    """Whether the flash path serves `q` [B, N, H, D]: CUDA, bf16 (K4's one
-    dtype), N >= 1024, head dim 64 or 128 (the JAX rule also allows 256;
-    K4 does not take it yet)."""
+    """Whether the flash path serves `q` [B, N, H, D]: CUDA, bf16 (the
+    kernels' one dtype), N >= 1024, head dim 64, 128 or 256 (the JAX rule)."""
     return (_on_cuda(q) and q.dtype == torch.bfloat16 and q.shape[1] >= _FLASH_MIN_SEQ
-            and q.shape[-1] in (64, 128))
-
-
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           valid_len: Optional[int]) -> Tuple[int, int]:
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must all be [B, N, H, D], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    n = q.shape[1]
-    kv_len = n if valid_len is None else int(valid_len)
-    if not 1 <= kv_len <= n:
-        raise ValueError(f"valid_len {valid_len} outside [1, {n}]")
-    return n, kv_len
+            and q.shape[-1] in (64, 128, 256))
 
 
 def plain_attention(
@@ -112,7 +109,7 @@ def flash_attention_reference(
     exp(s - max) in fp32, rounded to the input dtype for P V with fp32
     accumulation; one division by the fp32 row sum.
     """
-    n, kv_len = _check(q, k, v, valid_len)
+    n, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     dtype = q.dtype
     out = torch.empty(q.shape, dtype=dtype, device=q.device)
@@ -145,21 +142,12 @@ def _kernel_fn():
     return fn
 
 
-def _strides(x: torch.Tensor, what: str) -> Tuple[int, int, int]:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the flash attention kernel takes bfloat16 {what}, got {x.dtype}")
-    sb, sn, sh, sd = x.stride()
-    if sd != 1 or x.data_ptr() % 16 or any(s % 8 for s in (sb, sn, sh)):
-        raise ValueError(f"the flash attention kernel takes a {what} with unit stride over the "
-                         "head dim, 16-byte aligned, and other strides multiples of 8 elements")
-    return sb, sn, sh
-
-
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
             kv_len: int) -> torch.Tensor:
     """K4 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output."""
     b, n, heads, d = q.shape
-    strides = [s for x, what in ((q, "q"), (k, "k"), (v, "v")) for s in _strides(x, what)]
+    strides = [s for x, what in ((q, "q"), (k, "k"), (v, "v"))
+               for s in bnhd_strides(x, what, "flash attention")]
     if d not in (64, 128):
         raise ValueError(f"the flash attention kernel takes head dim 64 or 128, got {d}")
     if not (q.device == k.device == v.device):
@@ -187,15 +175,21 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention on q / k / v [B, N, H, D] -> [B, N, H, D].  Exact, any N.
 
-    Dispatch (the JAX package's): causal, or N > 8448 -> K4; otherwise the
-    K3 branch, which is plain attention until K3 is ported.  `valid_len`
-    masks trailing pad keys; output rows [valid_len, N) are unspecified.
-    Inference only: K4 has no backward yet.
+    Dispatch (the JAX package's): non-causal N <= 8448 -> the K3 branch
+    (`mha_attention`; plain attention while autograd records, until K3's
+    backward is ported); causal, or N > 8448 -> K4 (plain attention at head
+    dim 256, which K4 does not take yet).  `valid_len` masks trailing pad
+    keys; output rows [valid_len, N) are unspecified.  The K4 branch is
+    inference only: K4 has no backward yet.
     """
-    n, kv_len = _check(q, k, v, valid_len)
+    n, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if not causal and n <= _ONESHOT_MAX_SEQ:
-        return plain_attention(q, k, v, False, valid_len, sm_scale=scale)
+        if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+            return plain_attention(q, k, v, False, valid_len, sm_scale=scale)
+        return mha_attention(q, k, v, sm_scale=scale, valid_len=kv_len)
+    if q.shape[-1] == 256:
+        return plain_attention(q, k, v, causal, valid_len, sm_scale=scale)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, sm_scale=scale,
                                          valid_len=kv_len)

@@ -19,7 +19,18 @@ its bound on an H100.
   rounding points (those of the JAX `_bwd_kernel`; see the CUDA source).
 * `LAUNCHES` counts kernel launches (never plain calls): "qkv_attention"
   for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
-  "qkv_attention_int8" for K5.
+  "qkv_attention_int8" for K5, "mha_attention" for K3.
+
+The one-shot attention on [B, N, H, D] ports the JAX `mha_attention` and its
+TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
+code in `csrc/attention_fwd.cuh`):
+
+* `mha_attention` launches K3 for CUDA tensors, reading q / k / v by stride
+  (views of the fused projection need no copy), or raises on anything the
+  kernel does not take; for CPU tensors it runs `mha_attention_reference`.
+  Inference only: K3's backward (K2's function on this layout) is not
+  ported, so it raises when autograd records it.
+* `mha_attention_reference` has K3's rounding points, which are K1's.
 
 The opt-in int8 serving path (`tpu.attn_impl: int8`) ports the JAX
 `mha_qkv_attention_int8` and its TPU kernel `_qkv_int8_kernel` (K5,
@@ -47,7 +58,9 @@ import torch
 _LANE = 128
 _LOG2E = 1.4426950408889634
 
-LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0}
+LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
+                            "mha_attention": 0}
+_REF_CHUNK = 4096  # query rows per step of the one-shot kernels' plain versions
 # K5 accumulates P V in int32: at most this many keys of p8 <= 127 times |v8| <= 128
 INT8_MAX_KEYS = (2**31 - 1) // (127 * 128)
 _INT8_CHUNK = 4096  # query rows per step of the int8 plain version
@@ -76,6 +89,32 @@ def _kv_len(valid_len: Optional[int], n: int) -> int:
     return kv_len
 
 
+def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len: int) -> torch.Tensor:
+    """The one-shot kernels' attention in plain PyTorch, on a q already
+    multiplied by scale * log2 e and rounded to its dtype.
+
+    q, k, v [B, N, H, D] (strided views welcome) -> [B, N, H, D] in q's
+    dtype: fp32 scores against the first `kv_len` keys (the kernels mask the
+    rest), exp2 softmax, P rounded to q's dtype for P V with fp32
+    accumulation, one division by the fp32 row sum.  One head and at most
+    `_REF_CHUNK` query rows at a time bound the fp32 scores.
+    """
+    b, n, heads, d = q.shape
+    dtype = q.dtype
+    out = torch.empty(b, n, heads, d, dtype=dtype, device=q.device)
+    for h in range(heads):
+        kh, vh = k[:, :kv_len, h].float(), v[:, :kv_len, h].float()
+        for r0 in range(0, n, _REF_CHUNK):
+            r1 = min(r0 + _REF_CHUNK, n)
+            s = q[:, r0:r1, h].float() @ kh.transpose(-1, -2)
+            p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+            denom = p.sum(dim=-1, keepdim=True)
+            o = p.to(dtype).float() @ vh
+            out[:, r0:r1, h] = (o / denom).to(dtype)
+    return out
+
+
 def mha_qkv_attention_reference(
     qkv: torch.Tensor,
     num_heads: int,
@@ -87,19 +126,9 @@ def mha_qkv_attention_reference(
     b, n, hd, d = _split_shape(qkv, num_heads)
     kv_len = _kv_len(valid_len, n)
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
-    dtype = qkv.dtype
-    to_heads = lambda x: x.reshape(b, n, num_heads, d).transpose(1, 2)
-    q, k, v = (to_heads(x) for x in qkv.split(hd, dim=-1))
-    q = (q.float() * (scale * _LOG2E)).to(dtype)
-    k, v = k[:, :, :kv_len], v[:, :, :kv_len]  # keys >= valid_len are masked
-    out = torch.empty(b, n, num_heads, d, dtype=dtype, device=qkv.device)
-    for h in range(num_heads):  # one head at a time bounds the fp32 scores
-        s = q[:, h].float() @ k[:, h].float().transpose(-1, -2)
-        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        denom = p.sum(dim=-1, keepdim=True)
-        o = p.to(dtype).float() @ v[:, h].float()
-        out[:, :, h] = (o / denom).to(dtype)
-    return out.reshape(b, n, hd)
+    q, k, v = (x.view(b, n, num_heads, d) for x in qkv.split(hd, dim=-1))
+    q = (q.float() * (scale * _LOG2E)).to(qkv.dtype)
+    return attention_prescaled(q, k, v, kv_len).reshape(b, n, hd)
 
 
 def mha_qkv_attention_bwd_reference(
@@ -151,6 +180,9 @@ def _kernel_fn(name: str):
     if name == "qkv_attention":
         fn = load_library("qkv_attention").qkv_attention_bf16
         fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
+    elif name == "mha_attention":
+        fn = load_library("mha_attention").mha_attention_bf16
+        fn.argtypes = [ptr] * 4 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
     elif name == "qkv_attention_int8":
         fn = load_library("qkv_attention_int8").qkv_attention_int8
         fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
@@ -274,6 +306,101 @@ def mha_qkv_attention(
     if qkv.device.type != "cuda":
         raise ValueError(f"no qkv attention for device {qkv.device}")
     return _launch(qkv, num_heads, scale, kv_len)[0]
+
+
+# --------------------------------------------------------------------------
+# One-shot attention on [B, N, H, D] (K3)
+# --------------------------------------------------------------------------
+
+
+def check_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               valid_len: Optional[int]) -> Tuple[int, int]:
+    """(N, kv_len) of q / k / v [B, N, H, D] of one shape, or ValueError."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must all be [B, N, H, D], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    n = q.shape[1]
+    return n, _kv_len(valid_len, n)
+
+
+def bnhd_strides(x: torch.Tensor, what: str, kernel: str) -> Tuple[int, int, int]:
+    """The batch / token / head strides (elements) of a [B, N, H, D] operand
+    that the strided kernels (K3, K4) read, or TypeError / ValueError."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the {kernel} kernel takes bfloat16 {what}, got {x.dtype}")
+    sb, sn, sh, sd = x.stride()
+    if sd != 1 or x.data_ptr() % 16 or any(s % 8 for s in (sb, sn, sh)):
+        raise ValueError(f"the {kernel} kernel takes a {what} with unit stride over the "
+                         "head dim, 16-byte aligned, and other strides multiples of 8 elements")
+    return sb, sn, sh
+
+
+def mha_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    valid_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3; [B, N, H, D] -> [B, N, H, D] in q's dtype.
+
+    K3's rounding points (the JAX `_kernel`): q * (scale * log2 e) rounded to
+    the input dtype (the constant kept in fp32, as for K1), fp32 scores,
+    keys at or beyond `valid_len` masked, exp2 softmax, P rounded to the
+    input dtype for P V with fp32 accumulation, one division.
+    """
+    _, kv_len = check_bnhd(q, k, v, valid_len)
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
+    return attention_prescaled(qs, k, v, kv_len)
+
+
+def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                kv_len: int) -> torch.Tensor:
+    """K3 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output."""
+    b, n, heads, d = q.shape
+    strides = [s for x, what in ((q, "q"), (k, "k"), (v, "v"))
+               for s in bnhd_strides(x, what, "one-shot attention")]
+    if d not in (64, 128, 256):
+        raise ValueError(f"the one-shot attention kernel takes head dim 64, 128 or 256, got {d}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    fn = _kernel_fn("mha_attention")
+    out = torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+                 b, n, heads, d, kv_len, scale * _LOG2E, stream)
+    if err != 0:
+        raise RuntimeError(f"one-shot attention kernel launch failed: cudaError {err}")
+    LAUNCHES["mha_attention"] += 1
+    return out
+
+
+def mha_attention(
+    q: torch.Tensor,  # [B, N, H, D]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    valid_len: Optional[int] = None,
+) -> torch.Tensor:
+    """One-shot attention; [B, N, H, D] in and out.  Exact, any N.
+
+    Keys at or beyond `valid_len` (None: N) are masked; output rows past it
+    are computed against the valid keys and left to the caller.  Inference
+    only: K3's backward is not ported.
+    """
+    _, kv_len = check_bnhd(q, k, v, valid_len)
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise NotImplementedError("the one-shot attention kernel's backward (K3) is not ported")
+    if q.device.type == "cpu":
+        return mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"no one-shot attention for device {q.device}")
+    return _launch_mha(q, k, v, scale, kv_len)
 
 
 # --------------------------------------------------------------------------

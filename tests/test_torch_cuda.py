@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.models.layers import MultiHeadAttention
-from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
+from denseclip_vit_multimodal_tpu_torch.ops import attention, lnqkv_kernel, mha_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -240,3 +240,111 @@ def test_int8_attention_dispatch(cuda, n, causal, dtype, int8_launches, flash_la
     assert mha_kernel.LAUNCHES["qkv_attention_int8"] - before[0] == int8_launches
     assert mha_kernel.LAUNCHES["qkv_attention"] == before[1]  # never K1 under int8
     assert attention.LAUNCHES["flash_attention"] - before[2] == flash_launches
+
+
+def _strided_bnhd(b, n, heads, d, seed, strided):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if strided:  # views of a fused qkv projection (row stride 3*H*D)
+        qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+        return [t.view(b, n, heads, d) for t in qkv.split(heads * d, dim=-1)]
+    return [torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,strided", [
+    (10, 1536, 12, 64, 1522, True),  # chip_smoke.py's shapes
+    (2, 1601, 12, 64, None, False),
+    (2, 1100, 8, 128, 1050, True),
+    (2, 2048, 3, 256, None, False),
+    (1, 77, 2, 256, 70, True),  # ragged, head dim 256
+])
+def test_oneshot_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, strided):
+    """K3 through `mha_attention` against its plain version (rows below
+    `valid_len`; pad rows finite)."""
+    q, k, v = _strided_bnhd(b, n, heads, d, 6, strided)
+    before = mha_kernel.LAUNCHES["mha_attention"]
+    out = mha_kernel.mha_attention(q, k, v, valid_len=valid_len)
+    ref = mha_kernel.mha_attention_reference(q, k, v, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["mha_attention"] == before + 1
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert torch.isfinite(out.float()).all()
+    rows = n if valid_len is None else valid_len
+    err = out[:, :rows].float() - ref[:, :rows].float()
+    assert float(err.abs().max()) <= KERNEL_TOL
+    assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
+    assert float(err.abs().mean()) <= 5e-4
+
+
+def _lnqkv_inputs(b, n, dim, seed):
+    """x and ln_1 / qkv parameters at the scale of a seeded init."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(b, n, dim, generator=gen, device="cuda").to(torch.bfloat16)
+    gamma = 1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    limit = (6.0 / (4 * dim)) ** 0.5  # xavier-uniform of a [D, 3D] kernel
+    w = ((torch.rand(3 * dim, dim, generator=gen, device="cuda") * 2 - 1) * limit)
+    bias = 0.02 * torch.randn(3 * dim, generator=gen, device="cuda")
+    return x, gamma, beta, w.to(torch.bfloat16).t(), bias  # W [D, 3D] as a transposed view
+
+
+@pytest.mark.parametrize("b,n,dim,heads,valid_len", [
+    (10, 1536, 768, 12, 1522),  # chip_smoke.py's shapes
+    (2, 1100, 768, 6, 1050),
+    (1, 3968, 768, 12, None),
+    (3, 130, 256, 4, 129),  # ragged rows of x
+])
+def test_lnqkv_kernel_matches_plain_version(cuda, b, n, dim, heads, valid_len):
+    x, gamma, beta, w, bias = _lnqkv_inputs(b, n, dim, 7)
+    before = lnqkv_kernel.LAUNCHES["ln_qkv_attention"]
+    out = lnqkv_kernel.ln_qkv_attention(x, gamma, beta, w, bias, heads, valid_len=valid_len)
+    ref = lnqkv_kernel.ln_qkv_attention_reference(x, gamma, beta, w, bias, heads,
+                                                   valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert lnqkv_kernel.LAUNCHES["ln_qkv_attention"] == before + 1
+    assert out.shape == ref.shape == (b, n, dim) and out.dtype == torch.bfloat16
+    assert torch.isfinite(out.float()).all()
+    rows = n if valid_len is None else valid_len
+    err = out[:, :rows].float() - ref[:, :rows].float()
+    assert float(err.abs().max()) <= KERNEL_TOL
+    assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
+    assert float(err.abs().mean()) <= 5e-4
+
+
+def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):
+    q, k, v = _strided_bnhd(1, 64, 2, 64, 8, False)
+    with pytest.raises(TypeError):
+        mha_kernel.mha_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):
+        h32 = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
+        mha_kernel.mha_attention(h32, h32, h32)  # head dim 32
+    with pytest.raises(NotImplementedError):
+        mha_kernel.mha_attention(q.requires_grad_(True), k, v)
+    x, gamma, beta, w, bias = _lnqkv_inputs(1, 64, 256, 9)
+    with pytest.raises(TypeError):
+        lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4)
+    with pytest.raises(ValueError):
+        lnqkv_kernel.ln_qkv_attention(x, gamma, beta, w, bias, 8)  # head dim 32
+
+
+@pytest.mark.parametrize("n,impl,fused,lnqkv_launches,qkv_launches,int8_launches", [
+    (1536, "auto", "1", 1, 0, 0),  # the fused kernel replaces K1
+    (1536, "auto", "0", 0, 1, 0),  # opt-in: off by default
+    (8320, "auto", "1", 0, 1, 0),  # beyond lnqkv_supported: the unfused K1 route
+    (300, "int8", "1", 1, 0, 0),  # under int8 the fused branch comes first
+])
+def test_fused_block_launch_counts(cuda, monkeypatch, n, impl, fused, lnqkv_launches,
+                                   qkv_launches, int8_launches):
+    from denseclip_vit_multimodal_tpu_torch.models.layers import ResidualAttentionBlock
+
+    monkeypatch.setenv("DENSECLIP_FUSED_LNQKV", fused)
+    blk = ResidualAttentionBlock(768, 12, attn_impl=impl, dtype=torch.bfloat16).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, n, 768).astype(np.float32))
+    before = (lnqkv_kernel.LAUNCHES["ln_qkv_attention"], mha_kernel.LAUNCHES["qkv_attention"],
+              mha_kernel.LAUNCHES["qkv_attention_int8"])
+    with torch.inference_mode():
+        out = blk(x.to(cuda, torch.bfloat16), valid_len=n - 3)
+    assert torch.isfinite(out.float()).all()
+    assert lnqkv_kernel.LAUNCHES["ln_qkv_attention"] - before[0] == lnqkv_launches
+    assert mha_kernel.LAUNCHES["qkv_attention"] - before[1] == qkv_launches
+    assert mha_kernel.LAUNCHES["qkv_attention_int8"] - before[2] == int8_launches

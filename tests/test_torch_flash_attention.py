@@ -66,8 +66,8 @@ def test_plain_k4_honours_sm_scale_and_chunking(monkeypatch):
 
 
 @pytest.mark.parametrize("n,causal,route", [
-    (8448, False, "plain"),  # the K3 branch: plain attention until K3 is ported
-    (2049, False, "plain"),
+    (8448, False, "k3"),  # the K3 branch (tests/test_torch_oneshot_attention.py)
+    (2049, False, "k3"),
     (8449, False, "k4"),
     (12928, False, "k4"),
     (1100, True, "k4"),  # causal: K4 at any N
@@ -81,6 +81,8 @@ def test_flash_attention_dispatch(n, causal, route, monkeypatch):
                         lambda q, *a, **kw: calls.append("plain") or q.clone())
     monkeypatch.setattr(attention, "flash_attention_reference",
                         lambda q, *a, **kw: calls.append("k4") or q.clone())
+    monkeypatch.setattr(attention, "mha_attention",
+                        lambda q, *a, **kw: calls.append("k3") or q.clone())
     q = torch.zeros(1, n, 1, 64)
     attention.flash_attention(q, q, q, causal=causal, valid_len=n - 1)
     assert calls == [route]

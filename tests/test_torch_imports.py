@@ -90,3 +90,31 @@ def test_serving_png_needs_no_pillow_or_matplotlib():
 def test_chip_smoke_imports_no_jax():
     roots = {n.split(".")[0] for n in _imported_roots(ROOT / "chip_smoke.py")}
     assert not roots & set(FORBIDDEN), roots
+
+
+def test_every_kernel_source_is_built():
+    """`build_all` compiles every CUDA source of the port (K1, K2, K4, K5, K3,
+    K6), and every name it builds has a source; nothing is built on import."""
+    from denseclip_vit_multimodal_tpu_torch.ops import _build
+
+    sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
+    assert set(_build.SOURCES) == sources
+    assert {"mha_attention", "ln_qkv_attention"} <= sources
+    assert not _build._LIBS
+
+
+@pytest.mark.parametrize("module", ["ops.lnqkv_kernel", "tools.selftest"])
+def test_new_modules_import_without_jax_or_a_gpu(module):
+    """The fused kernel's wrapper and the self-test import on a machine with
+    neither JAX nor a card (nothing is compiled at import)."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('denseclip_vit_multimodal_tpu_torch.{module}')\n"
+        "assert not any(m.split('.')[0] in {'jax', 'jaxlib', 'flax'} for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
