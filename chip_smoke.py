@@ -78,7 +78,36 @@ phases that each print one JSON line:
                   version; a `mode=whole` request (8193 tokens: the rule
                   sends it to K1) equal to its unfused answer; a profile;
  16. selftest   — the port's GPU self-test (`tools/selftest.py`), whose
-                  checks must all pass.
+                  checks must all pass;
+ 17. kernel_oneshot_bwd — K3's backward against its plain version on K3's
+                  output and statistics, per gradient, at the heritage
+                  training shape [8,1664,12,64] valid 1601 (views of a fused
+                  qkv) and at head dim 128, with kernel / plain / SDPA
+                  backward / bound times;
+ 18. kernel_flash_bwd — K4b (the flash backward) the same way at the long
+                  training shape [2,9344,12,64] valid 9217, a causal case and
+                  a ragged head-dim-128 case; dq of pad rows and dk / dv of
+                  pad keys held to exactly 0;
+ 19. train_long — the heritage preset at full width through the user entry
+                  point `train()` on a 1536x1536 crop (9217 tokens, padded
+                  to 9344: past the one-shot limit), batch 2: 1 warm-up + 3
+                  timed steps with `tpu.remat=false`, the same with
+                  `tpu.remat=true`, and one step with plain attention (under
+                  remat: its fp32 scores take 8.4 GB a layer); ms/step,
+                  samples/s, peak memory, K4 / K4b launches per step; the
+                  step-1 losses held against each other; then one step's
+                  backbone gradients on fixed weights, batch and masks:
+                  remat against none, the kernels (K4b) against plain
+                  attention and fp32; what a rerun of the step moves and
+                  which ops PyTorch names nondeterministic; a profile of one
+                  step;
+ 20. outproj_path — the port's `tools/exp_outproj_epilogue.py` `main()`: K7
+                  against its plain version and against path A (K1 +
+                  matmul), the interleaved A / B / A2 / B2 times and the
+                  verdict; K7's plain time and bound;
+ 21. profile_attn_bwd — the port's `tools/profile_attn_bwd.py` `main()` at
+                  [8,12,1601,64]: K3, K3's backward, the autograd of plain
+                  attention and SDPA's backward.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -88,6 +117,7 @@ phase fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import os
 import struct
@@ -146,12 +176,16 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def launch_tables():
-    """Every kernel wrapper's launch counter (K1 / K2 / K5 / K3, K4, K6)."""
+    """Every kernel wrapper's launch counter (K1 / K2 / K5 / K3 / K3's
+    backward, K4 / K4b, K6, K7)."""
     from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES as FLASH_LAUNCHES
     from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import LAUNCHES as LNQKV_LAUNCHES
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import LAUNCHES
+    from denseclip_vit_multimodal_tpu_torch.tools.exp_outproj_epilogue import (
+        LAUNCHES as OUTPROJ_LAUNCHES,
+    )
 
-    return LAUNCHES, FLASH_LAUNCHES, LNQKV_LAUNCHES
+    return LAUNCHES, FLASH_LAUNCHES, LNQKV_LAUNCHES, OUTPROJ_LAUNCHES
 
 
 def reset_launches() -> None:
@@ -164,9 +198,33 @@ def read_launches() -> dict:
     return {k: v for table in launch_tables() for k, v in table.items()}
 
 
+def expected_launches(**counts) -> dict:
+    """Every counter at 0 but the ones named."""
+    return {**{k: 0 for k in read_launches()}, **counts}
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return float((a - b).norm() / b.norm())
+
+
+def grad_errors(res: dict, got, ref, rows: int, keys: int) -> dict:
+    """Per-gradient errors of (dq, dk, dv): dq on rows < `rows`, dk / dv on
+    keys < `keys`, into `res`; the largest max abs error in `res`."""
+    for part, a, w, lim in zip(("dq", "dk", "dv"), got, ref, (rows, keys, keys)):
+        a, w = a[:, :lim].float(), w[:, :lim].float()
+        err = (a - w).abs()
+        res[part] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
+                     "rel_l2_err": rel_l2(a, w), "max_abs_ref": float(w.abs().max())}
+    res["max_abs_err"] = max(res[p]["max_abs_err"] for p in ("dq", "dk", "dv"))
+    return res
+
+
+def grads_out_of_limits(res: dict) -> list:
+    """The gradients that break K2's limits (KERNEL_BWD_REL_TOL / _MAX_TOL)."""
+    return [p for p in ("dq", "dk", "dv")
+            if not (res[p]["rel_l2_err"] <= KERNEL_BWD_REL_TOL
+                    and res[p]["max_abs_err"] <= KERNEL_BWD_MAX_TOL * res[p]["max_abs_ref"])]
 
 
 def phase_device() -> str:
@@ -285,11 +343,7 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
            "heads": heads, "head_dim": head_dim, "valid_len": valid_len,
            "finite": bool(torch.isfinite(got.float()).all()),
            "masked_dkdv_exact_zero": bool((got[:, kv:, hd:] == 0).all())}
-    for i, part in enumerate(("dq", "dk", "dv")):
-        a, w = got[..., i * hd:(i + 1) * hd].float(), ref[..., i * hd:(i + 1) * hd].float()
-        err = (a - w).abs()
-        res[part] = {"max_abs_err": float(err.max()), "mean_abs_err": float(err.mean()),
-                     "rel_l2_err": rel_l2(a, w), "max_abs_ref": float(w.abs().max())}
+    grad_errors(res, got.split(hd, dim=-1), ref.split(hd, dim=-1), n, n)
     # the library yardstick: the backward of one fused-attention call on
     # head-split copies (timed only; the port never calls it)
     q, k, v = (t.reshape(b, n, heads, head_dim).transpose(1, 2).contiguous()
@@ -307,7 +361,6 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
     res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-    res["max_abs_err"] = max(res[p]["max_abs_err"] for p in ("dq", "dk", "dv"))
     return res
 
 
@@ -324,9 +377,7 @@ def phase_kernel_bwd() -> dict:
     for b, n, heads, d, valid_len, iters in BWD_CASES:
         res = qkv_attention_bwd_case(b, n, heads, d, valid_len, iters)
         emit(res)
-        bad = [p for p in ("dq", "dk", "dv")
-               if not (res[p]["rel_l2_err"] <= KERNEL_BWD_REL_TOL
-                       and res[p]["max_abs_err"] <= KERNEL_BWD_MAX_TOL * res[p]["max_abs_ref"])]
+        bad = grads_out_of_limits(res)
         if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]):
             raise AssertionError(f"qkv_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
@@ -518,6 +569,45 @@ TRAIN_TOL = 5e-2
 TRAIN_GRAD_RATIO = 1.25
 
 
+def step_grads(net, batch: dict, texts, crop, seed: int):
+    """One training step's forward and backward on fixed weights, an
+    augmented batch and the drop-path / dropout masks of `seed`: the total
+    loss, the backbone's gradients of the segmentation loss and of the total
+    loss (flat fp32), and every leaf's gradient of the total loss by name."""
+    from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss, silog_loss
+
+    net.zero_grad(set_to_none=True)
+    out = net(batch["image"], texts, train=True, gt_hw=crop,
+              gen=torch.Generator(device="cuda").manual_seed(seed))
+    seg = cross_entropy_loss(out["seg"], batch["seg"])
+    silog = 0.1 * silog_loss(out["depth"], batch["depth"], batch["depth_mask"])
+    grads = lambda: torch.cat([p.grad.float().flatten() for p in net.backbone.parameters()
+                               if p.grad is not None])  # `proj` is unused
+    seg.backward(retain_graph=True)
+    seg_grads = grads()
+    silog.backward()
+    leaves = {name: p.grad.float().clone() for name, p in net.named_parameters()
+              if p.grad is not None}
+    total = float((seg + silog).detach())
+    net.zero_grad(set_to_none=True)
+    return total, seg_grads, torch.cat([g.flatten() for name, g in leaves.items()
+                                        if name.startswith("backbone.")]), leaves
+
+def fp32_twin(model, model_cfg, seed: int, remat=False):
+    """`model`'s weights in an fp32 model (plain attention: the kernels take
+    bf16), trainable where `model` is."""
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+
+    twin, _ = build_denseclip(model_cfg, CITYSCAPES_CLASSES, dtype=torch.float32, device="cuda",
+                              seed=seed, remat=remat)
+    twin.load_state_dict(model.state_dict())
+    for (_, p), (_, q) in zip(model.named_parameters(), twin.named_parameters()):
+        q.requires_grad_(p.requires_grad)
+    return twin
+
 def phase_train_path() -> dict:
     """The heritage training path: 1 warm-up + 5 timed steps of the port's
     train step, K1 / K2 against plain attention on one step, then the user
@@ -537,7 +627,6 @@ def phase_train_path() -> dict:
     from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import LAUNCHES
     from denseclip_vit_multimodal_tpu_torch.train.loop import train
-    from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss, silog_loss
     from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
     from denseclip_vit_multimodal_tpu_torch.train.step import make_train_step
 
@@ -574,45 +663,27 @@ def phase_train_path() -> dict:
     for m in metrics:
         if m["skipped"] or not all(np.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite training step: {m}")
-    want = {"qkv_attention": 12 * TRAIN_TIMED_STEPS, "qkv_attention_bwd": 12 * TRAIN_TIMED_STEPS,
-            "flash_attention": 0, "qkv_attention_int8": 0, "mha_attention": 0,
-            "ln_qkv_attention": 0}
+    want = expected_launches(qkv_attention=12 * TRAIN_TIMED_STEPS,
+                             qkv_attention_bwd=12 * TRAIN_TIMED_STEPS)
     if launches != want:
         raise AssertionError(f"expected {want} launches over {TRAIN_TIMED_STEPS} steps, got {launches}")
 
     # one step's loss and backbone gradients, kernels vs plain attention: the
     # same weights, the same augmented batch, the same dropout masks
     batch = augment_batch(to_device(next(batches), "cuda"), aug_cfg, torch.Generator().manual_seed(seed))
-
-    def loss_and_grads(net):
-        net.zero_grad(set_to_none=True)
-        out = net(batch["image"], texts, train=True, gt_hw=tuple(aug_cfg.crop_size),
-                  gen=torch.Generator(device="cuda").manual_seed(seed))
-        seg = cross_entropy_loss(out["seg"], batch["seg"])
-        silog = 0.1 * silog_loss(out["depth"], batch["depth"], batch["depth_mask"])
-        grads = lambda: torch.cat([p.grad.float().flatten() for p in net.backbone.parameters()
-                                   if p.grad is not None])  # `proj` is unused
-        seg.backward(retain_graph=True)
-        seg_grads = grads()
-        silog.backward()
-        return float((seg + silog).detach()), seg_grads, grads()
-
+    loss_and_grads = lambda net: step_grads(net, batch, texts, tuple(aug_cfg.crop_size), seed)
     before = dict(LAUNCHES)
-    kernel_loss, kernel_grads, kernel_total_grads = loss_and_grads(model)
+    kernel_loss, kernel_grads, kernel_total_grads = loss_and_grads(model)[:3]
     if LAUNCHES["qkv_attention_bwd"] - before["qkv_attention_bwd"] != 24:
         raise AssertionError("the kernel step did not run K2 in every layer")
     set_attn_impl(model, "xla")
-    plain_loss, plain_grads, plain_total_grads = loss_and_grads(model)
+    plain_loss, plain_grads, plain_total_grads = loss_and_grads(model)[:3]
     set_attn_impl(model, "auto")
     model.zero_grad(set_to_none=True)
     # the same weights in fp32 (plain attention: the kernels take bf16) as the
     # yardstick both bf16 paths are measured against
-    ref_model, _ = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
-                                   device="cuda", seed=seed)
-    ref_model.load_state_dict(model.state_dict())
-    for (_, p), (_, q) in zip(model.named_parameters(), ref_model.named_parameters()):
-        q.requires_grad_(p.requires_grad)
-    ref_loss, ref_grads, ref_total_grads = loss_and_grads(ref_model)
+    ref_model = fp32_twin(model, cfg.model, seed)
+    ref_loss, ref_grads, ref_total_grads = loss_and_grads(ref_model)[:3]
     del ref_model
     res = {
         "phase": "train_path", "config": TRAIN_CONFIG, "overrides": TRAIN_OVERRIDES,
@@ -725,9 +796,7 @@ def phase_eval_path() -> dict:
     }
     emit(res)
     want = {k: n * EVAL_FRAMES for k, n in AUG_VIEW_LAUNCHES.items()}
-    if ({k: launches[k] for k in want} != want or launches["qkv_attention_bwd"]
-            or launches["qkv_attention_int8"] or launches["mha_attention"]
-            or launches["ln_qkv_attention"]):
+    if launches != expected_launches(**want):
         raise AssertionError(f"expected {want} launches over {EVAL_FRAMES} frames, got {launches}")
     if set(plain_calls) - {TEXT_TOKENS}:  # only the text tower's 22 tokens may take it
         raise AssertionError(f"ViT attention reached plain attention: {dict(plain_calls)}")
@@ -1304,8 +1373,7 @@ def phase_serve_path() -> dict:
     }
     emit(res)
     del kernel_out, plain_out, bf16_out
-    want = {"qkv_attention_int8": 12, "qkv_attention": 0, "qkv_attention_bwd": 0,
-            "flash_attention": 0, "mha_attention": 0, "ln_qkv_attention": 0}
+    want = expected_launches(qkv_attention_int8=12)
     if any(r != want for r in per_request) or whole != want:
         raise AssertionError(f"expected {want} launches per request: {per_request}, whole {whole}")
     if not (whole_ok and paeth_ok and health["status"] == "ok" and bad_status == 400
@@ -1323,10 +1391,434 @@ def phase_serve_path() -> dict:
     return res
 
 
+def sdpa_backward(q, k, v, dout, kv: int, causal: bool = False):
+    """The library yardstick: the backward of one fused-attention call on
+    head-split copies of the valid rows and keys (timed only; the port never
+    calls it).  Returns the closure to time."""
+    import torch.nn.functional as F
+
+    qh, kh, vh = (t[:, :kv].transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    grad = dout[:, :kv].transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), grad, retain_graph=True)
+
+
+def mha_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
+                           iters: int) -> dict:
+    """K3's backward against its plain version on K3's output and statistics,
+    q / k / v as views of one fused qkv (as the ViT hands them over)."""
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        _launch_mha,
+        _launch_mha_bwd,
+        mha_attention_bwd_reference,
+    )
+
+    hd = heads * head_dim
+    scale = head_dim**-0.5
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
+    dout = torch.randn(b, n, heads, head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device="cuda")
+    out = _launch_mha(q, k, v, scale, kv, stats)
+    bwd = lambda: _launch_mha_bwd(q, k, v, out, dout, stats, scale, kv)
+    plain = lambda: mha_attention_bwd_reference(q, k, v, out, dout, valid_len=kv)
+    got, ref = bwd(), plain()
+    torch.cuda.synchronize()
+    res = {"phase": "kernel_oneshot_bwd", "name": "mha_attention_bwd",
+           "shape": [b, n, heads, head_dim], "valid_len": valid_len, "strided": True,
+           "finite": all(bool(torch.isfinite(g.float()).all()) for g in got),
+           "masked_dkdv_exact_zero": not (got[1][:, kv:].any() or got[2][:, kv:].any())}
+    grad_errors(res, got, ref, n, n)
+    del got, ref
+    # the TPU kernel's five products (s, dp, dv, dq, dk), as for K2
+    flops = 10.0 * b * heads * n * kv * head_dim
+    nbytes = 2.0 * 8 * q.numel() + 4.0 * stats.numel()  # q, k, v, O, dO in; dq, dk, dv out
+    res["ms"] = cuda_ms(bwd, iters)
+    res["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+    res["library_ms"] = cuda_ms(sdpa_backward(q, k, v, dout, kv), iters)
+    res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+ONESHOT_BWD_CASES = [
+    (8, 1664, 12, 64, 1601, 10),  # heritage training at the JAX tool's batch 8 (crop 640, padded once)
+    (2, 1100, 8, 128, 1050, 20),  # head dim 128, ragged
+]
+
+
+def phase_kernel_oneshot_bwd() -> list:
+    results = []
+    for case in ONESHOT_BWD_CASES:
+        res = mha_attention_bwd_case(*case)
+        emit(res)
+        bad = grads_out_of_limits(res)
+        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]):
+            raise AssertionError(f"mha_attention_bwd disagrees with its plain version ({bad}): {res}")
+        results.append(res)
+    return results  # the training shape (the first) is the K3 backward row's
+
+
+def flash_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
+                             iters: int) -> dict:
+    """K4b against its plain version on K4's output and residuals (views of
+    one fused qkv): dq on rows and dk / dv on keys below `valid_len`, and
+    exact zeros past it."""
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import (
+        _launch,
+        _launch_bwd,
+        flash_attention_bwd_reference,
+    )
+
+    hd = heads * head_dim
+    scale = head_dim**-0.5
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
+    dout = torch.randn(b, n, heads, head_dim, generator=gen, device="cuda").to(torch.bfloat16)
+    stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device="cuda")
+    out = _launch(q, k, v, causal, scale, kv, stats)
+    bwd = lambda: _launch_bwd(q, k, v, out, dout, stats, causal, scale, kv)
+    plain = lambda: flash_attention_bwd_reference(q, k, v, out, dout, causal=causal,
+                                                  valid_len=valid_len)
+    got, ref = bwd(), plain()
+    torch.cuda.synchronize()
+    res = {"phase": "kernel_flash_bwd", "name": "flash_attention_bwd",
+           "shape": [b, n, heads, head_dim], "valid_len": valid_len, "causal": causal,
+           "finite": all(bool(torch.isfinite(g.float()).all()) for g in got),
+           "pad_exact_zero": not any(g[:, kv:].any() for g in got)}
+    grad_errors(res, got, ref, kv, kv)
+    del got, ref
+    # the function's five products (s, dp, dv, dk, dq), as for K2 and K3's
+    # backward; the kernels' design does seven (the dq kernel redoes s and dp)
+    flops = 10.0 * b * heads * kv * kv * head_dim * (0.5 if causal else 1.0)
+    nbytes = 2.0 * 8 * q.numel() + 4.0 * stats.numel() * 1.5  # + di
+    res["ms"] = cuda_ms(bwd, iters)
+    res["plain_ms"] = cuda_ms(plain, 2, warmup=1)
+    res["library_ms"] = cuda_ms(sdpa_backward(q, k, v, dout, kv, causal), iters)
+    res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+FLASH_BWD_CASES = [
+    (2, 9344, 12, 64, 9217, False, 5),  # train_long: batch 2, crop 1536 (9217 tokens, padded once)
+    (2, 2048, 12, 64, None, True, 20),  # causal
+    (2, 1100, 8, 128, 1050, False, 20),  # head dim 128, ragged
+]
+
+
+def phase_kernel_flash_bwd() -> list:
+    results = []
+    for case in FLASH_BWD_CASES:
+        res = flash_attention_bwd_case(*case)
+        emit(res)
+        bad = grads_out_of_limits(res)
+        if bad or not (res["finite"] and res["pad_exact_zero"]):
+            raise AssertionError(f"flash_attention_bwd disagrees with its plain version ({bad}): "
+                                 f"{res}")
+        results.append(res)
+        torch.cuda.empty_cache()
+    return results  # the training shape (the first) is the K4b row's
+
+
+# The heritage preset on a crop past the one-shot limit: 96 x 96 patches + 1
+# = 9217 tokens, padded once to 9344, which the dispatch sends to K4 / K4b.
+LONG_CROP = 1536
+LONG_BATCH = 2
+LONG_OVERRIDES = ["data.synthetic=true", "data.synthetic_options.image_size=[1024,2048]",
+                  "data.synthetic_options.length=8", f"data.crop_size=[{LONG_CROP},{LONG_CROP}]",
+                  f"training.batch_size={LONG_BATCH}"]
+LONG_STEPS = 4  # the first is the warm-up
+LONG_WORK_DIR = "build/train_long"  # gitignored; removed at the end of the phase
+# Remat against none: the step-1 loss (the forward: the same ops on the same
+# drop-path masks), and on one step with fixed weights, batch and masks every
+# leaf's gradient, which K4b and the recompute make.  A loss after the first
+# cannot hold them: the preset's warm-up applies lr 1e-10 at step 1, so step
+# 2's loss does not see step 1's gradients.  By default a rerun of the step
+# alone moves the gradients (cuDNN's and PyTorch's nondeterministic
+# algorithms), so they are compared under deterministic algorithms, where
+# remat may change no leaf that a rerun leaves bitwise the same.
+REMAT_LOSS_TOL = 1e-6  # relative
+# Kernels against plain attention: the backbone's segmentation-loss gradients
+# held as in train_path (TRAIN_GRAD_RATIO against the fp32 yardstick).
+
+
+def _long_run(extra: list, steps: int) -> dict:
+    """`train()` on the long crop; step times from its log, launches, peak memory."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train
+
+    shutil.rmtree(LONG_WORK_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    summary = train(load_config(TRAIN_CONFIG, overrides=LONG_OVERRIDES + extra), LONG_WORK_DIR,
+                    max_steps=steps, no_validate=True, device="cuda")
+    launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with open(os.path.join(LONG_WORK_DIR, "train_log.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    shutil.rmtree(LONG_WORK_DIR, ignore_errors=True)
+    timed = [r["step_s"] for r in rows[1:]] or [rows[0]["step_s"]]
+    ms = sum(timed) / len(timed) * 1e3
+    return {"overrides": extra, "steps": len(rows), "summary": summary,
+            "losses": [r["loss_total"] for r in rows], "step_ms": [r["step_s"] * 1e3 for r in rows],
+            "ms_per_step": ms, "samples_per_s": LONG_BATCH / (ms / 1e3), "peak_mem_gib": peak_gib,
+            "launches": launches,
+            "launches_per_step": {k: v / len(rows) for k, v in launches.items()}}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """`torch.use_deterministic_algorithms(True, warn_only=True)`: cuDNN and
+    PyTorch's ops take deterministic algorithms, and an op that has none
+    warns; yields the warnings caught.  Uninitialised memory is left as it
+    is, so that the step computes what it computes outside."""
+    import warnings
+
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def nondeterminism_trace(net, batch: dict, texts, crop, seed: int):
+    """What a rerun of one step moves: the leaves whose gradients differ
+    between two identical runs, by default and under
+    `deterministic_algorithms`, and the ops PyTorch names as having no
+    deterministic implementation.  Returns (report, the gradients of the
+    last deterministic run by leaf)."""
+    def rerun():
+        first, second = (step_grads(net, batch, texts, crop, seed)[3] for _ in range(2))
+        rel = {name: rel_l2(second[name], g) for name, g in first.items()}
+        return second, sorted((r, name) for name, r in rel.items() if r > 0.0)[::-1]
+
+    leaves, differing = rerun()
+    with deterministic_algorithms() as caught:
+        det_leaves, det_differing = rerun()
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0][:120]
+                  for w in caught if "deterministic" in str(w.message)})
+    backbone = lambda named: torch.cat([g.flatten() for name, g in named.items()
+                                       if name.startswith("backbone.")])
+    report = {
+        "leaves": len(leaves),
+        "default": {"leaves_differing": len(differing),
+                    "differing_by_module": dict(collections.Counter(
+                        name.split(".")[0] for _, name in differing)),
+                    "most_differing": [[name, r] for r, name in differing[:4]],
+                    "least_differing": [[name, r] for r, name in differing[-4:]]},
+        "deterministic_algorithms": {"leaves_differing": [[name, r] for r, name in det_differing],
+                                     "ops_without_deterministic_implementation": ops},
+    }
+    del leaves
+    return report, det_leaves
+
+
+def phase_train_long() -> dict:
+    """Backbone training past the one-shot limit through `train()`: K4 + K4b,
+    without and with `tpu.remat`, and one step with plain attention; then
+    one step's gradients on fixed weights, batch and masks: remat against
+    none and the kernels against plain attention; a rerun's trace; a
+    profile."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.step import make_train_step
+
+    tokens = (LONG_CROP // 16) ** 2 + 1
+    kernels = _long_run(["tpu.remat=false"], LONG_STEPS)
+    remat = _long_run(["tpu.remat=true"], LONG_STEPS)
+    # plain attention keeps [2, 12, 9344, 9344] fp32 scores (8.4 GB) per layer:
+    # under remat one layer's live at a time
+    plain = _long_run(["tpu.remat=true", "tpu.attn_impl=xla"], 1)
+
+    # one step's gradients on the same weights, augmented batch and masks
+    cfg = load_config(TRAIN_CONFIG, overrides=LONG_OVERRIDES)
+    seed = int(cfg.training.get("seed", 42))
+    loader = DataLoader(build_dataset(cfg.data, "train"), batch_size=LONG_BATCH, seed=seed,
+                        num_threads=int(cfg.training.get("workers", 8)))
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=seed)
+    aug_cfg = augment_config_from_data_cfg(cfg.data)
+    crop = tuple(aug_cfg.crop_size)
+    batches = loader.epoch(0)
+    batch = augment_batch(to_device(next(batches), "cuda"), aug_cfg,
+                          torch.Generator().manual_seed(seed))
+    grads_of = lambda net: step_grads(net, batch, texts, crop, seed)[:3]
+    before = dict(LAUNCHES)
+    kernel_loss, kernel_seg, kernel_total = grads_of(model)
+    bwd_launches = LAUNCHES["flash_attention_bwd"] - before["flash_attention_bwd"]
+    trace, det_leaves = nondeterminism_trace(model, batch, texts, crop, seed)
+    model.backbone.transformer.remat = "full"
+    remat_loss, remat_seg, remat_total = grads_of(model)
+    with deterministic_algorithms():
+        remat_det = step_grads(model, batch, texts, crop, seed)[3]
+    remat_changed = [name for name, g in det_leaves.items() if not torch.equal(remat_det[name], g)]
+    del det_leaves, remat_det
+    set_attn_impl(model, "xla")  # under remat, as above
+    plain_loss, plain_seg, plain_total = grads_of(model)
+    set_attn_impl(model, "auto")
+    model.backbone.transformer.remat = None
+    torch.cuda.empty_cache()
+    ref_model = fp32_twin(model, cfg.model, seed, remat=True)
+    ref_loss, ref_seg, ref_total = grads_of(ref_model)
+    del ref_model
+    torch.cuda.empty_cache()
+    grads = {
+        "entry_point": "the model and losses of train/step.py, one step, no update",
+        "k4b_launches": bwd_launches,  # two backward passes (segmentation loss, then SILog)
+        "loss_kernel": kernel_loss, "loss_remat": remat_loss, "loss_plain": plain_loss,
+        "loss_fp32": ref_loss,
+        "backbone_total_grad_rel_l2_remat_vs_false": rel_l2(remat_total, kernel_total),
+        "backbone_seg_grad_rel_l2_remat_vs_false": rel_l2(remat_seg, kernel_seg),
+        "backbone_seg_grad_rel_l2_vs_plain": rel_l2(kernel_seg, plain_seg),
+        "backbone_seg_grad_rel_l2_kernel_vs_fp32": rel_l2(kernel_seg, ref_seg),
+        "backbone_seg_grad_rel_l2_plain_vs_fp32": rel_l2(plain_seg, ref_seg),
+        "backbone_total_grad_rel_l2_vs_plain": rel_l2(kernel_total, plain_total),
+        "backbone_total_grad_rel_l2_kernel_vs_fp32": rel_l2(kernel_total, ref_total),
+        "backbone_total_grad_rel_l2_plain_vs_fp32": rel_l2(plain_total, ref_total),
+        "rerun": trace,
+        # under deterministic algorithms: the leaves remat changes, and the
+        # ones a rerun changes too
+        "remat_vs_false_leaves_differing_deterministic": remat_changed,
+        "rerun_leaves_differing_deterministic": [
+            name for name, _ in trace["deterministic_algorithms"]["leaves_differing"]],
+    }
+    del kernel_seg, kernel_total, remat_seg, remat_total, plain_seg, plain_total
+    del ref_seg, ref_total
+    step_rel = lambda a, b: [abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])]
+    res = {
+        "phase": "train_long", "config": TRAIN_CONFIG, "overrides": LONG_OVERRIDES,
+        "entry_point": "train/loop.py train()", "batch": LONG_BATCH, "crop": [LONG_CROP, LONG_CROP],
+        "tokens": tokens, "padded_tokens": -(-tokens // 128) * 128,
+        "timed_steps": LONG_STEPS - 1, "remat_false": kernels, "remat_true": remat,
+        "plain_side": {"how": "tpu.attn_impl=xla under tpu.remat=true, full depth, 1 step",
+                       **plain},
+        "loss_rel_diff_kernels_vs_plain": abs(kernels["losses"][0] - plain["losses"][0])
+        / abs(plain["losses"][0]),
+        "loss_rel_diff_remat_vs_false": step_rel(remat, kernels)[0],
+        "loss_rel_diff_by_step_remat_vs_false": step_rel(remat, kernels),
+        "gradients": grads,
+        "tol": TRAIN_TOL, "grad_ratio_limit": TRAIN_GRAD_RATIO, "remat_tol": REMAT_LOSS_TOL,
+    }
+    emit(res)
+    per_step = LONG_STEPS * 12
+    if kernels["launches"] != expected_launches(flash_attention=per_step,
+                                                flash_attention_bwd=per_step):
+        raise AssertionError(f"expected 12 K4 and 12 K4b launches per step: {kernels['launches']}")
+    # remat runs each layer's attention forward again in the backward
+    if remat["launches"] != expected_launches(flash_attention=2 * per_step,
+                                              flash_attention_bwd=per_step):
+        raise AssertionError(f"remat: expected 24 K4 and 12 K4b per step: {remat['launches']}")
+    if plain["launches"] != expected_launches():
+        raise AssertionError(f"the plain-attention step launched a kernel: {plain['launches']}")
+    if bwd_launches != 24:
+        raise AssertionError(f"the gradient step did not run K4b in every layer: {bwd_launches}")
+    if not all(np.isfinite(x) for r in (kernels, remat, plain) for x in r["losses"]):
+        raise AssertionError(f"non-finite long-crop training losses: {res}")
+    if not (res["loss_rel_diff_kernels_vs_plain"] <= TRAIN_TOL
+            and res["loss_rel_diff_remat_vs_false"] <= REMAT_LOSS_TOL):
+        raise AssertionError(f"long-crop training losses disagree: {res}")
+    if not (set(remat_changed) <= set(grads["rerun_leaves_differing_deterministic"])
+            and grads["backbone_seg_grad_rel_l2_kernel_vs_fp32"]
+            <= TRAIN_GRAD_RATIO * grads["backbone_seg_grad_rel_l2_plain_vs_fp32"]):
+        raise AssertionError(f"long-crop gradients disagree: {grads}")
+    if not remat["peak_mem_gib"] < kernels["peak_mem_gib"]:
+        raise AssertionError(f"remat did not lower the peak memory: {res}")
+
+    # where a long step's device time goes (no remat), on the same weights
+    state = create_train_state(model, cfg.training, len(loader))
+    step = make_train_step(texts, aug_cfg, seed=seed)
+    step(state, to_device(next(batches), "cuda"))  # warm-up
+    phase_profile(lambda host: step(state, to_device(host, "cuda")), [next(batches)],
+                  path="training_long")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_outproj_path() -> dict:
+    """The out-projection epilogue experiment through the port's tool `main()`."""
+    from denseclip_vit_multimodal_tpu_torch.tools import exp_outproj_epilogue as exp
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    res = exp.main([])
+    launches = read_launches()
+    b, n, hd = res["shape"][0], res["shape"][1], res["shape"][2] // 3
+    heads, d = res["heads"], res["head_dim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(hd, hd, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    flops = 4.0 * b * heads * n * n * d + 2.0 * b * n * hd * hd
+    nbytes = 2.0 * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
+    res.update({
+        "phase": "outproj_path", "entry_point": "tools/exp_outproj_epilogue.py main()",
+        "launches": launches,
+        "plain_ms": cuda_ms(lambda: exp.qkv_out_attention_reference(qkv, w, heads), 2, warmup=1),
+        "ms": min(res["B_ms"], res["B2_ms"]), "max_abs_err": res["max_abs_err_b_vs_plain"],
+        "library_ms": None,  # no one PyTorch call computes attention + out-projection
+        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+    })
+    emit(res)
+    if not (res["finite"] and res["rel_l2_b_vs_plain"] <= KERNEL_REL_TOL
+            and res["rel_err_b_vs_plain"] <= KERNEL_TOL and res["rel_err_a_vs_b"] <= KERNEL_TOL):
+        raise AssertionError(f"the out-projection epilogue kernel disagrees: {res}")
+    if not launches["qkv_out_attention"] or not launches["qkv_attention"]:
+        raise AssertionError(f"the experiment did not run K7 and K1: {launches}")
+    return res
+
+
+def phase_profile_attn_bwd() -> dict:
+    """The backward microbenchmark through the port's tool `main()`."""
+    from denseclip_vit_multimodal_tpu_torch.tools.profile_attn_bwd import main as pab_main
+
+    torch.cuda.empty_cache()
+    reset_launches()
+    res = pab_main(["--out", "build/profile_attn_bwd.json"])
+    launches = read_launches()
+    res = {"phase": "profile_attn_bwd", **res, "launches": launches}
+    emit(res)
+    # K3's backward against the autograd of plain attention (fp32 softmax):
+    # bf16 rounding of ds, p and dO * r, relative to the largest gradient
+    if not all(res[f"relerr_{g}"] <= 5e-2 for g in ("dq", "dk", "dv")):
+        raise AssertionError(f"K3's backward disagrees with plain autograd: {res}")
+    if not (launches["mha_attention"] and launches["mha_attention_bwd"]):
+        raise AssertionError(f"the tool did not run K3 and its backward: {launches}")
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
-    ("qkv_attention_bwd (K2)", ("qkv_bwd_",)),
+    ("qkv_attention_bwd (K2; K3's backward)", ("qkv_bwd_",)),
+    ("flash_attention_bwd (K4b)", ("flash_bwd_",)),
+    ("qkv_out_attention (K7)", ("qkv_out_attention_kernel",)),
     ("qkv_attention_int8 (K5)", ("qkv_attention_int8_kernel",)),
     ("qkv_attention (K1)", ("qkv_attention_kernel",)),
     ("flash_attention (K4)", ("flash_attention_kernel",)),
@@ -1400,16 +1892,26 @@ def main() -> int:
     eval_res = phase_eval_path()
     serve_res = phase_serve_path()
     selftest_res = phase_selftest()
+    oneshot_bwd = phase_kernel_oneshot_bwd()[0]
+    flash_bwd = phase_kernel_flash_bwd()[0]
+    long_res = phase_train_long()
+    outproj_res = phase_outproj_path()
+    pab_res = phase_profile_attn_bwd()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
                             "int8_http_serving": serve_res["launches"][name],
                             "fused_lnqkv_serving": lnqkv_res["launches"][name],
-                            "selftest": selftest_res["launches"][name]}
+                            "selftest": selftest_res["launches"][name],
+                            "training_long": long_res["remat_false"]["launches"][name],
+                            "training_long_remat": long_res["remat_true"]["launches"][name],
+                            "outproj_experiment": outproj_res["launches"][name],
+                            "profile_attn_bwd": pab_res["launches"][name]}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
-        "replaces": f"denseclip_vit_multimodal_tpu/{replaces}",
+        "replaces": replaces if replaces.startswith(("jax/", "tools/")) else
+        f"denseclip_vit_multimodal_tpu/{replaces}",
         "launches": launches, "launches_by_path": by_path(name),
         "max_abs_err": res["max_abs_err"], "ms": res["ms"], "kernel_ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -1428,6 +1930,14 @@ def main() -> int:
               selftest_res["launches"]["mha_attention"]),
         entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
               lnqkv_res["launches"]["ln_qkv_attention"]),
+        entry("flash_attention_bwd", "flash_attention_bwd.cu",
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
+              ":1146 (dq, call :1456)", flash_bwd,
+              long_res["remat_false"]["launches"]["flash_attention_bwd"]),
+        entry("mha_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240 (via :308, :359)",
+              oneshot_bwd, pab_res["launches"]["mha_attention_bwd"]),
+        entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
+              outproj_res, outproj_res["launches"]["qkv_out_attention"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

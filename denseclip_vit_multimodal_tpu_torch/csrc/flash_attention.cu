@@ -10,6 +10,10 @@
 //   q, k, v [B, N, H, D] bf16, read by stride (row stride 3*H*D when they
 //   are views of the fused qkv projection), D in {64, 128}
 //   out     [B, N, H, D] bf16, contiguous
+//   stats   null, or [B, H, N] float2: each query row's max of the scaled
+//           logits (log2 units) and its sum of exp2(s - max), the residuals
+//           the backward (K4b, flash_attention_bwd.cu) reads; the bundled
+//           kernel saves the same pair in natural units (m, l)
 //
 // Numerics follow the bundled kernel's rounding points:
 //   * s = q k^T in fp32 from the UNSCALED bf16 q, then s *= sm_scale in fp32;
@@ -58,7 +62,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ out, Strides qs, Strides ks,
+                       __nv_bfloat16* __restrict__ out, float2* __restrict__ stats,
+                       Strides qs, Strides ks,
                        Strides vs, int n, int heads, int kv_len, int causal,
                        float sm_scale) {
   constexpr int kLd = D + kPad;  // row stride of every shared tile
@@ -236,6 +241,11 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
+  if (stats != nullptr && t == 0) {  // (max, sum) of every row, for the backward
+    float2* st = stats + ((long long)b * heads + h) * n;
+    if (row0 < n) st[row0] = make_float2(m_run[0], l_run[0]);
+    if (row1 < n) st[row1] = make_float2(m_run[1], l_run[1]);
+  }
   const long long out_row = (long long)heads * D;
   __nv_bfloat16* ob = out + (long long)b * n * out_row + (long long)h * D;
 #pragma unroll
@@ -251,7 +261,7 @@ flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strides qs,
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, void* stats, Strides qs,
                    Strides ks, Strides vs, int batch, int n, int heads, int kv_len,
                    int causal, float sm_scale, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (size_t)(kBlockQ + 4 * kBlockK) * (D + kPad);
@@ -261,7 +271,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strid
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, heads, batch);
   flash_attention_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), qs, ks, vs, n,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float2*>(stats), qs, ks, vs, n,
       heads, kv_len, causal, sm_scale);
   return cudaGetLastError();
 }
@@ -271,9 +282,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, Strid
 // Plain C entry point for ctypes.  q / k / v are device pointers of bf16
 // [B, N, H, D] tensors with unit stride over D, 16-byte aligned, whose
 // batch / token / head strides (in elements, multiples of 8) are given; out
-// is a contiguous bf16 [B, N, H, D] buffer.  `stream` is a cudaStream_t.
+// is a contiguous bf16 [B, N, H, D] buffer; `stats` is null or an fp32
+// [B, H, N, 2] buffer for the row residuals.  `stream` is a cudaStream_t.
 // Returns the cudaError_t of the launch (0 = cudaSuccess).
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                    void* stats,
                                     long long q_sb, long long q_sn, long long q_sh,
                                     long long k_sb, long long k_sn, long long k_sh,
                                     long long v_sb, long long v_sn, long long v_sh,
@@ -284,10 +297,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   const Strides qs{q_sb, q_sn, q_sh}, ks{k_sb, k_sn, k_sh}, vs{v_sb, v_sn, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return (int)launch<64>(q, k, v, out, qs, ks, vs, batch, n, heads, kv_len, causal,
+    return (int)launch<64>(q, k, v, out, stats, qs, ks, vs, batch, n, heads, kv_len, causal,
                            sm_scale, s);
   if (head_dim == 128)
-    return (int)launch<128>(q, k, v, out, qs, ks, vs, batch, n, heads, kv_len, causal,
+    return (int)launch<128>(q, k, v, out, stats, qs, ks, vs, batch, n, heads, kv_len, causal,
                             sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }

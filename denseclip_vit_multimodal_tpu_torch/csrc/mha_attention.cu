@@ -45,9 +45,13 @@ __global__ void __launch_bounds__(attn::kThreads) mha_attention_kernel(attn::Arg
 // Plain C entry point for ctypes.  q / k / v are device pointers of bf16
 // [B, N, H, D] tensors with unit stride over D, 16-byte aligned, whose
 // batch / token / head strides (in elements, multiples of 8) are given; out
-// is a contiguous bf16 [B, N, H, D] buffer.  q_scale is scale * log2 e.
-// `stream` is a cudaStream_t.  Returns the cudaError_t of the launch.
+// is a contiguous bf16 [B, N, H, D] buffer.  `stats` is null, or an fp32
+// [B, H, N, 2] buffer that receives each query row's softmax max (log2
+// units) and row sum for the backward (qkv_attention_bwd.cu).  q_scale is
+// scale * log2 e.  `stream` is a cudaStream_t.  Returns the cudaError_t of
+// the launch.
 extern "C" int mha_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                  void* stats,
                                   long long q_sb, long long q_sn, long long q_sh,
                                   long long k_sb, long long k_sn, long long k_sh,
                                   long long v_sb, long long v_sn, long long v_sh,
@@ -57,7 +61,7 @@ extern "C" int mha_attention_bf16(const void* q, const void* k, const void* v, v
     return (int)cudaErrorInvalidValue;
   const attn::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-                     nullptr, attn::Strides{q_sb, q_sn, q_sh}, attn::Strides{k_sb, k_sn, k_sh},
+                     static_cast<float2*>(stats), attn::Strides{q_sb, q_sn, q_sh}, attn::Strides{k_sb, k_sn, k_sh},
                      attn::Strides{v_sb, v_sn, v_sh}, n, heads, kv_len, q_scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)attn::launch<64>(mha_attention_kernel<64>, a, batch, s);

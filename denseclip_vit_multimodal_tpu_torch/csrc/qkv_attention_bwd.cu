@@ -1,15 +1,19 @@
-// Backward of the fused-QKV attention (K2): dqkv from qkv, the forward
-// output O, dO and the forward's row statistics.
+// Backward of the one-shot attention: K2 (off the fused QKV projection) and
+// K3's backward (on separate [B, N, H, D] q / k / v), one template for both.
 //
 // Replaces the TPU kernel `_bwd_kernel` of the JAX package
 // (denseclip_vit_multimodal_tpu/ops/mha_kernel.py, reached through
-// `_qkv_bwd` -> `_mha_bwd_pallas`).  Same function, Hopper tiling:
+// `_qkv_bwd` -> `_mha_bwd_pallas` for the fused layout, and through
+// `_mha_bwd` -> `_mha_bwd_pallas` for `mha_attention`).  Same function,
+// Hopper tiling:
 //
-//   qkv [B, N, 3*H*D], O and dO [B, N, H*D], all bf16, D in {64, 128}
-//   stats [B, H, N] float2 (softmax max m in log2 units, row sum l) from
-//   the forward kernel (qkv_attention.cu)  ->  dqkv [B, N, 3*H*D] bf16.
-//   q, k, v, dq, dk, dv of head h are read and written in place by stride in
-//   the fused layout (no head split, no concatenation on the host).
+//   q, k, v, O, dO [B, N, H, D] bf16, each read by stride (batch, token,
+//   head; unit stride over D), D in {64, 128};  stats [B, H, N] float2
+//   (softmax max m in log2 units, row sum l) from the forward kernel
+//   ->  dq, dk, dv [B, N, H, D] bf16, each written by stride.
+//   K2 hands over the three column blocks of qkv / dqkv (row stride 3*H*D,
+//   no head split, no concatenation on the host); K3's backward hands over
+//   the strided views K3 read and contiguous dq / dk / dv.
 //
 // Numerics follow the TPU kernel's rounding points, per (batch, head):
 //   qs = bf16(q * (scale * log2 e))   (the constant stays fp32)
@@ -25,7 +29,8 @@
 // pass over the keys.
 // Keys >= valid_len are never loaded and their p is 0, so their dk and dv are
 // exactly 0; query rows >= valid_len (pad rows) get dq against the valid
-// keys, as their forward output was.
+// keys, as their forward output was, and their dO reaches dk / dv of the
+// valid keys (the JAX kernel's pad semantics).
 //
 // Design.  The TPU kernel holds a head's whole K/V and accumulates dk/dv in
 // VMEM across q-tiles, an order the TPU's sequential grid guarantees.  Hopper
@@ -44,9 +49,10 @@
 // valid_len 1601, H 12, D 64: five N x valid_len x D products per (b, h)
 // (s, dp, dv, dq, dk) = 10 * B * H * N * valid_len * D = 81.8 GFLOP of bf16
 // tensor-core work (83 us at 989 TFLOP/s) against ~72 MB of traffic (21 us at
-// 3.35 TB/s): operation-bound.  This version recomputes s and dp in both
-// kernels (7 products instead of 5) and loads tiles synchronously: simple and
-// right first.
+// 3.35 TB/s): operation-bound.  K3's backward at [8, 1664, 12, 64] valid 1601
+// has twice the work.  This version recomputes s and dp in both kernels (7
+// products instead of 5) and loads tiles synchronously: simple and right
+// first.
 
 #include "mma_bf16.cuh"
 
@@ -60,6 +66,32 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTile = 16 * kWarps;  // rows a block owns: query rows (dq) or keys (dk/dv)
 constexpr int kStep = 64;           // rows of the streamed side: keys (dq) or query rows (dk/dv)
 constexpr int kPad = 8;             // bf16 row padding (16 bytes) against bank conflicts
+
+struct Strides {  // in elements
+  long long b, n, h;
+};
+
+struct BwdArgs {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const bf16* o;
+  const bf16* dout;
+  const float2* stats;  // [B, H, N]
+  float* dcoef;         // [B, H, N] scratch: Dc of every row, from kernel 1 to kernel 2
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  Strides qs, ks, vs, os, dos, dqs, dks, dvs;
+  int n, heads, kv_len;
+  float q_scale, scale;
+};
+
+// The (batch, head) origin of a [B, N, H, D] operand.
+template <typename T>
+__device__ __forceinline__ T* at(T* p, const Strides& s, int b, int h) {
+  return p + b * s.b + h * s.h;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -80,11 +112,7 @@ __device__ __forceinline__ Vec8 zero_vec() {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
-                  const bf16* __restrict__ dout, const float2* __restrict__ stats,
-                  float* __restrict__ dcoef, bf16* __restrict__ dqkv, int n,
-                  int heads, int kv_len, float q_scale, float scale) {
+__global__ void __launch_bounds__(kThreads) qkv_bwd_dq_kernel(const BwdArgs a) {
   constexpr int kLd = D + kPad;       // [row][d] tiles
   constexpr int kLdT = kStep + kPad;  // sKt: [d][key]
   constexpr int kVecPerRow = D / kVec;
@@ -100,6 +128,8 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
   bf16* sKt = sV + kStep * kLd;
   float* sDc = reinterpret_cast<float*>(sKt + D * kLdT);
 
+  const int n = a.n;
+  const int kv_len = a.kv_len;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -109,28 +139,25 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  const int hd = heads * D;
-  const long long row_stride = 3LL * hd;
-  const bf16* base = qkv + (long long)b * n * row_stride;
-  const bf16* out_b = out + (long long)b * n * hd + h * D;
-  const bf16* dout_b = dout + (long long)b * n * hd + h * D;
-  const long long bh = (long long)b * heads + h;
-  const int q_col = h * D;
-  const int k_col = hd + h * D;
-  const int v_col = 2 * hd + h * D;
+  const bf16* qb = at(a.q, a.qs, b, h);
+  const bf16* kb = at(a.k, a.ks, b, h);
+  const bf16* vb = at(a.v, a.vs, b, h);
+  const bf16* ob = at(a.o, a.os, b, h);
+  const bf16* dob = at(a.dout, a.dos, b, h);
+  const long long bh = (long long)b * a.heads + h;
 
   for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
-    const int row = q0 + r;
+    const long long row = q0 + r;
     Vec8 q = zero_vec(), d = zero_vec(), o = zero_vec();
     if (row < n) {
-      q = load_vec(base + row * row_stride + q_col + c);
+      q = load_vec(qb + row * a.qs.n + c);
 #pragma unroll
       for (int j = 0; j < kVec; ++j)
-        q.h[j] = __float2bfloat16_rn(__bfloat162float(q.h[j]) * q_scale);
-      d = load_vec(dout_b + (long long)row * hd + c);
-      o = load_vec(out_b + (long long)row * hd + c);
+        q.h[j] = __float2bfloat16_rn(__bfloat162float(q.h[j]) * a.q_scale);
+      d = load_vec(dob + row * a.dos.n + c);
+      o = load_vec(ob + row * a.os.n + c);
     }
     *reinterpret_cast<uint4*>(sQ + r * kLd + c) = q.u;
     *reinterpret_cast<uint4*>(sDO + r * kLd + c) = d.u;
@@ -146,7 +173,7 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
     acc = warp_sum(acc);
     if (lane == 0) {
       sDc[r] = acc;
-      if (q0 + r < n) dcoef[bh * n + q0 + r] = acc;
+      if (q0 + r < n) a.dcoef[bh * n + q0 + r] = acc;
     }
   }
   __syncthreads();
@@ -166,9 +193,9 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
     m[i] = __int_as_float(0x7f800000);
     sr[i] = 0.f;
     if (row < n) {
-      const float2 st = stats[bh * n + row];
+      const float2 st = a.stats[bh * n + row];
       m[i] = st.x;
-      sr[i] = scale * (1.f / st.y);
+      sr[i] = a.scale * (1.f / st.y);
     }
     dc[i] = sDc[wr + g + 8 * i];
   }
@@ -182,11 +209,11 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
     for (int i = tid; i < kStep * kVecPerRow; i += kThreads) {
       const int r = i / kVecPerRow;
       const int c = (i % kVecPerRow) * kVec;
-      const int key = k0 + r;
+      const long long key = k0 + r;
       Vec8 kv = zero_vec(), vv = zero_vec();
       if (key < kv_len) {
-        kv = load_vec(base + key * row_stride + k_col + c);
-        vv = load_vec(base + key * row_stride + v_col + c);
+        kv = load_vec(kb + key * a.ks.n + c);
+        vv = load_vec(vb + key * a.vs.n + c);
       }
       *reinterpret_cast<uint4*>(sK + r * kLd + c) = kv.u;
       *reinterpret_cast<uint4*>(sV + r * kLd + c) = vv.u;
@@ -230,25 +257,21 @@ qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
     }
   }
 
-  bf16* dst = dqkv + (long long)b * n * row_stride + q_col;
-  const int row0 = q0 + wr + g;
-  const int row1 = row0 + 8;
+  bf16* dst = at(a.dq, a.dqs, b, h);
+  const long long row0 = q0 + wr + g;
+  const long long row1 = row0 + 8;
 #pragma unroll
   for (int dt = 0; dt < kOutTiles; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (row0 < n)
-      *reinterpret_cast<uint32_t*>(dst + row0 * row_stride + col) = pack_bf16(dq[dt][0], dq[dt][1]);
+      *reinterpret_cast<uint32_t*>(dst + row0 * a.dqs.n + col) = pack_bf16(dq[dt][0], dq[dt][1]);
     if (row1 < n)
-      *reinterpret_cast<uint32_t*>(dst + row1 * row_stride + col) = pack_bf16(dq[dt][2], dq[dt][3]);
+      *reinterpret_cast<uint32_t*>(dst + row1 * a.dqs.n + col) = pack_bf16(dq[dt][2], dq[dt][3]);
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                    const float2* __restrict__ stats, const float* __restrict__ dcoef,
-                    bf16* __restrict__ dqkv, int n, int heads, int kv_len,
-                    float q_scale, float scale) {
+__global__ void __launch_bounds__(kThreads) qkv_bwd_dkdv_kernel(const BwdArgs a) {
   constexpr int kLd = D + kPad;       // [row][d] tiles
   constexpr int kLdT = kStep + kPad;  // [d][query] tiles
   constexpr int kVecPerRow = D / kVec;
@@ -267,6 +290,8 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   float* sSR = sR + kStep;
   float* sDc = sSR + kStep;
 
+  const int n = a.n;
+  const int kv_len = a.kv_len;
   const int k0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -276,23 +301,21 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  const int hd = heads * D;
-  const long long row_stride = 3LL * hd;
-  const bf16* base = qkv + (long long)b * n * row_stride;
-  const bf16* dout_b = dout + (long long)b * n * hd + h * D;
-  const long long bh = (long long)b * heads + h;
-  const int q_col = h * D;
-  const int k_col = hd + h * D;
-  const int v_col = 2 * hd + h * D;
-  bf16* dst = dqkv + (long long)b * n * row_stride;
+  const bf16* qb = at(a.q, a.qs, b, h);
+  const bf16* kb = at(a.k, a.ks, b, h);
+  const bf16* vb = at(a.v, a.vs, b, h);
+  const bf16* dob = at(a.dout, a.dos, b, h);
+  bf16* dkb = at(a.dk, a.dks, b, h);
+  bf16* dvb = at(a.dv, a.dvs, b, h);
+  const long long bh = (long long)b * a.heads + h;
 
   if (k0 >= kv_len) {  // a tile of masked keys: dk = dv = 0 exactly
     for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
-      const int key = k0 + i / kVecPerRow;
+      const long long key = k0 + i / kVecPerRow;
       const int c = (i % kVecPerRow) * kVec;
       if (key < n) {
-        *reinterpret_cast<uint4*>(dst + key * row_stride + k_col + c) = zero_vec().u;
-        *reinterpret_cast<uint4*>(dst + key * row_stride + v_col + c) = zero_vec().u;
+        *reinterpret_cast<uint4*>(dkb + key * a.dks.n + c) = zero_vec().u;
+        *reinterpret_cast<uint4*>(dvb + key * a.dvs.n + c) = zero_vec().u;
       }
     }
     return;
@@ -301,11 +324,11 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
   for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
-    const int key = k0 + r;
+    const long long key = k0 + r;
     Vec8 kv = zero_vec(), vv = zero_vec();
     if (key < kv_len) {
-      kv = load_vec(base + key * row_stride + k_col + c);
-      vv = load_vec(base + key * row_stride + v_col + c);
+      kv = load_vec(kb + key * a.ks.n + c);
+      vv = load_vec(vb + key * a.vs.n + c);
     }
     *reinterpret_cast<uint4*>(sK + r * kLd + c) = kv.u;
     *reinterpret_cast<uint4*>(sV + r * kLd + c) = vv.u;
@@ -326,29 +349,29 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
       const int row = q0 + tid;
       float mm = __int_as_float(0x7f800000), r = 0.f, dc = 0.f;
       if (row < n) {
-        const float2 st = stats[bh * n + row];
+        const float2 st = a.stats[bh * n + row];
         mm = st.x;
         r = 1.f / st.y;
-        dc = dcoef[bh * n + row];
+        dc = a.dcoef[bh * n + row];
       }
       sM[tid] = mm;
       sR[tid] = r;
-      sSR[tid] = scale * r;
+      sSR[tid] = a.scale * r;
       sDc[tid] = dc;
     }
     __syncthreads();
     for (int i = tid; i < kStep * kVecPerRow; i += kThreads) {
       const int r = i / kVecPerRow;
       const int c = (i % kVecPerRow) * kVec;
-      const int row = q0 + r;
+      const long long row = q0 + r;
       Vec8 q = zero_vec(), d = zero_vec(), qs, dr;
       if (row < n) {
-        q = load_vec(base + row * row_stride + q_col + c);
-        d = load_vec(dout_b + (long long)row * hd + c);
+        q = load_vec(qb + row * a.qs.n + c);
+        d = load_vec(dob + row * a.dos.n + c);
       }
 #pragma unroll
       for (int j = 0; j < kVec; ++j) {
-        qs.h[j] = __float2bfloat16_rn(__bfloat162float(q.h[j]) * q_scale);
+        qs.h[j] = __float2bfloat16_rn(__bfloat162float(q.h[j]) * a.q_scale);
         dr.h[j] = __float2bfloat16_rn(__bfloat162float(d.h[j]) * sR[r]);
         sQt[(c + j) * kLdT + r] = q.h[j];
         sDOrt[(c + j) * kLdT + r] = dr.h[j];
@@ -367,13 +390,13 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
         float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int kk = 0; kk < kSteps; ++kk) {  // s^T = K qs^T, dp^T = V dO^T
-          uint32_t a[4], b0, b1;
-          load_a(a, sK, kLd, wr, kk * 16, g, t);
+          uint32_t af[4], b0, b1;
+          load_a(af, sK, kLd, wr, kk * 16, g, t);
           load_b(b0, b1, sQs, kLd, n0, kk * 16, g, t);
-          mma_bf16(s, a, b0, b1);
-          load_a(a, sV, kLd, wr, kk * 16, g, t);
+          mma_bf16(s, af, b0, b1);
+          load_a(af, sV, kLd, wr, kk * 16, g, t);
           load_b(b0, b1, sDO, kLd, n0, kk * 16, g, t);
-          mma_bf16(dp, a, b0, b1);
+          mma_bf16(dp, af, b0, b1);
         }
         float p[4], ds[4];
 #pragma unroll
@@ -398,26 +421,24 @@ qkv_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
     }
   }
 
-  const int key0 = k0 + wr + g;
-  const int key1 = key0 + 8;
+  const long long key0 = k0 + wr + g;
+  const long long key1 = key0 + 8;
 #pragma unroll
   for (int dt = 0; dt < kOutTiles; ++dt) {
     const int col = dt * 8 + 2 * t;
     if (key0 < n) {
-      *reinterpret_cast<uint32_t*>(dst + key0 * row_stride + k_col + col) = pack_bf16(dk[dt][0], dk[dt][1]);
-      *reinterpret_cast<uint32_t*>(dst + key0 * row_stride + v_col + col) = pack_bf16(dv[dt][0], dv[dt][1]);
+      *reinterpret_cast<uint32_t*>(dkb + key0 * a.dks.n + col) = pack_bf16(dk[dt][0], dk[dt][1]);
+      *reinterpret_cast<uint32_t*>(dvb + key0 * a.dvs.n + col) = pack_bf16(dv[dt][0], dv[dt][1]);
     }
     if (key1 < n) {
-      *reinterpret_cast<uint32_t*>(dst + key1 * row_stride + k_col + col) = pack_bf16(dk[dt][2], dk[dt][3]);
-      *reinterpret_cast<uint32_t*>(dst + key1 * row_stride + v_col + col) = pack_bf16(dv[dt][2], dv[dt][3]);
+      *reinterpret_cast<uint32_t*>(dkb + key1 * a.dks.n + col) = pack_bf16(dk[dt][2], dk[dt][3]);
+      *reinterpret_cast<uint32_t*>(dvb + key1 * a.dvs.n + col) = pack_bf16(dv[dt][2], dv[dt][3]);
     }
   }
 }
 
 template <int D>
-cudaError_t launch(const void* qkv, const void* out, const void* dout, const void* stats,
-                   void* dcoef, void* dqkv, int batch, int n, int heads, int kv_len,
-                   float q_scale, float scale, cudaStream_t stream) {
+cudaError_t launch(const BwdArgs& a, int batch, cudaStream_t stream) {
   constexpr int kLd = D + kPad;
   constexpr int kLdT = kStep + kPad;
   const size_t smem_dq = sizeof(bf16) * ((size_t)(2 * kTile + 2 * kStep) * kLd + (size_t)D * kLdT) +
@@ -430,40 +451,69 @@ cudaError_t launch(const void* qkv, const void* out, const void* dout, const voi
   err = cudaFuncSetAttribute(
       qkv_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dkdv);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + kTile - 1) / kTile, heads, batch);
-  qkv_bwd_dq_kernel<D><<<grid, kThreads, smem_dq, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<const float2*>(stats), static_cast<float*>(dcoef), static_cast<bf16*>(dqkv),
-      n, heads, kv_len, q_scale, scale);
+  const dim3 grid((a.n + kTile - 1) / kTile, a.heads, batch);
+  qkv_bwd_dq_kernel<D><<<grid, kThreads, smem_dq, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  qkv_bwd_dkdv_kernel<D><<<grid, kThreads, smem_dkdv, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
-      static_cast<const float2*>(stats), static_cast<const float*>(dcoef),
-      static_cast<bf16*>(dqkv), n, heads, kv_len, q_scale, scale);
+  qkv_bwd_dkdv_kernel<D><<<grid, kThreads, smem_dkdv, stream>>>(a);
   return cudaGetLastError();
+}
+
+int dispatch(const BwdArgs& a, int batch, int head_dim, void* stream) {
+  if (batch < 1 || a.n < 1 || a.heads < 1 || a.kv_len < 1 || a.kv_len > a.n)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return (int)launch<64>(a, batch, s);
+  if (head_dim == 128) return (int)launch<128>(a, batch, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  qkv / dqkv [B, N, 3*H*D] and out / dout
-// [B, N, H*D] are contiguous bf16 device tensors (16-byte aligned); stats is
-// the fp32 [B, H, N, 2] buffer the forward filled; dcoef is fp32 [B, H, N]
-// scratch.  `q_scale` = scale * log2 e, `scale` the softmax scale.  Launches
-// the dq kernel, then the dk/dv kernel, on `stream` (a cudaStream_t).
-// Returns the cudaError_t of the launches (0 = cudaSuccess).
+// Plain C entry points for ctypes.  Both launch the dq kernel, then the dk/dv
+// kernel, on `stream` (a cudaStream_t), and return the cudaError_t of the
+// launches (0 = cudaSuccess).  stats is the fp32 [B, H, N, 2] buffer the
+// forward filled; dcoef is fp32 [B, H, N] scratch.  `q_scale` = scale *
+// log2 e, `scale` the softmax scale.
+
+// K2: qkv / dqkv [B, N, 3*H*D] and out / dout [B, N, H*D] are contiguous
+// bf16 device tensors (16-byte aligned).
 extern "C" int qkv_attention_bwd_bf16(const void* qkv, const void* out, const void* dout,
                                       const void* stats, void* dcoef, void* dqkv, int batch,
                                       int n, int heads, int head_dim, int kv_len,
                                       float q_scale, float scale, void* stream) {
-  if (batch < 1 || n < 1 || heads < 1 || kv_len < 1 || kv_len > n)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return (int)launch<64>(qkv, out, dout, stats, dcoef, dqkv, batch, n, heads, kv_len,
-                           q_scale, scale, s);
-  if (head_dim == 128)
-    return (int)launch<128>(qkv, out, dout, stats, dcoef, dqkv, batch, n, heads, kv_len,
-                            q_scale, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const auto* x = static_cast<const bf16*>(qkv);
+  auto* dx = static_cast<bf16*>(dqkv);
+  const long long hd = (long long)heads * head_dim;
+  const Strides fused{(long long)n * 3 * hd, 3 * hd, head_dim};
+  const Strides flat{(long long)n * hd, hd, head_dim};
+  const BwdArgs a{x, x + hd, x + 2 * hd, static_cast<const bf16*>(out),
+                  static_cast<const bf16*>(dout), static_cast<const float2*>(stats),
+                  static_cast<float*>(dcoef), dx, dx + hd, dx + 2 * hd,
+                  fused, fused, fused, flat, flat, fused, fused, fused,
+                  n, heads, kv_len, q_scale, scale};
+  return dispatch(a, batch, head_dim, stream);
+}
+
+// K3's backward: q / k / v are bf16 [B, N, H, D] device tensors with unit
+// stride over D, 16-byte aligned, whose batch / token / head strides (in
+// elements, multiples of 8) are given; out, dout, dq, dk and dv are
+// contiguous bf16 [B, N, H, D].
+extern "C" int mha_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                      const void* out, const void* dout, const void* stats,
+                                      void* dcoef, void* dq, void* dk, void* dv,
+                                      long long q_sb, long long q_sn, long long q_sh,
+                                      long long k_sb, long long k_sn, long long k_sh,
+                                      long long v_sb, long long v_sn, long long v_sh,
+                                      int batch, int n, int heads, int head_dim, int kv_len,
+                                      float q_scale, float scale, void* stream) {
+  const Strides flat{(long long)n * heads * head_dim, (long long)heads * head_dim, head_dim};
+  const BwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+                  static_cast<const bf16*>(dout), static_cast<const float2*>(stats),
+                  static_cast<float*>(dcoef), static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                  static_cast<bf16*>(dv), Strides{q_sb, q_sn, q_sh}, Strides{k_sb, k_sn, k_sh},
+                  Strides{v_sb, v_sn, v_sh}, flat, flat, flat, flat, flat,
+                  n, heads, kv_len, q_scale, scale};
+  return dispatch(a, batch, head_dim, stream);
 }

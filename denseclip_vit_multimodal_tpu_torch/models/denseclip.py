@@ -154,13 +154,16 @@ def build_denseclip(
     attn_impl: str = "auto",
     device="cuda",
     seed: int = 0,
+    remat: Any = False,
 ) -> Tuple[DenseCLIP, np.ndarray]:
     """Build an eval-mode DenseCLIP on `device` + the tokenized class names.
 
     Weights come from a seeded `torch.Generator` with the Flax initialisers'
     distributions (load real weights with `convert.load_flax_variables`).
     `attn_impl` ("auto", "xla" or "int8") reaches the ViT only: the text
-    tower keeps plain attention (`xla`), as in the JAX package.
+    tower keeps plain attention (`xla`), as in the JAX package.  So does
+    `remat` (the `tpu.remat` value: false or true / "full";
+    `models/layers.py::resolve_remat_policy`).
     Returns (model, texts[int32 K x N1]).
     """
     cfg = dict(model_cfg)
@@ -184,7 +187,7 @@ def build_denseclip(
         patch_size=int(bb.get("patch_size", 16)), width=width, layers=layers,
         heads=int(bb.get("heads", 12)), input_resolution=int(bb.get("input_resolution", 224)),
         out_indices=out_indices, attn_impl=attn_impl, dtype=dtype, gen=gen,
-        drop_path_rate=float(bb.get("drop_path_rate", 0.0)),
+        drop_path_rate=float(bb.get("drop_path_rate", 0.0)), remat=remat,
     )
 
     te = dict(cfg["text_encoder"])

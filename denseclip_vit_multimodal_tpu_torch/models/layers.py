@@ -21,7 +21,11 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
   * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
-    the layers.
+    the layers.  `Transformer(remat=...)` takes the `tpu.remat` value
+    (`resolve_remat_policy`: false, or true / "full") and recomputes each
+    block in the backward (`torch.utils.checkpoint`) while autograd records;
+    drop-path masks are drawn before each block, so a recompute sees the
+    same masks.
   * `ConvBNReLU` — conv + BatchNorm + ReLU on NHWC tensors; BatchNorm in
     training normalises by the batch statistics and updates the running
     ones with Flax's rule (`batch_norm_nhwc`).
@@ -39,10 +43,11 @@ from __future__ import annotations
 
 import math
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from denseclip_vit_multimodal_tpu_torch.ops import attention as _attention
@@ -316,14 +321,22 @@ def _keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor
     return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
 
 
-def drop_path(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
+              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample stochastic depth (the JAX package's `drop_path`): a sample's
     branch survives with probability 1 - rate, scaled by 1 / (1 - rate).
-    The identity without a generator (deterministic) or at rate 0."""
-    if gen is None or rate <= 0.0:
-        return x
-    mask = _keep_mask((x.shape[0],) + (1,) * (x.dim() - 1), rate, gen, x.device)
-    return torch.where(mask, x * (1.0 / max(1.0 - rate, 1e-8)), torch.zeros_like(x))
+    The identity without a generator (deterministic) or at rate 0.  `keep`,
+    a mask drawn beforehand by `drop_path_mask`, takes the generator's place."""
+    if keep is None:
+        if gen is None or rate <= 0.0:
+            return x
+        keep = drop_path_mask(x.shape, rate, gen, x.device)
+    return torch.where(keep, x * (1.0 / max(1.0 - rate, 1e-8)), torch.zeros_like(x))
+
+
+def drop_path_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
+    """The [B, 1, ...] keep mask `drop_path` would draw for a tensor of `shape`."""
+    return _keep_mask((shape[0],) + (1,) * (len(shape) - 1), rate, gen, device)
 
 
 def dropout(x: torch.Tensor, rate: float, gen: Optional[torch.Generator]) -> torch.Tensor:
@@ -359,15 +372,45 @@ class ResidualAttentionBlock(nn.Module):
         self.mlp = MLP(dim, dtype=dtype, gen=gen)
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                drop_path_rate: float = 0.0, gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                drop_path_rate: float = 0.0, gen: Optional[torch.Generator] = None,
+                keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """`keep`: the two branches' drop-path masks, drawn beforehand (in the
+        order the block would draw them from `gen`) so that a recompute of
+        the block sees the same ones."""
         if gen is None and not self.attn.causal:
             attn_out = self.attn(x, valid_len=valid_len,
                                  pre_ln=(self.ln_1.weight, self.ln_1.bias, self.ln_1.epsilon))
         else:
             attn_out = self.attn(self.ln_1(x).to(self.dtype), valid_len=valid_len)
-        x = x + drop_path(attn_out, drop_path_rate, gen)
-        return x + drop_path(self.mlp(self.ln_2(x).to(self.dtype)), drop_path_rate, gen)
+        keep_attn, keep_mlp = (None, None) if keep is None else keep
+        x = x + drop_path(attn_out, drop_path_rate, gen, keep_attn)
+        return x + drop_path(self.mlp(self.ln_2(x).to(self.dtype)), drop_path_rate, gen, keep_mlp)
+
+
+# The JAX package's selective policies (checkpoint names, dots saveable).
+UNPORTED_REMAT = ("attn", "attn_qkv", "dots")
+
+
+def resolve_remat_policy(remat: Any) -> Optional[str]:
+    """The `tpu.remat` config value as a policy name, or None for no remat
+    (the JAX package's `resolve_remat_policy`):
+
+    - false                        -> None: every activation kept
+    - true / "full"                -> "full": each block recomputed from its
+                                      input in the backward
+    - "attn", "attn_qkv", "dots"   -> ValueError: not yet ported
+    - anything else                -> the JAX package's ValueError
+    """
+    if not remat:
+        return None
+    if remat is True or remat == "full":
+        return "full"
+    if isinstance(remat, str) and remat in UNPORTED_REMAT:
+        raise ValueError(f"tpu.remat={remat} not yet ported (have false, true / 'full')")
+    raise ValueError(
+        f"Unsupported remat mode {remat!r}: expected false, true/'full', "
+        "'attn', 'attn_qkv', or 'dots'"
+    )
 
 
 class Transformer(nn.Module):
@@ -375,13 +418,19 @@ class Transformer(nn.Module):
 
     Returns `(final, taps)` with `taps` [layers, B, N, D] holding every
     block's output, as the JAX package's scanned stack does.  Block i's
-    drop-path rate is linspace(0, drop_path_rate, layers)[i].
+    drop-path rate is linspace(0, drop_path_rate, layers)[i].  With a
+    `remat` policy (`resolve_remat_policy`) each block runs under
+    `torch.utils.checkpoint` while autograd records, keeping only its input.
+    Drop-path masks are drawn before each block either way, in the order the
+    block would draw them, so a recompute sees the same masks.
     """
 
     def __init__(self, width: int, layers: int, heads: int, causal: bool = False,
                  attn_impl: str = ATTN_AUTO, dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0):
+                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0,
+                 remat: Any = False):
         super().__init__()
+        self.remat = resolve_remat_policy(remat)
         self.drop_path_rates = [float(r) for r in torch.linspace(0.0, drop_path_rate, layers)]
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal, attn_impl=attn_impl,
@@ -392,8 +441,16 @@ class Transformer(nn.Module):
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         taps: List[torch.Tensor] = []
+        remat = self.remat is not None and torch.is_grad_enabled()
         for block, rate in zip(self.blocks, self.drop_path_rates):
-            x = block(x, valid_len=valid_len, drop_path_rate=rate, gen=gen)
+            keep = None
+            if gen is not None and rate > 0.0:
+                keep = tuple(drop_path_mask(x.shape, rate, gen, x.device) for _ in range(2))
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(block, x, valid_len, rate, gen, keep,
+                                                      use_reentrant=False)
+            else:
+                x = block(x, valid_len=valid_len, drop_path_rate=rate, gen=gen, keep=keep)
             taps.append(x)
         return x, torch.stack(taps)
 

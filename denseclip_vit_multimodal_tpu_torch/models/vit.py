@@ -15,11 +15,13 @@
 `proj` is kept for checkpoint parity and unused in the dense forward.
 `deterministic=False` with a generator applies drop path in the blocks at
 rates linspace(0, drop_path_rate, layers), as the JAX training forward does.
+`remat` is the `tpu.remat` value, handed to the `Transformer`
+(`models/layers.py::resolve_remat_policy`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -42,7 +44,8 @@ class CLIPVisionTransformer(nn.Module):
                  heads: int = 12, input_resolution: int = 224,
                  out_indices: Sequence[int] = (11,), clip_proj_dim: int = 512,
                  attn_impl: str = ATTN_AUTO, dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0):
+                 gen: Optional[torch.Generator] = None, drop_path_rate: float = 0.0,
+                 remat: Any = False):
         super().__init__()
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
         self.patch_size = patch_size
@@ -65,7 +68,7 @@ class CLIPVisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(width)
         self.transformer = Transformer(width, layers, heads, causal=False,
                                        attn_impl=attn_impl, dtype=dtype, gen=gen,
-                                       drop_path_rate=drop_path_rate)
+                                       drop_path_rate=drop_path_rate, remat=remat)
         self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(normal((width, clip_proj_dim), scale, gen))
 

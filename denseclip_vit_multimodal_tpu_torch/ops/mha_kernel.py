@@ -19,18 +19,26 @@ its bound on an H100.
   rounding points (those of the JAX `_bwd_kernel`; see the CUDA source).
 * `LAUNCHES` counts kernel launches (never plain calls): "qkv_attention"
   for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
-  "qkv_attention_int8" for K5, "mha_attention" for K3.
+  "qkv_attention_int8" for K5, "mha_attention" for K3 and
+  "mha_attention_bwd" for K3's backward.
 
-The one-shot attention on [B, N, H, D] ports the JAX `mha_attention` and its
+The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
 TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
-code in `csrc/attention_fwd.cuh`):
+code in `csrc/attention_fwd.cuh`) and its custom VJP `_mha_bwd` ->
+`_mha_bwd_pallas` -> `_bwd_kernel` (K3's backward: K2's template in
+`csrc/qkv_attention_bwd.cu`, reading q / k / v / O / dO by stride):
 
 * `mha_attention` launches K3 for CUDA tensors, reading q / k / v by stride
   (views of the fused projection need no copy), or raises on anything the
   kernel does not take; for CPU tensors it runs `mha_attention_reference`.
-  Inference only: K3's backward (K2's function on this layout) is not
-  ported, so it raises when autograd records it.
-* `mha_attention_reference` has K3's rounding points, which are K1's.
+  When autograd records the call it goes through `MHAAttentionFunction`:
+  K3 then also writes each row's max and sum, and the backward is K3's
+  backward on CUDA, `mha_attention_bwd_reference` on the CPU.
+* `mha_attention_reference` has K3's rounding points, which are K1's;
+  `mha_attention_bwd_reference` has the JAX `_bwd_kernel`'s (K2's plain
+  backward is this function on the three column blocks of qkv).  With a
+  caller's `valid_len` the pad keys are masked and get dk = dv = 0 exactly,
+  and the pad query rows still contribute their dO.
 
 The opt-in int8 serving path (`tpu.attn_impl: int8`) ports the JAX
 `mha_qkv_attention_int8` and its TPU kernel `_qkv_int8_kernel` (K5,
@@ -43,14 +51,24 @@ The opt-in int8 serving path (`tpu.attn_impl: int8`) ports the JAX
   are exact (fp64 holds every int32 sum), so only exp2 ulps and the order of
   the fp32 denominator sum separate it from the kernel.
 * `mha_qkv_attention_int8` launches K5 for a CUDA tensor and runs the plain
-  version for a CPU tensor.  It is inference only: the JAX straight-through
-  backward is not ported, so it raises when autograd records it.
+  version for a CPU tensor.  When autograd records it, the backward is the
+  JAX straight-through one (`Int8AttentionFunction`): the bf16 backward of
+  the unquantized qkv, i.e. K1's forward for the row statistics and K2 (the
+  plain versions on the CPU).
+
+The JAX package's softmax knobs `DENSECLIP_EXP_BF16` (a bf16 exp2 pass in K1
+and K3) and `DENSECLIP_FAST_EXP2` (a polynomial exp2 in K1, K2, K3 and K7)
+are not honoured: the port's kernels and plain versions keep the fp32 exp2.
+Rather than ignore them, every wrapper whose JAX counterpart reads one
+raises `ValueError` naming the variable when it is set to 1
+(`refuse_softmax_knobs`, read on every call).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -59,12 +77,23 @@ _LANE = 128
 _LOG2E = 1.4426950408889634
 
 LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-                            "mha_attention": 0}
+                            "mha_attention": 0, "mha_attention_bwd": 0}
+EXP_BF16_ENV = "DENSECLIP_EXP_BF16"
+FAST_EXP2_ENV = "DENSECLIP_FAST_EXP2"
 _REF_CHUNK = 4096  # query rows per step of the one-shot kernels' plain versions
 # K5 accumulates P V in int32: at most this many keys of p8 <= 127 times |v8| <= 128
 INT8_MAX_KEYS = (2**31 - 1) // (127 * 128)
 _INT8_CHUNK = 4096  # query rows per step of the int8 plain version
 _V_ALIGN = 16  # K5 reads V key-major in 16-byte chunks: rows padded to this many keys
+
+
+def refuse_softmax_knobs(*names: str) -> None:
+    """ValueError if one of the JAX package's softmax knobs `names` (default
+    both) is set to 1: the port keeps the fp32 exp2 softmax."""
+    for name in names or (EXP_BF16_ENV, FAST_EXP2_ENV):
+        if os.environ.get(name, "0") == "1":
+            raise ValueError(f"{name}=1 is not ported: the PyTorch port's attention kernels "
+                             "and plain versions keep the fp32 exp2 softmax; unset it")
 
 
 def qkv_supported(num_heads: int, model_dim: int) -> bool:
@@ -142,33 +171,16 @@ def mha_qkv_attention_bwd_reference(
 ) -> torch.Tensor:
     """Plain PyTorch backward of the kernel: dqkv [B, N, 3*H*D] in qkv's dtype.
 
-    `out` is the forward's output and `dout` its gradient, both [B, N, H*D].
-    The JAX kernel's rounding points, with D = rowsum(dO * O) in place of its
-    rowsum(P * dP) * r (equal up to the rounding of O).  dk and dv of keys at
-    or beyond `valid_len` are exactly 0.
+    `out` is the forward's output and `dout` its gradient, both [B, N, H*D]:
+    `mha_attention_bwd_reference` on the three column blocks of qkv.  dk and
+    dv of keys at or beyond `valid_len` are exactly 0.
     """
     b, n, hd, d = _split_shape(qkv, num_heads)
-    kv_len = _kv_len(valid_len, n)
-    scale = d**-0.5 if sm_scale is None else float(sm_scale)
-    dtype = qkv.dtype
-    to_heads = lambda x: x.reshape(b, n, num_heads, d).transpose(1, 2)
-    q, k, v = (to_heads(x) for x in qkv.split(hd, dim=-1))
-    qs = (q.float() * (scale * _LOG2E)).to(dtype)
-    do, o = to_heads(dout.to(dtype)), to_heads(out.to(dtype))
-    dqkv = torch.zeros(b, n, 3, num_heads, d, dtype=dtype, device=qkv.device)
-    for h in range(num_heads):  # one head at a time bounds the fp32 scores
-        kh, vh, doh = k[:, h, :kv_len].float(), v[:, h, :kv_len].float(), do[:, h].float()
-        s = qs[:, h].float() @ kh.transpose(-1, -2)
-        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-        r = 1.0 / p.sum(dim=-1, keepdim=True)
-        dp = doh @ vh.transpose(-1, -2)
-        dc = (doh * o[:, h].float()).sum(dim=-1, keepdim=True)
-        ds = (p * (dp - dc) * (scale * r)).to(dtype).float()
-        dqkv[:, :, 0, h] = (ds @ kh).to(dtype)
-        dqkv[:, :kv_len, 1, h] = (ds.transpose(-1, -2) @ q[:, h].float()).to(dtype)
-        dor = (doh * r).to(dtype).float()
-        dqkv[:, :kv_len, 2, h] = (p.to(dtype).float().transpose(-1, -2) @ dor).to(dtype)
-    return dqkv.reshape(b, n, 3 * hd)
+    heads = lambda x: x.reshape(b, n, num_heads, d)
+    q, k, v = (heads(x) for x in qkv.split(hd, dim=-1))
+    grads = mha_attention_bwd_reference(q, k, v, heads(out), heads(dout), sm_scale=sm_scale,
+                                        valid_len=valid_len)
+    return torch.cat([g.reshape(b, n, hd) for g in grads], dim=-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -182,7 +194,10 @@ def _kernel_fn(name: str):
         fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
     elif name == "mha_attention":
         fn = load_library("mha_attention").mha_attention_bf16
-        fn.argtypes = [ptr] * 4 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
+        fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
+    elif name == "mha_attention_bwd":
+        fn = load_library("qkv_attention_bwd").mha_attention_bwd_bf16
+        fn.argtypes = [ptr] * 10 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
     elif name == "qkv_attention_int8":
         fn = load_library("qkv_attention_int8").qkv_attention_int8
         fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
@@ -296,6 +311,7 @@ def mha_qkv_attention(
     `valid_len` are computed against the valid keys and left to the caller.
     Differentiable through `QKVAttentionFunction` when autograd records it.
     """
+    refuse_softmax_knobs()
     _, n, _, d = _split_shape(qkv, num_heads)
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
     kv_len = _kv_len(valid_len, n)
@@ -356,26 +372,148 @@ def mha_attention_reference(
     return attention_prescaled(qs, k, v, kv_len)
 
 
-def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                kv_len: int) -> torch.Tensor:
-    """K3 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output."""
-    b, n, heads, d = q.shape
+def mha_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    valid_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of K3: (dq, dk, dv) [B, N, H, D] in q's dtype.
+
+    `out` is the forward's output and `dout` its gradient.  The JAX
+    `_bwd_kernel`'s rounding points: qs = q * (scale * log2 e) rounded to the
+    input dtype, s = qs k^T in fp32, p = exp2(s - max), r = 1 / rowsum(p),
+    ds = p * (dp - D) * (scale * r) rounded, dq = ds k, dk = ds^T q, dv =
+    round(p)^T round(dO * r), with D = rowsum(dO * O) in place of the
+    kernel's rowsum(P * dP) * r (equal up to the rounding of O).  Keys at or
+    beyond `valid_len` get dk = dv = 0 exactly; every query row (pad rows
+    too) contributes its dO.
+    """
+    _, kv_len = check_bnhd(q, k, v, valid_len)
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    dtype = q.dtype
+    qs = (q.float() * (scale * _LOG2E)).to(dtype)
+    dq, dk, dv = (torch.zeros(q.shape, dtype=dtype, device=q.device) for _ in range(3))
+    for h in range(q.shape[2]):  # one head at a time bounds the fp32 scores
+        kh, vh = k[:, :kv_len, h].float(), v[:, :kv_len, h].float()
+        doh = dout[:, :, h].to(dtype).float()
+        s = qs[:, :, h].float() @ kh.transpose(-1, -2)
+        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        r = 1.0 / p.sum(dim=-1, keepdim=True)
+        dp = doh @ vh.transpose(-1, -2)
+        dc = (doh * out[:, :, h].to(dtype).float()).sum(dim=-1, keepdim=True)
+        ds = (p * (dp - dc) * (scale * r)).to(dtype).float()
+        dq[:, :, h] = (ds @ kh).to(dtype)
+        dk[:, :kv_len, h] = (ds.transpose(-1, -2) @ q[:, :, h].float()).to(dtype)
+        dor = (doh * r).to(dtype).float()
+        dv[:, :kv_len, h] = (p.to(dtype).float().transpose(-1, -2) @ dor).to(dtype)
+    return dq, dk, dv
+
+
+def bnhd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: str,
+              head_dims: Tuple[int, ...]) -> list:
+    """The nine strides (batch / token / head of q, k, v) a strided kernel
+    (K3, K4 and their backwards) reads, or TypeError / ValueError."""
     strides = [s for x, what in ((q, "q"), (k, "k"), (v, "v"))
-               for s in bnhd_strides(x, what, "one-shot attention")]
-    if d not in (64, 128, 256):
-        raise ValueError(f"the one-shot attention kernel takes head dim 64, 128 or 256, got {d}")
+               for s in bnhd_strides(x, what, kernel)]
+    if q.shape[-1] not in head_dims:
+        raise ValueError(f"the {kernel} kernel takes head dim "
+                         f"{' or '.join(map(str, head_dims))}, got {q.shape[-1]}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    return strides
+
+
+def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                kv_len: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output.
+    With `stats` (fp32 [B, H, N, 2]) it also writes each row's max and sum."""
+    b, n, heads, d = q.shape
+    strides = bnhd_args(q, k, v, "one-shot attention", (64, 128, 256))
+    if stats is not None and (stats.shape != (b, heads, n, 2) or stats.dtype != torch.float32
+                              or not stats.is_contiguous() or stats.device != q.device):
+        raise ValueError(f"stats must be a contiguous fp32 {(b, heads, n, 2)} on q's device")
     fn = _kernel_fn("mha_attention")
     out = torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if stats is None else stats.data_ptr(), *strides,
                  b, n, heads, d, kv_len, scale * _LOG2E, stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention kernel launch failed: cudaError {err}")
     LAUNCHES["mha_attention"] += 1
     return out
+
+
+def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                    dout: torch.Tensor, stats: torch.Tensor, scale: float, kv_len: int):
+    """K3's backward: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the
+    strided q / k / v, K3's output, its gradient and K3's row statistics."""
+    b, n, heads, d = q.shape
+    strides = bnhd_args(q, k, v, "one-shot attention backward", (64, 128))
+    for x, what in ((out, "output"), (dout, "output gradient")):
+        if x.shape != q.shape:
+            raise ValueError(f"{what} must be {tuple(q.shape)}, got {tuple(x.shape)}")
+        _check_kernel_input(x, what)
+    if stats is None or stats.shape != (b, heads, n, 2) or not stats.is_contiguous():
+        raise ValueError("the backward kernel needs the forward kernel's row statistics")
+    fn = _kernel_fn("mha_attention_bwd")
+    dq, dk, dv = (torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device) for _ in range(3))
+    dcoef = torch.empty(b, heads, n, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 stats.data_ptr(), dcoef.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 *strides, b, n, heads, d, kv_len, scale * _LOG2E, scale, stream)
+    if err != 0:
+        raise RuntimeError(f"one-shot attention backward kernel launch failed: cudaError {err}")
+    LAUNCHES["mha_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class MHAAttentionFunction(torch.autograd.Function):
+    """K3 forward, K3's backward (the JAX `_mha` custom VJP).
+
+    On CPU tensors both directions are the plain versions; on CUDA both are
+    the kernels, with no fallback.  Saves q, k, v, the output and (CUDA)
+    K3's row statistics.
+    """
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                kv_len: int):
+        if q.device.type == "cpu":
+            out = mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
+            stats = None
+        elif q.device.type == "cuda":
+            b, n, heads, d = q.shape
+            if d not in (64, 128):  # refused before the forward, not after it
+                raise ValueError(f"the one-shot attention backward takes head dim 64 or 128, "
+                                 f"got {d}")
+            stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device=q.device)
+            out = _launch_mha(q, k, v, scale, kv_len, stats)
+        else:
+            raise ValueError(f"no one-shot attention for device {q.device}")
+        ctx.save_for_backward(q, k, v, out, stats)
+        ctx.attrs = (scale, kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        q, k, v, out, stats = ctx.saved_tensors
+        scale, kv_len = ctx.attrs
+        if q.device.type == "cpu":
+            grads = mha_attention_bwd_reference(q, k, v, out, dout, sm_scale=scale,
+                                                valid_len=kv_len)
+        else:
+            grads = _launch_mha_bwd(q, k, v, out, dout.to(q.dtype).contiguous(), stats, scale,
+                                    kv_len)
+        return (*grads, None, None)
 
 
 def mha_attention(
@@ -389,13 +527,14 @@ def mha_attention(
     """One-shot attention; [B, N, H, D] in and out.  Exact, any N.
 
     Keys at or beyond `valid_len` (None: N) are masked; output rows past it
-    are computed against the valid keys and left to the caller.  Inference
-    only: K3's backward is not ported.
+    are computed against the valid keys and left to the caller.
+    Differentiable through `MHAAttentionFunction` when autograd records it.
     """
+    refuse_softmax_knobs()
     _, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise NotImplementedError("the one-shot attention kernel's backward (K3) is not ported")
+        return MHAAttentionFunction.apply(q, k, v, scale, kv_len)
     if q.device.type == "cpu":
         return mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
     if q.device.type != "cuda":
@@ -540,6 +679,45 @@ def _launch_int8(q8: torch.Tensor, vt: torch.Tensor, scales: torch.Tensor, num_h
     return out
 
 
+class Int8AttentionFunction(torch.autograd.Function):
+    """K5 forward, the JAX straight-through backward (`_qkv_mha_int8`'s VJP
+    is `_qkv_bwd`): the bf16 backward of the UNQUANTIZED qkv.  On CUDA that
+    is K1's forward for the output and row statistics K2 reads, then K2; on
+    the CPU the plain versions.  Saves qkv only, as the JAX VJP does."""
+
+    @staticmethod
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int):
+        ctx.save_for_backward(qkv)
+        ctx.attrs = (num_heads, scale, kv_len)
+        return _int8_forward(qkv, num_heads, scale, kv_len)
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        (qkv,) = ctx.saved_tensors
+        num_heads, scale, kv_len = ctx.attrs
+        if qkv.device.type == "cpu":
+            out = mha_qkv_attention_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
+            dqkv = mha_qkv_attention_bwd_reference(qkv, out, dout, num_heads, sm_scale=scale,
+                                                   valid_len=kv_len)
+        else:
+            out, stats = _launch(qkv, num_heads, scale, kv_len, with_stats=True)
+            dqkv = _launch_bwd(qkv, out, dout.to(qkv.dtype).contiguous(), stats, num_heads,
+                               scale, kv_len)
+        return dqkv, None, None, None
+
+
+def _int8_forward(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
+    if qkv.device.type == "cpu":
+        return mha_qkv_attention_int8_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no int8 qkv attention for device {qkv.device}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the int8 attention path takes bfloat16 or float32 qkv, got {qkv.dtype}")
+    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
+    return _launch_int8(q8, value_key_major(q8, num_heads), scales, num_heads, scale, kv_len,
+                        qkv.dtype)
+
+
 def mha_qkv_attention_int8(
     qkv: torch.Tensor,  # [B, N, 3*H*D] fused projection output
     num_heads: int,
@@ -552,7 +730,8 @@ def mha_qkv_attention_int8(
     The opt-in serving path (`tpu.attn_impl: int8`): int8 Q K^T and P V with
     int32 sums, fp32 softmax.  Keys at or beyond `valid_len` are masked and
     left out of the scales; output rows past `valid_len` are left to the
-    caller.  Inference only.
+    caller.  Differentiable, straight through, when autograd records it
+    (`Int8AttentionFunction`).
     """
     _, n, _, d = _split_shape(qkv, num_heads)
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
@@ -560,13 +739,6 @@ def mha_qkv_attention_int8(
     if kv_len > INT8_MAX_KEYS:
         raise ValueError(f"int32 sums of P V hold at most {INT8_MAX_KEYS} keys, got {kv_len}")
     if torch.is_grad_enabled() and qkv.requires_grad:
-        raise NotImplementedError("the int8 attention's straight-through backward is not ported")
-    if qkv.device.type == "cpu":
-        return mha_qkv_attention_int8_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no int8 qkv attention for device {qkv.device}")
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the int8 attention path takes bfloat16 or float32 qkv, got {qkv.dtype}")
-    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
-    return _launch_int8(q8, value_key_major(q8, num_heads), scales, num_heads, scale, kv_len,
-                        qkv.dtype)
+        refuse_softmax_knobs(FAST_EXP2_ENV)  # the JAX backward's `_bwd_kernel` reads it
+        return Int8AttentionFunction.apply(qkv, num_heads, scale, kv_len)
+    return _int8_forward(qkv, num_heads, scale, kv_len)

@@ -18,8 +18,9 @@ carries over from the reference loop:
     pixel accuracy, the depth errors and the validation losses, reduced on
     the device and read once per epoch; a better mIoU saves `best`.
 
-Per-step metrics go to `<work_dir>/train_log.jsonl`, and every
-`log_interval` steps to the log; validation metrics to the log.  CLIP
+Per-step metrics (and `step_s`, the host seconds of the step, from the batch
+on the host to its losses read back) go to `<work_dir>/train_log.jsonl`, and
+every `log_interval` steps to the log; validation metrics to the log.  CLIP
 checkpoint import, orbax checkpoints, the validation PNG panels and the
 mesh / FSDP / pipeline / multi-host branches are not ported.
 """
@@ -190,7 +191,8 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
 
     model, texts = build_denseclip(
         cfg.model, CITYSCAPES_CLASSES, dtype=_DTYPES[str(tpu_cfg.get("compute_dtype", "bfloat16"))],
-        attn_impl=str(tpu_cfg.get("attn_impl", "auto")), device=device, seed=seed)
+        attn_impl=str(tpu_cfg.get("attn_impl", "auto")), device=device, seed=seed,
+        remat=tpu_cfg.get("remat", False))
     logger.info("params: %.2fM on %s", count_params(model) / 1e6, device)
     clip_path = cfg.model.get("clip_pretrained")
     if clip_path and os.path.exists(str(clip_path)):
@@ -240,11 +242,14 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
             sums: Dict[str, float] = {}
             steps = 0
             for host_batch in loader.epoch(epoch):
+                tick = time.perf_counter()
                 metrics = train_step(state, to_device(host_batch, device))
+                step_s = time.perf_counter() - tick  # the step reads its losses back: synced
                 steps += 1
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + v
-                log_file.write(json.dumps({"epoch": epoch, "step": state.step, **metrics}) + "\n")
+                log_file.write(json.dumps({"epoch": epoch, "step": state.step, **metrics,
+                                           "step_s": step_s}) + "\n")
                 if state.step % log_interval == 0:
                     logger.info("epoch %d step %d: %s", epoch, state.step,
                                 {k: round(v, 4) for k, v in metrics.items()})

@@ -14,12 +14,25 @@ import torch
 
 from denseclip_vit_multimodal_tpu_torch.models.layers import MultiHeadAttention
 from denseclip_vit_multimodal_tpu_torch.ops import attention, lnqkv_kernel, mha_kernel
+from denseclip_vit_multimodal_tpu_torch.tools import exp_outproj_epilogue
 
 pytestmark = pytest.mark.cuda
 
 # bf16 kernel vs bf16 plain version on unit-normal inputs: the output is
 # rounded to bf16 (ulp 2^-8 near 1) and P is rounded at another running max.
 KERNEL_TOL = 2e-2
+# The backward kernels against their plain versions, per gradient: relative
+# L2, and max abs error as a share of the largest reference magnitude
+# (chip_smoke.py's KERNEL_BWD_REL_TOL / KERNEL_BWD_MAX_TOL).
+BWD_REL_TOL, BWD_MAX_TOL = 2e-3, 1e-2
+
+
+def _assert_grads_close(got, want, rows, keys):
+    """dq on rows < `rows`, dk / dv on keys < `keys`, within the backward limits."""
+    for name, g, w, lim in zip(("dq", "dk", "dv"), got, want, (rows, keys, keys)):
+        g, w = g[:, :lim].float(), w[:, :lim].float()
+        assert float((g - w).norm() / w.norm()) <= BWD_REL_TOL, name
+        assert float((g - w).abs().max()) <= BWD_MAX_TOL * float(w.abs().max()), name
 
 
 @pytest.fixture
@@ -219,8 +232,8 @@ def test_int8_wrapper_raises_instead_of_falling_back(cuda):
         mha_kernel.mha_qkv_attention_int8(qkv.half(), 2)
     with pytest.raises(ValueError):
         mha_kernel.mha_qkv_attention_int8(_qkv(1, 64, 4, 32), 4)  # head dim 32
-    with pytest.raises(NotImplementedError):
-        mha_kernel.mha_qkv_attention_int8(qkv.float().requires_grad_(True), 2)
+    with pytest.raises(TypeError):  # under autograd too
+        mha_kernel.mha_qkv_attention_int8(qkv.half().requires_grad_(True), 2)
 
 
 @pytest.mark.parametrize("n,causal,dtype,int8_launches,flash_launches", [
@@ -318,8 +331,9 @@ def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         h32 = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
         mha_kernel.mha_attention(h32, h32, h32)  # head dim 32
-    with pytest.raises(NotImplementedError):
-        mha_kernel.mha_attention(q.requires_grad_(True), k, v)
+    with pytest.raises(ValueError):  # K3's backward takes head dim 64 / 128: refused up front
+        h256 = torch.zeros(1, 64, 1, 256, device="cuda", dtype=torch.bfloat16)
+        mha_kernel.mha_attention(h256.requires_grad_(True), h256, h256)
     x, gamma, beta, w, bias = _lnqkv_inputs(1, 64, 256, 9)
     with pytest.raises(TypeError):
         lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4)
@@ -348,3 +362,141 @@ def test_fused_block_launch_counts(cuda, monkeypatch, n, impl, fused, lnqkv_laun
     assert lnqkv_kernel.LAUNCHES["ln_qkv_attention"] - before[0] == lnqkv_launches
     assert mha_kernel.LAUNCHES["qkv_attention"] - before[1] == qkv_launches
     assert mha_kernel.LAUNCHES["qkv_attention_int8"] - before[2] == int8_launches
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,strided", [
+    (2, 1664, 12, 64, 1601, True),  # the heritage training shape, views of a fused qkv
+    (2, 1100, 8, 128, 1050, True),
+    (1, 300, 4, 64, None, False),
+])
+def test_oneshot_backward_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, strided):
+    """K3's backward through `mha_attention` under autograd against the plain
+    backward on K3's output; dk / dv of masked keys exactly 0."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _strided_bnhd(b, n, heads, d, 11, strided))
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    dout = torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(mha_kernel.LAUNCHES)
+    out = mha_kernel.mha_attention(q, k, v, valid_len=valid_len)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["mha_attention"] == before["mha_attention"] + 1
+    assert mha_kernel.LAUNCHES["mha_attention_bwd"] == before["mha_attention_bwd"] + 1
+    want = mha_kernel.mha_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                  out.detach(), dout, valid_len=valid_len)
+    kv = n if valid_len is None else valid_len
+    _assert_grads_close(got, want, n, kv)
+    assert not got[1][:, kv:].any() and not got[2][:, kv:].any()
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,causal", [
+    (1, 9344, 2, 64, 9217, False),  # the long training crop's sequence, 2 of its heads
+    (2, 2048, 4, 64, None, True),
+    (2, 1100, 3, 128, 1050, False),
+    (1, 1100, 2, 64, 1050, True),
+])
+def test_flash_backward_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, causal):
+    """K4b through `flash_attention` under autograd (views of a fused qkv)
+    against its plain version on K4's output: rows / keys below `valid_len`;
+    pad rows get dq = 0 and pad keys dk = dv = 0."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _strided_bnhd(b, n, heads, d, 13, True))
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    dout = torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(attention.LAUNCHES)
+    out = attention.FlashAttentionFunction.apply(q, k, v, causal, d**-0.5,
+                                                 n if valid_len is None else valid_len)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert attention.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                   out.detach(), dout, causal=causal,
+                                                   valid_len=valid_len)
+    kv = n if valid_len is None else valid_len
+    _assert_grads_close(got, want, kv, kv)
+    assert not got[0][:, kv:].any() and not got[1][:, kv:].any() and not got[2][:, kv:].any()
+
+
+def test_long_sequence_attention_trains_through_k4b(cuda):
+    """A block's attention past the one-shot limit under autograd: K4 and K4b,
+    no plain attention, no K1 / K2."""
+    mha = MultiHeadAttention(128, 2, dtype=torch.bfloat16).to(cuda)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 8449, 128).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16).requires_grad_(True)
+    before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
+    mha(x, valid_len=8446).float().sum().backward()
+    torch.cuda.synchronize()
+    after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
+    assert {k: after[k] - before[k] for k in after} == {
+        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0, "mha_attention": 0,
+        "mha_attention_bwd": 0, "flash_attention": 1, "flash_attention_bwd": 1}
+    assert torch.isfinite(x.grad.float()).all()
+
+
+def test_int8_straight_through_backward_on_the_card(cuda):
+    """The int8 path's gradient is the bf16 one of the unquantized qkv: K1's
+    forward for the statistics, then K2."""
+    qkv = _qkv(2, 300, 4, 64, seed=15).requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    dout = torch.randn(2, 300, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(mha_kernel.LAUNCHES)
+    out = mha_kernel.mha_qkv_attention_int8(qkv, 4, valid_len=290)
+    (got,) = torch.autograd.grad(out, qkv, dout)
+    torch.cuda.synchronize()
+    after = mha_kernel.LAUNCHES
+    assert [after[k] - before[k] for k in ("qkv_attention_int8", "qkv_attention",
+                                           "qkv_attention_bwd")] == [1, 1, 1]
+    x = qkv.detach()
+    want = mha_kernel.mha_qkv_attention_bwd_reference(
+        x, mha_kernel.mha_qkv_attention_reference(x, 4, valid_len=290), dout, 4, valid_len=290)
+    assert float((got.float() - want.float()).norm() / want.float().norm()) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len", [
+    (10, 1601, 12, 64, None),  # the experiment's shape
+    (2, 1100, 4, 128, 1050),
+    (1, 77, 2, 64, 70),
+])
+def test_outproj_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len):
+    """K7 against its plain version (fp32 output, rows below `valid_len`)."""
+    hd = heads * d
+    qkv = _qkv(b, n, heads, d, seed=17)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    w = (torch.randn(hd, hd, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    before = exp_outproj_epilogue.LAUNCHES["qkv_out_attention"]
+    out = exp_outproj_epilogue.qkv_out_attention(qkv, w, heads, valid_len=valid_len)
+    ref = exp_outproj_epilogue.qkv_out_attention_reference(qkv, w, heads, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert exp_outproj_epilogue.LAUNCHES["qkv_out_attention"] == before + 1
+    assert out.shape == ref.shape == (b, n, hd) and out.dtype == torch.float32
+    rows = n if valid_len is None else valid_len
+    err = out[:, :rows] - ref[:, :rows]
+    # each head's output is rounded to bf16 in both: a one-ulp difference
+    # there moves the fp32 sum by ~ulp * |w| * sqrt(H * D)
+    assert float(err.norm() / ref[:, :rows].norm()) <= 5e-3
+    assert float(err.abs().max()) <= KERNEL_TOL * float(ref[:, :rows].abs().max())
+
+
+@pytest.mark.parametrize("n,valid_len,counters,kernel", [
+    (1100, 1090, mha_kernel.LAUNCHES, "qkv_attention"),  # K1 + K2
+    (8704, 8600, attention.LAUNCHES, "flash_attention"),  # past the one-shot limit: K4 + K4b
+])
+def test_remat_training_step_matches_on_the_card(cuda, n, valid_len, counters, kernel):
+    """`tpu.remat` on the card: the same loss and gradients as without it
+    (the kernels are deterministic), with drop path on; the attention
+    forward runs again in the backward."""
+    from denseclip_vit_multimodal_tpu_torch.models.layers import Transformer
+
+    grads = []
+    for remat in (False, True):
+        torch.manual_seed(0)
+        net = Transformer(128, 2, 2, dtype=torch.bfloat16, drop_path_rate=0.3,
+                          gen=torch.Generator().manual_seed(1), remat=remat).to(cuda)
+        x = torch.from_numpy(np.random.RandomState(2).randn(2, n, 128).astype(np.float32))
+        x = x.to(cuda, torch.bfloat16).requires_grad_(True)
+        before = counters[kernel]
+        final, _ = net(x, valid_len=valid_len, gen=torch.Generator(device="cuda").manual_seed(3))
+        final.float().square().mean().backward()
+        grads.append([x.grad] + [p.grad for p in net.parameters()])
+        assert counters[kernel] - before == (4 if remat else 2)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -93,20 +93,25 @@ def test_chip_smoke_imports_no_jax():
 
 
 def test_every_kernel_source_is_built():
-    """`build_all` compiles every CUDA source of the port (K1, K2, K4, K5, K3,
-    K6), and every name it builds has a source; nothing is built on import."""
+    """`build_all` compiles every CUDA source of the port (K1, K2 with K3's
+    backward, K4, K5, K3, K6, K4b, K7), and every name it builds has a
+    source; nothing is built on import."""
     from denseclip_vit_multimodal_tpu_torch.ops import _build
 
     sources = {p.stem for p in (PKG / "csrc").glob("*.cu")}
     assert set(_build.SOURCES) == sources
-    assert {"mha_attention", "ln_qkv_attention"} <= sources
+    assert {"mha_attention", "ln_qkv_attention", "flash_attention_bwd",
+            "qkv_out_attention"} <= sources
     assert not _build._LIBS
 
 
-@pytest.mark.parametrize("module", ["ops.lnqkv_kernel", "tools.selftest"])
+@pytest.mark.parametrize("module", ["ops.lnqkv_kernel", "tools.selftest",
+                                    "tools.exp_outproj_epilogue", "tools.profile_attn_bwd",
+                                    "utils.benchtime", "ops.attention", "models.layers"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
-    """The fused kernel's wrapper and the self-test import on a machine with
-    neither JAX nor a card (nothing is compiled at import)."""
+    """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
+    tools, the timing helpers and the remat-aware layers import on a machine
+    with neither JAX nor a card (nothing is compiled at import)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('denseclip_vit_multimodal_tpu_torch.{module}')\n"

@@ -164,9 +164,9 @@ def test_cpu_wrapper_is_the_plain_version_and_launches_nothing():
 @pytest.mark.parametrize("case", ["grad", "valid_len", "too_many_keys", "not_qkv"])
 def test_wrapper_raises(case, monkeypatch):
     x = torch.zeros(1, 8, 3 * 128)
-    if case == "grad":
-        with pytest.raises(NotImplementedError, match="backward"):
-            port_mha.mha_qkv_attention_int8(x.requires_grad_(True), 2)
+    if case == "grad":  # the straight-through route checks its input the same way
+        with pytest.raises(ValueError, match="valid_len"):
+            port_mha.mha_qkv_attention_int8(x.requires_grad_(True), 2, valid_len=9)
     elif case == "valid_len":
         with pytest.raises(ValueError):
             port_mha.mha_qkv_attention_int8(x, 2, valid_len=9)
@@ -274,3 +274,26 @@ def test_int8_dispatch_needs_cuda_and_attn_impl_names():
     with pytest.raises(ValueError, match="not yet ported"):
         t_layers.set_attn_impl(tm, "ring")
     assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8")
+
+
+@pytest.mark.parametrize("valid_len", [None, 120])
+def test_straight_through_backward_matches_jax_grad(valid_len):
+    """Under autograd the int8 path's gradient is the JAX straight-through one
+    (`_qkv_mha_int8`'s VJP is `_qkv_bwd`): the fp32 backward of the
+    unquantized qkv, i.e. K2's plain backward after K1's plain forward.
+    fp32: the JAX tests' tolerance (tests/test_torch_mha_kernel_bwd.py)."""
+    rs = np.random.RandomState(21)
+    x = rs.randn(2, 130, 3 * 128).astype(np.float32)
+    g = rs.randn(2, 130, 128).astype(np.float32)
+    loss = lambda t: jnp.sum(jax_mha.mha_qkv_attention_int8(t, 2, interpret=True,
+                                                            valid_len=valid_len) * jnp.asarray(g))
+    want = np.asarray(jax.grad(loss)(jnp.asarray(x)))
+    leaf = torch.from_numpy(x).requires_grad_(True)
+    before = dict(port_mha.LAUNCHES)
+    out = port_mha.mha_qkv_attention_int8(leaf, 2, valid_len=valid_len)
+    torch.testing.assert_close(  # the forward is still the quantized one
+        out.detach(), port_mha.mha_qkv_attention_int8_reference(torch.from_numpy(x), 2,
+                                                                valid_len=valid_len))
+    out.backward(torch.from_numpy(g))
+    assert port_mha.LAUNCHES == before
+    np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=2e-4, atol=2e-5)

@@ -105,9 +105,9 @@ def test_wrapper_raises(case):
     elif case == "valid_len":
         with pytest.raises(ValueError, match="valid_len"):
             mha_kernel.mha_attention(q, q, q, valid_len=9)
-    elif case == "grad":
-        with pytest.raises(NotImplementedError, match="backward"):
-            mha_kernel.mha_attention(q.clone().requires_grad_(True), q, q)
+    elif case == "grad":  # the autograd route checks its input the same way
+        with pytest.raises(ValueError, match="valid_len"):
+            mha_kernel.mha_attention(q.clone().requires_grad_(True), q, q, valid_len=9)
     else:
         m = torch.zeros(1, 8, 2, 64, device="meta")
         with pytest.raises(ValueError, match="no one-shot attention for device"):
@@ -140,7 +140,7 @@ def routes(monkeypatch):
     (600, 256, False, False, "plain"),  # head dim 256 on the K4 branch: not in K4 yet
     (300, 256, True, False, "plain"),
     (300, 128, True, False, "k4"),
-    (500, 64, False, True, "plain"),  # autograd on the K3 branch: K3's backward not ported
+    (500, 64, False, True, "k3"),  # autograd on the K3 branch: K3 and its backward
 ])
 def test_flash_attention_routes(routes, n, d, causal, grad, route):
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, n, 1, d, seed=n))
