@@ -13,7 +13,9 @@ phases that each print one JSON line:
                   paths' shapes and others, with kernel / plain / library /
                   bound times;
   4. kernel_bwd — K2 (attention backward) the same way, per gradient dq, dk,
-                  dv, with dk / dv of masked keys held to exactly 0;
+                  dv, with dk / dv of masked keys held to exactly 0 and a
+                  second launch held bitwise equal to the first; TFLOP/s on
+                  the function's five products and the design's seven;
   5. kernel_flash — K4 (long-sequence flash attention forward) the same way
                   at the three long evaluation shapes (views of a fused qkv),
                   a ragged head-dim-128 case and a causal case;
@@ -82,12 +84,13 @@ phases that each print one JSON line:
  17. kernel_oneshot_bwd — K3's backward against its plain version on K3's
                   output and statistics, per gradient, at the heritage
                   training shape [8,1664,12,64] valid 1601 (views of a fused
-                  qkv) and at head dim 128, with kernel / plain / SDPA
-                  backward / bound times;
+                  qkv), at head dim 128 and at head dim 256, with kernel /
+                  plain / SDPA backward / bound times, TFLOP/s and the
+                  bitwise rerun check, as K2;
  18. kernel_flash_bwd — K4b (the flash backward) the same way at the long
                   training shape [2,9344,12,64] valid 9217, a causal case and
                   a ragged head-dim-128 case; dq of pad rows and dk / dv of
-                  pad keys held to exactly 0;
+                  pad keys held to exactly 0; TFLOP/s and the rerun check;
  19. train_long — the heritage preset at full width through the user entry
                   point `train()` on a 1536x1536 crop (9217 tokens, padded
                   to 9344: past the one-shot limit), batch 2: 1 warm-up + 3
@@ -220,6 +223,27 @@ def grad_errors(res: dict, got, ref, rows: int, keys: int) -> dict:
     return res
 
 
+def rerun_bitwise_equal(bwd, got) -> bool:
+    """Whether a second launch of the backward `bwd` on the same inputs gives
+    `got` bit for bit (the kernels have no atomics: their sums run in one
+    order)."""
+    again = bwd()
+    pair = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+    return all(torch.equal(a, b) for a, b in pair)
+
+
+def bwd_rates(res: dict, flops: float, head_dim: int) -> dict:
+    """A backward kernel's TFLOP/s on the function's five products and on the
+    seven its design does (the dq kernel computes s and dp again; eight at
+    head dim 256, whose dk/dv kernel computes s again for dv)."""
+    rate = flops / (res["ms"] * 1e-3) / 1e12
+    res["tflops_5_products"] = rate
+    res["tflops_7_products"] = rate * 7 / 5
+    if head_dim > 128:
+        res["tflops_8_products"] = rate * 8 / 5
+    return res
+
+
 def grads_out_of_limits(res: dict) -> list:
     """The gradients that break K2's limits (KERNEL_BWD_REL_TOL / _MAX_TOL)."""
     return [p for p in ("dq", "dk", "dv")
@@ -342,7 +366,8 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
     res = {"phase": "kernel_bwd", "name": "qkv_attention_bwd", "shape": [b, n, 3 * hd],
            "heads": heads, "head_dim": head_dim, "valid_len": valid_len,
            "finite": bool(torch.isfinite(got.float()).all()),
-           "masked_dkdv_exact_zero": bool((got[:, kv:, hd:] == 0).all())}
+           "masked_dkdv_exact_zero": bool((got[:, kv:, hd:] == 0).all()),
+           "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got)}
     grad_errors(res, got.split(hd, dim=-1), ref.split(hd, dim=-1), n, n)
     # the library yardstick: the backward of one fused-attention call on
     # head-split copies (timed only; the port never calls it)
@@ -360,8 +385,7 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
     res["library_ms"] = cuda_ms(library, iters)
     res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-    return res
+    return bwd_rates(res, flops, head_dim)
 
 
 BWD_CASES = [
@@ -378,7 +402,8 @@ def phase_kernel_bwd() -> dict:
         res = qkv_attention_bwd_case(b, n, heads, d, valid_len, iters)
         emit(res)
         bad = grads_out_of_limits(res)
-        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]):
+        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]
+                       and res["rerun_bitwise_equal"]):
             raise AssertionError(f"qkv_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
     return results[0]  # the training shape is the main path's
@@ -1429,7 +1454,8 @@ def mha_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
     res = {"phase": "kernel_oneshot_bwd", "name": "mha_attention_bwd",
            "shape": [b, n, heads, head_dim], "valid_len": valid_len, "strided": True,
            "finite": all(bool(torch.isfinite(g.float()).all()) for g in got),
-           "masked_dkdv_exact_zero": not (got[1][:, kv:].any() or got[2][:, kv:].any())}
+           "masked_dkdv_exact_zero": not (got[1][:, kv:].any() or got[2][:, kv:].any()),
+           "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got)}
     grad_errors(res, got, ref, n, n)
     del got, ref
     # the TPU kernel's five products (s, dp, dv, dq, dk), as for K2
@@ -1440,13 +1466,13 @@ def mha_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
     res["library_ms"] = cuda_ms(sdpa_backward(q, k, v, dout, kv), iters)
     res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-    return res
+    return bwd_rates(res, flops, head_dim)
 
 
 ONESHOT_BWD_CASES = [
     (8, 1664, 12, 64, 1601, 10),  # heritage training at the JAX tool's batch 8 (crop 640, padded once)
     (2, 1100, 8, 128, 1050, 20),  # head dim 128, ragged
+    (2, 2048, 3, 256, 2000, 20),  # head dim 256 (K3's own case at 256), ragged
 ]
 
 
@@ -1456,10 +1482,11 @@ def phase_kernel_oneshot_bwd() -> list:
         res = mha_attention_bwd_case(*case)
         emit(res)
         bad = grads_out_of_limits(res)
-        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]):
+        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]
+                       and res["rerun_bitwise_equal"]):
             raise AssertionError(f"mha_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
-    return results  # the training shape (the first) is the K3 backward row's
+    return results  # the training shape (the first) is the K3 backward row's; the last D = 256
 
 
 def flash_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
@@ -1490,7 +1517,8 @@ def flash_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_le
     res = {"phase": "kernel_flash_bwd", "name": "flash_attention_bwd",
            "shape": [b, n, heads, head_dim], "valid_len": valid_len, "causal": causal,
            "finite": all(bool(torch.isfinite(g.float()).all()) for g in got),
-           "pad_exact_zero": not any(g[:, kv:].any() for g in got)}
+           "pad_exact_zero": not any(g[:, kv:].any() for g in got),
+           "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got)}
     grad_errors(res, got, ref, kv, kv)
     del got, ref
     # the function's five products (s, dp, dv, dk, dq), as for K2 and K3's
@@ -1502,8 +1530,7 @@ def flash_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_le
     res["library_ms"] = cuda_ms(sdpa_backward(q, k, v, dout, kv, causal), iters)
     res["bound_ms"] = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     res["bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
-    return res
+    return bwd_rates(res, flops, head_dim)
 
 
 FLASH_BWD_CASES = [
@@ -1519,7 +1546,7 @@ def phase_kernel_flash_bwd() -> list:
         res = flash_attention_bwd_case(*case)
         emit(res)
         bad = grads_out_of_limits(res)
-        if bad or not (res["finite"] and res["pad_exact_zero"]):
+        if bad or not (res["finite"] and res["pad_exact_zero"] and res["rerun_bitwise_equal"]):
             raise AssertionError(f"flash_attention_bwd disagrees with its plain version ({bad}): "
                                  f"{res}")
         results.append(res)
@@ -1892,7 +1919,8 @@ def main() -> int:
     eval_res = phase_eval_path()
     serve_res = phase_serve_path()
     selftest_res = phase_selftest()
-    oneshot_bwd = phase_kernel_oneshot_bwd()[0]
+    oneshot_bwds = phase_kernel_oneshot_bwd()
+    oneshot_bwd, oneshot_bwd_256 = oneshot_bwds[0], oneshot_bwds[-1]
     flash_bwd = phase_kernel_flash_bwd()[0]
     long_res = phase_train_long()
     outproj_res = phase_outproj_path()
@@ -1916,7 +1944,13 @@ def main() -> int:
         "max_abs_err": res["max_abs_err"], "ms": res["ms"], "kernel_ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
         "library_ms": res["library_ms"],
+        **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal")
+           if k in res},
     }
+    at_256 = {k: oneshot_bwd_256[k] for k in ("shape", "valid_len", "max_abs_err", "ms",
+                                              "plain_ms", "bound_ms", "library_ms",
+                                              "tflops_5_products", "tflops_8_products",
+                                              "rerun_bitwise_equal")}
     emit({"kernels": [
         entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
               main_res["launches"]["qkv_attention"]),
@@ -1934,8 +1968,9 @@ def main() -> int:
               "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
               ":1146 (dq, call :1456)", flash_bwd,
               long_res["remat_false"]["launches"]["flash_attention_bwd"]),
-        entry("mha_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240 (via :308, :359)",
-              oneshot_bwd, pab_res["launches"]["mha_attention_bwd"]),
+        {**entry("mha_attention_bwd", "qkv_attention_bwd.cu",
+                 "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
+                 pab_res["launches"]["mha_attention_bwd"]), "head_dim_256": at_256},
         entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
               outproj_res, outproj_res["launches"]["qkv_out_attention"]),
     ]})

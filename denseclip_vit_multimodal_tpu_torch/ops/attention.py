@@ -10,9 +10,11 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
 
 * `flash_attention` follows the same dispatch.  The K3 branch runs
   `ops/mha_kernel.py::mha_attention` (K3 and, under autograd, K3's backward
-  on CUDA; the plain versions on the CPU).  The K4 branch launches
-  `csrc/flash_attention.cu` for a CUDA tensor, or raises on anything the
-  kernel does not take; for a tensor on the CPU it runs the plain version.
+  on CUDA, head dim 64, 128 or 256, bf16 only: another dtype raises
+  `TypeError`, as in the K4 branch; the plain versions on the CPU).  The K4
+  branch launches `csrc/flash_attention.cu` for a CUDA tensor, or raises on
+  anything the kernel does not take; for a tensor on the CPU it runs the
+  plain version.
   When autograd records it, it goes through `FlashAttentionFunction`: K4
   also writes each row's max and sum (the bundled kernel's residuals m and
   l), and the backward is K4b (`csrc/flash_attention_bwd.cu`) on CUDA,
@@ -312,7 +314,8 @@ def flash_attention(
     """Attention on q / k / v [B, N, H, D] -> [B, N, H, D].  Exact, any N.
 
     Dispatch (the JAX package's): non-causal N <= 8448 -> the K3 branch
-    (`mha_attention`); causal, or N > 8448 -> K4, differentiable through
+    (`mha_attention`, differentiable through K3's backward); causal, or
+    N > 8448 -> K4, differentiable through
     `FlashAttentionFunction` (K4b) when autograd records it (plain attention
     at head dim 256, which K4 does not take yet).  `valid_len` masks
     trailing pad keys; output rows [valid_len, N) are unspecified.

@@ -3,8 +3,9 @@
 Port of the JAX package's `ops/mha_kernel.py::mha_qkv_attention`: the TPU
 kernel `_qkv_kernel` (K1, forward; `csrc/qkv_attention.cu`) and its custom
 VJP `_qkv_bwd` -> `_mha_bwd_pallas` -> `_bwd_kernel` (K2, backward;
-`csrc/qkv_attention_bwd.cu`).  Each source's header note gives its design and
-its bound on an H100.
+`csrc/qkv_attention_bwd.cu` on the backward core `csrc/attention_bwd.cuh`).
+Each source's (or core's) header note gives its design and its bound on an
+H100.
 
 * `mha_qkv_attention` launches the forward kernel for a CUDA tensor, or
   raises on anything the kernel does not take.  For a tensor on the CPU it
@@ -25,8 +26,9 @@ its bound on an H100.
 The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
 TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
 code in `csrc/attention_fwd.cuh`) and its custom VJP `_mha_bwd` ->
-`_mha_bwd_pallas` -> `_bwd_kernel` (K3's backward: K2's template in
-`csrc/qkv_attention_bwd.cu`, reading q / k / v / O / dO by stride):
+`_mha_bwd_pallas` -> `_bwd_kernel` (K3's backward: the backward core with
+K2's numerics, `csrc/qkv_attention_bwd.cu`, reading q / k / v / O / dO by
+stride; head dim 64, 128 or 256, as K3):
 
 * `mha_attention` launches K3 for CUDA tensors, reading q / k / v by stride
   (views of the fused projection need no copy), or raises on anything the
@@ -197,13 +199,13 @@ def _kernel_fn(name: str):
         fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
     elif name == "mha_attention_bwd":
         fn = load_library("qkv_attention_bwd").mha_attention_bwd_bf16
-        fn.argtypes = [ptr] * 10 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
+        fn.argtypes = [ptr] * 11 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
     elif name == "qkv_attention_int8":
         fn = load_library("qkv_attention_int8").qkv_attention_int8
         fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
     else:
         fn = load_library("qkv_attention_bwd").qkv_attention_bwd_bf16
-        fn.argtypes = [ptr] * 6 + [i] * 5 + [f, f, ptr]
+        fn.argtypes = [ptr] * 7 + [i] * 5 + [f, f, ptr]
     fn.restype = ctypes.c_int
     return fn
 
@@ -238,6 +240,14 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
     return out, stats
 
 
+def _bwd_scratch(b: int, heads: int, n: int, d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' scratch: Dc of every row (fp32 [B, H, N]) and
+    bf16(q * scale * log2 e), bf16(dO * r) (bf16 [2, B, H, N, D]), written
+    by the dq kernel for the dk/dv kernel."""
+    return (torch.empty(b, heads, n, dtype=torch.float32, device=device),
+            torch.empty(2, b, heads, n, d, dtype=torch.bfloat16, device=device))
+
+
 def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats: torch.Tensor,
                 num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
     """K2: dqkv from qkv, the forward output, its gradient and K1's row stats."""
@@ -251,12 +261,12 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats:
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
     fn = _kernel_fn("qkv_attention_bwd")
     dqkv = torch.empty_like(qkv)
-    dcoef = torch.empty(b, num_heads, n, dtype=torch.float32, device=qkv.device)
+    dcoef, scratch = _bwd_scratch(b, num_heads, n, d, qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(
             qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-            dcoef.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d, kv_len,
+            dcoef.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d, kv_len,
             scale * _LOG2E, scale, stream,
         )
     if err != 0:
@@ -455,7 +465,7 @@ def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
     """K3's backward: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the
     strided q / k / v, K3's output, its gradient and K3's row statistics."""
     b, n, heads, d = q.shape
-    strides = bnhd_args(q, k, v, "one-shot attention backward", (64, 128))
+    strides = bnhd_args(q, k, v, "one-shot attention backward", (64, 128, 256))
     for x, what in ((out, "output"), (dout, "output gradient")):
         if x.shape != q.shape:
             raise ValueError(f"{what} must be {tuple(q.shape)}, got {tuple(x.shape)}")
@@ -464,12 +474,13 @@ def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
     fn = _kernel_fn("mha_attention_bwd")
     dq, dk, dv = (torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device) for _ in range(3))
-    dcoef = torch.empty(b, heads, n, dtype=torch.float32, device=q.device)
+    dcoef, scratch = _bwd_scratch(b, heads, n, d, q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                 stats.data_ptr(), dcoef.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *strides, b, n, heads, d, kv_len, scale * _LOG2E, scale, stream)
+                 stats.data_ptr(), dcoef.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), *strides, b, n, heads, d, kv_len,
+                 scale * _LOG2E, scale, stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention backward kernel launch failed: cudaError {err}")
     LAUNCHES["mha_attention_bwd"] += 1
@@ -491,10 +502,7 @@ class MHAAttentionFunction(torch.autograd.Function):
             out = mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
             stats = None
         elif q.device.type == "cuda":
-            b, n, heads, d = q.shape
-            if d not in (64, 128):  # refused before the forward, not after it
-                raise ValueError(f"the one-shot attention backward takes head dim 64 or 128, "
-                                 f"got {d}")
+            b, n, heads, _ = q.shape
             stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device=q.device)
             out = _launch_mha(q, k, v, scale, kv_len, stats)
         else:

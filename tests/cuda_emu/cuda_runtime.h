@@ -1,0 +1,130 @@
+// A CPU emulation of the CUDA subset the port's backward kernels use, so
+// that the CPU tests can run `csrc/attention_bwd.cuh` as written: every CUDA
+// thread of a block is a std::thread, `__syncthreads` a block barrier, and
+// the warp-level operations (shuffles, ldmatrix, mma.sync; mma_bf16.cuh
+// here) exchange their operands through a per-warp slot table between two
+// warp barriers.  cp.async copies are deferred to the issuing thread's
+// `cp.async.wait_group`, the latest moment the hardware may complete them.
+// Blocks run one after another and share one dynamic shared-memory array of
+// 227 KB, filled with 0xff before each block.  tests/test_torch_cuda_emulated.py
+// compiles a kernel source against these headers with the host compiler,
+// `kernel<<<grid, threads, smem, stream>>>(args)` rewritten to
+// `emu_launch(kernel, grid, threads, smem, args)`.
+
+#pragma once
+
+#include <barrier>
+#include <cassert>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __align__(x)
+#define __launch_bounds__(...)
+
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+extern thread_local dim3 threadIdx, blockIdx;
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+template <class F>
+cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline int min(int a, int b) { return a < b ? a : b; }
+inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+
+namespace emu {
+
+constexpr size_t kSmemBytes = 232448;  // what one block may use on an H100
+
+struct Warp {
+  std::barrier<> bar{32};
+  uint64_t slot[32][8];
+};
+
+struct Block {
+  std::barrier<> bar;
+  std::vector<Warp*> warps;
+  explicit Block(int threads) : bar(threads) {
+    for (int i = 0; i < threads / 32; ++i) warps.push_back(new Warp);
+  }
+  ~Block() {
+    for (auto* w : warps) delete w;
+  }
+};
+
+extern thread_local Block* cur;
+inline Warp& warp() { return *cur->warps[threadIdx.x >> 5]; }
+inline int lane() { return threadIdx.x & 31; }
+
+struct Copy {
+  void* dst;
+  const void* src;
+  int bytes, src_bytes;  // src_bytes < bytes: the rest is zero-filled
+};
+extern thread_local std::vector<std::vector<Copy>> groups;  // committed, oldest first
+extern thread_local std::vector<Copy> open_group;
+inline void run(const std::vector<Copy>& g) {
+  for (const auto& c : g) {
+    memset(c.dst, 0, c.bytes);
+    if (c.src_bytes) memcpy(c.dst, c.src, c.src_bytes);
+  }
+}
+extern unsigned char* smem_base;
+
+}  // namespace emu
+
+inline void __syncthreads() { emu::cur->bar.arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float v, int o) {
+  auto& w = emu::warp();
+  const int l = emu::lane();
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  w.slot[l][0] = u;
+  w.bar.arrive_and_wait();
+  const uint32_t r = (uint32_t)w.slot[l ^ o][0];
+  w.bar.arrive_and_wait();
+  float f;
+  memcpy(&f, &r, 4);
+  return f;
+}
+
+template <class A>
+void emu_launch(void (*kernel)(A), dim3 grid, int threads, size_t smem, const A& a) {
+  assert(smem <= emu::kSmemBytes - 1024);  // the launch would be refused on the card
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        memset(emu::smem_base, 0xff, emu::kSmemBytes);
+        emu::Block blk(threads);
+        std::vector<std::thread> ts;
+        for (int i = 0; i < threads; ++i)
+          ts.emplace_back([&, i] {
+            threadIdx = dim3(i);
+            blockIdx = dim3(x, y, z);
+            emu::cur = &blk;
+            emu::groups.clear();
+            emu::open_group.clear();
+            kernel(a);
+          });
+        for (auto& t : ts) t.join();
+      }
+}

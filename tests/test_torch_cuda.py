@@ -331,9 +331,8 @@ def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         h32 = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
         mha_kernel.mha_attention(h32, h32, h32)  # head dim 32
-    with pytest.raises(ValueError):  # K3's backward takes head dim 64 / 128: refused up front
-        h256 = torch.zeros(1, 64, 1, 256, device="cuda", dtype=torch.bfloat16)
-        mha_kernel.mha_attention(h256.requires_grad_(True), h256, h256)
+    with pytest.raises(TypeError):  # under autograd too: K3 and its backward take bf16
+        mha_kernel.mha_attention(q.float().requires_grad_(True), k.float(), v.float())
     x, gamma, beta, w, bias = _lnqkv_inputs(1, 64, 256, 9)
     with pytest.raises(TypeError):
         lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4)
@@ -368,6 +367,8 @@ def test_fused_block_launch_counts(cuda, monkeypatch, n, impl, fused, lnqkv_laun
     (2, 1664, 12, 64, 1601, True),  # the heritage training shape, views of a fused qkv
     (2, 1100, 8, 128, 1050, True),
     (1, 300, 4, 64, None, False),
+    (2, 1030, 2, 256, 1025, True),  # head dim 256: the dk/dv kernel's two passes
+    (1, 77, 1, 256, None, False),
 ])
 def test_oneshot_backward_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, strided):
     """K3's backward through `mha_attention` under autograd against the plain
@@ -500,3 +501,61 @@ def test_remat_training_step_matches_on_the_card(cuda, n, valid_len, counters, k
         assert counters[kernel] - before == (4 if remat else 2)
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _backward_launches(kernel, b, n, heads, d, valid_len, causal):
+    """A closure launching one backward kernel (K2, K3's backward or K4b) on
+    fixed inputs from its forward's output and statistics."""
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    if kernel == "qkv_attention_bwd":
+        qkv = _qkv(b, n, heads, d, seed=20)
+        dout = torch.randn(b, n, heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+        out, stats = mha_kernel._launch(qkv, heads, d**-0.5, kv, with_stats=True)
+        return lambda: (mha_kernel._launch_bwd(qkv, out, dout, stats, heads, d**-0.5, kv),)
+    q, k, v = _strided_bnhd(b, n, heads, d, 20, True)
+    dout = torch.randn(b, n, heads, d, generator=gen, device="cuda").to(torch.bfloat16)
+    stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device="cuda")
+    if kernel == "mha_attention_bwd":
+        out = mha_kernel._launch_mha(q, k, v, d**-0.5, kv, stats)
+        return lambda: mha_kernel._launch_mha_bwd(q, k, v, out, dout, stats, d**-0.5, kv)
+    out = attention._launch(q, k, v, causal, d**-0.5, kv, stats)
+    return lambda: attention._launch_bwd(q, k, v, out, dout, stats, causal, d**-0.5, kv)
+
+
+@pytest.mark.parametrize("kernel,b,n,heads,d,valid_len,causal", [
+    ("qkv_attention_bwd", 2, 1664, 12, 64, 1601, False),
+    ("qkv_attention_bwd", 1, 700, 4, 128, None, False),
+    ("mha_attention_bwd", 2, 1664, 12, 64, 1601, False),
+    ("mha_attention_bwd", 1, 1030, 2, 256, 1025, False),
+    ("flash_attention_bwd", 1, 9344, 2, 64, 9217, False),
+    ("flash_attention_bwd", 1, 2048, 4, 64, None, True),
+    ("flash_attention_bwd", 1, 1100, 2, 128, 1050, False),
+])
+def test_backward_kernels_are_bitwise_deterministic(cuda, kernel, b, n, heads, d, valid_len,
+                                                    causal):
+    """Two launches of a backward kernel on the same inputs give the same
+    gradients bit for bit: the kernels have no atomics."""
+    bwd = _backward_launches(kernel, b, n, heads, d, valid_len, causal)
+    first, second = bwd(), bwd()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_oneshot_branch_trains_head_dim_256_and_refuses_fp32(cuda):
+    """Under autograd on CUDA, `flash_attention`'s K3 branch takes head dim
+    256 through K3 and its backward, and refuses fp32 with `TypeError` before
+    any launch (the one-shot kernels take bf16 only)."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _strided_bnhd(1, 1030, 2, 256, 22, True))
+    before = dict(mha_kernel.LAUNCHES)
+    out = attention.flash_attention(q, k, v, valid_len=1025)
+    grads = torch.autograd.grad(out.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["mha_attention"] == before["mha_attention"] + 1
+    assert mha_kernel.LAUNCHES["mha_attention_bwd"] == before["mha_attention_bwd"] + 1
+    assert all(torch.isfinite(g.float()).all() for g in grads)
+    q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
+    with pytest.raises(TypeError):
+        attention.flash_attention(q32, k32, v32, valid_len=1025)
+    assert {**mha_kernel.LAUNCHES, **attention.LAUNCHES} == before

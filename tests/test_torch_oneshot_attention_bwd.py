@@ -4,9 +4,9 @@ The JAX side is the TPU kernel `_mha_bwd_pallas` in Pallas interpret mode
 and `jax.grad` through the custom VJP of `mha_attention` (interpret mode), as
 the JAX package's own tests run them on the CPU.  The port side is the plain
 backward `mha_attention_bwd_reference` and the CPU path of the autograd
-binding `MHAAttentionFunction`.  The CUDA kernel (K2's template, read by
-stride) is held against the same plain backward on the card by
-`chip_smoke.py` and `tests/test_torch_cuda.py`.
+binding `MHAAttentionFunction`.  The CUDA kernel (the backward core with
+K2's numerics, read by stride) is held against the same plain backward on
+the card by `chip_smoke.py` and `tests/test_torch_cuda.py`.
 """
 
 import jax
@@ -33,6 +33,7 @@ CASES = [
     (2, 200, 2, 64, None),  # ragged N: the JAX wrapper pads to 256 and corrects the denominator
     (1, 256, 2, 128, None),
     (1, 130, 3, 64, 100),  # keys >= 100 masked: dk / dv exactly 0; pad rows keep their dO
+    (1, 90, 2, 256, 80),  # head dim 256 (the CUDA dk/dv kernel makes two passes there)
 ]
 
 
@@ -125,3 +126,50 @@ def test_cpu_backward_launches_nothing_and_checks_its_input():
     port_mha.mha_attention(q, q, q).sum().backward()
     # uniform attention over zero keys: dq = dk = 0, dv = the mean of dO = 1
     assert port_mha.LAUNCHES == before and torch.equal(q.grad, torch.ones_like(q))
+
+
+def test_autograd_matches_jax_grad_at_head_dim_256():
+    """Head dim 256 with pad keys: `mha_attention` under autograd (plain
+    versions on the CPU) against `jax.grad` through the JAX custom VJP
+    (interpret mode), fp32."""
+    q, k, v, g = _inputs(1, 70, 2, 256, seed=11)
+    loss = lambda a, b, c: jnp.sum(jax_mha.mha_attention(a, b, c, interpret=True,
+                                                        valid_len=60) * jnp.asarray(g))
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = port_mha.mha_attention(*leaves, valid_len=60)
+    (out * torch.from_numpy(g)).sum().backward()
+    for name, leaf, w in zip(("dq", "dk", "dv"), leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
+    assert not leaves[1].grad[:, 60:].any() and not leaves[2].grad[:, 60:].any()
+
+
+@pytest.mark.parametrize("wrapper", ["forward", "backward"])
+def test_fp32_on_the_oneshot_branch_reaches_a_wrapper_that_refuses_it(monkeypatch, wrapper):
+    """`flash_attention`'s K3 branch has no dtype route of its own: fp32
+    q / k / v "on CUDA" (`_on_cuda` patched) go to `mha_attention`, whose
+    kernel wrappers (K3, K3's backward) take bf16 only and raise `TypeError`
+    before any launch.  On the CPU that branch runs K3's plain versions."""
+    monkeypatch.setattr(attention, "_on_cuda", lambda t: True)
+    routes = []
+    mha = attention.mha_attention
+    monkeypatch.setattr(attention, "mha_attention",
+                        lambda *a, **kw: routes.append("k3") or mha(*a, **kw))
+    q, k, v, g = (torch.from_numpy(t) for t in _inputs(1, 90, 2, 64, seed=12))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = attention.flash_attention(*leaves, valid_len=80)
+    assert routes == ["k3"]  # fp32 keeps the K3 branch: no plain route
+    (out * g).sum().backward()
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    (port_mha.mha_attention_reference(*want, valid_len=80) * g).sum().backward()
+    for a, w in zip(leaves, want):
+        torch.testing.assert_close(a.grad, w.grad, rtol=RTOL, atol=ATOL)
+    before = dict(port_mha.LAUNCHES)
+    stats = torch.zeros(1, 2, 90, 2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        if wrapper == "forward":
+            port_mha._launch_mha(q, k, v, 64**-0.5, 80, stats)
+        else:
+            port_mha._launch_mha_bwd(q, k, v, q, g, stats, 64**-0.5, 80)
+    assert port_mha.LAUNCHES == before
