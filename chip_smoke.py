@@ -11,7 +11,9 @@ phases that each print one JSON line:
   3. kernel     — K1 (qkv attention forward) against its plain PyTorch
                   version on the card (bf16, seeded unit-normal inputs) at the
                   paths' shapes and others, with kernel / plain / library /
-                  bound times;
+                  bound times; the row statistics it writes for the backward
+                  against the plain row max and sum; NaN in the K / V rows
+                  past valid_len in one case;
   4. kernel_bwd — K2 (attention backward) the same way, per gradient dq, dk,
                   dv, with dk / dv of masked keys held to exactly 0 and a
                   second launch held bitwise equal to the first; TFLOP/s on
@@ -65,11 +67,13 @@ phases that each print one JSON line:
                   profile of one int8 slide frame;
  13. kernel_oneshot — K3 (one-shot attention on [B, N, H, D]) against its
                   plain version at the slide shape (views of a fused qkv),
-                  the self-test's shape, head dim 128 and head dim 256, with
-                  kernel / plain / SDPA / bound times;
+                  the self-test's shape, head dim 128 (with NaN in the K / V
+                  rows past valid_len) and head dim 256, with kernel / plain
+                  / SDPA / bound times, and its row statistics as K1's;
  14. kernel_lnqkv — K6 (fused LayerNorm + qkv projection + attention)
                   against its plain version at the slide shape, head dim 128
-                  and the largest N its rule admits, with kernel / plain /
+                  (with NaN in the rows of x past valid_len, hence in those
+                  of K and V) and the largest N its rule admits, with kernel / plain /
                   bound times, the unfused chain in PyTorch's own calls
                   (layer_norm + linear + SDPA: `library_ms`) and the port's
                   unfused chain (LayerNorm + Linear + K1);
@@ -144,6 +148,12 @@ KERNEL_TOL = 2e-2  # max abs error, bf16 kernel vs bf16 plain version, unit-norm
 # 2.2e-3 to 2.4e-3 (bf16 rounding of the output).
 KERNEL_MEAN_TOL = 5e-4
 KERNEL_REL_TOL = 5e-3
+# K1's / K3's row statistics against the plain row max (log2 units) and sum.
+# Measured on an H100 80GB HBM3 over every case of phases kernel and
+# kernel_oneshot: row max <= 4.8e-6 abs, row sum <= 3.0e-6 relative (fp32
+# sums in another order); the limits keep ~10x.
+STATS_M_TOL = 5e-5  # max abs error of the row max
+STATS_L_TOL = 3e-5  # max relative error of the row sum
 PATH_TOL = 2e-2  # relative L2, flagship logits with the kernel vs plain attention, both bf16
 # relative L2, bf16 on the card vs fp32 on the CPU through 12 layers: bf16
 # rounds every activation to 8 bits of mantissa, so ~1e-2 is expected.
@@ -280,10 +290,34 @@ def phase_build() -> None:
               "nvcc_seconds": _build.BUILD_SECONDS.get(name), "ptxas": ptxas})
 
 
-def qkv_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, iters: int) -> dict:
+def row_stats_errors(stats: torch.Tensor, q: torch.Tensor, k: torch.Tensor, kv: int,
+                     scale: float) -> dict:
+    """K1's / K3's row statistics [B, H, N, 2] against the plain row max (log2
+    units) and row sum over the first kv keys."""
+    from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import plain_stats, stats_errors
+
+    return stats_errors(stats, plain_stats(q, k, kv, scale))
+
+
+def stats_in_limits(res: dict) -> bool:
+    return (res["stats_m_max_abs_err"] <= STATS_M_TOL
+            and res["stats_l_max_rel_err"] <= STATS_L_TOL)
+
+
+def poison_pad_keys(k: torch.Tensor, v: torch.Tensor, kv: int) -> None:
+    """NaN in every K / V row at or past kv, which must never reach a real row."""
+    k[:, kv:] = float("nan")
+    v[:, kv:] = float("nan")
+
+
+def qkv_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, iters: int,
+                       poison: bool = False) -> dict:
+    """K1 against its plain version, its row statistics against the plain
+    ones; with `poison`, NaN in the K / V rows past valid_len."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        _launch,
         mha_qkv_attention,
         mha_qkv_attention_reference,
     )
@@ -292,8 +326,12 @@ def qkv_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, ite
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
     kv = n if valid_len is None else valid_len
+    q4, k4, v4 = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
+    if poison:
+        poison_pad_keys(k4, v4, kv)
     out = mha_qkv_attention(qkv, heads, valid_len=valid_len)
     ref = mha_qkv_attention_reference(qkv, heads, valid_len=valid_len)
+    out_s, stats = _launch(qkv, heads, head_dim**-0.5, kv, with_stats=True)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs()
     # the library yardstick: one fused-attention call on the head-split tensors
@@ -317,13 +355,16 @@ def qkv_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, ite
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
         "tflops": flops / (ms * 1e-3) / 1e12,
         "finite": bool(torch.isfinite(out).all()),
+        "poisoned_pad_keys": poison,
+        **row_stats_errors(stats, q4, k4, kv, head_dim**-0.5),
+        "stats_call_output_bitwise_equal": torch.equal(out, out_s),
     }
 
 
 def phase_kernels() -> dict:
     cases = [
         (10, 1536, 12, 64, 1522, 50),  # slide window batch (crop 624, padded once)
-        (4, 1664, 12, 64, 1601, 50),  # heritage training: batch 4, crop 640, padded once
+        (4, 1664, 12, 64, 1601, 50, True),  # heritage training: batch 4, crop 640, NaN pad keys
         (1, 8320, 12, 64, 8193, 10),  # whole 1024x2048 frame (and aug-test scale 1.0, at B 2)
         (2, 2176, 12, 64, 2049, 20),  # aug-test scale 0.5 with its flipped view
         (2, 4736, 12, 64, 4609, 10),  # aug-test scale 0.75
@@ -331,11 +372,12 @@ def phase_kernels() -> dict:
         (4, 777, 12, 64, None, 50),  # ragged N, valid_len None
     ]
     results = []
-    for b, n, heads, d, valid_len, iters in cases:
-        res = qkv_attention_case(b, n, heads, d, valid_len, iters)
+    for case in cases:
+        res = qkv_attention_case(*case)
         emit(res)
         if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
-                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
+                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL
+                and stats_in_limits(res) and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"qkv_attention disagrees with its plain version: {res}")
         results.append(res)
     return results  # the slide shape (the first) is the main path's
@@ -944,12 +986,15 @@ def phase_kernel_int8() -> list:
 
 
 def mha_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, strided: bool,
-                       iters: int) -> dict:
+                       iters: int, poison: bool = False) -> dict:
     """K3 (through `mha_attention`) against its plain version; errors on the
-    rows below `valid_len` (the rest are unspecified), every row finite."""
+    rows below `valid_len` (the rest are unspecified), every row finite; its
+    row statistics against the plain ones; with `poison`, NaN in the K / V
+    rows past valid_len."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        _launch_mha,
         mha_attention,
         mha_attention_reference,
     )
@@ -963,9 +1008,13 @@ def mha_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, str
         q, k, v = (torch.randn(b, n, heads, head_dim, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
     kv = n if valid_len is None else valid_len
+    if poison:
+        poison_pad_keys(k, v, kv)
     run = lambda: mha_attention(q, k, v, valid_len=valid_len)
     plain = lambda: mha_attention_reference(q, k, v, valid_len=valid_len)
     out, ref = run(), plain()
+    stats = torch.empty(b, heads, n, 2, device="cuda")
+    out_s = _launch_mha(q, k, v, head_dim**-0.5, kv, stats)
     torch.cuda.synchronize()
     err = out[:, :kv].float() - ref[:, :kv].float()
     # the library yardstick: one fused-attention call on head-split copies
@@ -975,7 +1024,9 @@ def mha_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, str
     nbytes = 2.0 * (3 * q.numel() + out.numel())
     res = {
         "phase": "kernel_oneshot", "name": "mha_attention", "shape": [b, n, heads, head_dim],
-        "valid_len": valid_len, "strided": strided,
+        "valid_len": valid_len, "strided": strided, "poisoned_pad_keys": poison,
+        **row_stats_errors(stats, q, k, kv, head_dim**-0.5),
+        "stats_call_output_bitwise_equal": torch.equal(out, out_s),
         "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
         "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
         "finite": bool(torch.isfinite(out.float()).all()),
@@ -993,7 +1044,7 @@ ONESHOT_CASES = [
     # (b, n, heads, head_dim, valid_len, strided, iters)
     (10, 1536, 12, 64, 1522, True, 50),  # the slide shape, views of a fused qkv
     (2, 1601, 12, 64, None, False, 50),  # the self-test's shape
-    (2, 1100, 8, 128, 1050, True, 50),  # head dim 128, ragged
+    (2, 1100, 8, 128, 1050, True, 50, True),  # head dim 128, ragged, NaN pad keys
     (2, 2048, 3, 256, None, False, 50),  # head dim 256 (the JAX rule admits it; K1 does not)
 ]
 
@@ -1004,18 +1055,22 @@ def phase_kernel_oneshot() -> list:
         res = mha_attention_case(*case)
         emit(res)
         if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
-                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
+                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL
+                and stats_in_limits(res) and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"mha_attention disagrees with its plain version: {res}")
         results.append(res)
     return results  # the slide shape (the first) is the K3 row's
 
 
-def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters: int) -> dict:
+def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters: int,
+                          poison: bool = False) -> dict:
     """K6 against its plain version on a seeded x and seeded ln_1 / qkv
     parameters at the scale of the model's init (W bf16, handed over as the
     transposed view of the torch Linear layout: no cast inside the timing);
     beside it, the same function unfused in PyTorch's own calls and in the
-    port's (LayerNorm, Linear, K1)."""
+    port's (LayerNorm, Linear, K1).  With `poison`, the rows of x past
+    valid_len are NaN, so are the K / V rows the first stage writes there:
+    the valid rows must stay finite."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.models.layers import layer_norm_apply
@@ -1034,6 +1089,8 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
     w16 = ((torch.rand(3 * dim, dim, generator=gen, device="cuda") * 2 - 1) * limit).to(torch.bfloat16)
     bias = 0.02 * torch.randn(3 * dim, generator=gen, device="cuda")
     kv = n if valid_len is None else valid_len
+    if poison:
+        x[:, kv:] = float("nan")
     args = (x, gamma, beta, w16.t(), bias, heads)
     run = lambda: ln_qkv_attention(*args, valid_len=valid_len)
     plain = lambda: ln_qkv_attention_reference(*args, valid_len=valid_len)
@@ -1056,10 +1113,10 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
     nbytes = 2.0 * (x.numel() + w16.numel() + out.numel()) + 4.0 * (2 * dim + 3 * hd)
     res = {
         "phase": "kernel_lnqkv", "name": "ln_qkv_attention", "shape": [b, n, dim], "heads": heads,
-        "head_dim": d, "valid_len": valid_len,
+        "head_dim": d, "valid_len": valid_len, "poisoned_pad_rows": poison,
         "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
         "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
-        "finite": bool(torch.isfinite(out.float()).all()),
+        "finite": bool(torch.isfinite(out[:, :kv].float()).all()),
         "ms": cuda_ms(run, iters),
         "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
         "library_ms": cuda_ms(library, iters),
@@ -1076,7 +1133,7 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
 LNQKV_CASES = [
     # (b, n, dim, heads, valid_len, iters)
     (10, 1536, 768, 12, 1522, 50),  # the slide window batch: the fused path's shape
-    (2, 1100, 768, 6, 1050, 50),  # head dim 128
+    (2, 1100, 768, 6, 1050, 50, True),  # head dim 128, NaN in the pad rows of x
     (1, 3968, 768, 12, None, 20),  # the largest N lnqkv_supported admits at D 768
 ]
 
@@ -1944,8 +2001,8 @@ def main() -> int:
         "max_abs_err": res["max_abs_err"], "ms": res["ms"], "kernel_ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
         "library_ms": res["library_ms"],
-        **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal")
-           if k in res},
+        **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal",
+                               "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res},
     }
     at_256 = {k: oneshot_bwd_256[k] for k in ("shape", "valid_len", "max_abs_err", "ms",
                                               "plain_ms", "bound_ms", "library_ms",

@@ -36,7 +36,8 @@
 //       fragments by ldmatrix, mma.sync m16n8k16 with fp32 accumulators, and
 //       an epilogue that adds the bias, scales q and writes the q/k/v
 //       workspace [B, N, 3*H*d] bf16;
-//   (b) ln_qkv_attention_kernel: K1's body on that workspace, q_scale 1.
+//   (b) ln_qkv_attention_kernel: K1's body on that workspace, q_scale 1,
+//       its TMA tensor maps built over the workspace at launch.
 // LN(x) never reaches device memory; q/k/v does (71 MB at the slide shape,
 // written once and read by (b)).  Keeping K/V on chip (thread-block clusters
 // sharing K/V through distributed shared memory, or a persistent kernel) is
@@ -234,8 +235,9 @@ ln_qkv_proj_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 }
 
 template <int D>
-__global__ void __launch_bounds__(attn::kThreads) ln_qkv_attention_kernel(attn::Args a) {
-  attn::forward<D>(a);
+__global__ void __launch_bounds__(attn::threads<D>(), 1)
+ln_qkv_attention_kernel(const __grid_constant__ attn::Params p) {
+  attn::forward<D>(p);
 }
 
 template <int D>

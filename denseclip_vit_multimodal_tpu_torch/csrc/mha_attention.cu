@@ -18,16 +18,18 @@
 // keys >= valid_len are never loaded, which gives them the same weight 0.
 //
 // Design.  K1's body (attention_fwd.cuh) with separate base pointers and
-// strides for q, k and v: K/V streamed through shared memory in tiles of
-// 64 keys (32 at D = 256) with an online fp32 softmax, because a head's
-// whole K/V, which the TPU kernel keeps in VMEM, exceeds the 227 KB of
-// shared memory a block may use.  At D = 256 the Q fragments are re-read
-// from shared memory rather than held in registers.
+// strides for q, k and v, each read through its own TMA tensor map: K/V
+// streamed through shared memory in tiles of 128 keys (64 at D = 256) with
+// an online fp32 softmax, because a head's whole K/V, which the TPU kernel
+// keeps in VMEM, exceeds the 227 KB of shared memory a block may use.  Both
+// products run as wgmma; at D = 256 the O accumulator takes 128 of a
+// consumer's 240 registers.
 //
 // Bound on an H100 SXM at the slide shape [10, 1536, 12, 64], valid_len
-// 1522: 4*B*H*N*valid_len*D = 71.9 GFLOP of bf16 tensor-core work (73 us at
-// 989 TFLOP/s) against 94 MB of q/k/v/out traffic (28 us at 3.35 TB/s):
-// compute- (and exp2-) bound.
+// 1522: 4*B*H*N*valid_len*D = 71.8 GFLOP of bf16 tensor-core work (0.0726 ms
+// at 989 TFLOP/s) against 94 MB of q/k/v/out traffic (0.028 ms at
+// 3.35 TB/s), and 281 M exp2 (about 0.07 ms): compute-bound.  Measured
+// 0.180-0.184 ms (the mma.sync body before it: 0.470).
 
 #include "attention_fwd.cuh"
 
@@ -36,8 +38,9 @@ namespace {
 using namespace dclip;
 
 template <int D>
-__global__ void __launch_bounds__(attn::kThreads) mha_attention_kernel(attn::Args a) {
-  attn::forward<D>(a);
+__global__ void __launch_bounds__(attn::threads<D>(), 1)
+mha_attention_kernel(const __grid_constant__ attn::Params p) {
+  attn::forward<D>(p);
 }
 
 }  // namespace

@@ -22,19 +22,21 @@
 // Design.  The TPU kernel keeps a head's whole K/V in VMEM and runs a
 // one-shot softmax.  On Hopper K+V of one head at N = 1536 is 384 KB of bf16,
 // more than the 227 KB of shared memory a block may use, so this kernel
-// streams K/V through shared memory in tiles of 64 keys with an online
+// streams K/V through shared memory in tiles of 128 keys with an online
 // softmax in fp32 (flash-attention style): the body in attention_fwd.cuh,
 // which K3 (mha_attention.cu) and K6 (ln_qkv_attention.cu) share.  Here it
 // reads q, k and v of head h as strided views of the fused projection (row
-// stride 3*H*D).  One block per (q-tile of 128 rows, head, batch); 8 warps,
-// each owning 16 query rows.  Both products run on the tensor cores through
-// mma.sync m16n8k16 (bf16 in, fp32 out).
+// stride 3*H*D) through TMA tensor maps.  A producer warpgroup keeps the
+// tiles in flight; consumer warpgroups of 64 query rows (three at D = 64,
+// two at D = 128) run both products as wgmma, the softmax in registers.
 //
 // Bound on an H100 SXM at the slide shape [10, 1536, 2304], valid_len 1522,
-// H 12, D 64: 4*B*H*valid_len^2*D = 71 GFLOP of bf16 tensor-core work
-// (72 us at 989 TFLOP/s) against 94 MB of qkv/out traffic (28 us at
-// 3.35 TB/s): compute- (and exp2-) bound.  This first version is simple:
-// synchronous tile loads, no wgmma, no TMA, no warp specialisation.
+// H 12, D 64: 4*B*H*N*valid_len*D = 71.8 GFLOP of bf16 tensor-core work
+// (0.0726 ms at 989 TFLOP/s) against 94 MB of qkv/out traffic (0.028 ms at
+// 3.35 TB/s), and 281 M exp2 (about 0.07 ms on the special-function
+// units): compute-bound.  Measured 0.180-0.184 ms (the mma.sync body before it: 0.470),
+// about the products and the exp2 added; the source note of
+// attention_fwd.cuh says why.
 
 #include "attention_fwd.cuh"
 
@@ -43,8 +45,9 @@ namespace {
 using namespace dclip;
 
 template <int D>
-__global__ void __launch_bounds__(attn::kThreads) qkv_attention_kernel(attn::Args a) {
-  attn::forward<D>(a);
+__global__ void __launch_bounds__(attn::threads<D>(), 1)
+qkv_attention_kernel(const __grid_constant__ attn::Params p) {
+  attn::forward<D>(p);
 }
 
 }  // namespace

@@ -1,0 +1,198 @@
+"""Time the attention forward kernels of several source trees in turns, on the card.
+
+K1 (`csrc/qkv_attention.cu`) and K3 (`csrc/mha_attention.cu`) call the
+forward core `csrc/attention_fwd.cuh`.  This tool builds the two sources of
+each tree it is given (a directory holding `qkv_attention.cu`,
+`mha_attention.cu` and their headers: this checkout's `csrc/` by default,
+or a copy of another commit's) with the port's nvcc flags into
+`build/fwd_trees/<name>/`, calls their plain C entry points, whose
+signatures every tree must share, and:
+
+  * holds each tree's output and row statistics against the port's plain
+    versions (chip_smoke.py's limits), with NaN in the K / V rows past
+    valid_len, and says whether they equal the last tree's bit for bit;
+  * times every tree at K1's slide shape [10,1536,2304] valid 1522 and K3's
+    [10,1536,12,64] valid 1522 (views of one fused qkv), by CUDA events
+    over 50 launches, in turns (the trees in order, then reversed,
+    `--rounds` times), and reports each tree's median beside the bound
+    and one `scaled_dot_product_attention` call (the yardstick).
+
+    python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
+        [--tree NAME=CSRC_DIR ...] [--rounds 3]
+
+One JSON line per tree and shape, then a summary line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+from pathlib import Path
+
+import torch
+
+SHAPES = {  # name: (batch, tokens, heads, head dim, valid_len)
+    "k1_slide": (10, 1536, 12, 64, 1522),
+    "k3_slide": (10, 1536, 12, 64, 1522),
+}
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
+PEAK_BYTES = 3.35e12
+LOG2E = 1.4426950408889634
+MAX_TOL, MEAN_TOL, REL_TOL = 2e-2, 5e-4, 5e-3
+ITERS = 50  # launches per timing
+STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
+
+
+def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
+    """Compile `csrc`'s K1 and K3 sources; their entry points by kernel."""
+    from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
+                                    str(csrc / f"{src}.cu")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src in ("qkv_attention", "mha_attention")}
+    for src, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for tree {name}, {src}:\n{log}")
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(json.dumps({"tree": name, "build": src, "ptxas": ptxas}), flush=True)
+    k1 = ctypes.CDLL(str(out_dir / "libqkv_attention.so")).qkv_attention_bf16
+    k1.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
+    k3 = ctypes.CDLL(str(out_dir / "libmha_attention.so")).mha_attention_bf16
+    k3.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
+    k1.restype = k3.restype = ctypes.c_int
+    return {"k1": k1, "k3": k3}
+
+
+def plain_stats(q, k, kv: int, scale: float) -> torch.Tensor:
+    """Each row's max of the prescaled logits (log2 units) and sum of
+    exp2(s - max) over the first kv keys: [B, H, N, 2] fp32."""
+    b, n, heads, _ = q.shape
+    stats = torch.empty(b, heads, n, 2, device=q.device)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    for h in range(heads):
+        s = qs[:, :, h].float() @ k[:, :kv, h].float().transpose(-1, -2)
+        m = s.amax(-1)
+        stats[:, h, :, 0] = m
+        stats[:, h, :, 1] = torch.exp2(s - m[..., None]).sum(-1)
+    return stats
+
+
+def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    return {"stats_m_max_abs_err": float((got[..., 0] - want[..., 0]).abs().max()),
+            "stats_l_max_rel_err": float(((got[..., 1] - want[..., 1]) / want[..., 1]).abs().max())}
+
+
+def main(argv=None) -> dict:
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention_reference
+
+    root = Path(__file__).resolve().parents[2]
+    p = argparse.ArgumentParser()
+    p.add_argument("--tree", action="append", default=[],
+                   help="NAME=CSRC_DIR (default: this checkout's csrc/ as 'this')")
+    p.add_argument("--rounds", type=int, default=3)
+    args = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("time_fwd_trees: needs a CUDA device")
+    trees = dict(t.split("=", 1) for t in args.tree) or {
+        "this": str(root / "denseclip_vit_multimodal_tpu_torch" / "csrc")}
+    fns = {name: build_tree(name, Path(csrc), root / "build" / "fwd_trees" / name)
+           for name, csrc in trees.items()}
+
+    summary: dict = {}
+    for shape, (b, n, heads, d, kv) in SHAPES.items():
+        hd, scale = heads * d, d**-0.5
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.view(b, n, heads, d) for t in qkv.split(hd, dim=-1))
+        want = mha_qkv_attention_reference(qkv, heads, valid_len=kv)
+        want_stats = plain_stats(q, k, kv, scale)
+        k[:, kv:] = float("nan")  # pad keys: must never reach a real row
+        v[:, kv:] = float("nan")
+        out = torch.empty(b, n, hd, dtype=torch.bfloat16, device="cuda")
+        stats = torch.empty(b, heads, n, 2, device="cuda")
+        strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call(fn, with_stats=False):
+            st = stats.data_ptr() if with_stats else None
+            if shape.startswith("k1"):
+                err = fn["k1"](qkv.data_ptr(), out.data_ptr(), st, b, n, heads, d, kv,
+                               scale * LOG2E, stream)
+            else:
+                err = fn["k3"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
+                               *strides, b, n, heads, d, kv, scale * LOG2E, stream)
+            if err != 0:
+                raise RuntimeError(f"launch failed: cudaError {err}")
+
+        def timed(fn) -> float:
+            call(fn)
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            for _ in range(ITERS):
+                call(fn)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) / ITERS
+
+        results, outs = {}, {}
+        for name, fn in fns.items():
+            out.fill_(float("nan"))
+            call(fn, with_stats=True)
+            torch.cuda.synchronize()
+            outs[name] = (out.clone(), stats.clone())
+            err = (out.float() - want.float()).abs()
+            res = {"tree": name, "shape": shape, "max_abs_err": float(err.max()),
+                   "mean_abs_err": float(err.mean()),
+                   "rel_l2_err": float((out.float() - want.float()).norm() / want.float().norm()),
+                   **stats_errors(stats, want_stats), "ms": []}
+            res["ok"] = bool(torch.isfinite(out.float()).all() and res["max_abs_err"] <= MAX_TOL
+                             and res["mean_abs_err"] <= MEAN_TOL and res["rel_l2_err"] <= REL_TOL
+                             and res["stats_m_max_abs_err"] <= STATS_M_TOL
+                             and res["stats_l_max_rel_err"] <= STATS_L_TOL)
+            results[name] = res
+        last = list(fns)[-1]  # every tree against the last one given, bit for bit
+        for name, res in results.items():
+            res[f"bitwise_equal_to_{last}"] = all(
+                torch.equal(x, y) for x, y in zip(outs[name], outs[last]))
+        for r in range(args.rounds):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                results[name]["ms"].append(timed(fns[name]))
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        sdpa()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(ITERS):
+            sdpa()
+        end.record()
+        torch.cuda.synchronize()
+        flops = 4.0 * b * heads * n * kv * d
+        nbytes = 2.0 * 4 * b * n * hd
+        bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        for res in results.values():
+            res.update(median_ms=statistics.median(res["ms"]), bound_ms=bound_ms,
+                       library_ms=start.elapsed_time(end) / ITERS,
+                       tflops=flops / (statistics.median(res["ms"]) * 1e-3) / 1e12)
+            print(json.dumps(res), flush=True)
+        summary[shape] = {name: res["median_ms"] for name, res in results.items()}
+        summary[shape]["ok"] = all(res["ok"] for res in results.values())
+    print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}), flush=True)
+    if not all(s["ok"] for s in summary.values()):
+        raise SystemExit("time_fwd_trees: a tree disagrees with the plain version")
+    return summary
+
+
+if __name__ == "__main__":
+    main()

@@ -16,9 +16,12 @@
 #include <barrier>
 #include <cassert>
 #include <cmath>
+#include <condition_variable>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <map>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -29,6 +32,7 @@
 #define __shared__
 #define __align__(x)
 #define __launch_bounds__(...)
+#define __grid_constant__
 
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
@@ -42,12 +46,13 @@ extern thread_local dim3 threadIdx, blockIdx;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorNotSupported = 801 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 
 namespace emu {
@@ -89,6 +94,24 @@ inline void run(const std::vector<Copy>& g) {
 }
 extern unsigned char* smem_base;
 
+// The block's mbarriers and named barriers (hopper.cuh here), keyed by
+// shared address / barrier id, reset before each block.
+struct MBar {
+  uint32_t expected, pending, phase;  // phase: completed phases so far
+  long long tx;                       // bytes still to arrive in this phase
+};
+struct Named {
+  int arrived = 0;
+  unsigned generation = 0;
+};
+struct Sync {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::map<uint32_t, MBar> mbars;
+  std::map<int, Named> named;
+};
+extern Sync bars;
+
 }  // namespace emu
 
 inline void __syncthreads() { emu::cur->bar.arrive_and_wait(); }
@@ -114,6 +137,8 @@ void emu_launch(void (*kernel)(A), dim3 grid, int threads, size_t smem, const A&
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         memset(emu::smem_base, 0xff, emu::kSmemBytes);
+        emu::bars.mbars.clear();
+        emu::bars.named.clear();
         emu::Block blk(threads);
         std::vector<std::thread> ts;
         for (int i = 0; i < threads; ++i)

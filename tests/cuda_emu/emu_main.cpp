@@ -8,4 +8,5 @@ thread_local Block* cur;
 thread_local std::vector<std::vector<Copy>> groups;
 thread_local std::vector<Copy> open_group;
 unsigned char* smem_base;
+Sync bars;
 }  // namespace emu

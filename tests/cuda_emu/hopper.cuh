@@ -1,0 +1,253 @@
+// csrc/hopper.cuh emulated on the CPU (cuda_runtime.h here), from the PTX
+// ISA's definitions rather than from the kernels that use it:
+//   * mbarrier: an expected arrival count, pending arrivals, a transaction
+//     count in bytes and the number of completed phases; a phase completes
+//     when its arrivals and bytes are all in, and try_wait.parity(p) passes
+//     once the phase of parity p is complete (a fresh barrier's "previous"
+//     phase, parity 1, counts as complete).  Eight guard bytes at the
+//     barrier's shared address catch a tile written over it.
+//   * TMA (cp.async.bulk.tensor): the box at the given coordinates, elements
+//     past the map's extent as zeros, stored box-row-major at the
+//     destination with the 128-byte swizzle of the shared address (16-byte
+//     chunk bits [4, 7) XOR row bits [7, 10)); the whole box's bytes then
+//     complete the barrier's transaction count.
+//   * wgmma: queued at issue and computed at the wait that retires its
+//     group (the latest moment the hardware may complete it), reading the
+//     accumulator, the A registers and shared memory then.  Operands come
+//     from the matrix descriptors (start, LBO, SBO; 128-byte swizzle only)
+//     in the canonical K-major and MN-major layouts; A from registers in
+//     the per-warp fragment layout (a0: row g, k 2t..2t+1; a1: row g + 8;
+//     a2 / a3: k + 8); d[i] is row 16 * warp + g + 8 * ((i / 2) % 2),
+//     column 8 * (i / 4) + 2t + i % 2; sums in fp32 in k order.
+//   * wgmma.fence / commit_group / wait_group are warp-synchronous (`.sync`:
+//     every lane of the warp reaches them before any goes on), which is what
+//     lets one lane release a tile for its warp after the wait;
+//   * a named barrier counts arrivals per id; setmaxnreg and the proxy
+//     fences are no-ops.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace emu {
+
+constexpr uint64_t kGuard = 0x6d62617272696572ull;
+
+inline unsigned char* shared(uint32_t addr) { return smem_base + addr; }
+
+inline MBar& mbar(uint32_t bar) {  // caller holds bars.mu
+  uint64_t guard;
+  memcpy(&guard, shared(bar), 8);
+  assert(guard == kGuard && "mbarrier overwritten or never initialised");
+  return bars.mbars.at(bar);
+}
+
+inline void mbar_check(MBar& m) {  // caller holds bars.mu
+  assert(m.tx >= 0 && "more bytes arrived than expected");
+  if (m.pending == 0 && m.tx == 0) {
+    m.phase += 1;
+    m.pending = m.expected;
+    bars.cv.notify_all();
+  }
+}
+
+inline void complete_tx(uint32_t bar, long long bytes) {
+  std::lock_guard<std::mutex> lk(bars.mu);
+  MBar& m = mbar(bar);
+  m.tx -= bytes;
+  mbar_check(m);
+}
+
+inline uint32_t swizzle128(uint32_t addr) { return addr ^ (((addr >> 7) & 7u) << 4); }
+
+inline float bf16_at(uint32_t addr) {
+  __nv_bfloat16 h;
+  memcpy(&h.x, shared(swizzle128(addr)), 2);
+  return __bfloat162float(h);
+}
+
+struct Desc {
+  uint32_t start, lbo, sbo;
+};
+
+inline Desc decode(uint64_t d) {
+  assert(((d >> 62) & 3) == 1 && "only the 128-byte swizzle is emulated");
+  assert(((d >> 49) & 7) == 0 && "base offset 0 only");
+  return {(uint32_t)(d & 0x3FFF) << 4, (uint32_t)((d >> 16) & 0x3FFF) << 4,
+          (uint32_t)((d >> 32) & 0x3FFF) << 4};
+}
+
+// K-major (row `mn` of the M or N extent, column k < 16): 8 rows of 128
+// bytes per SBO-strided group, k contiguous.
+inline float kmajor(const Desc& d, int mn, int k) {
+  return bf16_at(d.start + (mn / 8) * d.sbo + (mn % 8) * 128 + k * 2);
+}
+
+// MN-major: 64 contiguous elements along MN per LBO-strided atom, 8 k-rows
+// of 128 bytes per SBO-strided group.
+inline float mnmajor(const Desc& d, int k, int mn) {
+  return bf16_at(d.start + (mn / 64) * d.lbo + (mn % 64) * 2 + (k / 8) * d.sbo + (k % 8) * 128);
+}
+
+struct Mma {
+  bool a_regs;  // A from registers (else from the descriptor da)
+  float* d;
+  const uint32_t* a;
+  uint64_t da, db;
+  int acc, n;
+};
+inline thread_local std::vector<Mma> mma_open;                 // issued, not committed
+inline thread_local std::vector<std::vector<Mma>> mma_groups;  // committed, oldest first
+
+inline void run_mma(const Mma& op) {
+  const int w = (threadIdx.x >> 5) & 3;  // warp in the warpgroup: rows 16w .. 16w + 15
+  const int l = lane(), g = l / 4, t = l % 4;
+  float av[2][16];  // this thread's two rows of A
+  if (op.a_regs) {
+    auto& wp = warp();
+    for (int i = 0; i < 4; ++i) wp.slot[l][i] = op.a[i];
+    wp.bar.arrive_and_wait();
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 16; ++k) {
+        const int row = g + 8 * r;  // in the warp's 16
+        const uint32_t v = (uint32_t)wp.slot[(row % 8) * 4 + (k % 8) / 2][(row >= 8) + 2 * (k >= 8)];
+        __nv_bfloat16 h{(uint16_t)(k % 2 ? v >> 16 : v & 0xffff)};
+        av[r][k] = __bfloat162float(h);
+      }
+    wp.bar.arrive_and_wait();
+  } else {
+    const Desc da = decode(op.da);
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 16; ++k) av[r][k] = kmajor(da, 16 * w + g + 8 * r, k);
+  }
+  const Desc db = decode(op.db);
+  for (int i = 0; i < op.n / 2; ++i) {
+    const int r = (i / 2) % 2, col = 8 * (i / 4) + 2 * t + i % 2;
+    float s = 0.f;
+    for (int k = 0; k < 16; ++k)
+      s += av[r][k] * (op.a_regs ? mnmajor(db, k, col) : kmajor(db, col, k));
+    op.d[i] = op.acc ? op.d[i] + s : s;
+  }
+}
+
+}  // namespace emu
+
+namespace dclip {
+namespace sm90 {
+
+inline void mbar_init(uint32_t bar, uint32_t count) {
+  std::lock_guard<std::mutex> lk(emu::bars.mu);
+  memcpy(emu::shared(bar), &emu::kGuard, 8);
+  emu::bars.mbars[bar] = {count, count, 0, 0};
+}
+
+inline void fence_barrier_init() {}
+
+inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> lk(emu::bars.mu);
+  emu::MBar& m = emu::mbar(bar);
+  assert(m.pending > 0 && "more arrivals than expected in a phase");
+  m.tx += bytes;
+  m.pending -= 1;
+  emu::mbar_check(m);
+}
+
+inline void mbar_arrive(uint32_t bar) {
+  std::lock_guard<std::mutex> lk(emu::bars.mu);
+  emu::MBar& m = emu::mbar(bar);
+  assert(m.pending > 0 && "more arrivals than expected in a phase");
+  m.pending -= 1;
+  emu::mbar_check(m);
+}
+
+inline void mbar_wait(uint32_t bar, uint32_t parity) {
+  std::unique_lock<std::mutex> lk(emu::bars.mu);
+  emu::bars.cv.wait(lk, [&] { return (emu::mbar(bar).phase & 1u) != parity; });
+}
+
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                        int c3) {
+  const CUtensorMap& m = *map;
+  assert(m.rank == 4 && dst % 128 == 0);
+  const int c[4] = {c0, c1, c2, c3};
+  uint32_t off = 0;
+  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, off += m.elem_bytes) {
+          const long long x[4] = {c[0] + (long long)i0, c[1] + (long long)i1,
+                                  c[2] + (long long)i2, c[3] + (long long)i3};
+          bool in = true;
+          long long src = 0;
+          for (int d = 0; d < 4; ++d) {
+            in = in && x[d] >= 0 && x[d] < (long long)m.dim[d];
+            src += x[d] * (long long)m.stride[d];
+          }
+          const uint32_t at = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? emu::swizzle128(dst + off)
+                                                                      : dst + off;
+          if (in) memcpy(emu::shared(at), m.base + src, m.elem_bytes);
+          else memset(emu::shared(at), 0, m.elem_bytes);
+        }
+  emu::complete_tx(bar, off);
+}
+
+inline void named_barrier_sync(int id, int threads) {
+  std::unique_lock<std::mutex> lk(emu::bars.mu);
+  emu::Named& b = emu::bars.named[id];
+  const unsigned gen = b.generation;
+  if (++b.arrived == threads) {
+    b.arrived = 0;
+    b.generation += 1;
+    emu::bars.cv.notify_all();
+  } else {
+    emu::bars.cv.wait(lk, [&] { return emu::bars.named[id].generation != gen; });
+  }
+}
+
+// ex2.approx.ftz: subnormal results flushed to 0 (a +0 for the -inf of a
+// masked score).
+inline float exp2_ftz(float x) {
+  const float y = exp2f(x);
+  return std::fpclassify(y) == FP_SUBNORMAL ? 0.f : y;
+}
+
+inline void fence_proxy_async() {}
+template <int kRegs>
+inline void setmaxnreg_dec() {}
+template <int kRegs>
+inline void setmaxnreg_inc() {}
+template <int kN, class T>
+inline void fence_regs(T*) {}
+
+// `.sync`: a thread waits for every lane of its warp to reach the instruction.
+inline void wgmma_fence() { emu::warp().bar.arrive_and_wait(); }
+
+inline void wgmma_commit() {
+  emu::warp().bar.arrive_and_wait();
+  emu::mma_groups.push_back(emu::mma_open);
+  emu::mma_open.clear();
+}
+
+template <int kPending>
+inline void wgmma_wait() {
+  emu::warp().bar.arrive_and_wait();
+  while ((int)emu::mma_groups.size() > kPending) {
+    for (const auto& op : emu::mma_groups.front()) emu::run_mma(op);
+    emu::mma_groups.erase(emu::mma_groups.begin());
+  }
+  emu::warp().bar.arrive_and_wait();
+}
+
+template <int N>
+inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
+  emu::mma_open.push_back({false, d, nullptr, da, db, acc, N});
+}
+
+template <int N>
+inline void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db, int acc) {
+  emu::mma_open.push_back({true, d, a, 0, db, acc, N});
+}
+
+}  // namespace sm90
+}  // namespace dclip

@@ -1,4 +1,4 @@
-// The helpers of csrc/mma_bf16.cuh that the backward core uses, emulated on
+// The helpers of csrc/mma_bf16.cuh that the attention cores use, emulated on
 // the CPU (cuda_runtime.h here): mma.sync m16n8k16 rebuilds A and B from
 // the 32 lanes' fragments and sums in fp32 in k order; ldmatrix reads the
 // rows the lanes address; cp.async queues its copy until the wait.
@@ -38,7 +38,10 @@ inline void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) 
 inline uint32_t pack_bf16(float lo, float hi) {
   return (uint32_t)__float2bfloat16_rn(lo).x | ((uint32_t)__float2bfloat16_rn(hi).x << 16);
 }
-inline uint32_t smem_addr(const void* p) { return (uint32_t)(size_t)p; }
+// A shared-window address: the offset from the block's shared memory.
+inline uint32_t smem_addr(const void* p) {
+  return (uint32_t)((const unsigned char*)p - emu::smem_base);
+}
 inline void cp_async16(void* dst, const void* src, int src_bytes) {
   emu::open_group.push_back({dst, src, 16, src_bytes});
 }

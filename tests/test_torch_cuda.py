@@ -289,6 +289,53 @@ def test_oneshot_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, s
     assert float(err.abs().mean()) <= 5e-4
 
 
+@pytest.mark.parametrize("kernel,b,n,heads,d,valid_len,layout", [
+    ("qkv", 2, 1664, 12, 64, 1601, "fused"),  # K1: three warpgroups at head dim 64
+    ("qkv", 1, 700, 6, 128, 650, "fused"),
+    ("mha", 2, 1100, 8, 128, 1050, "bhnd"),  # K3 on [B, H, N, D] storage
+    ("mha", 1, 300, 2, 256, 290, "bhnd"),
+])
+def test_forward_kernels_skip_nan_pad_keys_and_write_plain_stats(cuda, kernel, b, n, heads, d,
+                                                                valid_len, layout):
+    """K1 / K3 with NaN in every K / V row past valid_len (their tensor maps
+    end there: TMA never reads them) give finite outputs within the limits,
+    and row statistics within chip_smoke.py's STATS_M_TOL / STATS_L_TOL of
+    the plain row max and sum.  The [B, H, N, D] views have their head
+    stride above their token stride (the maps order dimensions by stride)."""
+    from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import (
+        STATS_L_TOL,
+        STATS_M_TOL,
+        plain_stats,
+        stats_errors,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    if layout == "fused":
+        qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v = (t.view(b, n, heads, d) for t in qkv.split(heads * d, dim=-1))
+    else:
+        q, k, v = (torch.randn(b, heads, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(3))
+    k[:, valid_len:] = float("nan")
+    v[:, valid_len:] = float("nan")
+    scale = d**-0.5
+    if kernel == "qkv":
+        out, stats = mha_kernel._launch(qkv, heads, scale, valid_len, with_stats=True)
+        out = out.view(b, n, heads, d)
+    else:
+        stats = torch.empty(b, heads, n, 2, device="cuda")
+        out = mha_kernel._launch_mha(q, k, v, scale, valid_len, stats)
+    ref = mha_kernel.mha_attention_reference(q, k, v, valid_len=valid_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = out.float() - ref.float()
+    assert float(err.abs().max()) <= KERNEL_TOL
+    assert float(err.norm() / ref.float().norm()) <= 5e-3
+    errs = stats_errors(stats, plain_stats(q, k, valid_len, scale))
+    assert errs["stats_m_max_abs_err"] <= STATS_M_TOL
+    assert errs["stats_l_max_rel_err"] <= STATS_L_TOL
+
+
 def _lnqkv_inputs(b, n, dim, seed):
     """x and ln_1 / qkv parameters at the scale of a seeded init."""
     gen = torch.Generator(device="cuda").manual_seed(seed)

@@ -1,17 +1,23 @@
-"""The attention-backward kernels' CUDA sources, run on the CPU.
+"""The attention kernels' CUDA sources, run on the CPU.
 
-`csrc/qkv_attention_bwd.cu` (K2, K3's backward) and `csrc/flash_attention_bwd.cu`
-(K4b) with their core `csrc/attention_bwd.cuh` are compiled by the host
+The backward: `csrc/qkv_attention_bwd.cu` (K2, K3's backward) and
+`csrc/flash_attention_bwd.cu` (K4b) on their core `csrc/attention_bwd.cuh`.
+The forward: `csrc/qkv_attention.cu` (K1) and `csrc/mha_attention.cu` (K3)
+on their core `csrc/attention_fwd.cuh`.  Each is compiled by the host
 compiler against the CPU emulation in `tests/cuda_emu/` (one std::thread per
 CUDA thread; ldmatrix, mma.sync and shuffles emulated per warp; cp.async
-deferred to its wait) and called through their plain C entry points on CPU
-tensors, at small shapes that reach every branch: ragged tiles, pad keys and
-pad rows, causal masks, head dims 64 / 128 / 256 (the dk/dv kernel's two
-passes).  Each gradient is held to the chip's limits against the port's
-plain versions, masked keys (and K4b's pad rows) to exactly 0, and a second
-call bitwise to the first.  What
-only the card shows (timing, the compiler's registers, a real race) stays
-with `tests/test_torch_cuda.py` and `chip_smoke.py`.
+deferred to its wait; for the forward, wgmma from its shared-memory
+descriptors with the 128-byte swizzle, deferred to its wait, TMA box loads
+with zero fill past the tensor map's extent, mbarriers with transaction
+counts, named barriers) and called through its plain C entry point on CPU
+tensors, at small shapes that reach every branch: ragged tiles, pad keys
+(NaN in the forward's K / V rows past valid_len) and pad rows, causal
+masks, head dims 64 / 128 / 256.  Each output is held to the chip's limits
+against the port's plain versions, the forward's row statistics to the
+plain row max and sum, masked keys (and K4b's pad rows) to exactly 0, and a
+second call bitwise to the first.  What only the card shows (timing, the
+compiler's registers, a real race) stays with `tests/test_torch_cuda.py`
+and `chip_smoke.py`.
 """
 
 import ctypes
@@ -25,6 +31,7 @@ import torch
 
 from denseclip_vit_multimodal_tpu_torch.ops import attention
 from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
+from denseclip_vit_multimodal_tpu_torch.tools import time_fwd_trees
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "denseclip_vit_multimodal_tpu_torch" / "csrc"
@@ -35,16 +42,19 @@ BWD_REL_TOL, BWD_MAX_TOL = 2e-3, 1e-2
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]*>>>\((\w+)\)")
 
 
-def _build(src: str, out: Path) -> ctypes.CDLL:
+def _build(src: str, out: Path, core: str = "attention_bwd", ns: str = "bwd") -> ctypes.CDLL:
+    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (whose functions live in
+    namespace dclip::<ns>), compiled against the emulation."""
     work = out / src
     work.mkdir()
-    shutil.copy(EMU / "mma_bf16.cuh", work)  # found before csrc's by `#include "..."`
-    core = (CSRC / "attention_bwd.cuh").read_text()
-    (work / "attention_bwd.cuh").write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", core))
+    for header in EMU.glob("*.cuh"):  # found before csrc's by `#include "..."`
+        shutil.copy(header, work)
+    text = (CSRC / f"{core}.cuh").read_text()
+    (work / f"{core}.cuh").write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text))
     (work / f"{src}.cpp").write_text(
         '#include "cuda_runtime.h"\n'
-        "namespace dclip { namespace bwd { alignas(16) unsigned char smem_raw[emu::kSmemBytes]; } }\n"
-        "namespace { struct Init { Init() { emu::smem_base = dclip::bwd::smem_raw; } } init_; }\n"
+        f"namespace dclip {{ namespace {ns} {{ alignas(1024) unsigned char smem_raw[emu::kSmemBytes]; }} }}\n"
+        f"namespace {{ struct Init {{ Init() {{ emu::smem_base = dclip::{ns}::smem_raw; }} }} init_; }}\n"
         + (CSRC / f"{src}.cu").read_text())
     lib = out / f"lib{src}.so"
     proc = subprocess.run(
@@ -219,3 +229,123 @@ def test_entry_points_refuse_what_the_kernels_do_not_take(libs):
     assert libs["qkv"](*args(64, 65)) == 1
     flash = lambda d, kv: libs["flash"](*([None] * 9 + [0] * 9 + [1, 64, 1, d, kv, 0, 1.0, None]))
     assert flash(256, 64) == 1 and flash(64, 0) == 1
+
+
+# ---- the forward core (csrc/attention_fwd.cuh): K1 and K3 ----
+
+# chip_smoke.py's limits for the forward kernels against their plain versions
+FWD_MAX_TOL, FWD_MEAN_TOL, FWD_REL_TOL = 2e-2, 5e-4, 5e-3
+# and for the row statistics they write: max abs error of the row max (log2
+# units), max relative error of the row sum
+STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
+
+
+@pytest.fixture(scope="module")
+def fwd_libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++20 host compiler (g++)")
+    out = tmp_path_factory.mktemp("cuda_emu_fwd")
+    ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    qkv = _build("qkv_attention", out, "attention_fwd", "attn").qkv_attention_bf16
+    mha = _build("mha_attention", out, "attention_fwd", "attn").mha_attention_bf16
+    qkv.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
+    mha.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
+    qkv.restype = mha.restype = ctypes.c_int
+    return {"qkv": qkv, "mha": mha}
+
+
+def _poison_pad_keys(k, v, kv):
+    """NaN in every K / V row at or past kv (they must never reach a real row)."""
+    k[:, kv:] = float("nan")
+    v[:, kv:] = float("nan")
+
+
+def _assert_fwd_close(out, want, stats, want_stats):
+    assert torch.isfinite(out.float()).all()
+    err = (out.float() - want.float()).abs()
+    assert float(err.max()) <= FWD_MAX_TOL
+    assert float(err.mean()) <= FWD_MEAN_TOL
+    assert float((out.float() - want.float()).norm() / want.float().norm()) <= FWD_REL_TOL
+    m, l = stats[..., 0], stats[..., 1]
+    assert float((m - want_stats[..., 0]).abs().max()) <= STATS_M_TOL
+    assert float(((l - want_stats[..., 1]) / want_stats[..., 1]).abs().max()) <= STATS_L_TOL
+
+
+def _run_fwd_mha(fn, b, n, heads, d, kv, poison):
+    _, q, k, v, _ = _inputs(b, n, heads, d, seed=3 * n + d)
+    if poison:
+        _poison_pad_keys(k, v, kv)
+    scale = d**-0.5
+    out = torch.full((b, n, heads, d), float("nan"), dtype=torch.bfloat16)
+    stats = torch.full((b, heads, n, 2), float("nan"))
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stats.data_ptr(), *strides,
+             b, n, heads, d, kv, scale * LOG2E, None)
+    assert err == 0
+    want = mha_kernel.mha_attention_reference(q, k, v, valid_len=kv)
+    return out, want, stats, _row_stats(q, k, kv, scale, True)
+
+
+def _run_fwd_qkv(fn, b, n, heads, d, kv, poison):
+    qkv, q, k, v, _ = _inputs(b, n, heads, d, seed=5 * n + d)
+    if poison:
+        _poison_pad_keys(k, v, kv)  # views: the k and v column blocks of qkv
+    scale = d**-0.5
+    out = torch.full((b, n, heads * d), float("nan"), dtype=torch.bfloat16)
+    stats = torch.full((b, heads, n, 2), float("nan"))
+    err = fn(qkv.data_ptr(), out.data_ptr(), stats.data_ptr(), b, n, heads, d, kv,
+             scale * LOG2E, None)
+    assert err == 0
+    want = mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=kv)
+    return out, want, stats, _row_stats(q, k, kv, scale, True)
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,poison", [
+    (1, 150, 2, 64, 140, True),  # ragged q and key tiles, NaN in the pad keys
+    (2, 130, 1, 64, 130, False),  # batch 2, no pad keys, a ragged last key tile
+    (1, 140, 1, 128, 133, True),
+    (1, 100, 1, 256, 90, True),  # head dim 256
+])
+def test_oneshot_forward_source_matches_plain_version(fwd_libs, b, n, heads, d, kv, poison):
+    _assert_fwd_close(*_run_fwd_mha(fwd_libs["mha"], b, n, heads, d, kv, poison))
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,poison", [
+    (1, 150, 2, 64, 137, True),  # ragged tiles, NaN in the pad keys of K and V
+    (1, 140, 1, 128, 140, False),  # head dim 128: q / k / v column blocks of 3 * 128
+    (2, 70, 1, 64, 66, True),  # batch 2, one ragged tile
+])
+def test_fused_qkv_forward_source_matches_plain_version(fwd_libs, b, n, heads, d, kv, poison):
+    _assert_fwd_close(*_run_fwd_qkv(fwd_libs["qkv"], b, n, heads, d, kv, poison))
+
+
+@pytest.mark.parametrize("kernel,d", [("qkv", 64), ("mha", 128), ("mha", 256)])
+def test_forward_sources_are_bitwise_deterministic(fwd_libs, kernel, d):
+    """A second call on the same inputs gives the same output and statistics
+    bit for bit."""
+    run = _run_fwd_qkv if kernel == "qkv" else _run_fwd_mha
+    first, second = (run(fwd_libs[kernel], 1, 140, 1, d, 131, True) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    _assert_fwd_close(*first)
+
+
+def test_forward_entry_points_refuse_what_the_kernels_do_not_take(fwd_libs):
+    """Head dim 256 in K1 (64 / 128 only), head dim 32 in either, and kv_len
+    outside [1, N] return cudaErrorInvalidValue (1) before any launch."""
+    qkv = lambda d, kv: fwd_libs["qkv"](None, None, None, 1, 64, 1, d, kv, 1.0, None)
+    mha = lambda d, kv: fwd_libs["mha"](*([None] * 5 + [0] * 9 + [1, 64, 1, d, kv, 1.0, None]))
+    assert qkv(256, 64) == 1 and qkv(32, 64) == 1 and qkv(64, 0) == 1 and qkv(64, 65) == 1
+    assert mha(32, 64) == 1 and mha(64, 65) == 1 and mha(512, 64) == 1
+
+
+def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypatch):
+    """`tools/time_fwd_trees.py` (the design-step timings on the card) holds
+    the row statistics to the plain values computed as here, with the limits
+    of this file, and exits rather than time anything without a card."""
+    _, q, k, _, _ = _inputs(1, 90, 2, 64, seed=11)
+    got = time_fwd_trees.plain_stats(q, k, 80, 0.125)
+    assert torch.allclose(got, _row_stats(q, k, 80, 0.125, True), rtol=1e-6, atol=1e-6)
+    assert (time_fwd_trees.STATS_M_TOL, time_fwd_trees.STATS_L_TOL) == (STATS_M_TOL, STATS_L_TOL)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit):
+        time_fwd_trees.main([])

@@ -107,7 +107,8 @@ def test_every_kernel_source_is_built():
 
 @pytest.mark.parametrize("module", ["ops.lnqkv_kernel", "tools.selftest",
                                     "tools.exp_outproj_epilogue", "tools.profile_attn_bwd",
-                                    "utils.benchtime", "ops.attention", "models.layers"])
+                                    "tools.time_fwd_trees", "utils.benchtime", "ops.attention",
+                                    "models.layers"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
     """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
     tools, the timing helpers and the remat-aware layers import on a machine
