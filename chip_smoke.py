@@ -18,9 +18,13 @@ phases that each print one JSON line:
                   dv, with dk / dv of masked keys held to exactly 0 and a
                   second launch held bitwise equal to the first; TFLOP/s on
                   the function's five products and the design's seven;
-  5. kernel_flash — K4 (long-sequence flash attention forward) the same way
-                  at the three long evaluation shapes (views of a fused qkv),
-                  a ragged head-dim-128 case and a causal case;
+  5. kernel_flash — K4 (long-sequence flash attention forward, the forward
+                  core under the bundled kernel's numerics) the same way at
+                  the three long evaluation shapes (views of a fused qkv), a
+                  ragged head-dim-128 case and a causal case, a causal case
+                  with pad keys and head dim 256 past the one-shot limit
+                  (NaN in the K / V rows past valid_len in the last three);
+                  its row statistics as K1's;
   6. reference  — the full-width model in bf16 on the card against the same
                   model in fp32 on the CPU (plain attention) on one 512x512
                   window;
@@ -92,9 +96,10 @@ phases that each print one JSON line:
                   plain / SDPA backward / bound times, TFLOP/s and the
                   bitwise rerun check, as K2;
  18. kernel_flash_bwd — K4b (the flash backward) the same way at the long
-                  training shape [2,9344,12,64] valid 9217, a causal case and
-                  a ragged head-dim-128 case; dq of pad rows and dk / dv of
-                  pad keys held to exactly 0; TFLOP/s and the rerun check;
+                  training shape [2,9344,12,64] valid 9217, a causal case, a
+                  ragged head-dim-128 case and head dim 256 past the
+                  one-shot limit; dq of pad rows and dk / dv of pad keys held
+                  to exactly 0; TFLOP/s and the rerun check;
  19. train_long — the heritage preset at full width through the user entry
                   point `train()` on a 1536x1536 crop (9217 tokens, padded
                   to 9344: past the one-shot limit), batch 2: 1 warm-up + 3
@@ -291,12 +296,13 @@ def phase_build() -> None:
 
 
 def row_stats_errors(stats: torch.Tensor, q: torch.Tensor, k: torch.Tensor, kv: int,
-                     scale: float) -> dict:
-    """K1's / K3's row statistics [B, H, N, 2] against the plain row max (log2
-    units) and row sum over the first kv keys."""
+                     scale: float, prescaled: bool = True, causal: bool = False) -> dict:
+    """A forward kernel's row statistics [B, H, N, 2] against the plain row
+    max (log2 units) and row sum over the first kv keys: K1's / K3's logits
+    (`prescaled`) or K4's."""
     from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import plain_stats, stats_errors
 
-    return stats_errors(stats, plain_stats(q, k, kv, scale))
+    return stats_errors(stats, plain_stats(q, k, kv, scale, prescaled, causal))
 
 
 def stats_in_limits(res: dict) -> bool:
@@ -452,11 +458,13 @@ def phase_kernel_bwd() -> dict:
 
 
 def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
-                         iters: int) -> dict:
+                         iters: int, poison: bool = False) -> dict:
     """K4 (its launching wrapper: `flash_attention` would send a short
     non-causal case to the K3 branch) against its plain version on views of
     one fused qkv, as the ViT hands them over; errors on the rows below
-    `valid_len` (the rest are unspecified), every row finite."""
+    `valid_len` (the rest are unspecified), every row finite; its row
+    statistics against the plain row max and sum; with `poison`, NaN in the
+    K / V rows past valid_len."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops.attention import (
@@ -469,9 +477,13 @@ def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, c
     qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
     q, k, v = (t.view(b, n, heads, head_dim) for t in qkv.split(hd, dim=-1))
     kv = n if valid_len is None else valid_len
+    if poison:
+        poison_pad_keys(k, v, kv)
     run = lambda: _launch(q, k, v, causal, head_dim**-0.5, kv)
     plain = lambda: flash_attention_reference(q, k, v, causal=causal, valid_len=valid_len)
     out, ref = run(), plain()
+    stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device="cuda")
+    out_s = _launch(q, k, v, causal, head_dim**-0.5, kv, stats)
     torch.cuda.synchronize()
     err = (out[:, :kv].float() - ref[:, :kv].float())
     # the library yardstick: one fused-attention call on head-split copies
@@ -482,10 +494,12 @@ def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, c
     nbytes = 2.0 * (qkv.numel() + out.numel())
     res = {
         "phase": "kernel_flash", "name": "flash_attention", "shape": [b, n, heads, head_dim],
-        "valid_len": valid_len, "causal": causal,
+        "valid_len": valid_len, "causal": causal, "poisoned_pad_keys": poison,
         "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
         "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
         "finite": bool(torch.isfinite(out.float()).all()),
+        **row_stats_errors(stats, q, k, kv, head_dim**-0.5, prescaled=False, causal=causal),
+        "stats_call_output_bitwise_equal": torch.equal(out, out_s),
         "ms": cuda_ms(run, iters),
         "plain_ms": cuda_ms(plain, 2, warmup=1),
         "library_ms": cuda_ms(library, iters),
@@ -498,13 +512,16 @@ def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, c
 
 # The three long views of multi-scale evaluation on a 1024x2048 frame (scales
 # 1.25 / 1.5 / 1.75, with the flipped view: B 2; tokens padded to 128), a
-# ragged head-dim-128 case and a causal case.
+# ragged head-dim-128 case, a causal case, a causal case with pad keys and
+# head dim 256 past the one-shot limit (NaN in the pad keys of the last three).
 FLASH_CASES = [
     (2, 12928, 12, 64, 12801, False, 10),
     (2, 18560, 12, 64, 18433, False, 5),
     (2, 25216, 12, 64, 25089, False, 3),
-    (2, 1100, 8, 128, 1050, False, 50),
+    (2, 1100, 8, 128, 1050, False, 50, True),
     (2, 2048, 12, 64, None, True, 50),
+    (2, 2100, 12, 64, 2000, True, 50, True),
+    (2, 8704, 4, 256, 8600, False, 10, True),
 ]
 
 
@@ -514,9 +531,11 @@ def phase_kernel_flash() -> list:
         res = flash_attention_case(*case)
         emit(res)
         if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
-                and res["rel_l2_err"] <= KERNEL_REL_TOL):
+                and res["rel_l2_err"] <= KERNEL_REL_TOL and stats_in_limits(res)
+                and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"flash_attention disagrees with its plain version: {res}")
         results.append(res)
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1594,6 +1613,7 @@ FLASH_BWD_CASES = [
     (2, 9344, 12, 64, 9217, False, 5),  # train_long: batch 2, crop 1536 (9217 tokens, padded once)
     (2, 2048, 12, 64, None, True, 20),  # causal
     (2, 1100, 8, 128, 1050, False, 20),  # head dim 128, ragged
+    (2, 8704, 4, 256, 8600, False, 5),  # head dim 256 past the one-shot limit: two dk/dv passes
 ]
 
 
@@ -1966,7 +1986,8 @@ def main() -> int:
     phase_build()
     slide = phase_kernels()[0]
     train_shape = phase_kernel_bwd()
-    longest = phase_kernel_flash()[2]  # the aug-test scale 1.75 shape
+    flashes = phase_kernel_flash()
+    longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
     serving = phase_kernel_int8()[0]
     oneshot = phase_kernel_oneshot()[0]
     fused = phase_kernel_lnqkv()[0]
@@ -1978,7 +1999,8 @@ def main() -> int:
     selftest_res = phase_selftest()
     oneshot_bwds = phase_kernel_oneshot_bwd()
     oneshot_bwd, oneshot_bwd_256 = oneshot_bwds[0], oneshot_bwds[-1]
-    flash_bwd = phase_kernel_flash_bwd()[0]
+    flash_bwds = phase_kernel_flash_bwd()
+    flash_bwd, flash_bwd_256 = flash_bwds[0], flash_bwds[-1]
     long_res = phase_train_long()
     outproj_res = phase_outproj_path()
     pab_res = phase_profile_attn_bwd()
@@ -2004,30 +2026,35 @@ def main() -> int:
         **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal",
                                "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res},
     }
-    at_256 = {k: oneshot_bwd_256[k] for k in ("shape", "valid_len", "max_abs_err", "ms",
-                                              "plain_ms", "bound_ms", "library_ms",
-                                              "tflops_5_products", "tflops_8_products",
-                                              "rerun_bitwise_equal")}
+    at_256 = lambda res: {k: res[k] for k in (
+        "shape", "valid_len", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+        "tflops", "tflops_5_products", "tflops_8_products", "rerun_bitwise_equal",
+        "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res}
     emit({"kernels": [
         entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
               main_res["launches"]["qkv_attention"]),
         entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240", train_shape,
               train_res["launches"]["qkv_attention_bwd"]),
-        entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
-              eval_res["launches"]["flash_attention"]),
+        {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
+                 eval_res["launches"]["flash_attention"]),
+         "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "
+                   "warpgroup, wgmma consumer warpgroups",
+         "head_dim_256": at_256(flash_256)},
         entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586", serving,
               serve_res["launches"]["qkv_attention_int8"]),
         entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
               selftest_res["launches"]["mha_attention"]),
         entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
               lnqkv_res["launches"]["ln_qkv_attention"]),
-        entry("flash_attention_bwd", "flash_attention_bwd.cu",
-              "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
-              ":1146 (dq, call :1456)", flash_bwd,
-              long_res["remat_false"]["launches"]["flash_attention_bwd"]),
+        {**entry("flash_attention_bwd", "flash_attention_bwd.cu",
+                 "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
+                 ":1146 (dq, call :1456)", flash_bwd,
+                 long_res["remat_false"]["launches"]["flash_attention_bwd"]),
+         "head_dim_256": at_256(flash_bwd_256)},
         {**entry("mha_attention_bwd", "qkv_attention_bwd.cu",
                  "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
-                 pab_res["launches"]["mha_attention_bwd"]), "head_dim_256": at_256},
+                 pab_res["launches"]["mha_attention_bwd"]),
+         "head_dim_256": at_256(oneshot_bwd_256)},
         entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
               outproj_res, outproj_res["launches"]["qkv_out_attention"]),
     ]})

@@ -15,7 +15,7 @@
 //     the JAX package's ops/attention.py:130 (K4b): policy `BundledPolicy`.
 //
 //   q, k, v, dO [B, N, H, D] bf16, read by stride (unit stride over D), D in
-//   {64, 128} (and 256 under TpuPolicy);  stats [B, H, N] float2 from the
+//   {64, 128, 256};  stats [B, H, N] float2 from the
 //   forward (row max m of the scaled logits in log2 units, row sum l of
 //   exp2(s - m));  coef [B, H, N] fp32  ->  dq, dk, dv [B, N, H, D] bf16,
 //   written by stride.
@@ -80,7 +80,7 @@
 // Keeping the dk/dv kernel's K / V fragments in registers saves a third of
 // its ldmatrix reads but halves the warps an SM holds: it measured slower
 // (PERF.md, the per-step table).
-// Head dim 256 (TpuPolicy only): 16 keys x 256 of both dk and dv in fp32
+// Head dim 256 (both policies): 16 keys x 256 of both dk and dv in fp32
 // would take 256 registers a thread, over the cap of 255.  So at D = 256 a
 // dk/dv block makes two passes over the query side: the first accumulates
 // dk (s, dp, dk), the second dv (s again, dv): 128 accumulator registers
@@ -90,13 +90,13 @@
 
 #pragma once
 
+#include "bundled_logit.cuh"
 #include "mma_bf16.cuh"
 
 namespace dclip {
 namespace bwd {
 
 using bf16 = __nv_bfloat16;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {  // in elements
   long long b, n, h;
@@ -141,7 +141,8 @@ struct BundledPolicy {
   static constexpr bool kDqFirst = false;
   static constexpr bool kPadRowsContribute = false;
   __device__ static float row_mul(float l, float) { return 1.f / l; }
-  __device__ static float logit(float s, float scale) { return (s * scale) * kLog2e; }
+  // K4's logit, bit for bit: p is rebuilt from the row max K4 wrote
+  __device__ static float logit(float s, float scale) { return bundled_logit(s, scale); }
   __device__ static float prob(float s, float m, float r) { return exp2f(s - m) * r; }
   __device__ static float dscore(float p, float dp, float c, float, float scale) {
     return (dp - c) * p * scale;
@@ -675,9 +676,8 @@ cudaError_t launch(void (*dq_kernel)(Args), void (*dkdv_kernel)(Args), const Arg
   return cudaSuccess;
 }
 
-// Launch `Run::go<Cfg<head_dim>>(a, batch, stream)` for head dim 64, 128,
-// and 256 where Run::kHeadDim256.  Anything else: cudaErrorInvalidValue,
-// nothing launched.
+// Launch `Run::go<Cfg<head_dim>>(a, batch, stream)` for head dim 64, 128
+// and 256.  Anything else: cudaErrorInvalidValue, nothing launched.
 template <class Run>
 int dispatch(int head_dim, const Args& a, int batch, void* stream) {
   if (batch < 1 || a.n < 1 || a.heads < 1 || a.kv_len < 1 || a.kv_len > a.n)
@@ -685,7 +685,7 @@ int dispatch(int head_dim, const Args& a, int batch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)Run::template go<Cfg<64>>(a, batch, s);
   if (head_dim == 128) return (int)Run::template go<Cfg<128>>(a, batch, s);
-  if (head_dim == 256 && Run::kHeadDim256) return (int)Run::template go<Cfg<256>>(a, batch, s);
+  if (head_dim == 256) return (int)Run::template go<Cfg<256>>(a, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,26 +1,35 @@
-// The non-causal attention forward shared by three kernels: K1
-// (qkv_attention.cu, q/k/v read off the fused projection), K3
-// (mha_attention.cu, separate strided q/k/v) and the second stage of K6
-// (ln_qkv_attention.cu, on the q/k/v workspace its first stage writes).
-// Each source wraps `forward<D>` in a __global__ of its own name, so that a
-// profile tells the three apart.  ops/_build.py hashes this header into the
+// The attention forward shared by four kernels: K1 (qkv_attention.cu, q/k/v
+// read off the fused projection), K3 (mha_attention.cu, separate strided
+// q/k/v), the second stage of K6 (ln_qkv_attention.cu, on the q/k/v
+// workspace its first stage writes), all three under `TpuPolicy`, and K4
+// (flash_attention.cu, long or causal sequences) under `BundledPolicy`.
+// Each source wraps `forward<P, D>` in a __global__ of its own name, so that
+// a profile tells them apart.  ops/_build.py hashes this header into the
 // name of every library built from csrc/.
 //
 //   q, k, v [B, N, H, D] bf16 read by stride (unit stride over D, the other
 //   strides multiples of 8 elements), D in {64, 128, 256};
-//   out [B, N, H, D] bf16, contiguous.
+//   out [B, N, H, D] bf16, contiguous;
+//   stats null, or [B, H, N] float2: each query row's max of the logits in
+//   log2 units and its sum of exp2(logit - max), the residuals the
+//   backward (attention_bwd.cuh) reads.
 //
-// Numerics (the TPU kernels' rounding points):
-//   * q * q_scale is computed in fp32 and rounded to bf16 before Q K^T;
-//     q_scale is scale * log2 e (K1, K3) or 1 (K6, whose first stage has
-//     already scaled q in fp32 and rounded it);
-//   * scores are fp32 (bf16 x bf16 products, fp32 accumulation);
-//   * the softmax uses exp2; P is rounded to bf16 for P V, which accumulates
-//     in fp32; the row sum is taken over the fp32 P;
-//   * one division by the row sum on the output.
-//   * exp2 is ex2.approx.ftz (sm90::exp2_ftz): the special-function unit's
-//     exp2, with results below 2^-126 flushed to 0; no such term changes a
-//     row whose largest term is 1 (the outputs are bitwise those of exp2f).
+// Numerics, per caller (the policy):
+//   TpuPolicy (the TPU kernels' rounding points): q * q_scale is computed
+//     in fp32 and rounded to bf16 in shared memory before Q K^T; q_scale is
+//     scale * log2 e (K1, K3) or 1 (K6, whose first stage has already
+//     scaled q in fp32 and rounded it); the fp32 score is the logit.
+//   BundledPolicy (the bundled flash kernel's): s = q k^T in fp32 from the
+//     unscaled bf16 q, then the logit bundled_logit(s, scale) = (s * scale)
+//     * log2 e in fp32 (bundled_logit.cuh, shared with K4b's backward);
+//     with `causal`, keys after the query are excluded.
+//   Both: scores are fp32 (bf16 x bf16 products, fp32 accumulation); the
+//   softmax uses exp2; P is rounded to bf16 for P V, which accumulates in
+//   fp32; the row sum is taken over the fp32 P; one division by the row sum
+//   on the output.  exp2 is ex2.approx.ftz (sm90::exp2_ftz): the
+//   special-function unit's exp2, with results below 2^-126 flushed to 0;
+//   no such term changes a row whose largest term is 1 (the outputs are
+//   bitwise those of exp2f).
 // Keys >= kv_len are excluded exactly and never loaded: the K / V tensor
 // maps end at kv_len, so TMA fills the box past it with zeros, and those
 // scores are masked to -inf.  A NaN in a pad row cannot reach a real row.
@@ -35,18 +44,27 @@
 //     each through a two-stage ring of mbarriers (full: TMA's bytes landed;
 //     empty: every consumer warp is done with the tile);
 //   * consumer warpgroups of 64 query rows each: three at D = 64 (192 rows,
-//     160 registers), two at D = 128 and 256 (128 rows, 240 registers).  A
-//     consumer scales its Q rows in place (fp32, rounded to bf16, then
-//     fence.proxy.async), computes S = Q K^T with one wgmma m64nNk16 chain
-//     per tile (Q and K K-major in shared memory), runs the online softmax
-//     on the fp32 accumulator in registers, re-packs P as the bf16 register
-//     A operand, and accumulates O += P V with wgmma reading V MN-major
-//     (row-major [key][d], the descriptor's transpose bit: no transpose).
+//     160 registers), two at D = 128 and 256 (128 rows, 240 registers).
+//     Under TpuPolicy a consumer scales its Q rows in place (fp32, rounded
+//     to bf16, then fence.proxy.async).  It computes S = Q K^T with one
+//     wgmma m64nNk16 chain per tile (Q and K K-major in shared memory), runs
+//     the online softmax on the fp32 accumulator in registers, re-packs P
+//     as the bf16 register A operand, and accumulates O += P V with wgmma
+//     reading V MN-major (row-major [key][d], the descriptor's transpose
+//     bit: no transpose).
 // A 128-byte swizzle row holds 64 bf16, so a D-wide row is D / 64 boxes.
 // Tiles of N = 128 keys at D <= 128, 64 at D = 256 (whose O accumulator
 // alone takes 128 registers a thread).  Each consumer runs its tile's S,
 // softmax and P V in turn; the softmax of one warpgroup overlaps the
 // products of the others.
+// Causal (BundledPolicy): the producer loads the tiles below min(kv_len,
+// q0 + block_q), the block's last row, and every consumer runs every one of
+// them, masking key > row only on the tiles that reach past its own first
+// row.  Every consumer so arrives on every tile's empty barriers after
+// waiting for its full ones: an arrival for a tile whose full phase a
+// consumer did not wait for would complete the wrong phase.  With 192-row
+// q-tiles and 128-key tiles (64 x 128 at D >= 128) a consumer runs at most
+// one tile it does not need.
 //
 // Bound, measured (tools/time_fwd_trees.py, NVIDIA H100 80GB HBM3, 700 W):
 // at K1's slide shape [10, 1536, 2304], valid_len 1522, the products are
@@ -60,6 +78,7 @@
 
 #pragma once
 
+#include "bundled_logit.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
@@ -98,7 +117,24 @@ struct Args {
   float2* stats;       // null, or [B, H, N]: each query row's max (log2 units) and sum
   Strides qs, ks, vs;
   int n, heads, kv_len;
-  float q_scale;
+  int causal;     // BundledPolicy: exclude keys after the query (TpuPolicy: 0)
+  float q_scale;  // TpuPolicy: q's multiplier before Q K^T
+  float scale;    // BundledPolicy: the softmax scale on the fp32 s
+};
+
+// The TPU kernels' arithmetic (K1, K3, K6): q prescaled in shared memory,
+// the score is the logit, never causal.
+struct TpuPolicy {
+  static constexpr bool kPrescaled = true;
+  static constexpr bool kCausal = false;
+  __device__ static float logit(float s, float) { return s; }
+};
+
+// The bundled flash kernel's arithmetic (K4).
+struct BundledPolicy {
+  static constexpr bool kPrescaled = false;
+  static constexpr bool kCausal = true;  // when Args::causal
+  __device__ static float logit(float s, float scale) { return bundled_logit(s, scale); }
 };
 
 // A tensor map over [B, rows, H, D] and the coordinate slot (1-3) of the
@@ -150,7 +186,7 @@ __device__ __forceinline__ void tma_load(const Map& m, uint32_t dst, uint32_t ba
   sm90::tma_load_4d(dst, &m.tmap, bar, c[0], c[1], c[2], c[3]);
 }
 
-template <int D>
+template <class P, int D>
 __device__ __forceinline__ void forward(const Params& p) {
   using L = Smem<D>;
   constexpr int kConsumers = consumers<D>();
@@ -177,7 +213,10 @@ __device__ __forceinline__ void forward(const Params& p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kv_len = a.kv_len;
-  const int n_tiles = (kv_len + kN - 1) / kN;
+  const bool causal = P::kCausal && a.causal;
+  // keys this block reads: the valid ones, or (causal) those up to its last row
+  const int kv_end = causal ? min(kv_len, q0 + kBlockQ) : kv_len;
+  const int n_tiles = (kv_end + kN - 1) / kN;
   const int wg = threadIdx.x / 128;  // 0: the producer; 1..kConsumers: consumers
 
   if (threadIdx.x == 0) {
@@ -224,21 +263,23 @@ __device__ __forceinline__ void forward(const Params& p) {
   const int t = lane & 3;
   const float neg_inf = __int_as_float(0xff800000);
 
-  // Q * q_scale in fp32, rounded to bf16, in place over this warpgroup's
-  // rows of every box (the swizzle only permutes 16-byte chunks in a row).
   sm90::mbar_wait(bar_q, 0);
-  for (int i = tid; i < kBoxes * 64 * 8; i += 128) {
-    Vec8 v;
-    uint4* ptr = reinterpret_cast<uint4*>(smem + L::kQ + (i >> 9) * L::kQBox + cw * 64 * 128 +
-                                          (i & 511) * 16);
-    v.u = *ptr;
+  if constexpr (P::kPrescaled) {
+    // Q * q_scale in fp32, rounded to bf16, in place over this warpgroup's
+    // rows of every box (the swizzle only permutes 16-byte chunks in a row).
+    for (int i = tid; i < kBoxes * 64 * 8; i += 128) {
+      Vec8 v;
+      uint4* ptr = reinterpret_cast<uint4*>(smem + L::kQ + (i >> 9) * L::kQBox + cw * 64 * 128 +
+                                            (i & 511) * 16);
+      v.u = *ptr;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j)
-      v.h[j] = __float2bfloat16_rn(__bfloat162float(v.h[j]) * a.q_scale);
-    *ptr = v.u;
+      for (int j = 0; j < kVec; ++j)
+        v.h[j] = __float2bfloat16_rn(__bfloat162float(v.h[j]) * a.q_scale);
+      *ptr = v.u;
+    }
+    sm90::fence_proxy_async();  // the writes above, before wgmma reads them
+    sm90::named_barrier_sync(1 + cw, 128);
   }
-  sm90::fence_proxy_async();  // the writes above, before wgmma reads them
-  sm90::named_barrier_sync(1 + cw, 128);
 
   // K-major operands: 8 rows of 128 bytes per 1024-byte group (SBO); a
   // k-step of 16 columns is 32 bytes along the row.  V is MN-major: 16 keys
@@ -255,6 +296,9 @@ __device__ __forceinline__ void forward(const Params& p) {
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {neg_inf, neg_inf};  // rows g and g + 8 of this warp
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
+  const int first_row = q0 + cw * 64;   // this warpgroup's first query row
+  const int row0 = first_row + warp * 16 + g;
+  const int row1 = row0 + 8;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kStages;
@@ -275,15 +319,24 @@ __device__ __forceinline__ void forward(const Params& p) {
     sm90::fence_regs<kN / 2>(sc);
     if (lane == 0) sm90::mbar_arrive(k_empty(s));
 
-    const int k0 = it * kN;
-    if (k0 + kN > kv_len) {  // ragged last tile: mask keys >= kv_len (TMA gave zeros)
 #pragma unroll
-      for (int i = 0; i < kN / 2; ++i)
-        if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) sc[i] = neg_inf;
+    for (int i = 0; i < kN / 2; ++i) sc[i] = P::logit(sc[i], a.scale);
+    const int k0 = it * kN;
+    // The ragged last tile: keys >= kv_len (TMA gave zeros).  Causal: keys
+    // after the row, on the tiles that reach past this warpgroup's first row.
+    if (k0 + kN > kv_len || (causal && k0 + kN - 1 > first_row)) {
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (key >= kv_len || (causal && key > ((i & 2) ? row1 : row0))) sc[i] = neg_inf;
+      }
     }
 
-    // Online softmax.  Every tile holds at least one valid key, so the new
-    // running max is finite and exp2(-inf - m) = 0 needs no special case.
+    // Online softmax.  Tile 0 holds key 0, which every row sees (kv_len >=
+    // 1, and a causal row is >= 0), so the running max is finite from the
+    // first tile on, and exp2(-inf - m) = 0 needs no special case.  A later
+    // tile may hold no key a row sees (causal: all after the row): the row
+    // keeps its max (alpha = 1) and adds 0.
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int i = 0; i < kN / 2; i += 4) {
@@ -345,8 +398,6 @@ __device__ __forceinline__ void forward(const Params& p) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
   const int n = a.n;
-  const int row0 = q0 + cw * 64 + warp * 16 + g;
-  const int row1 = row0 + 8;
   if (a.stats != nullptr && t == 0) {  // (max, sum) of every row, for the backward
     float2* st = a.stats + ((long long)b * a.heads + h) * n;
     if (row0 < n) st[row0] = make_float2(m_run[0], l_run[0]);
@@ -427,7 +478,7 @@ inline cudaError_t make_map(Map* m, const __nv_bfloat16* ptr, const Strides& st,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch `kernel` (a __global__ wrapping forward<D>) over (q-tiles, heads,
+// Launch `kernel` (a __global__ wrapping forward<P, D>) over (q-tiles, heads,
 // batch), with the tensor maps of q (rows < n) and k / v (rows < kv_len).
 template <int D>
 cudaError_t launch(void (*kernel)(Params), const Args& a, int batch, cudaStream_t stream) {

@@ -24,7 +24,6 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) flash_bwd_dkdv_ker
 }
 
 struct Run {
-  static constexpr bool kHeadDim256 = false;  // K4 takes 64 / 128
   template <class C>
   static cudaError_t go(const Args& a, int batch, cudaStream_t s) {
     return launch<BundledPolicy, C>(flash_bwd_dq_kernel<C>, flash_bwd_dkdv_kernel<C>, a, batch, s);
@@ -36,7 +35,7 @@ struct Run {
 // Plain C entry point for ctypes.  q / k / v are device pointers of bf16
 // [B, N, H, D] tensors with unit stride over D, 16-byte aligned, whose batch /
 // token / head strides (in elements, multiples of 8) are given; dout, dq, dk
-// and dv are contiguous bf16 [B, N, H, D]; head dim 64 or 128; stats is the
+// and dv are contiguous bf16 [B, N, H, D]; head dim 64, 128 or 256; stats is the
 // fp32 [B, H, N, 2] buffer K4's forward filled and di fp32 [B, H, N].
 // Launches the dk/dv kernel, then the dq kernel, on `stream` (a
 // cudaStream_t).  Returns the cudaError_t of the launches (0 = cudaSuccess).

@@ -237,7 +237,7 @@ ln_qkv_proj_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict_
 template <int D>
 __global__ void __launch_bounds__(attn::threads<D>(), 1)
 ln_qkv_attention_kernel(const __grid_constant__ attn::Params p) {
-  attn::forward<D>(p);
+  attn::forward<attn::TpuPolicy, D>(p);
 }
 
 template <int D>
@@ -256,7 +256,8 @@ cudaError_t run(const __nv_bfloat16* x, const float* gamma, const float* beta,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const attn::Strides st{(long long)n * 3 * hd, 3LL * hd, D};
-  const attn::Args a{qkv, qkv + hd, qkv + 2 * hd, out, nullptr, st, st, st, n, heads, kv_len, 1.f};
+  const attn::Args a{qkv, qkv + hd, qkv + 2 * hd, out, nullptr, st, st, st,
+                     n, heads, kv_len, 0, 1.f, 0.f};
   return attn::launch<D>(ln_qkv_attention_kernel<D>, a, batch, stream);
 }
 

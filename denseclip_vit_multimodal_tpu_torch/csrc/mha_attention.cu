@@ -40,7 +40,7 @@ using namespace dclip;
 template <int D>
 __global__ void __launch_bounds__(attn::threads<D>(), 1)
 mha_attention_kernel(const __grid_constant__ attn::Params p) {
-  attn::forward<D>(p);
+  attn::forward<attn::TpuPolicy, D>(p);
 }
 
 }  // namespace
@@ -65,7 +65,7 @@ extern "C" int mha_attention_bf16(const void* q, const void* k, const void* v, v
   const attn::Args a{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
                      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
                      static_cast<float2*>(stats), attn::Strides{q_sb, q_sn, q_sh}, attn::Strides{k_sb, k_sn, k_sh},
-                     attn::Strides{v_sb, v_sn, v_sh}, n, heads, kv_len, q_scale};
+                     attn::Strides{v_sb, v_sn, v_sh}, n, heads, kv_len, 0, q_scale, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)attn::launch<64>(mha_attention_kernel<64>, a, batch, s);
   if (head_dim == 128) return (int)attn::launch<128>(mha_attention_kernel<128>, a, batch, s);

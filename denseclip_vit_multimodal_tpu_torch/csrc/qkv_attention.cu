@@ -47,7 +47,7 @@ using namespace dclip;
 template <int D>
 __global__ void __launch_bounds__(attn::threads<D>(), 1)
 qkv_attention_kernel(const __grid_constant__ attn::Params p) {
-  attn::forward<D>(p);
+  attn::forward<attn::TpuPolicy, D>(p);
 }
 
 }  // namespace
@@ -67,7 +67,7 @@ extern "C" int qkv_attention_bf16(const void* qkv, void* out, void* stats,
   const long long hd = (long long)heads * head_dim;
   const attn::Strides st{(long long)n * 3 * hd, 3 * hd, head_dim};
   const attn::Args a{base, base + hd, base + 2 * hd, static_cast<__nv_bfloat16*>(out),
-                     static_cast<float2*>(stats), st, st, st, n, heads, kv_len, q_scale};
+                     static_cast<float2*>(stats), st, st, st, n, heads, kv_len, 0, q_scale, 0.f};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64) return (int)attn::launch<64>(qkv_attention_kernel<64>, a, batch, s);
   if (head_dim == 128) return (int)attn::launch<128>(qkv_attention_kernel<128>, a, batch, s);

@@ -24,7 +24,6 @@ __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks) qkv_bwd_dkdv_kerne
 }
 
 struct Run {
-  static constexpr bool kHeadDim256 = true;  // K3 takes it (K1 does not: checked below)
   template <class C>
   static cudaError_t go(const Args& a, int batch, cudaStream_t s) {
     return launch<TpuPolicy, C>(qkv_bwd_dq_kernel<C>, qkv_bwd_dkdv_kernel<C>, a, batch, s);

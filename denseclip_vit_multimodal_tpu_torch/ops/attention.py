@@ -12,14 +12,14 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
   `ops/mha_kernel.py::mha_attention` (K3 and, under autograd, K3's backward
   on CUDA, head dim 64, 128 or 256, bf16 only: another dtype raises
   `TypeError`, as in the K4 branch; the plain versions on the CPU).  The K4
-  branch launches `csrc/flash_attention.cu` for a CUDA tensor, or raises on
-  anything the kernel does not take; for a tensor on the CPU it runs the
-  plain version.
+  branch launches `csrc/flash_attention.cu` (the forward core
+  `csrc/attention_fwd.cuh` under the bundled kernel's numerics, head dim 64,
+  128 or 256) for a CUDA tensor, or raises on anything the kernel does not
+  take; for a tensor on the CPU it runs the plain version.
   When autograd records it, it goes through `FlashAttentionFunction`: K4
   also writes each row's max and sum (the bundled kernel's residuals m and
   l), and the backward is K4b (`csrc/flash_attention_bwd.cu`) on CUDA,
-  `flash_attention_bwd_reference` on the CPU.  At head dim 256, which K4
-  does not take yet, it keeps plain attention.  q / k / v may be strided
+  `flash_attention_bwd_reference` on the CPU.  q / k / v may be strided
   views (the split of the fused qkv projection, row stride 3*H*D): the
   kernels read them by stride, with no copy.
 * `flash_attention_reference` is the plain PyTorch version of K4 with the
@@ -219,7 +219,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sca
     """K4 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output.
     With `stats` (fp32 [B, H, N, 2]) it also writes each row's residuals."""
     b, n, heads, d = q.shape
-    strides = bnhd_args(q, k, v, "flash attention", (64, 128))
+    strides = bnhd_args(q, k, v, "flash attention", (64, 128, 256))
     if stats is not None and (stats.shape != (b, heads, n, 2) or stats.dtype != torch.float32
                               or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be a contiguous fp32 {(b, heads, n, 2)} on q's device")
@@ -242,7 +242,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
     """K4b: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the strided
     q / k / v, K4's output and residuals and the output's gradient."""
     b, n, heads, d = q.shape
-    strides = bnhd_args(q, k, v, "flash attention backward", (64, 128))
+    strides = bnhd_args(q, k, v, "flash attention backward", (64, 128, 256))
     for x, what in ((out, "output"), (dout, "output gradient")):
         if x.shape != q.shape or x.dtype != torch.bfloat16 or not x.is_contiguous():
             raise ValueError(f"the flash attention backward takes a contiguous bf16 {what} "
@@ -315,17 +315,15 @@ def flash_attention(
 
     Dispatch (the JAX package's): non-causal N <= 8448 -> the K3 branch
     (`mha_attention`, differentiable through K3's backward); causal, or
-    N > 8448 -> K4, differentiable through
-    `FlashAttentionFunction` (K4b) when autograd records it (plain attention
-    at head dim 256, which K4 does not take yet).  `valid_len` masks
-    trailing pad keys; output rows [valid_len, N) are unspecified.
+    N > 8448 -> K4, differentiable through `FlashAttentionFunction` (K4b)
+    when autograd records it; both branches take head dim 64, 128 and 256.
+    `valid_len` masks trailing pad keys; output rows [valid_len, N) are
+    unspecified.
     """
     n, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if not causal and n <= _ONESHOT_MAX_SEQ:
         return mha_attention(q, k, v, sm_scale=scale, valid_len=kv_len)
-    if q.shape[-1] == 256:
-        return plain_attention(q, k, v, causal, valid_len, sm_scale=scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)
     if q.device.type == "cpu":

@@ -1,21 +1,26 @@
 """Time the attention forward kernels of several source trees in turns, on the card.
 
-K1 (`csrc/qkv_attention.cu`) and K3 (`csrc/mha_attention.cu`) call the
-forward core `csrc/attention_fwd.cuh`.  This tool builds the two sources of
-each tree it is given (a directory holding `qkv_attention.cu`,
-`mha_attention.cu` and their headers: this checkout's `csrc/` by default,
-or a copy of another commit's) with the port's nvcc flags into
+K1 (`csrc/qkv_attention.cu`), K3 (`csrc/mha_attention.cu`), K4
+(`csrc/flash_attention.cu`) and the second stage of K6
+(`csrc/ln_qkv_attention.cu`) call the forward core `csrc/attention_fwd.cuh`.
+This tool builds the four sources of each tree it is given (a directory
+holding them and their headers: this checkout's `csrc/` by default, or a
+copy of another commit's) with the port's nvcc flags into
 `build/fwd_trees/<name>/`, calls their plain C entry points, whose
 signatures every tree must share, and:
 
-  * holds each tree's output and row statistics against the port's plain
-    versions (chip_smoke.py's limits), with NaN in the K / V rows past
-    valid_len, and says whether they equal the last tree's bit for bit;
-  * times every tree at K1's slide shape [10,1536,2304] valid 1522 and K3's
-    [10,1536,12,64] valid 1522 (views of one fused qkv), by CUDA events
-    over 50 launches, in turns (the trees in order, then reversed,
-    `--rounds` times), and reports each tree's median beside the bound
-    and one `scaled_dot_product_attention` call (the yardstick).
+  * holds each tree's output and row statistics (K6 writes none) against
+    the port's plain versions (chip_smoke.py's limits), with NaN in the
+    K / V rows past valid_len (K1, K3, K4), and says whether they equal the
+    last tree's bit for bit;
+  * times every tree at K1's slide shape [10,1536,2304] valid 1522, K3's
+    [10,1536,12,64] valid 1522, K4's aug-test scale 1.75 [2,25216,12,64]
+    valid 25089 and long training crop [2,9344,12,64] valid 9217 (views of
+    one fused qkv), and K6's x [10,1536,768] valid 1522, by CUDA events over
+    50 launches (10 for K4), in turns (the trees in order, then reversed,
+    `--rounds` times), and reports each tree's median beside the bound and
+    one library call (the yardstick: `scaled_dot_product_attention`; for K6
+    layer_norm + linear + it).
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
         [--tree NAME=CSRC_DIR ...] [--rounds 3]
@@ -34,20 +39,24 @@ from pathlib import Path
 
 import torch
 
-SHAPES = {  # name: (batch, tokens, heads, head dim, valid_len)
+SHAPES = {  # name: (batch, tokens, heads, head dim, valid_len); the prefix names the kernel
     "k1_slide": (10, 1536, 12, 64, 1522),
     "k3_slide": (10, 1536, 12, 64, 1522),
+    "k4_aug_test_1.75": (2, 25216, 12, 64, 25089),
+    "k4_long_crop": (2, 9344, 12, 64, 9217),
+    "k6_slide": (10, 1536, 12, 64, 1522),
 }
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 LOG2E = 1.4426950408889634
 MAX_TOL, MEAN_TOL, REL_TOL = 2e-2, 5e-4, 5e-3
-ITERS = 50  # launches per timing
+ITERS = {"k1": 50, "k3": 50, "k4": 10, "k6": 50}  # launches per timing
+LN_EPS = 1e-5
 STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
 
 
 def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
-    """Compile `csrc`'s K1 and K3 sources; their entry points by kernel."""
+    """Compile `csrc`'s K1, K3, K4 and K6 sources; their entry points by kernel."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -55,7 +64,7 @@ def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
     procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
                                     str(csrc / f"{src}.cu")],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src in ("qkv_attention", "mha_attention")}
+             for src in ("qkv_attention", "mha_attention", "flash_attention", "ln_qkv_attention")}
     for src, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -66,18 +75,30 @@ def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
     k1.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
     k3 = ctypes.CDLL(str(out_dir / "libmha_attention.so")).mha_attention_bf16
     k3.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
-    k1.restype = k3.restype = ctypes.c_int
-    return {"k1": k1, "k3": k3}
+    k4 = ctypes.CDLL(str(out_dir / "libflash_attention.so")).flash_attention_bf16
+    k4.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
+    k6 = ctypes.CDLL(str(out_dir / "libln_qkv_attention.so")).ln_qkv_attention_bf16
+    k6.argtypes = [ptr] * 7 + [i] * 6 + [f, f, ptr]
+    k1.restype = k3.restype = k4.restype = k6.restype = ctypes.c_int
+    return {"k1": k1, "k3": k3, "k4": k4, "k6": k6}
 
 
-def plain_stats(q, k, kv: int, scale: float) -> torch.Tensor:
-    """Each row's max of the prescaled logits (log2 units) and sum of
-    exp2(s - max) over the first kv keys: [B, H, N, 2] fp32."""
+def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
+                causal: bool = False) -> torch.Tensor:
+    """Each row's max of the logits (log2 units) and sum of exp2(s - max)
+    over the first kv keys (causal: those up to the row): [B, H, N, 2] fp32.
+    The logits of K1 / K3 (`prescaled`): bf16(q * scale * log2 e) k^T; of
+    K4: (q k^T * scale) * log2 e in fp32."""
     b, n, heads, _ = q.shape
     stats = torch.empty(b, heads, n, 2, device=q.device)
-    qs = (q.float() * (scale * LOG2E)).to(q.dtype)
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype) if prescaled else q
     for h in range(heads):
         s = qs[:, :, h].float() @ k[:, :kv, h].float().transpose(-1, -2)
+        if not prescaled:
+            s = s * scale * LOG2E
+        if causal:
+            rows = torch.arange(n, device=q.device)[:, None]
+            s = s.masked_fill(torch.arange(kv, device=q.device)[None, :] > rows, float("-inf"))
         m = s.amax(-1)
         stats[:, h, :, 0] = m
         stats[:, h, :, 1] = torch.exp2(s - m[..., None]).sum(-1)
@@ -92,6 +113,8 @@ def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
 def main(argv=None) -> dict:
     import torch.nn.functional as F
 
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import flash_attention_reference
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import ln_qkv_attention_reference
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention_reference
 
     root = Path(__file__).resolve().parents[2]
@@ -109,27 +132,49 @@ def main(argv=None) -> dict:
 
     summary: dict = {}
     for shape, (b, n, heads, d, kv) in SHAPES.items():
+        kernel = shape[:2]
         hd, scale = heads * d, d**-0.5
         gen = torch.Generator(device="cuda").manual_seed(0)
         qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
         q, k, v = (t.view(b, n, heads, d) for t in qkv.split(hd, dim=-1))
-        want = mha_qkv_attention_reference(qkv, heads, valid_len=kv)
-        want_stats = plain_stats(q, k, kv, scale)
-        k[:, kv:] = float("nan")  # pad keys: must never reach a real row
-        v[:, kv:] = float("nan")
+        want_stats = None
+        if kernel == "k6":  # x and ln_1 / qkv parameters at the scale of the model's init
+            x = torch.randn(b, n, hd, generator=gen, device="cuda").to(torch.bfloat16)
+            gamma = 1.0 + 0.1 * torch.randn(hd, generator=gen, device="cuda")
+            beta = 0.1 * torch.randn(hd, generator=gen, device="cuda")
+            limit = (6.0 / (4 * hd)) ** 0.5
+            wt = ((torch.rand(3 * hd, hd, generator=gen, device="cuda") * 2 - 1) * limit).to(
+                torch.bfloat16)
+            bias = 0.02 * torch.randn(3 * hd, generator=gen, device="cuda")
+            want = ln_qkv_attention_reference(x, gamma, beta, wt.t(), bias, heads, valid_len=kv)
+        elif kernel == "k4":
+            want = flash_attention_reference(q, k, v, valid_len=kv).view(b, n, hd)
+        else:
+            want = mha_qkv_attention_reference(qkv, heads, valid_len=kv)
+        if kernel != "k6":
+            want_stats = plain_stats(q, k, kv, scale, prescaled=kernel != "k4")
+            k[:, kv:] = float("nan")  # pad keys: must never reach a real row
+            v[:, kv:] = float("nan")
         out = torch.empty(b, n, hd, dtype=torch.bfloat16, device="cuda")
         stats = torch.empty(b, heads, n, 2, device="cuda")
-        strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+        strides = [s for t in (q, k, v) for s in t.stride()[:3]]
         stream = torch.cuda.current_stream().cuda_stream
 
         def call(fn, with_stats=False):
             st = stats.data_ptr() if with_stats else None
-            if shape.startswith("k1"):
+            if kernel == "k1":
                 err = fn["k1"](qkv.data_ptr(), out.data_ptr(), st, b, n, heads, d, kv,
                                scale * LOG2E, stream)
-            else:
+            elif kernel == "k3":
                 err = fn["k3"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
                                *strides, b, n, heads, d, kv, scale * LOG2E, stream)
+            elif kernel == "k4":
+                err = fn["k4"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
+                               *strides, b, n, heads, d, kv, 0, scale, stream)
+            else:  # the first stage writes q / k / v into qkv, the second reads them
+                err = fn["k6"](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
+                               bias.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, hd, heads,
+                               d, kv, scale * LOG2E, LN_EPS, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 
@@ -138,27 +183,29 @@ def main(argv=None) -> dict:
             torch.cuda.synchronize()
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            for _ in range(ITERS):
+            for _ in range(ITERS[kernel]):
                 call(fn)
             end.record()
             torch.cuda.synchronize()
-            return start.elapsed_time(end) / ITERS
+            return start.elapsed_time(end) / ITERS[kernel]
 
         results, outs = {}, {}
         for name, fn in fns.items():
             out.fill_(float("nan"))
             call(fn, with_stats=True)
             torch.cuda.synchronize()
-            outs[name] = (out.clone(), stats.clone())
+            outs[name] = (out.clone(),) if want_stats is None else (out.clone(), stats.clone())
             err = (out.float() - want.float()).abs()
             res = {"tree": name, "shape": shape, "max_abs_err": float(err.max()),
                    "mean_abs_err": float(err.mean()),
                    "rel_l2_err": float((out.float() - want.float()).norm() / want.float().norm()),
-                   **stats_errors(stats, want_stats), "ms": []}
+                   "ms": []}
             res["ok"] = bool(torch.isfinite(out.float()).all() and res["max_abs_err"] <= MAX_TOL
-                             and res["mean_abs_err"] <= MEAN_TOL and res["rel_l2_err"] <= REL_TOL
-                             and res["stats_m_max_abs_err"] <= STATS_M_TOL
-                             and res["stats_l_max_rel_err"] <= STATS_L_TOL)
+                             and res["mean_abs_err"] <= MEAN_TOL and res["rel_l2_err"] <= REL_TOL)
+            if want_stats is not None:
+                res.update(stats_errors(stats, want_stats))
+                res["ok"] = res["ok"] and (res["stats_m_max_abs_err"] <= STATS_M_TOL
+                                           and res["stats_l_max_rel_err"] <= STATS_L_TOL)
             results[name] = res
         last = list(fns)[-1]  # every tree against the last one given, bit for bit
         for name, res in results.items():
@@ -167,26 +214,42 @@ def main(argv=None) -> dict:
         for r in range(args.rounds):
             for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
                 results[name]["ms"].append(timed(fns[name]))
-        qh = q.transpose(1, 2).contiguous()
-        kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
-        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)
-        sdpa()
+        if kernel == "k6":
+            def library():
+                proj = F.linear(F.layer_norm(x, (hd,), gamma.to(x.dtype), beta.to(x.dtype),
+                                             LN_EPS), wt, bias.to(x.dtype))
+                qh, kh, vh = (t.view(b, n, heads, d).transpose(1, 2)
+                              for t in proj.split(hd, dim=-1))
+                return F.scaled_dot_product_attention(qh, kh[:, :, :kv], vh[:, :, :kv])
+        else:
+            qh = q.transpose(1, 2).contiguous()
+            kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
+            library = lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        library()
         torch.cuda.synchronize()
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        for _ in range(ITERS):
-            sdpa()
+        for _ in range(ITERS[kernel]):
+            library()
         end.record()
         torch.cuda.synchronize()
-        flops = 4.0 * b * heads * n * kv * d
+        # the function's products: every query row (K1, K3, K6), the valid rows
+        # (K4); K6 adds its projection
+        flops = 4.0 * b * heads * (kv if kernel == "k4" else n) * kv * d
         nbytes = 2.0 * 4 * b * n * hd
+        if kernel == "k6":
+            flops += 2.0 * b * n * hd * 3 * hd
+            nbytes = 2.0 * (2 * b * n * hd + 3 * hd * hd)
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         for res in results.values():
             res.update(median_ms=statistics.median(res["ms"]), bound_ms=bound_ms,
-                       library_ms=start.elapsed_time(end) / ITERS,
+                       library_ms=start.elapsed_time(end) / ITERS[kernel],
                        tflops=flops / (statistics.median(res["ms"]) * 1e-3) / 1e12)
             print(json.dumps(res), flush=True)
         summary[shape] = {name: res["median_ms"] for name, res in results.items()}
+        summary[shape]["library"] = next(iter(results.values()))["library_ms"]
+        summary[shape]["bitwise_equal"] = all(res[f"bitwise_equal_to_{last}"]
+                                              for res in results.values())
         summary[shape]["ok"] = all(res["ok"] for res in results.values())
     print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}), flush=True)
     if not all(s["ok"] for s in summary.values()):

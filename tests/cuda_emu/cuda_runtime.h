@@ -22,6 +22,7 @@
 #include <cstring>
 #include <map>
 #include <mutex>
+#include <set>
 #include <thread>
 #include <vector>
 
@@ -53,6 +54,7 @@ cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
+inline float __fmul_rn(float a, float b) { return a * b; }  // one rounding, never an FMA
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 
 namespace emu {
@@ -99,6 +101,7 @@ extern unsigned char* smem_base;
 struct MBar {
   uint32_t expected, pending, phase;  // phase: completed phases so far
   long long tx;                       // bytes still to arrive in this phase
+  std::set<unsigned> arrived;         // threads that arrived in this phase
 };
 struct Named {
   int arrived = 0;
@@ -151,5 +154,9 @@ void emu_launch(void (*kernel)(A), dim3 grid, int threads, size_t smem, const A&
             kernel(a);
           });
         for (auto& t : ts) t.join();
+        // every phase that an arrival opened was completed by the block
+        for (const auto& kv : emu::bars.mbars)
+          assert(kv.second.pending == kv.second.expected && kv.second.tx == 0 &&
+                 "a block ended with an mbarrier phase open");
       }
 }

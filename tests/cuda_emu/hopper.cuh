@@ -5,7 +5,10 @@
 //     when its arrivals and bytes are all in, and try_wait.parity(p) passes
 //     once the phase of parity p is complete (a fresh barrier's "previous"
 //     phase, parity 1, counts as complete).  Eight guard bytes at the
-//     barrier's shared address catch a tile written over it.
+//     barrier's shared address catch a tile written over it.  A thread that
+//     arrives twice in one phase fails (its second arrival belongs to a
+//     later phase: on the card it would complete this one early), and so
+//     does a block that ends with a phase open (cuda_runtime.h).
 //   * TMA (cp.async.bulk.tensor): the box at the given coordinates, elements
 //     past the map's extent as zeros, stored box-row-major at the
 //     destination with the 128-byte swizzle of the shared address (16-byte
@@ -48,8 +51,17 @@ inline void mbar_check(MBar& m) {  // caller holds bars.mu
   if (m.pending == 0 && m.tx == 0) {
     m.phase += 1;
     m.pending = m.expected;
+    m.arrived.clear();
     bars.cv.notify_all();
   }
+}
+
+inline void arrive(MBar& m) {  // caller holds bars.mu
+  assert(m.pending > 0 && "more arrivals than expected in a phase");
+  const bool first = m.arrived.insert(threadIdx.x).second;
+  assert(first && "a thread arrived twice in one phase");
+  (void)first;
+  m.pending -= 1;
 }
 
 inline void complete_tx(uint32_t bar, long long bytes) {
@@ -139,7 +151,7 @@ namespace sm90 {
 inline void mbar_init(uint32_t bar, uint32_t count) {
   std::lock_guard<std::mutex> lk(emu::bars.mu);
   memcpy(emu::shared(bar), &emu::kGuard, 8);
-  emu::bars.mbars[bar] = {count, count, 0, 0};
+  emu::bars.mbars[bar] = {count, count, 0, 0, {}};
 }
 
 inline void fence_barrier_init() {}
@@ -147,17 +159,15 @@ inline void fence_barrier_init() {}
 inline void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
   std::lock_guard<std::mutex> lk(emu::bars.mu);
   emu::MBar& m = emu::mbar(bar);
-  assert(m.pending > 0 && "more arrivals than expected in a phase");
   m.tx += bytes;
-  m.pending -= 1;
+  emu::arrive(m);
   emu::mbar_check(m);
 }
 
 inline void mbar_arrive(uint32_t bar) {
   std::lock_guard<std::mutex> lk(emu::bars.mu);
   emu::MBar& m = emu::mbar(bar);
-  assert(m.pending > 0 && "more arrivals than expected in a phase");
-  m.pending -= 1;
+  emu::arrive(m);
   emu::mbar_check(m);
 }
 

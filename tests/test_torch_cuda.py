@@ -150,6 +150,8 @@ def test_two_step_bf16_training_on_the_card(cuda, tmp_path):
     (2, 1100, 2, 128, 1050, False, True),  # ragged, views of a fused qkv
     (1, 2048, 4, 64, None, True, False),  # causal
     (2, 1100, 3, 64, 1050, True, True),  # causal and ragged
+    (1, 8704, 2, 256, 8600, False, True),  # head dim 256 past the one-shot limit
+    (1, 1100, 2, 256, 1050, True, True),  # head dim 256, causal and ragged
 ])
 def test_flash_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, causal, strided):
     """K4 (through its launching wrapper: the dispatcher would send the short
@@ -294,14 +296,17 @@ def test_oneshot_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, s
     ("qkv", 1, 700, 6, 128, 650, "fused"),
     ("mha", 2, 1100, 8, 128, 1050, "bhnd"),  # K3 on [B, H, N, D] storage
     ("mha", 1, 300, 2, 256, 290, "bhnd"),
+    ("flash", 2, 1100, 4, 64, 1050, "bhnd"),  # K4 (causal) on [B, H, N, D] storage
+    ("flash", 1, 2100, 2, 256, 2000, "fused"),
 ])
 def test_forward_kernels_skip_nan_pad_keys_and_write_plain_stats(cuda, kernel, b, n, heads, d,
                                                                 valid_len, layout):
-    """K1 / K3 with NaN in every K / V row past valid_len (their tensor maps
-    end there: TMA never reads them) give finite outputs within the limits,
-    and row statistics within chip_smoke.py's STATS_M_TOL / STATS_L_TOL of
-    the plain row max and sum.  The [B, H, N, D] views have their head
-    stride above their token stride (the maps order dimensions by stride)."""
+    """K1 / K3 / K4 (causal) with NaN in every K / V row past valid_len (their
+    tensor maps end there: TMA never reads them) give finite outputs within
+    the limits, and row statistics within chip_smoke.py's STATS_M_TOL /
+    STATS_L_TOL of the plain row max and sum.  The [B, H, N, D] views have
+    their head stride above their token stride (the maps order dimensions by
+    stride)."""
     from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import (
         STATS_L_TOL,
         STATS_M_TOL,
@@ -319,19 +324,27 @@ def test_forward_kernels_skip_nan_pad_keys_and_write_plain_stats(cuda, kernel, b
     k[:, valid_len:] = float("nan")
     v[:, valid_len:] = float("nan")
     scale = d**-0.5
+    causal = kernel == "flash"
     if kernel == "qkv":
         out, stats = mha_kernel._launch(qkv, heads, scale, valid_len, with_stats=True)
         out = out.view(b, n, heads, d)
     else:
         stats = torch.empty(b, heads, n, 2, device="cuda")
-        out = mha_kernel._launch_mha(q, k, v, scale, valid_len, stats)
-    ref = mha_kernel.mha_attention_reference(q, k, v, valid_len=valid_len)
+        if causal:
+            out = attention._launch(q, k, v, True, scale, valid_len, stats)
+        else:
+            out = mha_kernel._launch_mha(q, k, v, scale, valid_len, stats)
+    if causal:
+        ref = attention.flash_attention_reference(q, k, v, causal=True, valid_len=valid_len)
+    else:
+        ref = mha_kernel.mha_attention_reference(q, k, v, valid_len=valid_len)
     torch.cuda.synchronize()
     assert torch.isfinite(out.float()).all()
     err = out.float() - ref.float()
     assert float(err.abs().max()) <= KERNEL_TOL
     assert float(err.norm() / ref.float().norm()) <= 5e-3
-    errs = stats_errors(stats, plain_stats(q, k, valid_len, scale))
+    errs = stats_errors(stats, plain_stats(q, k, valid_len, scale, prescaled=not causal,
+                                           causal=causal))
     assert errs["stats_m_max_abs_err"] <= STATS_M_TOL
     assert errs["stats_l_max_rel_err"] <= STATS_L_TOL
 
@@ -441,6 +454,8 @@ def test_oneshot_backward_kernel_matches_plain_version(cuda, b, n, heads, d, val
     (2, 2048, 4, 64, None, True),
     (2, 1100, 3, 128, 1050, False),
     (1, 1100, 2, 64, 1050, True),
+    (1, 8704, 2, 256, 8600, False),  # head dim 256: two dk/dv passes
+    (1, 1100, 2, 256, 1050, True),
 ])
 def test_flash_backward_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, causal):
     """K4b through `flash_attention` under autograd (views of a fused qkv)
@@ -578,6 +593,7 @@ def _backward_launches(kernel, b, n, heads, d, valid_len, causal):
     ("flash_attention_bwd", 1, 9344, 2, 64, 9217, False),
     ("flash_attention_bwd", 1, 2048, 4, 64, None, True),
     ("flash_attention_bwd", 1, 1100, 2, 128, 1050, False),
+    ("flash_attention_bwd", 1, 1100, 2, 256, 1050, True),
 ])
 def test_backward_kernels_are_bitwise_deterministic(cuda, kernel, b, n, heads, d, valid_len,
                                                     causal):
@@ -587,6 +603,30 @@ def test_backward_kernels_are_bitwise_deterministic(cuda, kernel, b, n, heads, d
     first, second = bwd(), bwd()
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.parametrize("n,causal", [(8704, False), (1100, True)])
+def test_flash_branch_takes_head_dim_256_through_k4_and_k4b(cuda, n, causal):
+    """`flash_attention` at head dim 256, causal or past the one-shot limit,
+    launches K4 (and K4b under autograd), never K3 or plain attention, and
+    its gradients are K4b's plain version's on K4's output."""
+    q, k, v = (t.detach().requires_grad_(True) for t in _strided_bnhd(1, n, 2, 256, 23, True))
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    dout = torch.randn(1, n, 2, 256, generator=gen, device="cuda").to(torch.bfloat16)
+    before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
+    out = attention.flash_attention(q, k, v, causal=causal, valid_len=n - 3)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    with torch.no_grad():
+        attention.flash_attention(q, k, v, causal=causal, valid_len=n - 3)
+    torch.cuda.synchronize()
+    after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
+    assert {key: after[key] - before[key] for key in after} == {
+        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0, "mha_attention": 0,
+        "mha_attention_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 1}
+    want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                   out.detach(), dout, causal=causal,
+                                                   valid_len=n - 3)
+    _assert_grads_close(got, want, n - 3, n - 3)
 
 
 def test_oneshot_branch_trains_head_dim_256_and_refuses_fp32(cuda):

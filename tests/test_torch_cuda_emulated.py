@@ -2,14 +2,15 @@
 
 The backward: `csrc/qkv_attention_bwd.cu` (K2, K3's backward) and
 `csrc/flash_attention_bwd.cu` (K4b) on their core `csrc/attention_bwd.cuh`.
-The forward: `csrc/qkv_attention.cu` (K1) and `csrc/mha_attention.cu` (K3)
-on their core `csrc/attention_fwd.cuh`.  Each is compiled by the host
+The forward: `csrc/qkv_attention.cu` (K1), `csrc/mha_attention.cu` (K3) and
+`csrc/flash_attention.cu` (K4) on their core `csrc/attention_fwd.cuh`.  Each is compiled by the host
 compiler against the CPU emulation in `tests/cuda_emu/` (one std::thread per
 CUDA thread; ldmatrix, mma.sync and shuffles emulated per warp; cp.async
 deferred to its wait; for the forward, wgmma from its shared-memory
 descriptors with the 128-byte swizzle, deferred to its wait, TMA box loads
 with zero fill past the tensor map's extent, mbarriers with transaction
-counts, named barriers) and called through its plain C entry point on CPU
+counts that fail on a thread's second arrival in one phase, named
+barriers) and called through its plain C entry point on CPU
 tensors, at small shapes that reach every branch: ragged tiles, pad keys
 (NaN in the forward's K / V rows past valid_len) and pad rows, causal
 masks, head dims 64 / 128 / 256.  Each output is held to the chip's limits
@@ -59,7 +60,8 @@ def _build(src: str, out: Path, core: str = "attention_bwd", ns: str = "bwd") ->
     lib = out / f"lib{src}.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
-         f"-I{EMU}", f"-I{work}", "-o", str(lib), str(work / f"{src}.cpp"), str(EMU / "emu_main.cpp")],
+         f"-I{EMU}", f"-I{work}", f"-I{CSRC}", "-o", str(lib), str(work / f"{src}.cpp"),
+         str(EMU / "emu_main.cpp")],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return ctypes.CDLL(str(lib))
@@ -197,6 +199,8 @@ def test_fused_qkv_backward_source_at_more_shapes(libs, b, n, heads, d, kv):
     (1, 140, 1, 128, 120, True),
     (2, 130, 1, 64, 130, False),  # batch 2, no pad rows
     (1, 300, 1, 64, 290, True),  # causal over three 128-row blocks, with pad keys
+    (1, 100, 1, 256, 90, True),  # head dim 256: two dk/dv passes, the bundled policy
+    (1, 130, 1, 256, 120, False),
 ])
 def test_flash_backward_source_matches_plain_version(libs, b, n, heads, d, kv, causal):
     got, want = _run_flash(libs["flash"], b, n, heads, d, kv, causal)
@@ -220,18 +224,18 @@ def test_backward_sources_are_bitwise_deterministic(libs, kernel, d, causal):
 
 
 def test_entry_points_refuse_what_the_kernels_do_not_take(libs):
-    """Head dim 256 in K2 (K1 takes 64 / 128) and in K4b, head dim 32, and
-    kv_len outside [1, N] return cudaErrorInvalidValue (1) before any
+    """Head dim 256 in K2 (K1 takes 64 / 128), head dim 32 in K2 and K4b,
+    and kv_len outside [1, N] return cudaErrorInvalidValue (1) before any
     launch."""
     args = lambda d, kv: [None] * 7 + [1, 64, 1, d, kv, 1.0, 1.0, None]
     assert libs["qkv"](*args(256, 64)) == 1
     assert libs["qkv"](*args(32, 64)) == 1
     assert libs["qkv"](*args(64, 65)) == 1
     flash = lambda d, kv: libs["flash"](*([None] * 9 + [0] * 9 + [1, 64, 1, d, kv, 0, 1.0, None]))
-    assert flash(256, 64) == 1 and flash(64, 0) == 1
+    assert flash(32, 64) == 1 and flash(64, 0) == 1 and flash(64, 65) == 1
 
 
-# ---- the forward core (csrc/attention_fwd.cuh): K1 and K3 ----
+# ---- the forward core (csrc/attention_fwd.cuh): K1, K3 and K4 ----
 
 # chip_smoke.py's limits for the forward kernels against their plain versions
 FWD_MAX_TOL, FWD_MEAN_TOL, FWD_REL_TOL = 2e-2, 5e-4, 5e-3
@@ -248,10 +252,12 @@ def fwd_libs(tmp_path_factory):
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     qkv = _build("qkv_attention", out, "attention_fwd", "attn").qkv_attention_bf16
     mha = _build("mha_attention", out, "attention_fwd", "attn").mha_attention_bf16
+    flash = _build("flash_attention", out, "attention_fwd", "attn").flash_attention_bf16
     qkv.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
     mha.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
-    qkv.restype = mha.restype = ctypes.c_int
-    return {"qkv": qkv, "mha": mha}
+    flash.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
+    qkv.restype = mha.restype = flash.restype = ctypes.c_int
+    return {"qkv": qkv, "mha": mha, "flash": flash}
 
 
 def _poison_pad_keys(k, v, kv):
@@ -310,6 +316,68 @@ def test_oneshot_forward_source_matches_plain_version(fwd_libs, b, n, heads, d, 
     _assert_fwd_close(*_run_fwd_mha(fwd_libs["mha"], b, n, heads, d, kv, poison))
 
 
+def _run_fwd_flash(fn, b, n, heads, d, kv, poison, causal=False, layout="fused"):
+    """K4 on views of one fused qkv, or on [B, H, N, D] storage (head stride
+    above the token stride)."""
+    if layout == "fused":
+        _, q, k, v, _ = _inputs(b, n, heads, d, seed=7 * n + d + causal)
+    else:
+        gen = torch.Generator().manual_seed(7 * n + d)
+        q, k, v = (torch.randn(b, heads, n, d, generator=gen).to(torch.bfloat16).transpose(1, 2)
+                   for _ in range(3))
+    if poison:
+        _poison_pad_keys(k, v, kv)
+    scale = d**-0.5
+    out = torch.full((b, n, heads, d), float("nan"), dtype=torch.bfloat16)
+    stats = torch.full((b, heads, n, 2), float("nan"))
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), stats.data_ptr(), *strides,
+             b, n, heads, d, kv, int(causal), scale, None)
+    assert err == 0
+    want = attention.flash_attention_reference(q, k, v, causal=causal, valid_len=kv)
+    return out, want, stats, _row_stats(q, k, kv, scale, False, causal)
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,poison,causal,layout", [
+    (1, 150, 2, 64, 140, True, False, "fused"),  # ragged, NaN in the pad keys of K and V
+    (1, 300, 1, 64, 300, False, True, "fused"),  # causal, N a multiple of neither 192 nor 128
+    (1, 200, 2, 64, 170, True, True, "fused"),  # causal with pad keys past valid_len
+    (1, 140, 1, 128, 133, True, True, "fused"),  # head dim 128: 128-row q-tiles
+    (1, 100, 1, 256, 90, True, True, "fused"),  # head dim 256: 64-key tiles
+    (1, 150, 1, 256, 140, True, False, "fused"),
+    (2, 130, 2, 64, 130, False, False, "bhnd"),  # [B, H, N, D] storage, batch 2
+])
+def test_flash_forward_source_matches_plain_version(fwd_libs, b, n, heads, d, kv, poison, causal,
+                                                    layout):
+    """K4 (the forward core under the bundled kernel's numerics) against its
+    plain version, and its row statistics against the plain row max / sum of
+    the unscaled product times scale * log2 e."""
+    _assert_fwd_close(*_run_fwd_flash(fwd_libs["flash"], b, n, heads, d, kv, poison, causal,
+                                      layout))
+
+
+def test_flash_forward_feeds_its_backward(fwd_libs, libs):
+    """K4's output and row statistics, as written by the forward source, give
+    K4b's gradients within the backward limits (the two share the logit bit
+    for bit), at head dim 256, causal, with pad rows and keys."""
+    b, n, heads, d, kv = 1, 100, 1, 256, 90
+    _, q, k, v, dout = _inputs(b, n, heads, d, seed=21)
+    scale = d**-0.5
+    out = torch.empty(b, n, heads, d, dtype=torch.bfloat16)
+    stats = torch.empty(b, heads, n, 2)
+    strides = [s for x in (q, k, v) for s in x.stride()[:3]]
+    assert fwd_libs["flash"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                             stats.data_ptr(), *strides, b, n, heads, d, kv, 1, scale, None) == 0
+    di = (out.float() * dout.float()).sum(-1).transpose(1, 2).contiguous()
+    dq, dk, dv = _nan_like(q)
+    assert libs["flash"](q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                         stats.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                         dv.data_ptr(), *strides, b, n, heads, d, kv, 1, scale, None) == 0
+    want = attention.flash_attention_bwd_reference(q, k, v, out, dout, causal=True, valid_len=kv)
+    _assert_grads_close((dq, dk, dv), want, kv, kv)
+    assert not dq[:, kv:].any()
+
+
 @pytest.mark.parametrize("b,n,heads,d,kv,poison", [
     (1, 150, 2, 64, 137, True),  # ragged tiles, NaN in the pad keys of K and V
     (1, 140, 1, 128, 140, False),  # head dim 128: q / k / v column blocks of 3 * 128
@@ -319,23 +387,28 @@ def test_fused_qkv_forward_source_matches_plain_version(fwd_libs, b, n, heads, d
     _assert_fwd_close(*_run_fwd_qkv(fwd_libs["qkv"], b, n, heads, d, kv, poison))
 
 
-@pytest.mark.parametrize("kernel,d", [("qkv", 64), ("mha", 128), ("mha", 256)])
+@pytest.mark.parametrize("kernel,d", [("qkv", 64), ("mha", 128), ("mha", 256), ("flash", 64),
+                                      ("flash", 256)])
 def test_forward_sources_are_bitwise_deterministic(fwd_libs, kernel, d):
     """A second call on the same inputs gives the same output and statistics
-    bit for bit."""
-    run = _run_fwd_qkv if kernel == "qkv" else _run_fwd_mha
+    bit for bit (K4 causal)."""
+    run = {"qkv": _run_fwd_qkv, "mha": _run_fwd_mha,
+           "flash": lambda *args: _run_fwd_flash(*args, causal=True)}[kernel]
     first, second = (run(fwd_libs[kernel], 1, 140, 1, d, 131, True) for _ in range(2))
     assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
     _assert_fwd_close(*first)
 
 
 def test_forward_entry_points_refuse_what_the_kernels_do_not_take(fwd_libs):
-    """Head dim 256 in K1 (64 / 128 only), head dim 32 in either, and kv_len
+    """Head dim 256 in K1 (64 / 128 only), head dim 32 in any, and kv_len
     outside [1, N] return cudaErrorInvalidValue (1) before any launch."""
     qkv = lambda d, kv: fwd_libs["qkv"](None, None, None, 1, 64, 1, d, kv, 1.0, None)
     mha = lambda d, kv: fwd_libs["mha"](*([None] * 5 + [0] * 9 + [1, 64, 1, d, kv, 1.0, None]))
+    flash = lambda d, kv: fwd_libs["flash"](*([None] * 5 + [0] * 9 + [1, 64, 1, d, kv, 1, 1.0,
+                                                                      None]))
     assert qkv(256, 64) == 1 and qkv(32, 64) == 1 and qkv(64, 0) == 1 and qkv(64, 65) == 1
     assert mha(32, 64) == 1 and mha(64, 65) == 1 and mha(512, 64) == 1
+    assert flash(32, 64) == 1 and flash(64, 0) == 1 and flash(64, 65) == 1
 
 
 def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypatch):
@@ -345,6 +418,8 @@ def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypa
     _, q, k, _, _ = _inputs(1, 90, 2, 64, seed=11)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125)
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, True), rtol=1e-6, atol=1e-6)
+    got = time_fwd_trees.plain_stats(q, k, 80, 0.125, prescaled=False, causal=True)  # K4's
+    assert torch.allclose(got, _row_stats(q, k, 80, 0.125, False, True), rtol=1e-6, atol=1e-6)
     assert (time_fwd_trees.STATS_M_TOL, time_fwd_trees.STATS_L_TOL) == (STATS_M_TOL, STATS_L_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):

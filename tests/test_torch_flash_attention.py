@@ -38,15 +38,18 @@ def _jax_bundled(q, k, v, dtype, causal, valid_len, monkeypatch):
     (torch.bfloat16, 128, True, 1050),
     (torch.float32, 128, False, 1050),
     (torch.float32, 64, True, None),
+    (torch.bfloat16, 256, True, 560),  # head dim 256 at [1, 600, 1, 256]
+    (torch.float32, 256, False, 560),
 ])
 def test_plain_k4_matches_bundled_pallas_kernel(dtype, head_dim, causal, valid_len, monkeypatch):
-    q, k, v = _inputs((2, 1100, 2, head_dim), seed=head_dim + int(causal))
+    shape = (1, 600, 1, 256) if head_dim == 256 else (2, 1100, 2, head_dim)
+    q, k, v = _inputs(shape, seed=head_dim + int(causal))
     want = _jax_bundled(q, k, v, dtype, causal, valid_len, monkeypatch)
     got = attention.flash_attention_reference(
         *(torch.from_numpy(x).to(dtype) for x in (q, k, v)), causal=causal, valid_len=valid_len)
-    assert got.dtype == dtype and got.shape == (2, 1100, 2, head_dim)
+    assert got.dtype == dtype and got.shape == shape
     assert torch.isfinite(got).all()  # pad rows too: they ride into the next layer
-    rows = 1100 if valid_len is None else valid_len  # rows >= valid_len are unspecified
+    rows = shape[1] if valid_len is None else valid_len  # rows >= valid_len are unspecified
     got, want = got.float().numpy()[:, :rows], want[:, :rows]
     err = np.abs(got - want)
     if dtype == torch.float32:

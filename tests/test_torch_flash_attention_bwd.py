@@ -52,17 +52,20 @@ def _port_grads(q, k, v, g, dtype, causal, valid_len):
     (torch.bfloat16, 64, False, 580),
     (torch.bfloat16, 64, True, None),
     (torch.bfloat16, 128, True, 580),
+    (torch.float32, 256, True, 580),  # head dim 256, one head
+    (torch.bfloat16, 256, True, 580),
 ])
 def test_plain_k4b_matches_bundled_pallas_backward(dtype, head_dim, causal, valid_len,
                                                    monkeypatch):
     """dq on the rows and dk / dv on the keys below `valid_len` (the bundled
     kernel's pad rows attend to pad keys only; the port's contribute nothing)."""
-    q, k, v, g = _inputs(1, 600, 2, head_dim, seed=head_dim + int(causal))
+    heads = 1 if head_dim == 256 else 2
+    q, k, v, g = _inputs(1, 600, heads, head_dim, seed=head_dim + int(causal))
     want = _jax_grads(q, k, v, g, dtype, causal, valid_len, monkeypatch)
     got = _port_grads(q, k, v, g, dtype, causal, valid_len)
     rows = 600 if valid_len is None else valid_len
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
-        assert a.dtype == dtype and a.shape == (1, 600, 2, head_dim)
+        assert a.dtype == dtype and a.shape == (1, 600, heads, head_dim)
         a, w = a.float().numpy()[:, :rows], w[:, :rows]
         if dtype == torch.float32:
             np.testing.assert_allclose(a, w, rtol=FP32_RTOL, atol=FP32_ATOL, err_msg=name)
@@ -119,11 +122,26 @@ def test_autograd_binding_runs_the_plain_versions_on_the_cpu(monkeypatch):
         torch.testing.assert_close(a, w)
 
 
-def test_head_dim_256_keeps_plain_attention_under_autograd():
-    """K4 does not take head dim 256 yet: that branch stays plain attention,
-    differentiable by autograd."""
+def test_head_dim_256_takes_the_k4_branch_under_autograd(monkeypatch):
+    """Head dim 256 on the K4 branch (causal) under autograd goes through
+    `FlashAttentionFunction` (K4's and K4b's plain versions on the CPU), not
+    plain attention, and its gradients are `flash_attention_bwd_reference`'s."""
+    calls = []
+    for name in ("plain_attention", "flash_attention_reference", "flash_attention_bwd_reference"):
+        fn = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *a, _fn=fn, _n=name, **kw: calls.append(_n) or _fn(*a, **kw))
+    apply = attention.FlashAttentionFunction.apply
+    monkeypatch.setattr(attention.FlashAttentionFunction, "apply",
+                        lambda *a: calls.append("apply") or apply(*a))
     rs = np.random.RandomState(5)
-    q = torch.from_numpy(rs.randn(1, 20, 1, 256).astype(np.float32)).requires_grad_(True)
-    out = attention.flash_attention(q, q, q, causal=True)
-    out.sum().backward()
-    assert torch.isfinite(q.grad).all() and q.grad.abs().sum() > 0
+    q, k, v = (torch.from_numpy(rs.randn(1, 40, 2, 256).astype(np.float32)).requires_grad_(True)
+               for _ in range(3))
+    g = torch.from_numpy(rs.randn(1, 40, 2, 256).astype(np.float32))
+    out = attention.flash_attention(q, k, v, causal=True, valid_len=37)
+    out.backward(g)
+    assert calls == ["apply", "flash_attention_reference", "flash_attention_bwd_reference"]
+    want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                                   out.detach(), g, causal=True, valid_len=37)
+    for a, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(a, w)

@@ -137,8 +137,8 @@ def routes(monkeypatch):
     (500, 64, False, False, "k3"),
     (500, 256, False, False, "k3"),  # head dim 256 on the K3 branch: K3 takes it
     (600, 64, False, False, "k4"),  # longer than the one-shot limit
-    (600, 256, False, False, "plain"),  # head dim 256 on the K4 branch: not in K4 yet
-    (300, 256, True, False, "plain"),
+    (600, 256, False, False, "k4"),  # head dim 256 on the K4 branch: K4 takes it
+    (300, 256, True, False, "k4"),
     (300, 128, True, False, "k4"),
     (500, 64, False, True, "k3"),  # autograd on the K3 branch: K3 and its backward
 ])
