@@ -52,11 +52,14 @@ phases that each print one JSON line:
                   (the first untimed); seconds per frame, peak memory, K1 /
                   K4 launches per frame; one frame at scale 1.25 with the
                   kernels against plain attention; a profile of one frame;
- 11. kernel_int8 — K5 (int8 attention) against its plain version on the
-                  same quantized operands at the serving shape, the whole
-                  frame, head dim 128 and the adversarial pad case, with
-                  kernel / prologue / plain / bound times and, for context,
-                  the bf16 K1 and SDPA at the same shape;
+ 11. kernel_int8 — K5's prologue kernel (quantization and V's key-major
+                  copy) held bitwise against its plain version (q8's q
+                  and k thirds, V's copy, scales), then K5 (int8 attention)
+                  against its plain version, at the serving shape, the
+                  whole frame, head dim 128 (bf16 and fp32 qkv) and the
+                  adversarial pad case, with kernel / plain / bound times of
+                  both and, for context, the bf16 K1 and SDPA at the same
+                  shape;
  12. serve_path — the user entry points `tools/serve.py` (`build_service` on
                   the checkpoint of train_path, `--set tpu.attn_impl=int8`)
                   and `make_server` on 127.0.0.1: one warm-up, 3 seeded
@@ -64,7 +67,7 @@ phases that each print one JSON line:
                   request, /healthz, /metrics, a bad request and one frame
                   with Paeth-filtered rows (the decoder's anti-diagonal
                   path); latency, img/s, PNG decode ms (filter 0 and
-                  Paeth), device seconds, peak memory, K5 / K1 /
+                  Paeth), device seconds, peak memory, K5 / prologue / K1 /
                   K4 launches per request; the HTTP answer against
                   `predict_array`; one frame with K5 against its plain
                   version (and, reported only, against the bf16 K1 path); a
@@ -922,16 +925,19 @@ def phase_eval_path() -> dict:
 
 
 def qkv_attention_int8_case(b: int, n: int, heads: int, head_dim: int, valid_len,
-                            adversarial: bool, iters: int) -> dict:
-    """K5 (its launching wrapper) against its plain version on the same
-    quantized operands; errors on the rows below `valid_len`, every row
-    finite.  The prologue (quantization and V's key-major copy) is timed
-    apart; the bf16 K1 and SDPA at the same shape are context."""
+                            adversarial: bool, iters: int, dtype=torch.bfloat16) -> dict:
+    """K5's prologue kernel held bitwise against its plain version (q8's q
+    and k thirds, V's key-major copy, scales; the kernel leaves q8's v third
+    unwritten, as K5 never reads it), then K5 (its launching wrapper) on the
+    kernel's operands against its plain version on the plain prologue's;
+    errors on the rows below `valid_len`, every row finite.  The bf16 K1 and
+    SDPA at the same shape are context."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
         _launch,
         _launch_int8,
+        _launch_quantize_int8,
         int8_attention_plain,
         quantize_qkv_int8,
         value_key_major,
@@ -946,37 +952,59 @@ def qkv_attention_int8_case(b: int, n: int, heads: int, head_dim: int, valid_len
         qkv[..., :hd] = -qkv[..., :hd].abs() * 20.0
         qkv[..., hd:2 * hd] = qkv[..., hd:2 * hd].abs()
         qkv[:, kv:] = 0.0
-    qkv = qkv.to(torch.bfloat16)
-    prologue = lambda: quantize_qkv_int8(qkv, heads, kv)
-    q8, scales = prologue()
-    vt = value_key_major(q8, heads)
+    qkv = qkv.to(dtype)
+    prologue = lambda: _launch_quantize_int8(qkv, heads, kv)
+
+    def plain_prologue():
+        q8, scales = quantize_qkv_int8(qkv, heads, kv)
+        return q8, value_key_major(q8, heads), scales
+
+    q8, vt, scales = prologue()
+    plain_q8, plain_vt, plain_scales = plain_prologue()
+    torch.cuda.synchronize()
+    got = (q8[..., :2 * hd], vt, scales)
+    want = (plain_q8[..., :2 * hd], plain_vt, plain_scales)
+    prologue_equal = all(torch.equal(a, w) for a, w in zip(got, want))
+    prologue_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(got, want))
     run = lambda: _launch_int8(q8, vt, scales, heads, scale, kv, qkv.dtype)
-    plain = lambda: int8_attention_plain(q8, scales, heads, scale, kv, qkv.dtype)
+    plain = lambda: int8_attention_plain(plain_q8, plain_scales, heads, scale, kv, qkv.dtype)
     out, ref = run(), plain()
     torch.cuda.synchronize()
+    rerun_equal = torch.equal(out, run())
     err = out[:, :kv].float() - ref[:, :kv].float()
     ops = 4.0 * b * heads * n * kv * head_dim  # int8 Q K^T and P V
-    nbytes = q8.numel() + 4.0 * scales.numel() + out.numel() * out.element_size()
-    # the prologue reads qkv twice (amax, then the rounding) and writes q8 and V's copy
-    prologue_bytes = 2.0 * qkv.numel() * qkv.element_size() + q8.numel() + vt.numel()
+    qk_bytes = 2.0 * b * n * hd  # q8's q and k thirds: what K5 reads of q8, what the prologue writes
+    nbytes = qk_bytes + vt.numel() + 4.0 * scales.numel() + out.numel() * out.element_size()
+    # the prologue's function: one read of qkv, the writes of q8's q / k thirds,
+    # V's copy and the scales; its two-pass design reads qkv a second time
+    prologue_bytes = qkv.numel() * qkv.element_size() + qk_bytes + vt.numel() + 4.0 * scales.numel()
+    design_bytes = prologue_bytes + qkv.numel() * qkv.element_size()
     qh, kh, vh = (t.reshape(b, n, heads, head_dim).transpose(1, 2).contiguous()
-                  for t in qkv.split(hd, dim=-1))
+                  for t in qkv.to(torch.bfloat16).split(hd, dim=-1))
     kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
     res = {
         "phase": "kernel_int8", "name": "qkv_attention_int8", "shape": [b, n, 3 * hd],
+        "dtype": str(dtype).replace("torch.", ""),
         "heads": heads, "head_dim": head_dim, "valid_len": valid_len, "adversarial": adversarial,
         "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
         "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
         "max_abs_out": float(out[:, :kv].float().abs().max()),
         "finite": bool(torch.isfinite(out.float()).all()),
+        "rerun_bitwise_equal": rerun_equal,
         "ms": cuda_ms(run, iters),
-        "prologue_ms": cuda_ms(lambda: value_key_major(prologue()[0], heads), iters),
         "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
         "library_ms": None,  # no PyTorch call computes int8 attention
         "bound_ms": max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
         "bound_by": "operations" if ops / PEAK_INT8_OPS >= nbytes / PEAK_BYTES else "bytes",
-        "prologue_bound_ms": prologue_bytes / PEAK_BYTES * 1e3,
-        "k1_bf16_ms": cuda_ms(lambda: _launch(qkv, heads, scale, kv), iters),
+        "prologue": {
+            "name": "quantize_qkv_int8", "bitwise_equal": prologue_equal,
+            "max_abs_err": prologue_err, "ms": cuda_ms(prologue, iters),
+            "plain_ms": cuda_ms(plain_prologue, max(iters // 5, 2), warmup=1),
+            "library_ms": None,  # no one PyTorch call quantizes per (batch, q/k/v, head)
+            "bound_ms": prologue_bytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "design_bytes_ms": design_bytes / PEAK_BYTES * 1e3,  # two reads of qkv
+        },
+        "k1_bf16_ms": cuda_ms(lambda: _launch(qkv.to(torch.bfloat16), heads, scale, kv), iters),
         "sdpa_bf16_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
     }
     res["tops"] = ops / (res["ms"] * 1e-3) / 1e12
@@ -984,10 +1012,11 @@ def qkv_attention_int8_case(b: int, n: int, heads: int, head_dim: int, valid_len
 
 
 INT8_CASES = [
-    # (b, n, heads, head_dim, valid_len, adversarial, iters)
+    # (b, n, heads, head_dim, valid_len, adversarial, iters[, qkv dtype])
     (10, 1536, 12, 64, 1522, False, 50),  # slide window batch: the serving shape
     (1, 8320, 12, 64, 8193, False, 10),  # a mode=whole request (8193 tokens, padded once)
     (2, 1100, 8, 128, 1050, False, 50),  # head dim 128
+    (2, 1100, 8, 128, 1050, False, 50, torch.float32),  # fp32 qkv (the prologue's second type)
     (1, 256, 2, 64, 200, True, 50),  # adversarial pads (tests/test_int8_attention.py)
 ]
 
@@ -997,7 +1026,9 @@ def phase_kernel_int8() -> list:
     for case in INT8_CASES:
         res = qkv_attention_int8_case(*case)
         emit(res)
-        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
+        if not res["prologue"]["bitwise_equal"]:
+            raise AssertionError(f"quantize_qkv_int8 differs from its plain version: {res}")
+        if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL and res["rerun_bitwise_equal"]
                 and res["rel_l2_err"] <= KERNEL_REL_TOL and res["max_abs_out"] > 1e-3):
             raise AssertionError(f"qkv_attention_int8 disagrees with its plain version: {res}")
         results.append(res)
@@ -1474,7 +1505,7 @@ def phase_serve_path() -> dict:
     }
     emit(res)
     del kernel_out, plain_out, bf16_out
-    want = expected_launches(qkv_attention_int8=12)
+    want = expected_launches(qkv_attention_int8=12, quantize_qkv_int8=12)
     if any(r != want for r in per_request) or whole != want:
         raise AssertionError(f"expected {want} launches per request: {per_request}, whole {whole}")
     if not (whole_ok and paeth_ok and health["status"] == "ok" and bad_status == 400
@@ -1924,6 +1955,7 @@ PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel n
     ("flash_attention_bwd (K4b)", ("flash_bwd_",)),
     ("qkv_out_attention (K7)", ("qkv_out_attention_kernel",)),
     ("qkv_attention_int8 (K5)", ("qkv_attention_int8_kernel",)),
+    ("quantize_qkv_int8 (K5's prologue)", ("int8_prologue_",)),
     ("qkv_attention (K1)", ("qkv_attention_kernel",)),
     ("flash_attention (K4)", ("flash_attention_kernel",)),
     ("conv (cuDNN)", ("conv", "cudnn", "implicit", "winograd", "fprop", "dgrad")),
@@ -2040,8 +2072,14 @@ def main() -> int:
          "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "
                    "warpgroup, wgmma consumer warpgroups",
          "head_dim_256": at_256(flash_256)},
-        entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586", serving,
-              serve_res["launches"]["qkv_attention_int8"]),
+        {**entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586",
+                 serving, serve_res["launches"]["qkv_attention_int8"]),
+         "design": "int8 wgmma (m64n128k32 S, register-A P V) + TMA, two passes over K"},
+        {**entry("quantize_qkv_int8", "quantize_qkv_int8.cu",
+                 "ops/mha_kernel.py:655 (XLA work beside the kernel, not a Pallas kernel)",
+                 serving["prologue"], serve_res["launches"]["quantize_qkv_int8"]),
+         "bitwise_equal_to_plain": serving["prologue"]["bitwise_equal"],
+         "design_bytes_ms": serving["prologue"]["design_bytes_ms"]},
         entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
               selftest_res["launches"]["mha_attention"]),
         entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,

@@ -81,6 +81,7 @@
 #include "bundled_logit.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "tensor_map.cuh"
 
 namespace dclip {
 namespace attn {
@@ -415,29 +416,6 @@ __device__ __forceinline__ void forward(const Params& p) {
       *reinterpret_cast<uint32_t*>(out_b + row1 * out_stride + col) =
           pack_bf16(o[i + 2] / l_run[1], o[i + 3] / l_run[1]);
   }
-}
-
-// cuTensorMapEncodeTiled, looked up at first use through
-// cudaGetDriverEntryPointByVersion (the library links only the CUDA
-// runtime; CUDA 12.5 or later).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline cudaError_t encode_fn(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                       cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || f == nullptr) return cudaErrorNotSupported;
-    cached = reinterpret_cast<EncodeTiled>(f);
-  }
-  *fn = cached;
-  return cudaSuccess;
 }
 
 // The map of a [B, rows, H, D] bf16 operand read by stride, in boxes of

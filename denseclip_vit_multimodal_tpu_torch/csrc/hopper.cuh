@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention forward core
-// (attention_fwd.cuh): mbarriers, TMA tensor loads, named barriers,
-// register reallocation and warpgroup matrix multiply (wgmma).  Every
+// (attention_fwd.cuh) and the int8 attention (qkv_attention_int8.cu):
+// mbarriers, TMA tensor loads, named barriers, register reallocation and
+// warpgroup matrix multiply (wgmma, bf16 and 8-bit integer).  Every
 // function is a thin wrapper around one or a few PTX instructions; the
 // layouts they imply are documented where the core uses them.  The CPU tests
 // replace this header with tests/cuda_emu/hopper.cuh, an emulation written
@@ -128,6 +129,12 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
+template <int kN>
+__device__ __forceinline__ void fence_regs(int* r) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
 #define DCLIP_F8(d, i)                                                                 \
   "+f"(d[(i) + 0]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), "+f"(d[(i) + 4]), \
       "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
@@ -218,6 +225,81 @@ __device__ __forceinline__ void wgmma_rs_tb<256>(float* d, const uint32_t* a, ui
 #undef DCLIP_F8
 #undef DCLIP_F32
 #undef DCLIP_F64
+
+#define DCLIP_I8(d, i)                                                                 \
+  "+r"(d[(i) + 0]), "+r"(d[(i) + 1]), "+r"(d[(i) + 2]), "+r"(d[(i) + 3]), "+r"(d[(i) + 4]), \
+      "+r"(d[(i) + 5]), "+r"(d[(i) + 6]), "+r"(d[(i) + 7])
+#define DCLIP_I32(d, i) DCLIP_I8(d, i), DCLIP_I8(d, (i) + 8), DCLIP_I8(d, (i) + 16), DCLIP_I8(d, (i) + 24)
+#define DCLIP_I64(d, i) DCLIP_I32(d, i), DCLIP_I32(d, (i) + 32)
+
+// d[64 x N] (+)= A[64 x 32] B[32 x N], s32 accumulators (exact), s8
+// operands, A and B both K-major in shared memory; `acc` 0 overwrites d.
+// d holds N / 2 ints a thread, in the fp32 accumulator's layout.  8-bit
+// wgmma takes K-major operands only (no transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_ss_s8(int* d, uint64_t da, uint64_t db, int acc);
+
+// The same with A from registers: a[4] in the 8-bit A fragment layout
+// (a0: row g, k 4t..4t+3; a1: row g + 8; a2 / a3: k + 16; four s8 a
+// register, the lowest k in the lowest byte), B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int* d, const uint32_t* a, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<64>(int* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : DCLIP_I32(d, 0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_s8<128>(int* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : DCLIP_I64(d, 0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(int* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : DCLIP_I32(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<128>(int* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : DCLIP_I64(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+#undef DCLIP_I8
+#undef DCLIP_I32
+#undef DCLIP_I64
 
 }  // namespace sm90
 }  // namespace dclip

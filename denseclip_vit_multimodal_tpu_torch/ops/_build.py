@@ -28,10 +28,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
-# Every kernel source (csrc/<name>.cu): K1, K2 with K3's backward, K4, K5, K3,
-# K6, K4b, K7.
+# Every kernel source (csrc/<name>.cu): K1, K2 with K3's backward, K4, K5 and
+# its prologue, K3, K6, K4b, K7.
 SOURCES = ("qkv_attention", "qkv_attention_bwd", "flash_attention", "qkv_attention_int8",
-           "mha_attention", "ln_qkv_attention", "flash_attention_bwd", "qkv_out_attention")
+           "quantize_qkv_int8", "mha_attention", "ln_qkv_attention", "flash_attention_bwd",
+           "qkv_out_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc and its -Xptxas -v report, per library built in this

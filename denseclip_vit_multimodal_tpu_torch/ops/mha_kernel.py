@@ -20,8 +20,9 @@ H100.
   rounding points (those of the JAX `_bwd_kernel`; see the CUDA source).
 * `LAUNCHES` counts kernel launches (never plain calls): "qkv_attention"
   for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
-  "qkv_attention_int8" for K5, "mha_attention" for K3 and
-  "mha_attention_bwd" for K3's backward.
+  "qkv_attention_int8" for K5, "quantize_qkv_int8" for its prologue (two
+  CUDA kernels, one count), "mha_attention" for K3 and "mha_attention_bwd"
+  for K3's backward.
 
 The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
 TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
@@ -44,19 +45,24 @@ stride; head dim 64, 128 or 256, as K3):
 
 The opt-in int8 serving path (`tpu.attn_impl: int8`) ports the JAX
 `mha_qkv_attention_int8` and its TPU kernel `_qkv_int8_kernel` (K5,
-`csrc/qkv_attention_int8.cu`):
+`csrc/qkv_attention_int8.cu`), and the XLA prologue beside it
+(`csrc/quantize_qkv_int8.cu`, the quantization and V's key-major copy in
+two launches):
 
 * `quantize_qkv_int8` is the JAX prologue with its exact arithmetic
   (symmetric per-(batch, q/k/v, head) scales), plus the clamp to [-128, 127]
-  that JAX's saturating cast does implicitly (torch's cast wraps).
+  that JAX's saturating cast does implicitly (torch's cast wraps);
+  `value_key_major` is V's key-major copy K5 reads.  Together they are the
+  prologue kernel's plain version, bit for bit.
 * `int8_attention_plain` is the kernel body in plain PyTorch; both products
   are exact (fp64 holds every int32 sum), so only exp2 ulps and the order of
   the fp32 denominator sum separate it from the kernel.
-* `mha_qkv_attention_int8` launches K5 for a CUDA tensor and runs the plain
-  version for a CPU tensor.  When autograd records it, the backward is the
-  JAX straight-through one (`Int8AttentionFunction`): the bf16 backward of
-  the unquantized qkv, i.e. K1's forward for the row statistics and K2 (the
-  plain versions on the CPU).
+* `mha_qkv_attention_int8` launches the prologue kernel and K5 for a CUDA
+  tensor and runs the plain versions for a CPU tensor.  When autograd
+  records it, the backward is the JAX straight-through one
+  (`Int8AttentionFunction`): the bf16 backward of the unquantized qkv, i.e.
+  K1's forward for the row statistics and K2 (the plain versions on the
+  CPU).
 
 The JAX package's softmax knobs `DENSECLIP_EXP_BF16` (a bf16 exp2 pass in K1
 and K3) and `DENSECLIP_FAST_EXP2` (a polynomial exp2 in K1, K2, K3 and K7)
@@ -79,14 +85,18 @@ _LANE = 128
 _LOG2E = 1.4426950408889634
 
 LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-                            "mha_attention": 0, "mha_attention_bwd": 0}
+                            "quantize_qkv_int8": 0, "mha_attention": 0, "mha_attention_bwd": 0}
 EXP_BF16_ENV = "DENSECLIP_EXP_BF16"
 FAST_EXP2_ENV = "DENSECLIP_FAST_EXP2"
 _REF_CHUNK = 4096  # query rows per step of the one-shot kernels' plain versions
 # K5 accumulates P V in int32: at most this many keys of p8 <= 127 times |v8| <= 128
 INT8_MAX_KEYS = (2**31 - 1) // (127 * 128)
 _INT8_CHUNK = 4096  # query rows per step of the int8 plain version
-_V_ALIGN = 16  # K5 reads V key-major in 16-byte chunks: rows padded to this many keys
+_V_ALIGN = 16  # V's key-major rows are padded to whole 16-key groups
+# Position i of each 16-key group of V's key-major copy holds key
+# _V_KEY_ORDER[i]: K5's int32 accumulators of S then lie as the 8-bit A
+# fragment of P V (csrc/qkv_attention_int8.cu says how).
+_V_KEY_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 
 def refuse_softmax_knobs(*names: str) -> None:
@@ -203,6 +213,9 @@ def _kernel_fn(name: str):
     elif name == "qkv_attention_int8":
         fn = load_library("qkv_attention_int8").qkv_attention_int8
         fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
+    elif name == "quantize_qkv_int8":
+        fn = load_library("quantize_qkv_int8").quantize_qkv_int8
+        fn.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
     else:
         fn = load_library("qkv_attention_bwd").qkv_attention_bwd_bf16
         fn.argtypes = [ptr] * 7 + [i] * 5 + [f, f, ptr]
@@ -646,18 +659,51 @@ def mha_qkv_attention_int8_reference(
 
 def value_key_major(q8: torch.Tensor, num_heads: int) -> torch.Tensor:
     """V of every head key-major, [B, H, D, N'] int8 with N' = N rounded up
-    to 16 (zero-filled): K5's B operand of P V takes four consecutive keys of
-    one head dim per 32-bit register."""
+    to 16 (zero-filled), each 16-key group in the order `_V_KEY_ORDER`: K5's
+    B operand of P V (K-major, as 8-bit wgmma takes it)."""
     b, n, hd, d = _split_shape(q8, num_heads)
     ldv = -(-n // _V_ALIGN) * _V_ALIGN
     vt = q8.new_zeros(b, num_heads, d, ldv)
     vt[..., :n] = q8[..., 2 * hd:].view(b, n, num_heads, d).permute(0, 2, 3, 1)
-    return vt
+    order = torch.tensor(_V_KEY_ORDER, device=q8.device)
+    return vt.view(b, num_heads, d, ldv // _V_ALIGN, _V_ALIGN).index_select(-1, order).view(
+        b, num_heads, d, ldv)
+
+
+def _launch_quantize_int8(qkv: torch.Tensor, num_heads: int, kv_len: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The prologue kernel: (q8, V's key-major copy, scales), bit for bit
+    `quantize_qkv_int8` and `value_key_major` on what K5 reads.  q8's v
+    third is left unwritten (K5 reads V from its key-major copy only)."""
+    b, n, hd, d = _split_shape(qkv, num_heads)
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the int8 prologue kernel takes bfloat16 or float32 qkv, got {qkv.dtype}")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("the int8 prologue kernel takes a contiguous, 16-byte aligned qkv")
+    if d not in (64, 128):
+        raise ValueError(f"the int8 prologue kernel takes head dim 64 or 128, got {d}")
+    ldv = -(-n // _V_ALIGN) * _V_ALIGN
+    fn = _kernel_fn("quantize_qkv_int8")
+    dev = qkv.device
+    amax = torch.zeros(b, 3, num_heads, dtype=torch.int32, device=dev)  # fp32 bits
+    q8 = torch.empty(b, n, 3 * hd, dtype=torch.int8, device=dev)
+    vt = torch.empty(b, num_heads, d, ldv, dtype=torch.int8, device=dev)
+    scales = torch.empty(b, 3, num_heads, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), amax.data_ptr(),
+                 q8.data_ptr(), vt.data_ptr(), scales.data_ptr(), b, n, num_heads, d, kv_len,
+                 ldv, stream)
+    if err != 0:
+        raise RuntimeError(f"int8 prologue kernel launch failed: cudaError {err}")
+    LAUNCHES["quantize_qkv_int8"] += 1
+    return q8, vt, scales
 
 
 def _launch_int8(q8: torch.Tensor, vt: torch.Tensor, scales: torch.Tensor, num_heads: int,
                  scale: float, kv_len: int, out_dtype: torch.dtype) -> torch.Tensor:
-    """K5 on the prologue's operands; returns [B, N, H*D] in `out_dtype`."""
+    """K5 on the prologue's operands; returns [B, N, H*D] in `out_dtype`.
+    It reads q8's q and k thirds and V from `vt`, never q8's v third."""
     b, n, hd, d = _split_shape(q8, num_heads)
     if q8.dtype != torch.int8 or not q8.is_contiguous() or q8.data_ptr() % 16:
         raise ValueError("the int8 attention kernel takes a contiguous, 16-byte aligned int8 q8")
@@ -719,11 +765,8 @@ def _int8_forward(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int) 
         return mha_qkv_attention_int8_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
     if qkv.device.type != "cuda":
         raise ValueError(f"no int8 qkv attention for device {qkv.device}")
-    if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"the int8 attention path takes bfloat16 or float32 qkv, got {qkv.dtype}")
-    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
-    return _launch_int8(q8, value_key_major(q8, num_heads), scales, num_heads, scale, kv_len,
-                        qkv.dtype)
+    q8, vt, scales = _launch_quantize_int8(qkv, num_heads, kv_len)
+    return _launch_int8(q8, vt, scales, num_heads, scale, kv_len, qkv.dtype)
 
 
 def mha_qkv_attention_int8(

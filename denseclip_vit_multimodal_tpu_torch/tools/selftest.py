@@ -6,7 +6,7 @@ Port of the JAX package's `tools/tpu_selftest.py`, with its checks and
 tolerances (max abs error against plain attention, `ops/attention.py::
 plain_attention`, the JAX `xla_attn`): K3 and K1 at [2, 1601, 12, 64] bf16,
 `valid_len` masking of a sequence padded 1500 -> 1536 through K3, the int8
-kernel K5 at N = 1601, and `flash_attention` at N = 8193, labelled by the
+kernel K5 (after its prologue kernel) at N = 1601, and `flash_attention` at N = 8193, labelled by the
 kernel that ran (K3, by the dispatch: 8193 <= 8448, non-causal).  Every check
 also fails if its kernel was not launched.  The fp32 case of the JAX tool is
 skipped: the kernels take bf16 only.  Runs on CUDA only (no CPU fallback);
@@ -17,7 +17,7 @@ exits 1 on a failure or without a CUDA device.
 from __future__ import annotations
 
 import sys
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple, Union
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -53,17 +53,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         return {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
 
     def check(name: str, run: Callable[[], torch.Tensor], want: torch.Tensor, tol: float,
-              kernel: Optional[str]) -> None:
-        """`run` must launch `kernel` (a LAUNCHES key) once and agree with
-        `want` to `tol` max abs error; with kernel None, the kernel that ran
-        is named in the label."""
+              kernel: Union[None, str, Tuple[str, ...]]) -> None:
+        """`run` must launch `kernel` (a LAUNCHES key, or each of a tuple of
+        them) once and agree with `want` to `tol` max abs error; with kernel
+        None, the kernel that ran is named in the label."""
         nonlocal failures
         before = launched()
         got = run()
         torch.cuda.synchronize()
         ran = [k for k, v in launched().items() if v != before[k]]
         err = float((got.float() - want.float()).abs().max())
-        ok = err <= tol and (ran == [kernel] if kernel else len(ran) == 1)
+        kernels = [kernel] if isinstance(kernel, str) else list(kernel or ())
+        ok = err <= tol and (sorted(ran) == sorted(kernels) if kernel else len(ran) == 1)
         failures += 0 if ok else 1
         label = name if kernel else f"{name} via {ran[0] if len(ran) == 1 else ran}"
         print(f"{'PASS' if ok else 'FAIL'} {label}: max_err={err:.5f} (tol {tol}, "
@@ -99,7 +100,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ref = plain_attention(q, k, v, False)
     qkv = torch.cat([x.reshape(2, n, -1) for x in (q, k, v)], dim=-1)
     check(f"int8 kernel (K5) N={n} (quantized, tol 0.35)",
-          lambda: mha_qkv_attention_int8(qkv, 12).reshape(shape), ref, 0.35, "qkv_attention_int8")
+          lambda: mha_qkv_attention_int8(qkv, 12).reshape(shape), ref, 0.35,
+          ("quantize_qkv_int8", "qkv_attention_int8"))
 
     n = 8193
     q, k, v = normal((1, n, 4, 64), 1)

@@ -2,8 +2,10 @@
 
 K1 (`csrc/qkv_attention.cu`), K3 (`csrc/mha_attention.cu`), K4
 (`csrc/flash_attention.cu`) and the second stage of K6
-(`csrc/ln_qkv_attention.cu`) call the forward core `csrc/attention_fwd.cuh`.
-This tool builds the four sources of each tree it is given (a directory
+(`csrc/ln_qkv_attention.cu`) call the forward core `csrc/attention_fwd.cuh`;
+K5 (`csrc/qkv_attention_int8.cu`) is the int8 attention, and its prologue
+(`csrc/quantize_qkv_int8.cu`) quantizes qkv and writes V's key-major copy.
+This tool builds those sources of each tree it is given (a directory
 holding them and their headers: this checkout's `csrc/` by default, or a
 copy of another commit's) with the port's nvcc flags into
 `build/fwd_trees/<name>/`, calls their plain C entry points, whose
@@ -20,7 +22,15 @@ signatures every tree must share, and:
     50 launches (10 for K4), in turns (the trees in order, then reversed,
     `--rounds` times), and reports each tree's median beside the bound and
     one library call (the yardstick: `scaled_dot_product_attention`; for K6
-    layer_norm + linear + it).
+    layer_norm + linear + it);
+  * holds each tree's int8 prologue bitwise against the port's plain one
+    on what K5 reads (q8's q and k thirds, V's key-major copy and the
+    scales of `quantize_qkv_int8` + `value_key_major`; a tree without
+    `quantize_qkv_int8.cu` runs the plain PyTorch prologue instead, with V's
+    copy in natural key order, the layout K5 read before the prologue
+    kernel), and its K5 on those operands against `int8_attention_plain`;
+    then times K5 and the prologue of every tree in turns at the serving
+    shape [10,1536,2304] valid 1522, beside their bounds.
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
         [--tree NAME=CSRC_DIR ...] [--rounds 3]
@@ -50,21 +60,31 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 LOG2E = 1.4426950408889634
 MAX_TOL, MEAN_TOL, REL_TOL = 2e-2, 5e-4, 5e-3
-ITERS = {"k1": 50, "k3": 50, "k4": 10, "k6": 50}  # launches per timing
+ITERS = {"k1": 50, "k3": 50, "k4": 10, "k6": 50, "k5": 50}  # launches per timing
+INT8_SHAPE = (10, 1536, 12, 64, 1522)  # K5's serving shape: (batch, tokens, heads, head dim, valid)
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
+INT8_MAX_TOL, INT8_REL_TOL = 2e-2, 5e-3  # chip_smoke.py's K5 limits
 LN_EPS = 1e-5
 STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
 
 
 def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
-    """Compile `csrc`'s K1, K3, K4 and K6 sources; their entry points by kernel."""
+    """Compile `csrc`'s K1, K3, K4, K6 and K5 sources (and K5's prologue,
+    where the tree has it); their entry points by kernel ("prologue" None
+    without it)."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
 
     out_dir.mkdir(parents=True, exist_ok=True)
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    sources = ["qkv_attention", "mha_attention", "flash_attention", "ln_qkv_attention",
+               "qkv_attention_int8"]
+    has_prologue = (csrc / "quantize_qkv_int8.cu").exists()
+    if has_prologue:
+        sources.append("quantize_qkv_int8")
     procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
                                     str(csrc / f"{src}.cu")],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src in ("qkv_attention", "mha_attention", "flash_attention", "ln_qkv_attention")}
+             for src in sources}
     for src, proc in procs.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
@@ -79,8 +99,16 @@ def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
     k4.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
     k6 = ctypes.CDLL(str(out_dir / "libln_qkv_attention.so")).ln_qkv_attention_bf16
     k6.argtypes = [ptr] * 7 + [i] * 6 + [f, f, ptr]
-    k1.restype = k3.restype = k4.restype = k6.restype = ctypes.c_int
-    return {"k1": k1, "k3": k3, "k4": k4, "k6": k6}
+    k5 = ctypes.CDLL(str(out_dir / "libqkv_attention_int8.so")).qkv_attention_int8
+    k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
+    fns = {"k1": k1, "k3": k3, "k4": k4, "k6": k6, "k5": k5, "prologue": None}
+    if has_prologue:
+        fns["prologue"] = ctypes.CDLL(str(out_dir / "libquantize_qkv_int8.so")).quantize_qkv_int8
+        fns["prologue"].argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
+    for fn in fns.values():
+        if fn is not None:
+            fn.restype = ctypes.c_int
+    return fns
 
 
 def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
@@ -103,6 +131,126 @@ def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
         stats[:, h, :, 0] = m
         stats[:, h, :, 1] = torch.exp2(s - m[..., None]).sum(-1)
     return stats
+
+
+def natural_key_major(q8: torch.Tensor, heads: int) -> torch.Tensor:
+    """V's key-major copy [B, H, D, N rounded up to 16] in natural key order:
+    the layout K5 read before its prologue kernel (a tree without
+    `quantize_qkv_int8.cu`)."""
+    b, n, three_hd = q8.shape
+    hd = three_hd // 3
+    vt = q8.new_zeros(b, heads, hd // heads, -(-n // 16) * 16)
+    vt[..., :n] = q8[..., 2 * hd:].view(b, n, heads, hd // heads).permute(0, 2, 3, 1)
+    return vt
+
+
+def _cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds of `fn` over `iters` calls after one, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_int8(fns: dict, rounds: int) -> dict:
+    """K5 and its prologue of every tree at INT8_SHAPE: checks, then times in
+    turns; the summary entries "k5_slide" and "k5_prologue_slide"."""
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        int8_attention_plain,
+        quantize_qkv_int8,
+        value_key_major,
+    )
+
+    b, n, heads, d, kv = INT8_SHAPE
+    hd, scale, ldv = heads * d, d**-0.5, -(-n // 16) * 16
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    stream = torch.cuda.current_stream().cuda_stream
+    bufs = {}  # each tree's last (q8, vt, scales)
+    out = torch.empty(b, n, hd, dtype=torch.bfloat16, device="cuda")
+
+    def prologue(name):
+        """What the tree's `_int8_forward` runs before K5, allocations included."""
+        if fns[name]["prologue"] is None:  # the plain PyTorch prologue of the older trees
+            q8, scales = quantize_qkv_int8(qkv, heads, kv)
+            bufs[name] = q8, natural_key_major(q8, heads), scales
+            return
+        amax = torch.zeros(b, 3, heads, dtype=torch.int32, device="cuda")
+        q8 = torch.empty(b, n, 3 * hd, dtype=torch.int8, device="cuda")
+        vt = torch.empty(b, heads, d, ldv, dtype=torch.int8, device="cuda")
+        scales = torch.empty(b, 3, heads, device="cuda")
+        err = fns[name]["prologue"](qkv.data_ptr(), 1, amax.data_ptr(), q8.data_ptr(),
+                                    vt.data_ptr(), scales.data_ptr(), b, n, heads, d, kv, ldv,
+                                    stream)
+        if err != 0:
+            raise RuntimeError(f"prologue launch failed: cudaError {err}")
+        bufs[name] = q8, vt, scales
+
+    def k5(name):
+        q8, vt, scales = bufs[name]
+        err = fns[name]["k5"](q8.data_ptr(), vt.data_ptr(), scales.data_ptr(), out.data_ptr(), 1,
+                              b, n, heads, d, kv, ldv, scale, stream)
+        if err != 0:
+            raise RuntimeError(f"K5 launch failed: cudaError {err}")
+
+    want_q8, want_scales = quantize_qkv_int8(qkv, heads, kv)
+    want = int8_attention_plain(want_q8, want_scales, heads, scale, kv, torch.bfloat16)
+    results, outs = {}, {}
+    for name, fn in fns.items():
+        prologue(name)
+        q8, vt, scales = bufs[name]
+        want_vt = (value_key_major if fn["prologue"] is not None else natural_key_major)(
+            want_q8, heads)
+        out.fill_(float("nan"))
+        k5(name)
+        torch.cuda.synchronize()
+        outs[name] = out.clone()
+        err = out[:, :kv].float() - want[:, :kv].float()
+        res = {"tree": name, "shape": "k5_slide", "max_abs_err": float(err.abs().max()),
+               "rel_l2_err": float(err.norm() / want[:, :kv].float().norm()),
+               "prologue_kernel": fn["prologue"] is not None,
+               "prologue_bitwise_equal": bool(
+                   torch.equal(q8[..., :2 * hd], want_q8[..., :2 * hd])
+                   and torch.equal(vt, want_vt) and torch.equal(scales, want_scales)),
+               "ms": [], "prologue_ms": []}
+        res["ok"] = bool(torch.isfinite(out.float()).all() and res["prologue_bitwise_equal"]
+                         and res["max_abs_err"] <= INT8_MAX_TOL
+                         and res["rel_l2_err"] <= INT8_REL_TOL)
+        results[name] = res
+    last = list(fns)[-1]
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            results[name]["ms"].append(_cuda_ms(lambda: k5(name), ITERS["k5"]))
+            results[name]["prologue_ms"].append(_cuda_ms(lambda: prologue(name), ITERS["k5"]))
+    ops = 4.0 * b * heads * n * kv * d
+    # K5 reads q8's q and k thirds, V's copy and the scales, and writes bf16 out
+    vt_bytes, scale_bytes = b * heads * d * ldv, 4.0 * b * 3 * heads
+    nbytes = 2.0 * b * n * hd + vt_bytes + scale_bytes + 2.0 * b * n * hd
+    # the prologue's function reads bf16 qkv once and writes q8's q and k
+    # thirds, V's copy and the scales; the two-pass design reads qkv twice
+    prologue_bytes = 2.0 * b * n * 3 * hd + 2.0 * b * n * hd + vt_bytes + scale_bytes
+    design_bytes = prologue_bytes + 2.0 * b * n * 3 * hd
+    for name, res in results.items():
+        res.update(bitwise_equal_to_last=torch.equal(outs[name], outs[last]),
+                   median_ms=statistics.median(res["ms"]),
+                   prologue_median_ms=statistics.median(res["prologue_ms"]),
+                   bound_ms=max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES) * 1e3,
+                   prologue_bound_ms=prologue_bytes / PEAK_BYTES * 1e3,
+                   prologue_design_bytes_ms=design_bytes / PEAK_BYTES * 1e3)
+        res["tops"] = ops / (res["median_ms"] * 1e-3) / 1e12
+        print(json.dumps(res), flush=True)
+    return {
+        "k5_slide": {**{name: res["median_ms"] for name, res in results.items()},
+                     "bitwise_equal": all(r["bitwise_equal_to_last"] for r in results.values()),
+                     "ok": all(r["ok"] for r in results.values())},
+        "k5_prologue_slide": {**{name: res["prologue_median_ms"] for name, res in results.items()},
+                              "ok": all(r["prologue_bitwise_equal"] for r in results.values())},
+    }
 
 
 def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -178,17 +326,6 @@ def main(argv=None) -> dict:
             if err != 0:
                 raise RuntimeError(f"launch failed: cudaError {err}")
 
-        def timed(fn) -> float:
-            call(fn)
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(ITERS[kernel]):
-                call(fn)
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / ITERS[kernel]
-
         results, outs = {}, {}
         for name, fn in fns.items():
             out.fill_(float("nan"))
@@ -213,7 +350,7 @@ def main(argv=None) -> dict:
                 torch.equal(x, y) for x, y in zip(outs[name], outs[last]))
         for r in range(args.rounds):
             for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-                results[name]["ms"].append(timed(fns[name]))
+                results[name]["ms"].append(_cuda_ms(lambda: call(fns[name]), ITERS[kernel]))
         if kernel == "k6":
             def library():
                 proj = F.linear(F.layer_norm(x, (hd,), gamma.to(x.dtype), beta.to(x.dtype),
@@ -225,14 +362,7 @@ def main(argv=None) -> dict:
             qh = q.transpose(1, 2).contiguous()
             kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
             library = lambda: F.scaled_dot_product_attention(qh, kh, vh)
-        library()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(ITERS[kernel]):
-            library()
-        end.record()
-        torch.cuda.synchronize()
+        library_ms = _cuda_ms(library, ITERS[kernel])
         # the function's products: every query row (K1, K3, K6), the valid rows
         # (K4); K6 adds its projection
         flops = 4.0 * b * heads * (kv if kernel == "k4" else n) * kv * d
@@ -243,7 +373,7 @@ def main(argv=None) -> dict:
         bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         for res in results.values():
             res.update(median_ms=statistics.median(res["ms"]), bound_ms=bound_ms,
-                       library_ms=start.elapsed_time(end) / ITERS[kernel],
+                       library_ms=library_ms,
                        tflops=flops / (statistics.median(res["ms"]) * 1e-3) / 1e12)
             print(json.dumps(res), flush=True)
         summary[shape] = {name: res["median_ms"] for name, res in results.items()}
@@ -251,6 +381,7 @@ def main(argv=None) -> dict:
         summary[shape]["bitwise_equal"] = all(res[f"bitwise_equal_to_{last}"]
                                               for res in results.values())
         summary[shape]["ok"] = all(res["ok"] for res in results.values())
+    summary.update(time_int8(fns, args.rounds))
     print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}), flush=True)
     if not all(s["ok"] for s in summary.values()):
         raise SystemExit("time_fwd_trees: a tree disagrees with the plain version")

@@ -1,7 +1,8 @@
 // CUDA's tensor maps (cuda.h) for the CPU emulation (cuda_runtime.h here):
 // cuTensorMapEncodeTiled, reached as on the card through the runtime's
 // cudaGetDriverEntryPointByVersion, checks the documented constraints of
-// a tiled map and records it; hopper.cuh's TMA load reads the record.
+// a tiled map (bf16 or 8-bit elements; no swizzle, or the 64- or 128-byte
+// one) and records it; hopper.cuh's TMA load reads the record.
 #pragma once
 
 #include "cuda_runtime.h"
@@ -10,9 +11,9 @@ typedef uint32_t cuuint32_t;
 typedef uint64_t cuuint64_t;
 typedef int CUresult;
 enum { CUDA_SUCCESS = 0, CUDA_ERROR_INVALID_VALUE = 1 };
-typedef enum { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 } CUtensorMapDataType;
+typedef enum { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9 } CUtensorMapDataType;
 typedef enum { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 } CUtensorMapInterleave;
-typedef enum { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_128B = 3 } CUtensorMapSwizzle;
+typedef enum { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_64B = 2, CU_TENSOR_MAP_SWIZZLE_128B = 3 } CUtensorMapSwizzle;
 typedef enum { CU_TENSOR_MAP_L2_PROMOTION_NONE = 0, CU_TENSOR_MAP_L2_PROMOTION_L2_256B = 3 } CUtensorMapL2promotion;
 typedef enum { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 } CUtensorMapFloatOOBfill;
 
@@ -29,8 +30,9 @@ inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type, cuuin
                                  const cuuint32_t* box, const cuuint32_t* elem_strides,
                                  CUtensorMapInterleave interleave, CUtensorMapSwizzle swizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
-  const uint32_t eb = 2;
-  bool ok = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 && rank >= 1 && rank <= 5 &&
+  const uint32_t eb = type == CU_TENSOR_MAP_DATA_TYPE_UINT8 ? 1 : 2;
+  bool ok = (type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || type == CU_TENSOR_MAP_DATA_TYPE_UINT8) &&
+            rank >= 1 && rank <= 5 &&
             (uintptr_t)addr % 16 == 0 && interleave == CU_TENSOR_MAP_INTERLEAVE_NONE;
   for (uint32_t i = 0; ok && i < rank; ++i) {
     ok = dims[i] >= 1 && dims[i] <= (1ull << 32) && box[i] >= 1 && box[i] <= 256 &&
@@ -39,6 +41,7 @@ inline CUresult emu_encode_tiled(CUtensorMap* m, CUtensorMapDataType type, cuuin
   }
   ok = ok && (box[0] * eb) % 16 == 0;
   if (ok && swizzle == CU_TENSOR_MAP_SWIZZLE_128B) ok = box[0] * eb <= 128;
+  if (ok && swizzle == CU_TENSOR_MAP_SWIZZLE_64B) ok = box[0] * eb <= 64;
   if (!ok) return CUDA_ERROR_INVALID_VALUE;
   m->base = static_cast<const unsigned char*>(addr);
   m->rank = rank;

@@ -1,5 +1,6 @@
-// A CPU emulation of the CUDA subset the port's backward kernels use, so
-// that the CPU tests can run `csrc/attention_bwd.cuh` as written: every CUDA
+// A CPU emulation of the CUDA subset the port's kernels use, so that the
+// CPU tests can run `csrc/attention_bwd.cuh` (and the sources on
+// hopper.cuh, and the int8 prologue) as written: every CUDA
 // thread of a block is a std::thread, `__syncthreads` a block barrier, and
 // the warp-level operations (shuffles, ldmatrix, mma.sync; mma_bf16.cuh
 // here) exchange their operands through a per-warp slot table between two
@@ -37,6 +38,8 @@
 
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+struct alignas(8) uint2 { unsigned x, y; };
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct dim3 {
@@ -52,9 +55,34 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
+inline unsigned max(unsigned a, unsigned b) { return a > b ? a : b; }
 inline float __int_as_float(int i) { float f; memcpy(&f, &i, 4); return f; }
-inline float __fmul_rn(float a, float b) { return a * b; }  // one rounding, never an FMA
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+inline int __float_as_int(float f) { int i; memcpy(&i, &f, 4); return i; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+// One rounding each, never an FMA (the host compiler targets no FMA unit).
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __int2float_rn(int i) { return (float)i; }
+// a + b rounded toward -inf: the nearest sum, one step down when TwoSum's
+// exact error says it lies above the true sum.
+inline float __fadd_rd(float a, float b) {
+  const float s = a + b, bb = s - a, err = (a - (s - bb)) + (b - bb);
+  return err < 0.f ? std::nextafter(s, -INFINITY) : s;
+}
+// Byte n of the result is byte (s >> 4n) & 7 of {y, x} (x the low word).
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = (uint64_t)y << 32 | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 
 namespace emu {
@@ -119,7 +147,9 @@ extern Sync bars;
 
 inline void __syncthreads() { emu::cur->bar.arrive_and_wait(); }
 
-inline float __shfl_xor_sync(unsigned, float v, int o) {
+template <class T>  // float, int or unsigned
+inline T __shfl_xor_sync(unsigned, T v, int o) {
+  static_assert(sizeof(T) == 4);
   auto& w = emu::warp();
   const int l = emu::lane();
   uint32_t u;
@@ -128,9 +158,19 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   w.bar.arrive_and_wait();
   const uint32_t r = (uint32_t)w.slot[l ^ o][0];
   w.bar.arrive_and_wait();
-  float f;
+  T f;
   memcpy(&f, &r, 4);
   return f;
+}
+
+namespace emu {
+inline std::mutex atomics;
+}
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> lk(emu::atomics);
+  const unsigned old = *p;
+  if (v > old) *p = v;
+  return old;
 }
 
 template <class A>

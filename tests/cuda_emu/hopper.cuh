@@ -11,17 +11,23 @@
 //     does a block that ends with a phase open (cuda_runtime.h).
 //   * TMA (cp.async.bulk.tensor): the box at the given coordinates, elements
 //     past the map's extent as zeros, stored box-row-major at the
-//     destination with the 128-byte swizzle of the shared address (16-byte
-//     chunk bits [4, 7) XOR row bits [7, 10)); the whole box's bytes then
-//     complete the barrier's transaction count.
+//     destination with the swizzle of the shared address: 128-byte (16-byte
+//     chunk bits [4, 7) XOR address bits [7, 10)) or 64-byte (bits [4, 6)
+//     XOR bits [7, 9)); the whole box's bytes then complete the barrier's
+//     transaction count.
 //   * wgmma: queued at issue and computed at the wait that retires its
 //     group (the latest moment the hardware may complete it), reading the
 //     accumulator, the A registers and shared memory then.  Operands come
-//     from the matrix descriptors (start, LBO, SBO; 128-byte swizzle only)
-//     in the canonical K-major and MN-major layouts; A from registers in
-//     the per-warp fragment layout (a0: row g, k 2t..2t+1; a1: row g + 8;
-//     a2 / a3: k + 8); d[i] is row 16 * warp + g + 8 * ((i / 2) % 2),
-//     column 8 * (i / 4) + 2t + i % 2; sums in fp32 in k order.
+//     from the matrix descriptors (start, LBO, SBO; layout type 1, the
+//     128-byte swizzle, or 2, the 64-byte one) in the canonical K-major
+//     layout (8-row groups SBO apart, rows of the swizzle's width, k
+//     contiguous) and, 128-byte only, the MN-major one; A from registers in
+//     the per-warp fragment layout: bf16 a0 row g, k 2t..2t+1; a1 row
+//     g + 8; a2 / a3 k + 8; 8-bit a0 row g, k 4t..4t+3 (lowest k in the
+//     lowest byte); a1 row g + 8; a2 / a3 k + 16.  d[i] is row 16 * warp +
+//     g + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2t + i % 2; bf16 sums in
+//     fp32 in k order, 8-bit sums (s8 x s8 -> s32, m64nNk32, B K-major
+//     only) exact.
 //   * wgmma.fence / commit_group / wait_group are warp-synchronous (`.sync`:
 //     every lane of the warp reaches them before any goes on), which is what
 //     lets one lane release a tile for its warp after the wait;
@@ -72,39 +78,48 @@ inline void complete_tx(uint32_t bar, long long bytes) {
 }
 
 inline uint32_t swizzle128(uint32_t addr) { return addr ^ (((addr >> 7) & 7u) << 4); }
-
-inline float bf16_at(uint32_t addr) {
-  __nv_bfloat16 h;
-  memcpy(&h.x, shared(swizzle128(addr)), 2);
-  return __bfloat162float(h);
-}
+inline uint32_t swizzle64(uint32_t addr) { return addr ^ (((addr >> 7) & 3u) << 4); }
 
 struct Desc {
-  uint32_t start, lbo, sbo;
+  uint32_t start, lbo, sbo, row;  // row: bytes of a swizzled row (128 or 64)
+  uint32_t at(uint32_t addr) const { return row == 128 ? swizzle128(addr) : swizzle64(addr); }
 };
 
 inline Desc decode(uint64_t d) {
-  assert(((d >> 62) & 3) == 1 && "only the 128-byte swizzle is emulated");
+  const uint32_t layout = (d >> 62) & 3;
+  assert((layout == 1 || layout == 2) && "only the 128- and 64-byte swizzles are emulated");
   assert(((d >> 49) & 7) == 0 && "base offset 0 only");
   return {(uint32_t)(d & 0x3FFF) << 4, (uint32_t)((d >> 16) & 0x3FFF) << 4,
-          (uint32_t)((d >> 32) & 0x3FFF) << 4};
+          (uint32_t)((d >> 32) & 0x3FFF) << 4, layout == 1 ? 128u : 64u};
 }
 
-// K-major (row `mn` of the M or N extent, column k < 16): 8 rows of 128
-// bytes per SBO-strided group, k contiguous.
-inline float kmajor(const Desc& d, int mn, int k) {
-  return bf16_at(d.start + (mn / 8) * d.sbo + (mn % 8) * 128 + k * 2);
+// K-major (row `mn` of the M or N extent, byte `kb` of its k extent): 8 rows
+// of the swizzle's width per SBO-strided group, k contiguous.
+inline const unsigned char* kmajor_byte(const Desc& d, int mn, int kb) {
+  return shared(d.at(d.start + (mn / 8) * d.sbo + (mn % 8) * d.row + kb));
 }
 
-// MN-major: 64 contiguous elements along MN per LBO-strided atom, 8 k-rows
-// of 128 bytes per SBO-strided group.
+inline float kmajor(const Desc& d, int mn, int k) {  // bf16, k < 16
+  __nv_bfloat16 h;
+  memcpy(&h.x, kmajor_byte(d, mn, 2 * k), 2);
+  return __bfloat162float(h);
+}
+
+// MN-major (bf16, 128-byte swizzle): 64 contiguous elements along MN per
+// LBO-strided atom, 8 k-rows of 128 bytes per SBO-strided group.
 inline float mnmajor(const Desc& d, int k, int mn) {
-  return bf16_at(d.start + (mn / 64) * d.lbo + (mn % 64) * 2 + (k / 8) * d.sbo + (k % 8) * 128);
+  assert(d.row == 128 && "MN-major operands are emulated with the 128-byte swizzle only");
+  __nv_bfloat16 h;
+  memcpy(&h.x, shared(swizzle128(d.start + (mn / 64) * d.lbo + (mn % 64) * 2 + (k / 8) * d.sbo +
+                                 (k % 8) * 128)),
+         2);
+  return __bfloat162float(h);
 }
 
 struct Mma {
   bool a_regs;  // A from registers (else from the descriptor da)
-  float* d;
+  bool s8;      // s8 x s8 -> s32, k 32 (else bf16 x bf16 -> fp32, k 16)
+  void* d;
   const uint32_t* a;
   uint64_t da, db;
   int acc, n;
@@ -112,7 +127,40 @@ struct Mma {
 inline thread_local std::vector<Mma> mma_open;                 // issued, not committed
 inline thread_local std::vector<std::vector<Mma>> mma_groups;  // committed, oldest first
 
+// m64nNk32 with s8 operands: A's two rows of this thread (from the
+// registers' 8-bit fragment or K-major in shared memory) times B K-major.
+inline void run_mma_s8(const Mma& op) {
+  const int w = (threadIdx.x >> 5) & 3;
+  const int l = lane(), g = l / 4, t = l % 4;
+  int av[2][32];
+  if (op.a_regs) {
+    auto& wp = warp();
+    for (int i = 0; i < 4; ++i) wp.slot[l][i] = op.a[i];
+    wp.bar.arrive_and_wait();
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 32; ++k) {
+        const int row = g + 8 * r;  // in the warp's 16
+        const uint32_t v = (uint32_t)wp.slot[(row % 8) * 4 + (k % 16) / 4][(row >= 8) + 2 * (k >= 16)];
+        av[r][k] = (int8_t)(v >> (8 * (k % 4)));
+      }
+    wp.bar.arrive_and_wait();
+  } else {
+    const Desc da = decode(op.da);
+    for (int r = 0; r < 2; ++r)
+      for (int k = 0; k < 32; ++k) av[r][k] = (int8_t)*kmajor_byte(da, 16 * w + g + 8 * r, k);
+  }
+  const Desc db = decode(op.db);
+  int* d = static_cast<int*>(op.d);
+  for (int i = 0; i < op.n / 2; ++i) {
+    const int r = (i / 2) % 2, col = 8 * (i / 4) + 2 * t + i % 2;
+    int s = 0;
+    for (int k = 0; k < 32; ++k) s += av[r][k] * (int8_t)*kmajor_byte(db, col, k);
+    d[i] = op.acc ? d[i] + s : s;
+  }
+}
+
 inline void run_mma(const Mma& op) {
+  if (op.s8) return run_mma_s8(op);
   const int w = (threadIdx.x >> 5) & 3;  // warp in the warpgroup: rows 16w .. 16w + 15
   const int l = lane(), g = l / 4, t = l % 4;
   float av[2][16];  // this thread's two rows of A
@@ -134,12 +182,13 @@ inline void run_mma(const Mma& op) {
       for (int k = 0; k < 16; ++k) av[r][k] = kmajor(da, 16 * w + g + 8 * r, k);
   }
   const Desc db = decode(op.db);
+  float* d = static_cast<float*>(op.d);
   for (int i = 0; i < op.n / 2; ++i) {
     const int r = (i / 2) % 2, col = 8 * (i / 4) + 2 * t + i % 2;
     float s = 0.f;
     for (int k = 0; k < 16; ++k)
       s += av[r][k] * (op.a_regs ? mnmajor(db, k, col) : kmajor(db, col, k));
-    op.d[i] = op.acc ? op.d[i] + s : s;
+    d[i] = op.acc ? d[i] + s : s;
   }
 }
 
@@ -194,8 +243,9 @@ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int 
             in = in && x[d] >= 0 && x[d] < (long long)m.dim[d];
             src += x[d] * (long long)m.stride[d];
           }
-          const uint32_t at = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B ? emu::swizzle128(dst + off)
-                                                                      : dst + off;
+          const uint32_t at = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B  ? emu::swizzle128(dst + off)
+                              : m.swizzle == CU_TENSOR_MAP_SWIZZLE_64B ? emu::swizzle64(dst + off)
+                                                                       : dst + off;
           if (in) memcpy(emu::shared(at), m.base + src, m.elem_bytes);
           else memset(emu::shared(at), 0, m.elem_bytes);
         }
@@ -251,12 +301,22 @@ inline void wgmma_wait() {
 
 template <int N>
 inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
-  emu::mma_open.push_back({false, d, nullptr, da, db, acc, N});
+  emu::mma_open.push_back({false, false, d, nullptr, da, db, acc, N});
 }
 
 template <int N>
 inline void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db, int acc) {
-  emu::mma_open.push_back({true, d, a, 0, db, acc, N});
+  emu::mma_open.push_back({true, false, d, a, 0, db, acc, N});
+}
+
+template <int N>
+inline void wgmma_ss_s8(int* d, uint64_t da, uint64_t db, int acc) {
+  emu::mma_open.push_back({false, true, d, nullptr, da, db, acc, N});
+}
+
+template <int N>
+inline void wgmma_rs_s8(int* d, const uint32_t* a, uint64_t db, int acc) {
+  emu::mma_open.push_back({true, true, d, a, 0, db, acc, N});
 }
 
 }  // namespace sm90

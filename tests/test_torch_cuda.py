@@ -7,6 +7,7 @@ JAX-only conftest:
 """
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -215,17 +216,75 @@ def test_int8_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, dtyp
     the same quantized operands and arithmetic, so the output rounding (and a
     rare exp2 ulp moving a p8 by one step) is all that separates them."""
     qkv = _qkv(b, n, heads, d, seed=5).to(dtype)
-    before = mha_kernel.LAUNCHES["qkv_attention_int8"]
+    before = dict(mha_kernel.LAUNCHES)
     out = mha_kernel.mha_qkv_attention_int8(qkv, heads, valid_len=valid_len)
     ref = mha_kernel.mha_qkv_attention_int8_reference(qkv, heads, valid_len=valid_len)
     torch.cuda.synchronize()
-    assert mha_kernel.LAUNCHES["qkv_attention_int8"] == before + 1
+    assert mha_kernel.LAUNCHES["qkv_attention_int8"] == before["qkv_attention_int8"] + 1
+    assert mha_kernel.LAUNCHES["quantize_qkv_int8"] == before["quantize_qkv_int8"] + 1
     assert out.shape == ref.shape and out.dtype == dtype
     assert torch.isfinite(out.float()).all()
     rows = n if valid_len is None else valid_len
     err = out[:, :rows].float() - ref[:, :rows].float()
     assert float(err.abs().max()) <= KERNEL_TOL
     assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
+
+
+@pytest.mark.parametrize("b,n,heads,d,valid_len,dtype", [
+    (10, 1536, 12, 64, 1522, torch.bfloat16),  # the serving shape
+    (1, 8320, 12, 64, 8193, torch.bfloat16),  # a mode=whole request
+    (2, 1100, 8, 128, 1025, torch.float32),
+    (3, 65, 2, 64, None, torch.float32),
+    (1, 1, 2, 64, None, torch.bfloat16),
+])
+def test_int8_prologue_kernel_is_bitwise_the_plain_prologue(cuda, b, n, heads, d, valid_len,
+                                                            dtype):
+    """The prologue kernel's q8 (its q and k thirds: the v third is not
+    written), V's key-major copy and scales equal `quantize_qkv_int8` +
+    `value_key_major` bit for bit, with inf / NaN in the pad rows (never
+    read) and one launch counted."""
+    qkv = _qkv(b, n, heads, d, seed=9).to(dtype)
+    kv = n if valid_len is None else valid_len
+    qkv[:, kv:, ::2] = float("inf")
+    qkv[:, kv:, 1::2] = float("nan")
+    before = mha_kernel.LAUNCHES["quantize_qkv_int8"]
+    q8, vt, scales = mha_kernel._launch_quantize_int8(qkv, heads, kv)
+    want_q8, want_scales = mha_kernel.quantize_qkv_int8(qkv, heads, kv)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["quantize_qkv_int8"] == before + 1
+    qk = 2 * heads * d
+    assert torch.equal(q8[..., :qk], want_q8[..., :qk]) and torch.equal(scales, want_scales)
+    assert torch.equal(vt, mha_kernel.value_key_major(want_q8, heads))
+
+
+def test_int8_prologue_refuses_what_it_does_not_take(cuda):
+    qkv = _qkv(1, 64, 2, 64)
+    with pytest.raises(TypeError):
+        mha_kernel._launch_quantize_int8(qkv.half(), 2, 64)
+    with pytest.raises(ValueError):
+        mha_kernel._launch_quantize_int8(_qkv(1, 64, 4, 32), 4, 64)  # head dim 32
+    with pytest.raises(ValueError):  # not contiguous
+        mha_kernel._launch_quantize_int8(_qkv(1, 128, 2, 64)[:, ::2], 2, 64)
+
+
+def test_tma_kernels_launch_from_a_fresh_thread(cuda):
+    """K1 and the int8 path (prologue + K5) build TMA tensor maps, which
+    need a current context: from a thread where no CUDA call has made one
+    current (an autograd or server worker on device 0) they launch and give
+    what they give from the main thread."""
+    qkv = _qkv(2, 300, 4, 64, seed=3)
+    got = {}
+
+    def run():
+        got["k1"] = mha_kernel.mha_qkv_attention(qkv, 4, valid_len=290)
+        got["int8"] = mha_kernel.mha_qkv_attention_int8(qkv, 4, valid_len=290)
+        torch.cuda.synchronize()
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert torch.equal(got["k1"], mha_kernel.mha_qkv_attention(qkv, 4, valid_len=290))
+    assert torch.equal(got["int8"], mha_kernel.mha_qkv_attention_int8(qkv, 4, valid_len=290))
 
 
 def test_int8_wrapper_raises_instead_of_falling_back(cuda):
@@ -490,7 +549,8 @@ def test_long_sequence_attention_trains_through_k4b(cuda):
     torch.cuda.synchronize()
     after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
     assert {k: after[k] - before[k] for k in after} == {
-        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0, "mha_attention": 0,
+        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
+        "quantize_qkv_int8": 0, "mha_attention": 0,
         "mha_attention_bwd": 0, "flash_attention": 1, "flash_attention_bwd": 1}
     assert torch.isfinite(x.grad.float()).all()
 
@@ -621,7 +681,8 @@ def test_flash_branch_takes_head_dim_256_through_k4_and_k4b(cuda, n, causal):
     torch.cuda.synchronize()
     after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
     assert {key: after[key] - before[key] for key in after} == {
-        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0, "mha_attention": 0,
+        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
+        "quantize_qkv_int8": 0, "mha_attention": 0,
         "mha_attention_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 1}
     want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
                                                    out.detach(), dout, causal=causal,

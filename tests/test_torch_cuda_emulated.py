@@ -3,11 +3,14 @@
 The backward: `csrc/qkv_attention_bwd.cu` (K2, K3's backward) and
 `csrc/flash_attention_bwd.cu` (K4b) on their core `csrc/attention_bwd.cuh`.
 The forward: `csrc/qkv_attention.cu` (K1), `csrc/mha_attention.cu` (K3) and
-`csrc/flash_attention.cu` (K4) on their core `csrc/attention_fwd.cuh`.  Each is compiled by the host
+`csrc/flash_attention.cu` (K4) on their core `csrc/attention_fwd.cuh`.  The
+int8 attention `csrc/qkv_attention_int8.cu` (K5: 8-bit wgmma, TMA with the
+64-byte swizzle) and its prologue `csrc/quantize_qkv_int8.cu`, the prologue
+held bitwise to its plain version.  Each is compiled by the host
 compiler against the CPU emulation in `tests/cuda_emu/` (one std::thread per
 CUDA thread; ldmatrix, mma.sync and shuffles emulated per warp; cp.async
 deferred to its wait; for the forward, wgmma from its shared-memory
-descriptors with the 128-byte swizzle, deferred to its wait, TMA box loads
+descriptors with the 128-byte (64-byte for K5) swizzle, deferred to its wait, TMA box loads
 with zero fill past the tensor map's extent, mbarriers with transaction
 counts that fail on a thread's second arrival in one phase, named
 barriers) and called through its plain C entry point on CPU
@@ -27,6 +30,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,23 +44,27 @@ EMU = Path(__file__).resolve().parent / "cuda_emu"
 LOG2E = 1.4426950408889634
 # chip_smoke.py's limits for the backward kernels, per gradient
 BWD_REL_TOL, BWD_MAX_TOL = 2e-3, 1e-2
+# chip_smoke.py's limits for K5 against its plain version on the same operands
+INT8_MAX_TOL, INT8_REL_TOL = 2e-2, 5e-3
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]*>>>\((\w+)\)")
 
 
 def _build(src: str, out: Path, core: str = "attention_bwd", ns: str = "bwd") -> ctypes.CDLL:
-    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (whose functions live in
-    namespace dclip::<ns>), compiled against the emulation."""
+    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (core None: the source
+    alone; its functions live in namespace dclip::<ns>), compiled against the
+    emulation, every `<<<...>>>` launch made an `emu_launch`."""
     work = out / src
     work.mkdir()
     for header in EMU.glob("*.cuh"):  # found before csrc's by `#include "..."`
         shutil.copy(header, work)
-    text = (CSRC / f"{core}.cuh").read_text()
-    (work / f"{core}.cuh").write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text))
+    launches = lambda text: _LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text)
+    if core is not None:
+        (work / f"{core}.cuh").write_text(launches((CSRC / f"{core}.cuh").read_text()))
     (work / f"{src}.cpp").write_text(
         '#include "cuda_runtime.h"\n'
         f"namespace dclip {{ namespace {ns} {{ alignas(1024) unsigned char smem_raw[emu::kSmemBytes]; }} }}\n"
         f"namespace {{ struct Init {{ Init() {{ emu::smem_base = dclip::{ns}::smem_raw; }} }} init_; }}\n"
-        + (CSRC / f"{src}.cu").read_text())
+        + launches((CSRC / f"{src}.cu").read_text()))
     lib = out / f"lib{src}.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
@@ -413,14 +421,183 @@ def test_forward_entry_points_refuse_what_the_kernels_do_not_take(fwd_libs):
 
 def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypatch):
     """`tools/time_fwd_trees.py` (the design-step timings on the card) holds
-    the row statistics to the plain values computed as here, with the limits
-    of this file, and exits rather than time anything without a card."""
+    the row statistics to the plain values computed as here, K5 to this
+    file's limits on the operand layout each tree reads, and exits rather
+    than time anything without a card."""
     _, q, k, _, _ = _inputs(1, 90, 2, 64, seed=11)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125)
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, True), rtol=1e-6, atol=1e-6)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125, prescaled=False, causal=True)  # K4's
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, False, True), rtol=1e-6, atol=1e-6)
     assert (time_fwd_trees.STATS_M_TOL, time_fwd_trees.STATS_L_TOL) == (STATS_M_TOL, STATS_L_TOL)
+    # a tree without the prologue kernel reads V's copy in natural key order:
+    # the port's copy is it with each 16-key group permuted
+    q8 = torch.from_numpy(np.random.RandomState(4).randint(-128, 128, (2, 37, 3 * 2 * 64))
+                          .astype(np.int8))
+    natural = time_fwd_trees.natural_key_major(q8, 2)
+    order = torch.tensor([16 * (p // 16) + mha_kernel._V_KEY_ORDER[p % 16] for p in range(48)])
+    assert torch.equal(mha_kernel.value_key_major(q8, 2), natural[..., order])
+    assert (time_fwd_trees.INT8_MAX_TOL, time_fwd_trees.INT8_REL_TOL) == (INT8_MAX_TOL,
+                                                                          INT8_REL_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         time_fwd_trees.main([])
+
+
+# ---- the int8 attention (csrc/qkv_attention_int8.cu, K5) and its prologue
+# (csrc/quantize_qkv_int8.cu): 8-bit wgmma, TMA with the 64-byte swizzle ----
+
+
+@pytest.fixture(scope="module")
+def int8_libs(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++20 host compiler (g++)")
+    out = tmp_path_factory.mktemp("cuda_emu_int8")
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    k5 = _build("qkv_attention_int8", out, None, "i8").qkv_attention_int8
+    pro = _build("quantize_qkv_int8", out, None, "quant").quantize_qkv_int8
+    k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
+    pro.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
+    k5.restype = pro.restype = ctypes.c_int
+    return {"k5": k5, "prologue": pro}
+
+
+def _int8_qkv(b, n, heads, d, kv, seed, dtype=torch.bfloat16, adversarial=False):
+    """Seeded qkv [B, N, 3HD]; `adversarial`: every real score far below zero
+    (negative q against positive k) and zero pad rows past kv, as
+    tests/test_int8_attention.py's pad case."""
+    hd = heads * d
+    x = torch.from_numpy(np.random.RandomState(seed).randn(b, n, 3 * hd).astype(np.float32))
+    if adversarial:
+        x[..., :hd] = -x[..., :hd].abs() * 20.0
+        x[..., hd:2 * hd] = x[..., hd:2 * hd].abs()
+        x[:, kv:] = 0.0
+    return x.to(dtype)
+
+
+def _run_prologue(fn, qkv, heads, kv):
+    b, n, three_hd = qkv.shape
+    d = three_hd // 3 // heads
+    ldv = -(-n // 16) * 16
+    amax = torch.zeros(b, 3, heads, dtype=torch.int32)
+    # every byte of q8's q and k thirds must be written, none of its v third
+    q8 = torch.full((b, n, three_hd), 77, dtype=torch.int8)
+    vt = torch.full((b, heads, d, ldv), 77, dtype=torch.int8)
+    scales = torch.full((b, 3, heads), float("nan"))
+    err = fn(qkv.data_ptr(), int(qkv.dtype == torch.bfloat16), amax.data_ptr(), q8.data_ptr(),
+             vt.data_ptr(), scales.data_ptr(), b, n, heads, d, kv, ldv, None)
+    assert err == 0
+    return q8, vt, scales
+
+
+def _run_k5(fn, q8, vt, scales, heads, kv, out_dtype):
+    b, n, three_hd = q8.shape
+    d = three_hd // 3 // heads
+    out = torch.full((b, n, heads * d), float("nan"), dtype=out_dtype)
+    err = fn(q8.data_ptr(), vt.data_ptr(), scales.data_ptr(), out.data_ptr(),
+             int(out_dtype == torch.bfloat16), b, n, heads, d, kv, vt.shape[-1], d**-0.5, None)
+    assert err == 0
+    return out
+
+
+def _assert_int8_close(out, want, kv):
+    assert torch.isfinite(out.float()).all()
+    got, ref = out[:, :kv].float(), want[:, :kv].float()
+    assert float(ref.abs().max()) > 1e-3  # not silently zeroed
+    assert float((got - ref).abs().max()) <= INT8_MAX_TOL
+    assert float((got - ref).norm() / ref.norm()) <= INT8_REL_TOL
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,out_dtype,poison,adversarial", [
+    (1, 150, 2, 64, 140, torch.bfloat16, True, False),  # ragged q / key tiles, poisoned pads
+    (1, 140, 1, 128, 133, torch.float32, True, False),  # head dim 128, fp32 out
+    (2, 130, 1, 64, 130, torch.float32, False, False),  # batch 2, no pad keys
+    (1, 256, 2, 64, 200, torch.bfloat16, False, True),  # all-negative scores, zero pads
+])
+def test_int8_attention_source_matches_plain_version(int8_libs, b, n, heads, d, kv, out_dtype,
+                                                     poison, adversarial):
+    """K5 against `int8_attention_plain` on the plain prologue's operands.
+    With `poison`, q8's rows past kv and V's key-major copy past kv (within
+    its last 16-key group and beyond) hold nonzero bytes: a kernel that
+    weighs a key past kv fails."""
+    qkv = _int8_qkv(b, n, heads, d, kv, seed=n + d, adversarial=adversarial)
+    q8, scales = mha_kernel.quantize_qkv_int8(qkv, heads, kv)
+    vt = mha_kernel.value_key_major(q8, heads)
+    want = mha_kernel.int8_attention_plain(q8, scales, heads, d**-0.5, kv, out_dtype)
+    if poison:
+        gen = torch.Generator().manual_seed(kv)
+        q8[:, kv:] = torch.randint(-128, 128, q8[:, kv:].shape, generator=gen).to(torch.int8)
+        ldv = vt.shape[-1]
+        keys = torch.tensor([16 * (p // 16) + mha_kernel._V_KEY_ORDER[p % 16] for p in range(ldv)])
+        vt[..., keys >= kv] = 100
+    out = _run_k5(int8_libs["k5"], q8, vt, scales, heads, kv, out_dtype)
+    _assert_int8_close(out, want, kv)
+    again = _run_k5(int8_libs["k5"], q8, vt, scales, heads, kv, out_dtype)
+    assert torch.equal(out, again)  # a second call, bit for bit
+
+
+def _saturating_bf16_amax():
+    """A bf16 value a whose bf16 product a * bf16(127 / a) rounds to 128
+    (tests/test_torch_int8_attention.py finds it the same way)."""
+    a = torch.arange(1.0, 2.0, 2.0**-7).to(torch.bfloat16)
+    inv = (torch.full_like(a, 127.0, dtype=torch.float32) / a.float()).to(torch.bfloat16)
+    return float(a[torch.round(a * inv) >= 128][0])
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,dtype,pads", [
+    (1, 150, 2, 64, 140, torch.bfloat16, "inf"),  # inf and -inf in the pad rows
+    (2, 100, 1, 128, 100, torch.bfloat16, None),  # valid_len = N, head dim 128
+    (1, 150, 2, 64, 131, torch.float32, "nan"),  # fp32, NaN in the pad rows
+    (1, 70, 1, 128, 70, torch.float32, None),
+])
+def test_int8_prologue_source_is_bitwise_the_plain_prologue(int8_libs, b, n, heads, d, kv, dtype,
+                                                            pads):
+    """q8's q and k thirds, V's key-major copy and the scales equal
+    `quantize_qkv_int8` + `value_key_major` bit for bit, with the saturating
+    element (rounds to 128, stored 127) at the abs max of q's and of k's
+    first head; q8's v third (K5 reads V from its copy) is not written."""
+    x = _int8_qkv(b, n, heads, d, kv, seed=3 * n + d, dtype=torch.float32) * 0.1
+    a = _saturating_bf16_amax()
+    x[0, 3, 5] = a
+    x[0, 4, heads * d + 7] = -a
+    if pads:
+        x[:, kv:, ::2] = float(pads)
+        x[:, kv:, 1::2] = -float("inf") if pads == "inf" else float("nan")
+    qkv = x.to(dtype)
+    q8, vt, scales = _run_prologue(int8_libs["prologue"], qkv, heads, kv)
+    want_q8, want_scales = mha_kernel.quantize_qkv_int8(qkv, heads, kv)
+    assert torch.equal(q8[..., :2 * heads * d], want_q8[..., :2 * heads * d])
+    assert bool((q8[..., 2 * heads * d:] == 77).all())
+    assert torch.equal(vt, mha_kernel.value_key_major(want_q8, heads))
+    assert torch.equal(scales, want_scales)
+    if dtype == torch.bfloat16:
+        assert int(q8[0, 3, 5]) == 127 and int(q8[0, 4, heads * d + 7]) == -128
+
+
+def test_int8_prologue_feeds_the_attention_source(int8_libs):
+    """The slice as the CUDA path runs it: the prologue kernel, then K5 on
+    its operands (q8's v third left as `_run_prologue` filled it), against
+    the plain int8 path on the unquantized qkv."""
+    b, n, heads, d, kv = 1, 200, 2, 64, 190
+    qkv = _int8_qkv(b, n, heads, d, kv, seed=29)
+    qkv[:, kv:] = float("nan")  # pad rows: never read
+    q8, vt, scales = _run_prologue(int8_libs["prologue"], qkv, heads, kv)
+    out = _run_k5(int8_libs["k5"], q8, vt, scales, heads, kv, torch.bfloat16)
+    want = mha_kernel.mha_qkv_attention_int8_reference(qkv, heads, valid_len=kv)
+    _assert_int8_close(out, want, kv)
+
+
+def test_int8_entry_points_refuse_what_the_kernels_do_not_take(int8_libs):
+    """Head dim 32, kv_len outside [1, N] or past the int32 limit, and a V
+    row length below N or not a multiple of 16 return cudaErrorInvalidValue
+    (1) before any launch, in K5 and in the prologue."""
+    k5 = lambda d, n, kv, ldv: int8_libs["k5"](None, None, None, None, 1, 1, n, 1, d, kv, ldv,
+                                               1.0, None)
+    pro = lambda d, n, kv, ldv: int8_libs["prologue"](None, 1, None, None, None, None, 1, n, 1, d,
+                                                      kv, ldv, None)
+    for fn in (k5, pro):
+        assert fn(32, 64, 64, 64) == 1 and fn(256, 64, 64, 64) == 1
+        assert fn(64, 64, 0, 64) == 1 and fn(64, 64, 65, 64) == 1
+        assert fn(64, 64, 64, 48) == 1 and fn(64, 64, 64, 72) == 1
+    big = mha_kernel.INT8_MAX_KEYS + 1
+    assert k5(64, big, big, -(-big // 16) * 16) == 1

@@ -180,14 +180,22 @@ def test_wrapper_raises(case, monkeypatch):
 
 
 def test_value_key_major_layout():
+    """V key-major, [B, H, D, N rounded up to 16], position 16 G + i holding
+    key 16 G + (0 1 8 9 2 3 10 11 4 5 12 13 6 7 14 15)[i], zero where that
+    key is past N: a thread's S accumulators of K5 (keys 2t, 2t+1, 8+2t,
+    9+2t of a 16-key group) then sit at the 8-bit A fragment's 4t..4t+3."""
     b, n, heads, d = 2, 37, 3, 64
     q8 = torch.from_numpy(np.random.RandomState(3).randint(-128, 128, (b, n, 3 * heads * d))
                           .astype(np.int8))
     vt = port_mha.value_key_major(q8, heads)
     assert tuple(vt.shape) == (b, heads, d, 48) and vt.is_contiguous()
-    v = q8[..., 2 * heads * d:].view(b, n, heads, d)
-    assert torch.equal(vt[..., :n], v.permute(0, 2, 3, 1))
-    assert not vt[..., n:].any()
+    v = q8[..., 2 * heads * d:].view(b, n, heads, d).permute(0, 2, 3, 1)  # [b, heads, d, n]
+    order = [0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15]
+    for pos in range(48):
+        key = 16 * (pos // 16) + order[pos % 16]
+        assert torch.equal(vt[..., pos], v[..., key] if key < n else torch.zeros_like(v[..., 0]))
+    for t in range(4):  # the thread's accumulator keys land on its A positions 4t..4t+3
+        assert [order[4 * t + e] for e in range(4)] == [2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t]
 
 
 # --------------------------------------------------------------------------
