@@ -83,13 +83,21 @@ phases that each print one JSON line:
                   of K and V) and the largest N its rule admits, with kernel / plain /
                   bound times, the unfused chain in PyTorch's own calls
                   (layer_norm + linear + SDPA: `library_ms`) and the port's
-                  unfused chain (LayerNorm + Linear + K1);
+                  unfused chain (LayerNorm + Linear + K1); a rerun held
+                  bitwise equal; the statistics pass bitwise against its
+                  plain version, the first stage's q/k/v workspace against
+                  the plain projection (within the last bf16 rounding) and
+                  the second stage on it bitwise equal to the whole kernel;
+                  the split (statistics, projection, first stage, second
+                  stage) beside `F.linear` and the projection's bound;
  15. lnqkv_path — main_path's slide protocol with DENSECLIP_FUSED_LNQKV=1
                   (set only inside this phase): 3 requests, img/s, peak
                   memory, 12 K6 and 0 K1 launches per frame; one frame
                   against the unfused K1 path and against K6's plain
                   version; a `mode=whole` request (8193 tokens: the rule
-                  sends it to K1) equal to its unfused answer; a profile;
+                  sends it to K1) equal to its unfused answer; a profile,
+                  whose device time per frame is printed beside
+                  main_path's;
  16. selftest   — the port's GPU self-test (`tools/selftest.py`), whose
                   checks must all pass;
  17. kernel_oneshot_bwd — K3's backward against its plain version on K3's
@@ -148,6 +156,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+LOG2E = 1.4426950408889634
 KERNEL_TOL = 2e-2  # max abs error, bf16 kernel vs bf16 plain version, unit-normal inputs
 # Mean abs error and relative L2 of the same comparison, held tight so that a
 # small systematic fault (unmasked pad keys, a softmax scale off by 0.5% or
@@ -239,6 +248,13 @@ def grad_errors(res: dict, got, ref, rows: int, keys: int) -> dict:
                      "rel_l2_err": rel_l2(a, w), "max_abs_ref": float(w.abs().max())}
     res["max_abs_err"] = max(res[p]["max_abs_err"] for p in ("dq", "dk", "dv"))
     return res
+
+
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit, NaN payloads included (torch.equal fails on NaN)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int16 if a.element_size() == 2 else torch.int32),
+        b.view(torch.int16 if b.element_size() == 2 else torch.int32))
 
 
 def rerun_bitwise_equal(bwd, got) -> bool:
@@ -630,7 +646,7 @@ def phase_main_path() -> dict:
     emit(res)
     if not max(res["seg_rel_l2_vs_plain"], res["depth_rel_l2_vs_plain"]) <= PATH_TOL:
         raise AssertionError(f"kernel path disagrees with plain attention: {res}")
-    phase_profile(lambda frame: predict(frame, "argmax"), frames)
+    res["profile"] = phase_profile(lambda frame: predict(frame, "argmax"), frames)
     return res
 
 
@@ -1120,13 +1136,22 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
     beside it, the same function unfused in PyTorch's own calls and in the
     port's (LayerNorm, Linear, K1).  With `poison`, the rows of x past
     valid_len are NaN, so are the K / V rows the first stage writes there:
-    the valid rows must stay finite."""
+    the valid rows must stay finite.  Then K6's stages alone: the
+    statistics against the plain ones and the second stage on the first
+    stage's workspace against the whole kernel's output (both bitwise), the
+    workspace against the plain projection, a rerun of the whole kernel
+    (bitwise), and the split of its time: statistics, projection, the first
+    stage, the second stage, beside `F.linear` at the projection's shape."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.models.layers import layer_norm_apply
     from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import (
+        kernel_fns,
         ln_qkv_attention,
         ln_qkv_attention_reference,
+        ln_qkv_projection,
+        ln_qkv_stats_reference,
+        workspace_errors,
     )
     from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention
 
@@ -1161,12 +1186,53 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
     attn_flops = 4.0 * b * heads * n * kv * d
     flops = proj_flops + attn_flops
     nbytes = 2.0 * (x.numel() + w16.numel() + out.numel()) + 4.0 * (2 * dim + 3 * hd)
+
+    # the first stage's workspace (valid rows: the pad rows of a poisoned x
+    # are NaN), within one bf16 step plus the fp32 sums' error bound
+    ws_errs = workspace_errors(ln_qkv_projection(*args), *args, rows=kv)
+    # the stages through their entry points, on buffers of their own
+    fns, rows = kernel_fns(), b * n
+    stats = torch.empty(rows, 2, device="cuda")
+    work = torch.empty(b, n, 3 * hd, dtype=torch.bfloat16, device="cuda")
+    out2 = torch.empty(b, n, hd, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err_code):
+        if err_code != 0:
+            raise RuntimeError(f"K6 stage launch failed: cudaError {err_code}")
+
+    stats_run = lambda: check(fns["stats"](x.data_ptr(), stats.data_ptr(), rows, dim, 1e-5, stream))
+    proj_run = lambda: check(fns["projection"](
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w16.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), work.data_ptr(), rows, dim, hd, d**-0.5 * LOG2E, stream))
+    stage2_run = lambda: check(fns["stage2"](work.data_ptr(), out2.data_ptr(), b, n, heads, d, kv,
+                                             stream))
+    stats_run()
+    proj_run()
+    stage2_run()
+    again = run()
+    torch.cuda.synchronize()
+    valid_stats = stats.view(b, n, 2)[:, :kv]
+    stats_equal = torch.equal(valid_stats, ln_qkv_stats_reference(x[:, :kv]))
+    split = {
+        "stats_ms": cuda_ms(stats_run, iters),
+        "projection_ms": cuda_ms(proj_run, iters),
+        "first_stage_ms": cuda_ms(lambda: (stats_run(), proj_run()), iters),
+        "stage2_ms": cuda_ms(stage2_run, iters),
+        "linear_ms": cuda_ms(lambda: F.linear(x, w16, bias16), iters),
+        "projection_bound_ms": proj_flops / PEAK_BF16_FLOPS * 1e3,
+        "stats_bound_ms": (2.0 * x.numel() + 8.0 * rows) / PEAK_BYTES * 1e3,
+    }
+    split["projection_tflops"] = proj_flops / (split["projection_ms"] * 1e-3) / 1e12
     res = {
         "phase": "kernel_lnqkv", "name": "ln_qkv_attention", "shape": [b, n, dim], "heads": heads,
         "head_dim": d, "valid_len": valid_len, "poisoned_pad_rows": poison,
         "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
         "rel_l2_err": float(err.norm() / ref[:, :kv].float().norm()),
         "finite": bool(torch.isfinite(out[:, :kv].float()).all()),
+        "rerun_bitwise_equal": bitwise_equal(out, again),
+        "workspace": ws_errs, "workspace_in_limits": ws_errs["max_share_of_limit"] <= 1.0,
+        "stats_bitwise_equal": stats_equal, "stage2_bitwise_equal": bitwise_equal(out2, out),
         "ms": cuda_ms(run, iters),
         "plain_ms": cuda_ms(plain, max(iters // 10, 2), warmup=1),
         "library_ms": cuda_ms(library, iters),
@@ -1174,7 +1240,7 @@ def ln_qkv_attention_case(b: int, n: int, dim: int, heads: int, valid_len, iters
         "k1_alone_ms": cuda_ms(lambda: mha_qkv_attention(qkv, heads, valid_len=valid_len), iters),
         "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
         "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
-        "projection_bound_ms": proj_flops / PEAK_BF16_FLOPS * 1e3,
+        "projection_bound_ms": split["projection_bound_ms"], "split": split,
     }
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
     return res
@@ -1194,7 +1260,9 @@ def phase_kernel_lnqkv() -> list:
         res = ln_qkv_attention_case(*case)
         emit(res)
         if not (res["finite"] and res["max_abs_err"] <= KERNEL_TOL
-                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL):
+                and res["mean_abs_err"] <= KERNEL_MEAN_TOL and res["rel_l2_err"] <= KERNEL_REL_TOL
+                and res["rerun_bitwise_equal"] and res["workspace_in_limits"]
+                and res["stats_bitwise_equal"] and res["stage2_bitwise_equal"]):
             raise AssertionError(f"ln_qkv_attention disagrees with its plain version: {res}")
         results.append(res)
     return results  # the slide shape (the first) is the main path's
@@ -1203,9 +1271,10 @@ def phase_kernel_lnqkv() -> list:
 FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
 
 
-def phase_lnqkv_path() -> dict:
+def phase_lnqkv_path(unfused_profile: dict) -> dict:
     """main_path's slide protocol with the fused LN + qkv + attention kernel
-    (DENSECLIP_FUSED_LNQKV=1, set here and unset on the way out)."""
+    (DENSECLIP_FUSED_LNQKV=1, set here and unset on the way out); its device
+    time per frame beside main_path's (`unfused_profile`, the same run)."""
     from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
     from denseclip_vit_multimodal_tpu_torch.models import layers
@@ -1254,7 +1323,8 @@ def phase_lnqkv_path() -> dict:
         before = read_launches()
         whole_fused = predict(frames[0], "device", mode="whole")
         whole_launches = delta(before)
-        phase_profile(lambda f: predict(f, "argmax"), frames[:2], path="fused_lnqkv_serving")
+        profile = phase_profile(lambda f: predict(f, "argmax"), frames[:2],
+                                path="fused_lnqkv_serving")
     finally:
         if previous is None:
             os.environ.pop(FUSED_ENV, None)
@@ -1293,6 +1363,9 @@ def phase_lnqkv_path() -> dict:
         "k6_plain_run_launches": plain_launches, "unfused_run_launches": unfused_launches,
         "whole_request": {"tokens": 8193, "launches": whole_launches,
                           "equals_unfused": whole_equal, "max_abs_diff_vs_unfused": whole_diff},
+        "device_busy_ms_per_frame": profile["device_busy_ms_per_frame"],
+        "unfused_device_busy_ms_per_frame": unfused_profile["device_busy_ms_per_frame"],
+        "k6_ms_per_frame": profile["groups_ms_per_frame"].get("ln_qkv_attention (K6)"),
         "tol": PATH_TOL,
     }
     emit(res)
@@ -1974,9 +2047,10 @@ def kernel_group(name: str) -> str:
     return "elementwise / copy / other"
 
 
-def phase_profile(run, frames, path: str = "slide_serving") -> None:
+def phase_profile(run, frames, path: str = "slide_serving") -> dict:
     """Where the device time of one item of `path` goes (torch.profiler):
-    `run` is called on each of `frames` (serving frames, training batches)."""
+    `run` is called on each of `frames` (serving frames, training batches).
+    Returns the line it prints."""
     from torch.profiler import ProfilerActivity, profile
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2000,14 +2074,16 @@ def phase_profile(run, frames, path: str = "slide_serving") -> None:
     if busy_ms <= 0:
         raise AssertionError("torch.profiler recorded no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    emit({"phase": "profile", "path": path, "frames": len(frames),
+    res = {"phase": "profile", "path": path, "frames": len(frames),
           "wall_ms_per_frame": per_frame(wall_ms),
           "device_busy_ms_per_frame": per_frame(busy_ms), "device_busy_share": busy_ms / wall_ms,
           "groups_ms_per_frame": {g: per_frame(ms) for g, ms in
                                   sorted(by_group.items(), key=lambda kv: -kv[1])},
           "top_kernels": [{"name": name[:100], "ms_per_frame": per_frame(ms),
                            "calls_per_frame": calls[name] / len(frames),
-                           "group": kernel_group(name)} for name, ms in top]})
+                           "group": kernel_group(name)} for name, ms in top]}
+    emit(res)
+    return res
 
 
 def main() -> int:
@@ -2024,7 +2100,7 @@ def main() -> int:
     oneshot = phase_kernel_oneshot()[0]
     fused = phase_kernel_lnqkv()[0]
     main_res = phase_main_path()
-    lnqkv_res = phase_lnqkv_path()
+    lnqkv_res = phase_lnqkv_path(main_res["profile"])
     train_res = phase_train_path()
     eval_res = phase_eval_path()
     serve_res = phase_serve_path()
@@ -2082,8 +2158,11 @@ def main() -> int:
          "design_bytes_ms": serving["prologue"]["design_bytes_ms"]},
         entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
               selftest_res["launches"]["mha_attention"]),
-        entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
-              lnqkv_res["launches"]["ln_qkv_attention"]),
+        {**entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
+                 lnqkv_res["launches"]["ln_qkv_attention"]),
+         "design": "row statistics pass; TMA + wgmma m64n256k16 projection with the LayerNorm "
+                   "as its A prologue; K1's body on the q/k/v workspace",
+         "split": fused["split"]},
         {**entry("flash_attention_bwd", "flash_attention_bwd.cu",
                  "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
                  ":1146 (dq, call :1456)", flash_bwd,

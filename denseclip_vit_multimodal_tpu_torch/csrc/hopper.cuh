@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the attention forward core
-// (attention_fwd.cuh) and the int8 attention (qkv_attention_int8.cu):
+// (attention_fwd.cuh), the int8 attention (qkv_attention_int8.cu) and the
+// LayerNorm + qkv projection of ln_qkv_attention.cu:
 // mbarriers, TMA tensor loads, named barriers, register reallocation and
 // warpgroup matrix multiply (wgmma, bf16 and 8-bit integer).  Every
 // function is a thin wrapper around one or a few PTX instructions; the
@@ -65,6 +66,43 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 2-d map at coordinates (c0, c1), innermost first.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The box of `map` at coordinates (c0, c1) from shared memory at `src` to
+// global memory (elements past the map's extent are not written), in this
+// thread's open bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Returns once at most `kPending` of this thread's committed bulk groups
+// may still read their shared-memory source.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(kPending) : "memory");
+}
+
+// Returns once at most `kPending` of them are still incomplete.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
 // ---- barriers, fences, registers ----
 
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
@@ -73,7 +111,7 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
-// async-proxy reads (wgmma operands, TMA).
+// async-proxy reads (wgmma operands, TMA stores).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -152,6 +190,11 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db, int acc);
 
+// The same with A from registers and B K-major in shared memory (no
+// transpose bit).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc);
+
 template <>
 __device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -176,6 +219,24 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
       : DCLIP_F64(d, 0)
       : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float* d, const uint32_t* a, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : DCLIP_F64(d, 0), DCLIP_F64(d, 64)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 template <>

@@ -1,7 +1,8 @@
 // cuTensorMapEncodeTiled, looked up at first use through
 // cudaGetDriverEntryPointByVersion (the libraries link only the CUDA
-// runtime; CUDA 12.5 or later).  Host code shared by the kernels that load
-// tiles with TMA (attention_fwd.cuh, qkv_attention_int8.cu).  ops/_build.py
+// runtime; CUDA 12.5 or later), and the 2-d bf16 map built on it.  Host code
+// shared by the kernels that load tiles with TMA (attention_fwd.cuh,
+// qkv_attention_int8.cu, ln_qkv_attention.cu).  ops/_build.py
 // hashes this header into the name of every library built from csrc/.
 
 #pragma once
@@ -40,6 +41,26 @@ inline cudaError_t encode_fn(EncodeTiled* fn) {
   }
   *fn = cached;
   return cudaSuccess;
+}
+
+// The map of a row-major bf16 matrix [rows, cols] (row stride `ld`
+// elements, a multiple of 8), in boxes of 64 columns (one 128-byte swizzled
+// row) x `box_rows` rows; elements past either extent arrive as zeros.
+inline cudaError_t make_map_2d(CUtensorMap* m, const void* ptr, unsigned long long rows,
+                               unsigned long long cols, unsigned long long ld,
+                               unsigned box_rows) {
+  EncodeTiled encode;
+  cudaError_t err = encode_fn(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace dclip

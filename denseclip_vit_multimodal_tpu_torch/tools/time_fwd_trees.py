@@ -23,14 +23,20 @@ signatures every tree must share, and:
     `--rounds` times), and reports each tree's median beside the bound and
     one library call (the yardstick: `scaled_dot_product_attention`; for K6
     layer_norm + linear + it);
+  * where a tree exposes K6's stages (`ln_qkv_stats_bf16`,
+    `ln_qkv_projection_bf16`, `ln_qkv_attention_stage2_bf16`), holds the
+    q/k/v workspace of its first stage against
+    `ln_qkv_projection_reference` (`workspace_errors`' limits) and its
+    second stage's output bitwise against the whole kernel's, then times
+    the statistics, the projection, the first stage and the second stage
+    in turns, beside `F.linear` at the projection's shape and the
+    projection's bound;
   * holds each tree's int8 prologue bitwise against the port's plain one
     on what K5 reads (q8's q and k thirds, V's key-major copy and the
-    scales of `quantize_qkv_int8` + `value_key_major`; a tree without
-    `quantize_qkv_int8.cu` runs the plain PyTorch prologue instead, with V's
-    copy in natural key order, the layout K5 read before the prologue
-    kernel), and its K5 on those operands against `int8_attention_plain`;
-    then times K5 and the prologue of every tree in turns at the serving
-    shape [10,1536,2304] valid 1522, beside their bounds.
+    scales of `quantize_qkv_int8` + `value_key_major`), and its K5 on those
+    operands against `int8_attention_plain`; then times K5 and the prologue
+    of every tree in turns at the serving shape [10,1536,2304] valid 1522,
+    beside their bounds.
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
         [--tree NAME=CSRC_DIR ...] [--rounds 3]
@@ -69,18 +75,16 @@ STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
 
 
 def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
-    """Compile `csrc`'s K1, K3, K4, K6 and K5 sources (and K5's prologue,
-    where the tree has it); their entry points by kernel ("prologue" None
-    without it)."""
+    """Compile `csrc`'s K1, K3, K4, K6, K5 and K5's prologue sources; their
+    entry points by kernel ("k6_stages": K6's stage entry points, None where
+    the tree has none)."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import bind_entry_points
 
     out_dir.mkdir(parents=True, exist_ok=True)
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     sources = ["qkv_attention", "mha_attention", "flash_attention", "ln_qkv_attention",
-               "qkv_attention_int8"]
-    has_prologue = (csrc / "quantize_qkv_int8.cu").exists()
-    if has_prologue:
-        sources.append("quantize_qkv_int8")
+               "qkv_attention_int8", "quantize_qkv_int8"]
     procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
                                     str(csrc / f"{src}.cu")],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -89,26 +93,32 @@ def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for tree {name}, {src}:\n{log}")
-        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if any(key in ln for key in ("Compiling entry", "registers", "spill",
+                                              "Performance", "warning"))]
         print(json.dumps({"tree": name, "build": src, "ptxas": ptxas}), flush=True)
-    k1 = ctypes.CDLL(str(out_dir / "libqkv_attention.so")).qkv_attention_bf16
+    lib = lambda src: ctypes.CDLL(str(out_dir / f"lib{src}.so"))
+    k1 = lib("qkv_attention").qkv_attention_bf16
     k1.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
-    k3 = ctypes.CDLL(str(out_dir / "libmha_attention.so")).mha_attention_bf16
+    k3 = lib("mha_attention").mha_attention_bf16
     k3.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
-    k4 = ctypes.CDLL(str(out_dir / "libflash_attention.so")).flash_attention_bf16
+    k4 = lib("flash_attention").flash_attention_bf16
     k4.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
-    k6 = ctypes.CDLL(str(out_dir / "libln_qkv_attention.so")).ln_qkv_attention_bf16
+    lib6 = lib("ln_qkv_attention")
+    k6 = lib6.ln_qkv_attention_bf16
     k6.argtypes = [ptr] * 7 + [i] * 6 + [f, f, ptr]
-    k5 = ctypes.CDLL(str(out_dir / "libqkv_attention_int8.so")).qkv_attention_int8
+    try:
+        k6_stages = bind_entry_points(lib6)
+    except AttributeError:  # a tree from before K6's stage entry points
+        k6_stages = None
+    k5 = lib("qkv_attention_int8").qkv_attention_int8
     k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
-    fns = {"k1": k1, "k3": k3, "k4": k4, "k6": k6, "k5": k5, "prologue": None}
-    if has_prologue:
-        fns["prologue"] = ctypes.CDLL(str(out_dir / "libquantize_qkv_int8.so")).quantize_qkv_int8
-        fns["prologue"].argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
-    for fn in fns.values():
-        if fn is not None:
-            fn.restype = ctypes.c_int
-    return fns
+    prologue = lib("quantize_qkv_int8").quantize_qkv_int8
+    prologue.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
+    for fn in (k1, k3, k4, k6, k5, prologue):
+        fn.restype = ctypes.c_int
+    return {"k1": k1, "k3": k3, "k4": k4, "k6": k6, "k5": k5, "prologue": prologue,
+            "k6_stages": k6_stages}
 
 
 def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
@@ -131,17 +141,6 @@ def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
         stats[:, h, :, 0] = m
         stats[:, h, :, 1] = torch.exp2(s - m[..., None]).sum(-1)
     return stats
-
-
-def natural_key_major(q8: torch.Tensor, heads: int) -> torch.Tensor:
-    """V's key-major copy [B, H, D, N rounded up to 16] in natural key order:
-    the layout K5 read before its prologue kernel (a tree without
-    `quantize_qkv_int8.cu`)."""
-    b, n, three_hd = q8.shape
-    hd = three_hd // 3
-    vt = q8.new_zeros(b, heads, hd // heads, -(-n // 16) * 16)
-    vt[..., :n] = q8[..., 2 * hd:].view(b, n, heads, hd // heads).permute(0, 2, 3, 1)
-    return vt
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -176,10 +175,6 @@ def time_int8(fns: dict, rounds: int) -> dict:
 
     def prologue(name):
         """What the tree's `_int8_forward` runs before K5, allocations included."""
-        if fns[name]["prologue"] is None:  # the plain PyTorch prologue of the older trees
-            q8, scales = quantize_qkv_int8(qkv, heads, kv)
-            bufs[name] = q8, natural_key_major(q8, heads), scales
-            return
         amax = torch.zeros(b, 3, heads, dtype=torch.int32, device="cuda")
         q8 = torch.empty(b, n, 3 * hd, dtype=torch.int8, device="cuda")
         vt = torch.empty(b, heads, d, ldv, dtype=torch.int8, device="cuda")
@@ -204,8 +199,7 @@ def time_int8(fns: dict, rounds: int) -> dict:
     for name, fn in fns.items():
         prologue(name)
         q8, vt, scales = bufs[name]
-        want_vt = (value_key_major if fn["prologue"] is not None else natural_key_major)(
-            want_q8, heads)
+        want_vt = value_key_major(want_q8, heads)
         out.fill_(float("nan"))
         k5(name)
         torch.cuda.synchronize()
@@ -213,7 +207,6 @@ def time_int8(fns: dict, rounds: int) -> dict:
         err = out[:, :kv].float() - want[:, :kv].float()
         res = {"tree": name, "shape": "k5_slide", "max_abs_err": float(err.abs().max()),
                "rel_l2_err": float(err.norm() / want[:, :kv].float().norm()),
-               "prologue_kernel": fn["prologue"] is not None,
                "prologue_bitwise_equal": bool(
                    torch.equal(q8[..., :2 * hd], want_q8[..., :2 * hd])
                    and torch.equal(vt, want_vt) and torch.equal(scales, want_scales)),
@@ -251,6 +244,79 @@ def time_int8(fns: dict, rounds: int) -> dict:
         "k5_prologue_slide": {**{name: res["prologue_median_ms"] for name, res in results.items()},
                               "ok": all(r["prologue_bitwise_equal"] for r in results.values())},
     }
+
+
+def time_k6_split(fns: dict, operands, heads: int, kv: int, k6_outs: dict, rounds: int) -> dict:
+    """K6's stages in every tree that exposes them, on the operands of the
+    "k6_slide" shape: checks, then times in turns; the summary entry
+    "k6_split" (empty without such a tree)."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import workspace_errors
+
+    staged = {name: fn["k6_stages"] for name, fn in fns.items() if fn["k6_stages"] is not None}
+    if not staged:
+        return {}
+    x, gamma, beta, wt, bias = operands
+    b, n, dim = x.shape
+    hd = wt.shape[0] // 3
+    d, rows = hd // heads, b * n
+    stats = torch.empty(rows, 2, device="cuda")
+    ws = torch.empty(b, n, 3 * hd, dtype=torch.bfloat16, device="cuda")
+    out = torch.empty(b, n, hd, dtype=torch.bfloat16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err):
+        if err != 0:
+            raise RuntimeError(f"K6 stage launch failed: cudaError {err}")
+
+    run_stats = lambda st: check(st["stats"](x.data_ptr(), stats.data_ptr(), rows, dim, LN_EPS,
+                                             stream))
+    run_projection = lambda st: check(st["projection"](
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+        stats.data_ptr(), ws.data_ptr(), rows, dim, hd, d**-0.5 * LOG2E, stream))
+    run_stage2 = lambda st: check(st["stage2"](ws.data_ptr(), out.data_ptr(), b, n, heads, d, kv,
+                                               stream))
+    parts = {
+        "stats_ms": run_stats,
+        "projection_ms": run_projection,
+        "first_stage_ms": lambda st: (run_stats(st), run_projection(st)),
+        "stage2_ms": run_stage2,
+    }
+    results = {}
+    for name, st in staged.items():
+        ws.fill_(float("nan"))
+        run_stats(st)
+        run_projection(st)
+        run_stage2(st)
+        torch.cuda.synchronize()
+        errs = workspace_errors(ws, x, gamma, beta, wt.t(), bias, heads)
+        res = {"tree": name, "shape": "k6_split",
+               "workspace": errs,
+               "workspace_in_limits": errs["max_share_of_limit"] <= 1.0,
+               "stage2_bitwise_equal_to_k6": torch.equal(out, k6_outs[name]),
+               **{part: [] for part in parts}}
+        res["ok"] = res["workspace_in_limits"] and res["stage2_bitwise_equal_to_k6"]
+        results[name] = res
+    for r in range(rounds):
+        for name in (list(staged) if r % 2 == 0 else list(staged)[::-1]):
+            for part, fn in parts.items():
+                results[name][part].append(_cuda_ms(lambda: fn(staged[name]), ITERS["k6"]))
+    bias16 = bias.to(torch.bfloat16)
+    linear_ms = _cuda_ms(lambda: F.linear(x, wt, bias16), ITERS["k6"])
+    proj_flops = 2.0 * rows * dim * 3 * hd
+    summary = {"ok": all(res["ok"] for res in results.values()), "linear_ms": linear_ms,
+               "projection_bound_ms": proj_flops / PEAK_BF16_FLOPS * 1e3,
+               # the statistics read x and write (mean, rstd) per row
+               "stats_bound_ms": (2.0 * rows * dim + 8.0 * rows) / PEAK_BYTES * 1e3}
+    for name, res in results.items():
+        for part in parts:
+            res[part.replace("_ms", "_median_ms")] = statistics.median(res[part])
+        res.update({k: v for k, v in summary.items() if k != "ok"})
+        res["projection_tflops"] = proj_flops / (res["projection_median_ms"] * 1e-3) / 1e12
+        print(json.dumps(res), flush=True)
+        summary[name] = {part: res[part.replace("_ms", "_median_ms")] for part in parts}
+    return {"k6_split": summary}
 
 
 def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -381,6 +447,9 @@ def main(argv=None) -> dict:
         summary[shape]["bitwise_equal"] = all(res[f"bitwise_equal_to_{last}"]
                                               for res in results.values())
         summary[shape]["ok"] = all(res["ok"] for res in results.values())
+        if kernel == "k6":
+            summary.update(time_k6_split(fns, (x, gamma, beta, wt, bias), heads, kv,
+                                         {name: o[0] for name, o in outs.items()}, args.rounds))
     summary.update(time_int8(fns, args.rounds))
     print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}), flush=True)
     if not all(s["ok"] for s in summary.values()):

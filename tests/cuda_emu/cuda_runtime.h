@@ -10,7 +10,8 @@
 // 227 KB, filled with 0xff before each block.  tests/test_torch_cuda_emulated.py
 // compiles a kernel source against these headers with the host compiler,
 // `kernel<<<grid, threads, smem, stream>>>(args)` rewritten to
-// `emu_launch(kernel, grid, threads, smem, args)`.
+// `emu_launch(kernel, grid, threads, smem, args)` and each kernel's
+// `extern __shared__ ... smem_raw[]` to a pointer to that array.
 
 #pragma once
 
@@ -42,11 +43,12 @@ struct alignas(8) uint2 { unsigned x, y; };
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+struct alignas(16) float4 { float x, y, z, w; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
-extern thread_local dim3 threadIdx, blockIdx;
+extern thread_local dim3 threadIdx, blockIdx, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -56,6 +58,12 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+// Two SMs: a persistent kernel's blocks each take several tiles.
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = 2;
+  return cudaSuccess;
+}
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -69,6 +77,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }  // IEEE: correctly rounded
 inline float __int2float_rn(int i) { return (float)i; }
 // a + b rounded toward -inf: the nearest sum, one step down when TwoSum's
 // exact error says it lies above the true sum.
@@ -188,6 +197,7 @@ void emu_launch(void (*kernel)(A), dim3 grid, int threads, size_t smem, const A&
           ts.emplace_back([&, i] {
             threadIdx = dim3(i);
             blockIdx = dim3(x, y, z);
+            gridDim = grid;
             emu::cur = &blk;
             emu::groups.clear();
             emu::open_group.clear();

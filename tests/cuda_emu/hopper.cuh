@@ -9,19 +9,25 @@
 //     arrives twice in one phase fails (its second arrival belongs to a
 //     later phase: on the card it would complete this one early), and so
 //     does a block that ends with a phase open (cuda_runtime.h).
-//   * TMA (cp.async.bulk.tensor): the box at the given coordinates, elements
-//     past the map's extent as zeros, stored box-row-major at the
-//     destination with the swizzle of the shared address: 128-byte (16-byte
-//     chunk bits [4, 7) XOR address bits [7, 10)) or 64-byte (bits [4, 6)
-//     XOR bits [7, 9)); the whole box's bytes then complete the barrier's
-//     transaction count.
+//   * TMA (cp.async.bulk.tensor, 2-d and 4-d maps): the box at the given
+//     coordinates, elements past the map's extent as zeros, stored
+//     box-row-major at the destination with the swizzle of the shared
+//     address: 128-byte (16-byte chunk bits [4, 7) XOR address bits
+//     [7, 10)) or 64-byte (bits [4, 6) XOR bits [7, 9)); the whole box's
+//     bytes then complete the barrier's transaction count.
+//   * TMA stores (cp.async.bulk.tensor shared -> global, 2-d): queued in
+//     the thread's bulk group at issue and written at the bulk wait that
+//     retires the group (the latest moment the hardware may read the
+//     source), unswizzled as the loads are swizzled, elements past the
+//     map's extent not written;
 //   * wgmma: queued at issue and computed at the wait that retires its
 //     group (the latest moment the hardware may complete it), reading the
 //     accumulator, the A registers and shared memory then.  Operands come
 //     from the matrix descriptors (start, LBO, SBO; layout type 1, the
 //     128-byte swizzle, or 2, the 64-byte one) in the canonical K-major
 //     layout (8-row groups SBO apart, rows of the swizzle's width, k
-//     contiguous) and, 128-byte only, the MN-major one; A from registers in
+//     contiguous) and, 128-byte only, B MN-major (the transpose bit of
+//     wgmma_rs_tb; wgmma_ss and wgmma_rs read B K-major); A from registers in
 //     the per-warp fragment layout: bf16 a0 row g, k 2t..2t+1; a1 row
 //     g + 8; a2 / a3 k + 8; 8-bit a0 row g, k 4t..4t+3 (lowest k in the
 //     lowest byte); a1 row g + 8; a2 / a3 k + 16.  d[i] is row 16 * warp +
@@ -119,6 +125,7 @@ inline float mnmajor(const Desc& d, int k, int mn) {
 struct Mma {
   bool a_regs;  // A from registers (else from the descriptor da)
   bool s8;      // s8 x s8 -> s32, k 32 (else bf16 x bf16 -> fp32, k 16)
+  bool b_mn;    // B MN-major (the transpose bit; else K-major)
   void* d;
   const uint32_t* a;
   uint64_t da, db;
@@ -187,7 +194,7 @@ inline void run_mma(const Mma& op) {
     const int r = (i / 2) % 2, col = 8 * (i / 4) + 2 * t + i % 2;
     float s = 0.f;
     for (int k = 0; k < 16; ++k)
-      s += av[r][k] * (op.a_regs ? mnmajor(db, k, col) : kmajor(db, col, k));
+      s += av[r][k] * (op.b_mn ? mnmajor(db, k, col) : kmajor(db, col, k));
     d[i] = op.acc ? d[i] + s : s;
   }
 }
@@ -225,23 +232,24 @@ inline void mbar_wait(uint32_t bar, uint32_t parity) {
   emu::bars.cv.wait(lk, [&] { return (emu::mbar(bar).phase & 1u) != parity; });
 }
 
-inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
-                        int c3) {
+// The box of `map` at coordinates c[0 .. rank), innermost first.
+inline void tma_load_box(uint32_t dst, const CUtensorMap* map, uint32_t bar, const int* c) {
   const CUtensorMap& m = *map;
-  assert(m.rank == 4 && dst % 128 == 0);
-  const int c[4] = {c0, c1, c2, c3};
+  assert(dst % 128 == 0);
+  uint32_t box[4] = {1, 1, 1, 1};
+  for (uint32_t d = 0; d < m.rank; ++d) box[d] = m.box[d];
   uint32_t off = 0;
-  for (uint32_t i3 = 0; i3 < m.box[3]; ++i3)
-    for (uint32_t i2 = 0; i2 < m.box[2]; ++i2)
-      for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
-        for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, off += m.elem_bytes) {
-          const long long x[4] = {c[0] + (long long)i0, c[1] + (long long)i1,
-                                  c[2] + (long long)i2, c[3] + (long long)i3};
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, off += m.elem_bytes) {
+          const uint32_t i[4] = {i0, i1, i2, i3};
           bool in = true;
           long long src = 0;
-          for (int d = 0; d < 4; ++d) {
-            in = in && x[d] >= 0 && x[d] < (long long)m.dim[d];
-            src += x[d] * (long long)m.stride[d];
+          for (uint32_t d = 0; d < m.rank; ++d) {
+            const long long x = c[d] + (long long)i[d];
+            in = in && x >= 0 && x < (long long)m.dim[d];
+            src += x * (long long)m.stride[d];
           }
           const uint32_t at = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B  ? emu::swizzle128(dst + off)
                               : m.swizzle == CU_TENSOR_MAP_SWIZZLE_64B ? emu::swizzle64(dst + off)
@@ -250,6 +258,65 @@ inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int 
           else memset(emu::shared(at), 0, m.elem_bytes);
         }
   emu::complete_tx(bar, off);
+}
+
+inline void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1, int c2,
+                        int c3) {
+  assert(map->rank == 4);
+  const int c[4] = {c0, c1, c2, c3};
+  tma_load_box(dst, map, bar, c);
+}
+
+inline void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1) {
+  assert(map->rank == 2);
+  const int c[2] = {c0, c1};
+  tma_load_box(dst, map, bar, c);
+}
+
+struct BulkStore {
+  const CUtensorMap* map;
+  uint32_t src;
+  int c0, c1;
+};
+inline thread_local std::vector<BulkStore> bulk_open;                 // issued, not committed
+inline thread_local std::vector<std::vector<BulkStore>> bulk_groups;  // committed, oldest first
+
+inline void run_store(const BulkStore& st) {
+  const CUtensorMap& m = *st.map;
+  uint32_t off = 0;
+  for (uint32_t i1 = 0; i1 < m.box[1]; ++i1)
+    for (uint32_t i0 = 0; i0 < m.box[0]; ++i0, off += m.elem_bytes) {
+      const long long x0 = st.c0 + (long long)i0, x1 = st.c1 + (long long)i1;
+      if (x0 < 0 || x0 >= (long long)m.dim[0] || x1 < 0 || x1 >= (long long)m.dim[1]) continue;
+      const uint32_t at = m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B  ? emu::swizzle128(st.src + off)
+                          : m.swizzle == CU_TENSOR_MAP_SWIZZLE_64B ? emu::swizzle64(st.src + off)
+                                                                   : st.src + off;
+      memcpy(const_cast<unsigned char*>(m.base) + x0 * m.stride[0] + x1 * m.stride[1],
+             emu::shared(at), m.elem_bytes);
+    }
+}
+
+inline void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  assert(map->rank == 2 && src % 128 == 0);
+  bulk_open.push_back({map, src, c0, c1});
+}
+
+inline void bulk_commit() {
+  bulk_groups.push_back(bulk_open);
+  bulk_open.clear();
+}
+
+template <int kPending>
+inline void bulk_wait() {
+  while ((int)bulk_groups.size() > kPending) {
+    for (const auto& st : bulk_groups.front()) run_store(st);
+    bulk_groups.erase(bulk_groups.begin());
+  }
+}
+
+template <int kPending>
+inline void bulk_wait_read() {
+  bulk_wait<kPending>();
 }
 
 inline void named_barrier_sync(int id, int threads) {
@@ -301,22 +368,27 @@ inline void wgmma_wait() {
 
 template <int N>
 inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
-  emu::mma_open.push_back({false, false, d, nullptr, da, db, acc, N});
+  emu::mma_open.push_back({false, false, false, d, nullptr, da, db, acc, N});
+}
+
+template <int N>
+inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
+  emu::mma_open.push_back({true, false, false, d, a, 0, db, acc, N});
 }
 
 template <int N>
 inline void wgmma_rs_tb(float* d, const uint32_t* a, uint64_t db, int acc) {
-  emu::mma_open.push_back({true, false, d, a, 0, db, acc, N});
+  emu::mma_open.push_back({true, false, true, d, a, 0, db, acc, N});
 }
 
 template <int N>
 inline void wgmma_ss_s8(int* d, uint64_t da, uint64_t db, int acc) {
-  emu::mma_open.push_back({false, true, d, nullptr, da, db, acc, N});
+  emu::mma_open.push_back({false, true, false, d, nullptr, da, db, acc, N});
 }
 
 template <int N>
 inline void wgmma_rs_s8(int* d, const uint32_t* a, uint64_t db, int acc) {
-  emu::mma_open.push_back({true, true, d, a, 0, db, acc, N});
+  emu::mma_open.push_back({true, true, false, d, a, 0, db, acc, N});
 }
 
 }  // namespace sm90

@@ -268,23 +268,27 @@ def test_int8_prologue_refuses_what_it_does_not_take(cuda):
 
 
 def test_tma_kernels_launch_from_a_fresh_thread(cuda):
-    """K1 and the int8 path (prologue + K5) build TMA tensor maps, which
+    """K1, the int8 path (prologue + K5) and K6 build TMA tensor maps, which
     need a current context: from a thread where no CUDA call has made one
     current (an autograd or server worker on device 0) they launch and give
     what they give from the main thread."""
     qkv = _qkv(2, 300, 4, 64, seed=3)
+    lnqkv_args = _lnqkv_inputs(2, 300, 256, 5)
     got = {}
 
     def run():
         got["k1"] = mha_kernel.mha_qkv_attention(qkv, 4, valid_len=290)
         got["int8"] = mha_kernel.mha_qkv_attention_int8(qkv, 4, valid_len=290)
+        got["k6"] = lnqkv_kernel.ln_qkv_attention(*lnqkv_args, 4, valid_len=290)
         torch.cuda.synchronize()
 
     worker = threading.Thread(target=run)
     worker.start()
-    worker.join()
+    worker.join(timeout=300)
+    assert not worker.is_alive() and set(got) == {"k1", "int8", "k6"}
     assert torch.equal(got["k1"], mha_kernel.mha_qkv_attention(qkv, 4, valid_len=290))
     assert torch.equal(got["int8"], mha_kernel.mha_qkv_attention_int8(qkv, 4, valid_len=290))
+    assert torch.equal(got["k6"], lnqkv_kernel.ln_qkv_attention(*lnqkv_args, 4, valid_len=290))
 
 
 def test_int8_wrapper_raises_instead_of_falling_back(cuda):
@@ -441,6 +445,30 @@ def test_lnqkv_kernel_matches_plain_version(cuda, b, n, dim, heads, valid_len):
     assert float(err.abs().max()) <= KERNEL_TOL
     assert float(err.norm() / ref[:, :rows].float().norm()) <= 5e-3  # chip_smoke.py's limit
     assert float(err.abs().mean()) <= 5e-4
+
+
+@pytest.mark.parametrize("b,n,dim,heads", [
+    (10, 1536, 768, 12),  # the slide window batch
+    (2, 1100, 768, 6),  # head dim 128
+    (3, 130, 256, 4),  # ragged rows of x
+    (2, 70, 128, 1),  # 3*H*d = 384: a ragged 256-column tile
+])
+def test_lnqkv_first_stage_matches_plain_projection(cuda, b, n, dim, heads):
+    """K6's first stage writes the workspace of `ln_qkv_projection_reference`
+    within `lnqkv_kernel.workspace_errors`' limits (one bf16 step, plus the
+    fp32 sums' error bound where they cancel); its statistics pass is
+    bitwise the plain one."""
+    x, gamma, beta, w, bias = _lnqkv_inputs(b, n, dim, 11)
+    before = dict(lnqkv_kernel.LAUNCHES)
+    got = lnqkv_kernel.ln_qkv_projection(x, gamma, beta, w, bias, heads)
+    torch.cuda.synchronize()
+    assert lnqkv_kernel.LAUNCHES == dict(before, ln_qkv_projection=before["ln_qkv_projection"] + 1)
+    errs = lnqkv_kernel.workspace_errors(got, x, gamma, beta, w, bias, heads)
+    assert errs["max_share_of_limit"] <= 1.0, errs
+    stats = torch.empty(b * n, 2, device="cuda")
+    assert lnqkv_kernel.kernel_fns()["stats"](x.data_ptr(), stats.data_ptr(), b * n, dim, 1e-5,
+                                               torch.cuda.current_stream().cuda_stream) == 0
+    assert torch.equal(stats, lnqkv_kernel.ln_qkv_stats_reference(x).reshape(-1, 2))
 
 
 def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.ops import attention
+from denseclip_vit_multimodal_tpu_torch.ops import lnqkv_kernel
 from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
 from denseclip_vit_multimodal_tpu_torch.tools import time_fwd_trees
 
@@ -47,24 +48,24 @@ BWD_REL_TOL, BWD_MAX_TOL = 2e-3, 1e-2
 # chip_smoke.py's limits for K5 against its plain version on the same operands
 INT8_MAX_TOL, INT8_REL_TOL = 2e-2, 5e-3
 _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]*>>>\((\w+)\)")
+_SHARED = re.compile(r"extern __shared__ __align__\(\d+\) unsigned char smem_raw\[\];")
 
 
-def _build(src: str, out: Path, core: str = "attention_bwd", ns: str = "bwd") -> ctypes.CDLL:
+def _build(src: str, out: Path, core: str = "attention_bwd") -> ctypes.CDLL:
     """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (core None: the source
-    alone; its functions live in namespace dclip::<ns>), compiled against the
-    emulation, every `<<<...>>>` launch made an `emu_launch`."""
+    alone), compiled against the emulation: every `<<<...>>>` launch made an
+    `emu_launch`, every block's dynamic shared memory the emulation's one
+    array."""
     work = out / src
     work.mkdir()
     for header in EMU.glob("*.cuh"):  # found before csrc's by `#include "..."`
         shutil.copy(header, work)
-    launches = lambda text: _LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text)
+    emulated = lambda text: _SHARED.sub("unsigned char* const smem_raw = emu::smem_base;",
+                                        _LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text))
     if core is not None:
-        (work / f"{core}.cuh").write_text(launches((CSRC / f"{core}.cuh").read_text()))
+        (work / f"{core}.cuh").write_text(emulated((CSRC / f"{core}.cuh").read_text()))
     (work / f"{src}.cpp").write_text(
-        '#include "cuda_runtime.h"\n'
-        f"namespace dclip {{ namespace {ns} {{ alignas(1024) unsigned char smem_raw[emu::kSmemBytes]; }} }}\n"
-        f"namespace {{ struct Init {{ Init() {{ emu::smem_base = dclip::{ns}::smem_raw; }} }} init_; }}\n"
-        + launches((CSRC / f"{src}.cu").read_text()))
+        '#include "cuda_runtime.h"\n' + emulated((CSRC / f"{src}.cu").read_text()))
     lib = out / f"lib{src}.so"
     proc = subprocess.run(
         ["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
@@ -258,9 +259,9 @@ def fwd_libs(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_fwd")
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    qkv = _build("qkv_attention", out, "attention_fwd", "attn").qkv_attention_bf16
-    mha = _build("mha_attention", out, "attention_fwd", "attn").mha_attention_bf16
-    flash = _build("flash_attention", out, "attention_fwd", "attn").flash_attention_bf16
+    qkv = _build("qkv_attention", out, "attention_fwd").qkv_attention_bf16
+    mha = _build("mha_attention", out, "attention_fwd").mha_attention_bf16
+    flash = _build("flash_attention", out, "attention_fwd").flash_attention_bf16
     qkv.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
     mha.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
     flash.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
@@ -422,21 +423,13 @@ def test_forward_entry_points_refuse_what_the_kernels_do_not_take(fwd_libs):
 def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypatch):
     """`tools/time_fwd_trees.py` (the design-step timings on the card) holds
     the row statistics to the plain values computed as here, K5 to this
-    file's limits on the operand layout each tree reads, and exits rather
-    than time anything without a card."""
+    file's limits, and exits rather than time anything without a card."""
     _, q, k, _, _ = _inputs(1, 90, 2, 64, seed=11)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125)
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, True), rtol=1e-6, atol=1e-6)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125, prescaled=False, causal=True)  # K4's
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, False, True), rtol=1e-6, atol=1e-6)
     assert (time_fwd_trees.STATS_M_TOL, time_fwd_trees.STATS_L_TOL) == (STATS_M_TOL, STATS_L_TOL)
-    # a tree without the prologue kernel reads V's copy in natural key order:
-    # the port's copy is it with each 16-key group permuted
-    q8 = torch.from_numpy(np.random.RandomState(4).randint(-128, 128, (2, 37, 3 * 2 * 64))
-                          .astype(np.int8))
-    natural = time_fwd_trees.natural_key_major(q8, 2)
-    order = torch.tensor([16 * (p // 16) + mha_kernel._V_KEY_ORDER[p % 16] for p in range(48)])
-    assert torch.equal(mha_kernel.value_key_major(q8, 2), natural[..., order])
     assert (time_fwd_trees.INT8_MAX_TOL, time_fwd_trees.INT8_REL_TOL) == (INT8_MAX_TOL,
                                                                           INT8_REL_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -454,8 +447,8 @@ def int8_libs(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_int8")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    k5 = _build("qkv_attention_int8", out, None, "i8").qkv_attention_int8
-    pro = _build("quantize_qkv_int8", out, None, "quant").quantize_qkv_int8
+    k5 = _build("qkv_attention_int8", out, None).qkv_attention_int8
+    pro = _build("quantize_qkv_int8", out, None).quantize_qkv_int8
     k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
     pro.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
     k5.restype = pro.restype = ctypes.c_int
@@ -601,3 +594,134 @@ def test_int8_entry_points_refuse_what_the_kernels_do_not_take(int8_libs):
         assert fn(64, 64, 64, 48) == 1 and fn(64, 64, 64, 72) == 1
     big = mha_kernel.INT8_MAX_KEYS + 1
     assert k5(64, big, big, -(-big // 16) * 16) == 1
+
+
+# ---- K6 (csrc/ln_qkv_attention.cu): the statistics pass, the LayerNorm +
+# qkv projection on TMA + wgmma m64n256k16 (A normalised in shared memory or
+# in registers), then K1's body on the q/k/v workspace ----
+
+@pytest.fixture(scope="module")
+def lnqkv_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++20 host compiler (g++)")
+    return lnqkv_kernel.bind_entry_points(
+        _build("ln_qkv_attention", tmp_path_factory.mktemp("cuda_emu_lnqkv"), "attention_fwd"))
+
+
+def _lnqkv_inputs(b, n, dim, hd, seed, poison_from=None):
+    """x [B, N, D] bf16 and ln_1 / qkv parameters at the scale of the model's
+    init (chip_smoke.py's), W^T [3*hd, D] bf16; NaN in the rows of x from
+    `poison_from` on."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(b, n, dim).astype(np.float32)).to(torch.bfloat16)
+    if poison_from is not None:
+        x[:, poison_from:] = float("nan")
+    gamma = torch.from_numpy(1.0 + 0.1 * rng.randn(dim).astype(np.float32))
+    beta = torch.from_numpy(0.1 * rng.randn(dim).astype(np.float32))
+    limit = (6.0 / (4 * dim)) ** 0.5
+    wt = torch.from_numpy(((rng.rand(3 * hd, dim) * 2 - 1) * limit).astype(np.float32))
+    bias = torch.from_numpy(0.02 * rng.randn(3 * hd).astype(np.float32))
+    return x, gamma, beta, wt.to(torch.bfloat16), bias
+
+
+def _run_lnqkv(fns, x, gamma, beta, wt, bias, heads, kv):
+    """The whole of K6: (its q/k/v workspace, its output), both NaN-filled
+    before the call."""
+    b, n, dim = x.shape
+    hd = wt.shape[0] // 3
+    d = hd // heads
+    qkv = torch.full((b, n, 3 * hd), float("nan"), dtype=torch.bfloat16)
+    out = torch.full((b, n, hd), float("nan"), dtype=torch.bfloat16)
+    err = fns["attention"](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
+                           bias.data_ptr(), qkv.data_ptr(), out.data_ptr(), b, n, dim, heads, d,
+                           kv, d**-0.5 * LOG2E, 1e-5, None)
+    assert err == 0
+    return qkv, out
+
+
+def _run_projection(fns, x, gamma, beta, wt, bias, heads):
+    """K6's first stage alone (the statistics, then the projection): the
+    workspace and the statistics [B*N, 2]."""
+    b, n, dim = x.shape
+    hd = wt.shape[0] // 3
+    stats = torch.full((b * n, 2), float("nan"))
+    qkv = torch.full((b, n, 3 * hd), float("nan"), dtype=torch.bfloat16)
+    assert fns["stats"](x.data_ptr(), stats.data_ptr(), b * n, dim, 1e-5, None) == 0
+    assert fns["projection"](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(),
+                             bias.data_ptr(), stats.data_ptr(), qkv.data_ptr(), b * n, dim, hd,
+                             (hd // heads) ** -0.5 * LOG2E, None) == 0
+    return qkv, stats
+
+
+def _assert_workspace_close(got, x, gamma, beta, wt, bias, heads, rows):
+    """The workspace within `lnqkv_kernel.workspace_errors`' limits (one
+    bf16 step, plus the fp32 sums' error bound where they cancel; measured
+    here: at most one step, in 3-5 of 54-108 K elements)."""
+    errs = lnqkv_kernel.workspace_errors(got, x, gamma, beta, wt.t(), bias, heads, rows=rows)
+    assert errs["max_share_of_limit"] <= 1.0, errs
+
+
+@pytest.mark.parametrize("b,n,dim,heads,d,kv,poison", [
+    (1, 150, 256, 4, 64, 140, True),  # ragged row tile, NaN in the rows of x past kv
+    (1, 140, 256, 1, 128, 133, False),  # head dim 128: 3*hd = 384, a ragged column tile
+    (2, 70, 128, 2, 64, 66, False),  # batch 2: rows of both in one tile; q and k in one tile
+])
+def test_lnqkv_source_matches_plain_version(lnqkv_lib, b, n, dim, heads, d, kv, poison):
+    """The whole of K6 against `ln_qkv_attention_reference` within
+    chip_smoke.py's kernel limits on the valid rows (finite even with NaN in
+    the pad rows of x), and the q/k/v workspace its first stage writes
+    against `ln_qkv_projection_reference` within the last bf16 rounding
+    (`lnqkv_kernel.workspace_errors`)."""
+    hd = heads * d
+    x, gamma, beta, wt, bias = _lnqkv_inputs(b, n, dim, hd, seed=n + dim,
+                                             poison_from=kv if poison else None)
+    qkv, out = _run_lnqkv(lnqkv_lib, x, gamma, beta, wt, bias, heads, kv)
+    want = lnqkv_kernel.ln_qkv_attention_reference(x, gamma, beta, wt.t(), bias, heads,
+                                                   valid_len=kv)
+    got, ref = out[:, :kv].float(), want[:, :kv].float()
+    assert torch.isfinite(got).all()
+    err = (got - ref).abs()
+    assert float(err.max()) <= FWD_MAX_TOL
+    assert float(err.mean()) <= FWD_MEAN_TOL
+    assert float((got - ref).norm() / ref.norm()) <= FWD_REL_TOL
+    _assert_workspace_close(qkv, x, gamma, beta, wt, bias, heads, kv if poison else n)
+
+
+@pytest.mark.parametrize("b,n,dim,heads,d", [
+    (1, 150, 256, 4, 64),
+    (2, 70, 128, 1, 128),
+])
+def test_lnqkv_first_stage_source_matches_plain_version(lnqkv_lib, b, n, dim, heads, d):
+    """K6's stages alone: the statistics pass equals `ln_qkv_stats_reference`
+    bit for bit, the projection on them writes the workspace of the plain
+    projection within the last bf16 rounding, and the whole of K6 writes
+    that workspace too, bit for bit."""
+    x, gamma, beta, wt, bias = _lnqkv_inputs(b, n, dim, heads * d, seed=7 * n + dim)
+    qkv, stats = _run_projection(lnqkv_lib, x, gamma, beta, wt, bias, heads)
+    assert torch.equal(stats, lnqkv_kernel.ln_qkv_stats_reference(x).reshape(-1, 2))
+    _assert_workspace_close(qkv, x, gamma, beta, wt, bias, heads, n)
+    assert torch.equal(_run_lnqkv(lnqkv_lib, x, gamma, beta, wt, bias, heads, n)[0], qkv)
+
+
+def test_lnqkv_source_is_bitwise_deterministic(lnqkv_lib):
+    """A second call on the same inputs writes the same workspace and output
+    bit for bit: no atomics, every sum in one order."""
+    x, gamma, beta, wt, bias = _lnqkv_inputs(1, 130, 128, 128, seed=3)
+    first, second = (_run_lnqkv(lnqkv_lib, x, gamma, beta, wt, bias, 2, 120) for _ in range(2))
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1][:, :120], second[1][:, :120])
+
+
+def test_lnqkv_entry_points_refuse_what_the_kernel_does_not_take(lnqkv_lib):
+    """A model width or H*d that is not a multiple of 128, head dim 32 or
+    256, and kv_len outside [1, N] return cudaErrorInvalidValue (1) before
+    any launch, in the whole of K6 and in its stages."""
+    k6 = lambda dim, heads, d, kv: lnqkv_lib["attention"](*([None] * 7), 1, 64, dim, heads, d, kv,
+                                                          1.0, 1e-5, None)
+    assert k6(192, 2, 64, 64) == 1 and k6(256, 1, 64, 64) == 1  # D; H*d = 64
+    assert k6(256, 4, 32, 64) == 1 and k6(256, 1, 256, 64) == 1  # head dim
+    assert k6(256, 2, 64, 0) == 1 and k6(256, 2, 64, 65) == 1  # kv_len
+    proj = lambda rows, dim, hd: lnqkv_lib["projection"](*([None] * 7), rows, dim, hd, 1.0, None)
+    assert proj(0, 128, 128) == 1 and proj(64, 64, 128) == 1 and proj(64, 128, 192) == 1
+    assert lnqkv_lib["stats"](None, None, 64, 200, 1e-5, None) == 1
+    stage2 = lambda d, kv: lnqkv_lib["stage2"](None, None, 1, 64, 2, d, kv, None)
+    assert stage2(32, 64) == 1 and stage2(64, 65) == 1
