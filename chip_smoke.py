@@ -126,8 +126,9 @@ phases that each print one JSON line:
                   step;
  20. outproj_path — the port's `tools/exp_outproj_epilogue.py` `main()`: K7
                   against its plain version and against path A (K1 +
-                  matmul), the interleaved A / B / A2 / B2 times and the
-                  verdict; K7's plain time and bound;
+                  matmul + the cast to fp32), the interleaved A / B / A2 /
+                  B2 times, A's parts each alone and the verdict; K7's
+                  plain time, TFLOP/s and bound;
  21. profile_attn_bwd — the port's `tools/profile_attn_bwd.py` `main()` at
                   [8,12,1601,64]: K3, K3's backward, the autograd of plain
                   attention and SDPA's backward.
@@ -1978,20 +1979,19 @@ def phase_outproj_path() -> dict:
     res = exp.main([])
     launches = read_launches()
     b, n, hd = res["shape"][0], res["shape"][1], res["shape"][2] // 3
-    heads, d = res["heads"], res["head_dim"]
+    heads = res["heads"]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
     w = (torch.randn(hd, hd, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
-    flops = 4.0 * b * heads * n * n * d + 2.0 * b * n * hd * hd
-    nbytes = 2.0 * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
+    # the tool's main() reports A's parts (K1, the matmul, the cast), K7's
+    # TFLOP/s and the bound, from this run's shapes
     res.update({
         "phase": "outproj_path", "entry_point": "tools/exp_outproj_epilogue.py main()",
         "launches": launches,
         "plain_ms": cuda_ms(lambda: exp.qkv_out_attention_reference(qkv, w, heads), 2, warmup=1),
-        "ms": min(res["B_ms"], res["B2_ms"]), "max_abs_err": res["max_abs_err_b_vs_plain"],
+        "ms": min(res["B_ms"], res["B2_ms"]), "a_ms": min(res["A_ms"], res["A2_ms"]),
+        "max_abs_err": res["max_abs_err_b_vs_plain"],
         "library_ms": None,  # no one PyTorch call computes attention + out-projection
-        "bound_ms": max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-        "bound_by": "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
     })
     emit(res)
     if not (res["finite"] and res["rel_l2_b_vs_plain"] <= KERNEL_REL_TOL
@@ -2172,8 +2172,12 @@ def main() -> int:
                  "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
                  pab_res["launches"]["mha_attention_bwd"]),
          "head_dim_256": at_256(oneshot_bwd_256)},
-        entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
-              outproj_res, outproj_res["launches"]["qkv_out_attention"]),
+        {**entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
+                 outproj_res, outproj_res["launches"]["qkv_out_attention"]),
+         "design": "attention on TMA + wgmma with every head's output kept in shared memory, "
+                   "then the out-projection by wgmma m64n128k16 with W_out by TMA",
+         **{k: outproj_res[k] for k in ("a_ms", "A_k1_ms", "A_matmul_ms", "A_cast_ms",
+                                        "tflops_b", "verdict")}},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

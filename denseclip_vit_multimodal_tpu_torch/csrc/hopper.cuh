@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the attention forward core
-// (attention_fwd.cuh), the int8 attention (qkv_attention_int8.cu) and the
-// LayerNorm + qkv projection of ln_qkv_attention.cu:
+// (attention_fwd.cuh), the int8 attention (qkv_attention_int8.cu), the
+// LayerNorm + qkv projection of ln_qkv_attention.cu and the fused
+// out-projection of qkv_out_attention.cu:
 // mbarriers, TMA tensor loads, named barriers, register reallocation and
 // warpgroup matrix multiply (wgmma, bf16 and 8-bit integer).  Every
 // function is a thin wrapper around one or a few PTX instructions; the
@@ -185,6 +186,11 @@ __device__ __forceinline__ void fence_regs(int* r) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc);
 
+// The same with B MN-major in shared memory (the descriptor's transpose
+// bit), A K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float* d, uint64_t da, uint64_t db, int acc);
+
 // The same with A from registers (a[4]: the A fragment layout) and B
 // MN-major in shared memory (the descriptor's transpose bit).
 template <int N>
@@ -217,6 +223,32 @@ __device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : DCLIP_F64(d, 0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<64>(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : DCLIP_F32(d, 0)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<128>(float* d, uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : DCLIP_F64(d, 0)
       : "l"(da), "l"(db), "r"(acc));
 }

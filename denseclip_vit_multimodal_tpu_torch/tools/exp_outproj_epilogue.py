@@ -7,8 +7,12 @@ attention output through device memory) beat the attention kernel plus a
 separate matmul?
 
   * `qkv_out_attention` launches K7 (`csrc/qkv_out_attention.cu`) for CUDA
-    tensors, or raises on anything it does not take; for CPU tensors it runs
-    `qkv_out_attention_reference`.  Inference only, as in the JAX script.
+    tensors, or raises on anything it does not take (`ValueError` for head
+    dims other than 64 / 128 and widths past `MAX_WIDTH`); for CPU tensors
+    it runs `qkv_out_attention_reference`.  Inference only, as in the JAX
+    script.  K7 runs the attention of every head of a 64-row block on TMA +
+    wgmma, keeps each head's bf16 output in shared memory, then multiplies
+    it by W_out with wgmma, W_out's tiles streamed by TMA.
   * `qkv_out_attention_reference` is the plain PyTorch version with the TPU
     kernel's rounding points: K1's attention per head (q * (scale * log2 e)
     rounded to the input dtype, fp32 scores, keys at or beyond `valid_len`
@@ -19,8 +23,15 @@ separate matmul?
   * `main()` runs the experiment on the card: agreement first (K7 against
     its plain version and against path A), then an interleaved A / B / A2 /
     B2 timing at [10, 1601, 12, 64], where A = K1 (`mha_qkv_attention`) +
-    `torch.matmul` out-projection and B = K7, with
-    `utils/benchtime.py::device_loop_time`, and a verdict.
+    `torch.matmul` out-projection + the cast to fp32 and B = K7, with
+    `utils/benchtime.py::device_loop_time`; then A's three parts each alone,
+    K7's TFLOP/s beside its bound, and a verdict.
+
+Verdict on an NVIDIA H100 80GB HBM3 (700 W): the fusion wins narrowly.
+K7 took 0.281 ms (347 TFLOP/s, bound 0.099) against 0.292 for A, of which
+K1 is about 0.22, the matmul 0.03 and the cast 0.04 (`tools/time_fwd_trees.py`
+and this tool; PERF.md).  Before K7's redesign for Hopper (mma.sync,
+synchronous loads: 1.95 ms) it lost ×6.7.
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.exp_outproj_epilogue [--batch 10]
 
@@ -50,6 +61,9 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
 )
 
 LAUNCHES: Dict[str, int] = {"qkv_out_attention": 0}
+# The widest H*D the kernel takes (ViT-L/14's width): every head's bf16
+# output of a 64-row block stays in shared memory beside the K / V rings.
+MAX_WIDTH = 1024
 
 
 def qkv_out_attention_reference(
@@ -91,9 +105,10 @@ def _launch(qkv: torch.Tensor, w_out: torch.Tensor, num_heads: int, scale: float
     b, n, hd, d = _split_shape(qkv, num_heads)
     _check_kernel_input(qkv, "qkv")
     _check_kernel_input(w_out, "w_out")
-    if d not in (64, 128) or hd % 64:
+    if d not in (64, 128) or hd % 64 or hd > MAX_WIDTH:
         raise ValueError(f"the out-projection epilogue kernel takes head dim 64 or 128 and a "
-                         f"width that is a multiple of 64, got {d} x {num_heads}")
+                         f"width that is a multiple of 64 up to {MAX_WIDTH}, got "
+                         f"{d} x {num_heads}")
     if w_out.shape != (hd, hd) or w_out.device != qkv.device:
         raise ValueError(f"w_out must be [{hd}, {hd}] on qkv's device, got {tuple(w_out.shape)}")
     fn = _kernel_fn()
@@ -133,6 +148,7 @@ def qkv_out_attention(
 def main(argv=None) -> dict:
     """Agreement, then the interleaved A / B / A2 / B2 timing; prints one
     JSON line per stage and returns every number."""
+    from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import PEAK_BF16_FLOPS, PEAK_BYTES
     from denseclip_vit_multimodal_tpu_torch.utils.benchtime import device_loop_time
 
     p = argparse.ArgumentParser()
@@ -175,12 +191,28 @@ def main(argv=None) -> dict:
         stats: dict = {}
         results[f"{tag}_ms"] = device_loop_time(fn, (qkv, w), args.iters, stats) * 1e3
         print(json.dumps({"stage": tag, "ms": results[f"{tag}_ms"], **stats}), flush=True)
+    # A's parts, each alone on its own input: K1, the matmul, the cast to fp32
+    o = mha_qkv_attention(qkv, heads)
+    y = torch.matmul(o, w)
+    for key, fn, fargs in (("A_k1_ms", mha_qkv_attention, (qkv, heads)),
+                           ("A_matmul_ms", torch.matmul, (o, w)),
+                           ("A_cast_ms", torch.Tensor.float, (y,))):
+        results[key] = device_loop_time(fn, fargs, args.iters) * 1e3
+    del o, y
     a_ms = min(results["A_ms"], results["A2_ms"])
     b_ms = min(results["B_ms"], results["B2_ms"])
-    results["speedup_b_over_a"] = a_ms / b_ms
-    results["verdict"] = ("the fused epilogue wins" if b_ms < a_ms
-                          else "the fused epilogue loses")
-    print(json.dumps({"verdict": results["verdict"], "A_ms": a_ms, "B_ms": b_ms}), flush=True)
+    # the function's work: the attention's two products over every key, the
+    # projection; one read of qkv and W, one write of the fp32 output
+    flops = 4.0 * b * heads * n * n * d + 2.0 * b * n * hd * hd
+    nbytes = 2.0 * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
+    results.update(
+        speedup_b_over_a=a_ms / b_ms, tflops_b=flops / (b_ms * 1e-3) / 1e12,
+        bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+        bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+        verdict="the fused epilogue wins" if b_ms < a_ms else "the fused epilogue loses")
+    print(json.dumps({k: results[k] for k in (
+        "verdict", "speedup_b_over_a", "tflops_b", "bound_ms", "bound_by", "A_k1_ms",
+        "A_matmul_ms", "A_cast_ms")} | {"A_ms": a_ms, "B_ms": b_ms}), flush=True)
     return results
 
 

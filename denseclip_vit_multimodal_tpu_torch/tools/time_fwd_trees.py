@@ -36,7 +36,13 @@ signatures every tree must share, and:
     scales of `quantize_qkv_int8` + `value_key_major`), and its K5 on those
     operands against `int8_attention_plain`; then times K5 and the prologue
     of every tree in turns at the serving shape [10,1536,2304] valid 1522,
-    beside their bounds.
+    beside their bounds;
+  * holds each tree's K7 (`csrc/qkv_out_attention.cu`, attention with the
+    out-projection fused) against `qkv_out_attention_reference`
+    (chip_smoke.py's limits), then times it in turns at the experiment's
+    shape qkv [10,1601,2304] + W_out [768,768], beside the yardstick A
+    (this checkout's K1 + `torch.matmul` + the cast to fp32, timed in the
+    same turns) and the bound.
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
         [--tree NAME=CSRC_DIR ...] [--rounds 3]
@@ -66,25 +72,27 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12
 LOG2E = 1.4426950408889634
 MAX_TOL, MEAN_TOL, REL_TOL = 2e-2, 5e-4, 5e-3
-ITERS = {"k1": 50, "k3": 50, "k4": 10, "k6": 50, "k5": 50}  # launches per timing
+ITERS = {"k1": 50, "k3": 50, "k4": 10, "k6": 50, "k5": 50, "k7": 20}  # launches per timing
 INT8_SHAPE = (10, 1536, 12, 64, 1522)  # K5's serving shape: (batch, tokens, heads, head dim, valid)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 INT8_MAX_TOL, INT8_REL_TOL = 2e-2, 5e-3  # chip_smoke.py's K5 limits
 LN_EPS = 1e-5
 STATS_M_TOL, STATS_L_TOL = 5e-5, 3e-5
+K7_SHAPE = (10, 1601, 12, 64)  # the experiment's: (batch, tokens, heads, head dim), every key valid
+OUTPROJ_REL_TOL, OUTPROJ_MAX_TOL = 5e-3, 2e-2  # chip_smoke.py's K7 limits (max: of the largest)
 
 
 def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
-    """Compile `csrc`'s K1, K3, K4, K6, K5 and K5's prologue sources; their
-    entry points by kernel ("k6_stages": K6's stage entry points, None where
-    the tree has none)."""
+    """Compile `csrc`'s K1, K3, K4, K6, K5, K5's prologue and K7 sources;
+    their entry points by kernel ("k6_stages": K6's stage entry points, None
+    where the tree has none)."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
     from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import bind_entry_points
 
     out_dir.mkdir(parents=True, exist_ok=True)
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     sources = ["qkv_attention", "mha_attention", "flash_attention", "ln_qkv_attention",
-               "qkv_attention_int8", "quantize_qkv_int8"]
+               "qkv_attention_int8", "quantize_qkv_int8", "qkv_out_attention"]
     procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
                                     str(csrc / f"{src}.cu")],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -115,10 +123,12 @@ def build_tree(name: str, csrc: Path, out_dir: Path) -> dict:
     k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
     prologue = lib("quantize_qkv_int8").quantize_qkv_int8
     prologue.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
-    for fn in (k1, k3, k4, k6, k5, prologue):
+    k7 = lib("qkv_out_attention").qkv_out_attention_bf16
+    k7.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
+    for fn in (k1, k3, k4, k6, k5, prologue, k7):
         fn.restype = ctypes.c_int
     return {"k1": k1, "k3": k3, "k4": k4, "k6": k6, "k5": k5, "prologue": prologue,
-            "k6_stages": k6_stages}
+            "k6_stages": k6_stages, "k7": k7}
 
 
 def plain_stats(q, k, kv: int, scale: float, prescaled: bool = True,
@@ -244,6 +254,67 @@ def time_int8(fns: dict, rounds: int) -> dict:
         "k5_prologue_slide": {**{name: res["prologue_median_ms"] for name, res in results.items()},
                               "ok": all(r["prologue_bitwise_equal"] for r in results.values())},
     }
+
+
+def time_k7(fns: dict, rounds: int) -> dict:
+    """K7 of every tree at K7_SHAPE: checks, then times in turns with the
+    yardstick A (this checkout's K1 + matmul + cast) in each turn; the
+    summary entry "k7_experiment"."""
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention
+    from denseclip_vit_multimodal_tpu_torch.tools.exp_outproj_epilogue import (
+        qkv_out_attention_reference,
+    )
+
+    b, n, heads, d = K7_SHAPE
+    hd = heads * d
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(hd, hd, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    out = torch.empty(b, n, hd, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def k7(name):
+        err = fns[name]["k7"](qkv.data_ptr(), w.data_ptr(), out.data_ptr(), b, n, heads, d, n,
+                              d**-0.5 * LOG2E, stream)
+        if err != 0:
+            raise RuntimeError(f"K7 launch failed: cudaError {err}")
+
+    a_fn = lambda: torch.matmul(mha_qkv_attention(qkv, heads), w).float()
+    want = qkv_out_attention_reference(qkv, w, heads)
+    results, outs = {}, {}
+    for name in fns:
+        out.fill_(float("nan"))
+        k7(name)
+        torch.cuda.synchronize()
+        outs[name] = out.clone()
+        err = out - want
+        res = {"tree": name, "shape": "k7_experiment",
+               "rel_l2_err": float(err.norm() / want.norm()),
+               "max_abs_err": float(err.abs().max()), "max_abs_ref": float(want.abs().max()),
+               "ms": [], "a_ms": []}
+        res["ok"] = bool(torch.isfinite(out).all() and res["rel_l2_err"] <= OUTPROJ_REL_TOL
+                         and res["max_abs_err"] <= OUTPROJ_MAX_TOL * res["max_abs_ref"])
+        results[name] = res
+    last = list(fns)[-1]
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            results[name]["ms"].append(_cuda_ms(lambda: k7(name), ITERS["k7"]))
+            results[name]["a_ms"].append(_cuda_ms(a_fn, ITERS["k7"]))
+    flops = 4.0 * b * heads * n * n * d + 2.0 * b * n * hd * hd
+    nbytes = 2.0 * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
+    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    for name, res in results.items():
+        res.update(bitwise_equal_to_last=torch.equal(outs[name], outs[last]),
+                   median_ms=statistics.median(res["ms"]),
+                   a_median_ms=statistics.median(res["a_ms"]), bound_ms=bound_ms)
+        res["tflops"] = flops / (res["median_ms"] * 1e-3) / 1e12
+        print(json.dumps(res), flush=True)
+    return {"k7_experiment": {
+        **{name: res["median_ms"] for name, res in results.items()},
+        "A": statistics.median([ms for res in results.values() for ms in res["a_ms"]]),
+        "bound": bound_ms,
+        "bitwise_equal": all(r["bitwise_equal_to_last"] for r in results.values()),
+        "ok": all(r["ok"] for r in results.values())}}
 
 
 def time_k6_split(fns: dict, operands, heads: int, kv: int, k6_outs: dict, rounds: int) -> dict:
@@ -451,6 +522,7 @@ def main(argv=None) -> dict:
             summary.update(time_k6_split(fns, (x, gamma, beta, wt, bias), heads, kv,
                                          {name: o[0] for name, o in outs.items()}, args.rounds))
     summary.update(time_int8(fns, args.rounds))
+    summary.update(time_k7(fns, args.rounds))
     print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}), flush=True)
     if not all(s["ok"] for s in summary.values()):
         raise SystemExit("time_fwd_trees: a tree disagrees with the plain version")

@@ -6,8 +6,9 @@
 // here) exchange their operands through a per-warp slot table between two
 // warp barriers.  cp.async copies are deferred to the issuing thread's
 // `cp.async.wait_group`, the latest moment the hardware may complete them.
-// Blocks run one after another and share one dynamic shared-memory array of
-// 227 KB, filled with 0xff before each block.  tests/test_torch_cuda_emulated.py
+// Blocks run one after another, the last of the grid first, and share one
+// dynamic shared-memory array of 227 KB, filled with 0xff before each
+// block.  tests/test_torch_cuda_emulated.py
 // compiles a kernel source against these headers with the host compiler,
 // `kernel<<<grid, threads, smem, stream>>>(args)` rewritten to
 // `emu_launch(kernel, grid, threads, smem, args)` and each kernel's
@@ -185,9 +186,12 @@ inline unsigned atomicMax(unsigned* p, unsigned v) {
 template <class A>
 void emu_launch(void (*kernel)(A), dim3 grid, int threads, size_t smem, const A& a) {
   assert(smem <= emu::kSmemBytes - 1024);  // the launch would be refused on the card
-  for (unsigned z = 0; z < grid.z; ++z)
-    for (unsigned y = 0; y < grid.y; ++y)
-      for (unsigned x = 0; x < grid.x; ++x) {
+  // Last block first: on the card blocks run in no order, and a block that
+  // writes past its own rows (into the next batch element's, say) is then
+  // overwritten by nothing.
+  for (unsigned z = grid.z; z-- > 0;)
+    for (unsigned y = grid.y; y-- > 0;)
+      for (unsigned x = grid.x; x-- > 0;) {
         memset(emu::smem_base, 0xff, emu::kSmemBytes);
         emu::bars.mbars.clear();
         emu::bars.named.clear();

@@ -27,13 +27,13 @@
 //     128-byte swizzle, or 2, the 64-byte one) in the canonical K-major
 //     layout (8-row groups SBO apart, rows of the swizzle's width, k
 //     contiguous) and, 128-byte only, B MN-major (the transpose bit of
-//     wgmma_rs_tb; wgmma_ss and wgmma_rs read B K-major); A from registers in
-//     the per-warp fragment layout: bf16 a0 row g, k 2t..2t+1; a1 row
-//     g + 8; a2 / a3 k + 8; 8-bit a0 row g, k 4t..4t+3 (lowest k in the
-//     lowest byte); a1 row g + 8; a2 / a3 k + 16.  d[i] is row 16 * warp +
-//     g + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2t + i % 2; bf16 sums in
-//     fp32 in k order, 8-bit sums (s8 x s8 -> s32, m64nNk32, B K-major
-//     only) exact.
+//     wgmma_ss_tb and wgmma_rs_tb; wgmma_ss and wgmma_rs read B K-major);
+//     A from registers in the per-warp fragment layout: bf16 a0 row g,
+//     k 2t..2t+1; a1 row g + 8; a2 / a3 k + 8; 8-bit a0 row g, k 4t..4t+3
+//     (lowest k in the lowest byte); a1 row g + 8; a2 / a3 k + 16.  d[i] is
+//     row 16 * warp + g + 8 * ((i / 2) % 2), column 8 * (i / 4) + 2t + i % 2;
+//     bf16 sums in fp32 in k order, 8-bit sums (s8 x s8 -> s32, m64nNk32,
+//     B K-major only) exact.
 //   * wgmma.fence / commit_group / wait_group are warp-synchronous (`.sync`:
 //     every lane of the warp reaches them before any goes on), which is what
 //     lets one lane release a tile for its warp after the wait;
@@ -374,6 +374,11 @@ inline void wgmma_ss(float* d, uint64_t da, uint64_t db, int acc) {
 template <int N>
 inline void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int acc) {
   emu::mma_open.push_back({true, false, false, d, a, 0, db, acc, N});
+}
+
+template <int N>
+inline void wgmma_ss_tb(float* d, uint64_t da, uint64_t db, int acc) {
+  emu::mma_open.push_back({false, false, true, d, nullptr, da, db, acc, N});
 }
 
 template <int N>

@@ -606,6 +606,8 @@ def test_int8_straight_through_backward_on_the_card(cuda):
     (10, 1601, 12, 64, None),  # the experiment's shape
     (2, 1100, 4, 128, 1050),
     (1, 77, 2, 64, 70),
+    (2, 1100, 16, 64, 1050),  # H*D = 1024 (ViT-L/14's width), the widest the kernel takes
+    (2, 1601, 8, 128, None),
 ])
 def test_outproj_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len):
     """K7 against its plain version (fp32 output, rows below `valid_len`)."""
@@ -625,6 +627,17 @@ def test_outproj_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len):
     # there moves the fp32 sum by ~ulp * |w| * sqrt(H * D)
     assert float(err.norm() / ref[:, :rows].norm()) <= 5e-3
     assert float(err.abs().max()) <= KERNEL_TOL * float(ref[:, :rows].abs().max())
+
+
+def test_outproj_wrapper_refuses_widths_past_the_kernel(cuda):
+    """H*D past 1024 (or head dim 32) raises ValueError before any launch."""
+    before = exp_outproj_epilogue.LAUNCHES["qkv_out_attention"]
+    for heads, d in ((17, 64), (9, 128), (4, 32)):
+        qkv = torch.zeros(1, 64, 3 * heads * d, dtype=torch.bfloat16, device="cuda")
+        w = torch.zeros(heads * d, heads * d, dtype=torch.bfloat16, device="cuda")
+        with pytest.raises(ValueError):
+            exp_outproj_epilogue.qkv_out_attention(qkv, w, heads)
+    assert exp_outproj_epilogue.LAUNCHES["qkv_out_attention"] == before
 
 
 @pytest.mark.parametrize("n,valid_len,counters,kernel", [

@@ -6,7 +6,10 @@ The forward: `csrc/qkv_attention.cu` (K1), `csrc/mha_attention.cu` (K3) and
 `csrc/flash_attention.cu` (K4) on their core `csrc/attention_fwd.cuh`.  The
 int8 attention `csrc/qkv_attention_int8.cu` (K5: 8-bit wgmma, TMA with the
 64-byte swizzle) and its prologue `csrc/quantize_qkv_int8.cu`, the prologue
-held bitwise to its plain version.  Each is compiled by the host
+held bitwise to its plain version.  K6 (`csrc/ln_qkv_attention.cu`) and K7
+(`csrc/qkv_out_attention.cu`: the attention with every head's output kept
+in shared memory, then the out-projection by wgmma with W_out's tiles
+MN-major).  Each is compiled by the host
 compiler against the CPU emulation in `tests/cuda_emu/` (one std::thread per
 CUDA thread; ldmatrix, mma.sync and shuffles emulated per warp; cp.async
 deferred to its wait; for the forward, wgmma from its shared-memory
@@ -37,7 +40,7 @@ import torch
 from denseclip_vit_multimodal_tpu_torch.ops import attention
 from denseclip_vit_multimodal_tpu_torch.ops import lnqkv_kernel
 from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
-from denseclip_vit_multimodal_tpu_torch.tools import time_fwd_trees
+from denseclip_vit_multimodal_tpu_torch.tools import exp_outproj_epilogue, time_fwd_trees
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = ROOT / "denseclip_vit_multimodal_tpu_torch" / "csrc"
@@ -422,8 +425,8 @@ def test_forward_entry_points_refuse_what_the_kernels_do_not_take(fwd_libs):
 
 def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypatch):
     """`tools/time_fwd_trees.py` (the design-step timings on the card) holds
-    the row statistics to the plain values computed as here, K5 to this
-    file's limits, and exits rather than time anything without a card."""
+    the row statistics to the plain values computed as here, K5 and K7 to
+    this file's limits, and exits rather than time anything without a card."""
     _, q, k, _, _ = _inputs(1, 90, 2, 64, seed=11)
     got = time_fwd_trees.plain_stats(q, k, 80, 0.125)
     assert torch.allclose(got, _row_stats(q, k, 80, 0.125, True), rtol=1e-6, atol=1e-6)
@@ -432,6 +435,8 @@ def test_timing_tool_checks_statistics_the_same_way_and_refuses_the_cpu(monkeypa
     assert (time_fwd_trees.STATS_M_TOL, time_fwd_trees.STATS_L_TOL) == (STATS_M_TOL, STATS_L_TOL)
     assert (time_fwd_trees.INT8_MAX_TOL, time_fwd_trees.INT8_REL_TOL) == (INT8_MAX_TOL,
                                                                           INT8_REL_TOL)
+    assert (time_fwd_trees.OUTPROJ_REL_TOL, time_fwd_trees.OUTPROJ_MAX_TOL) == (OUTPROJ_REL_TOL,
+                                                                                OUTPROJ_MAX_TOL)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
         time_fwd_trees.main([])
@@ -725,3 +730,83 @@ def test_lnqkv_entry_points_refuse_what_the_kernel_does_not_take(lnqkv_lib):
     assert lnqkv_lib["stats"](None, None, 64, 200, 1e-5, None) == 1
     stage2 = lambda d, kv: lnqkv_lib["stage2"](None, None, 1, 64, 2, d, kv, None)
     assert stage2(32, 64) == 1 and stage2(64, 65) == 1
+
+
+# ---- K7 (csrc/qkv_out_attention.cu): the attention on TMA + wgmma with
+# every head's output in shared memory, then out = O W_out by wgmma ----
+
+# chip_smoke.py's limits for K7 against its plain version (fp32 out): relative
+# L2, and max abs error as a share of the largest reference magnitude
+OUTPROJ_REL_TOL, OUTPROJ_MAX_TOL = 5e-3, 2e-2
+
+
+@pytest.fixture(scope="module")
+def outproj_lib(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs a C++20 host compiler (g++)")
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _build("qkv_out_attention", tmp_path_factory.mktemp("cuda_emu_outproj"),
+                "attention_fwd").qkv_out_attention_bf16
+    fn.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _run_outproj(fn, b, n, heads, d, kv, seed, poison=False):
+    """K7 on seeded qkv and W_out (NaN in the K / V rows past kv with
+    `poison`): (its output, the plain version's).  The output buffer runs 64
+    NaN rows past [B, N, H*D], which must stay NaN."""
+    hd = heads * d
+    rng = np.random.RandomState(seed)
+    qkv = torch.from_numpy(rng.randn(b, n, 3 * hd).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.randn(hd, hd) * 0.05).astype(np.float32)).to(torch.bfloat16)
+    if poison:
+        qkv[:, kv:, hd:] = float("nan")
+    want = exp_outproj_epilogue.qkv_out_attention_reference(qkv, w, heads, valid_len=kv)
+    buf = torch.full((b * n + 64, hd), float("nan"))
+    err = fn(qkv.data_ptr(), w.data_ptr(), buf.data_ptr(), b, n, heads, d, kv, d**-0.5 * LOG2E,
+             None)
+    assert err == 0
+    assert torch.isnan(buf[b * n:]).all()  # nothing written past the last row
+    return buf[:b * n].view(b, n, hd), want
+
+
+def _assert_outproj_close(out, want):
+    assert torch.isfinite(out).all()
+    err = out - want
+    assert float(err.norm() / want.norm()) <= OUTPROJ_REL_TOL
+    assert float(err.abs().max()) <= OUTPROJ_MAX_TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv,poison", [
+    (1, 150, 2, 64, 140, True),  # a ragged last q-tile, NaN in the K / V rows past valid_len
+    (2, 100, 2, 64, 100, False),  # batch 2, N not a multiple of the 64-row q-tile
+    (1, 140, 2, 128, 133, True),  # head dim 128: one-stage K / V rings, two 128-column chunks
+    (1, 90, 3, 64, 85, False),  # H*D = 192: three column boxes, chunks of 128 and 64
+    (1, 70, 16, 64, 70, False),  # H*D = 1024, the widest: O is 128 KB
+])
+def test_outproj_source_matches_plain_version(outproj_lib, b, n, heads, d, kv, poison):
+    """K7 against `qkv_out_attention_reference` on every row, within
+    chip_smoke.py's limits.  The emulation runs the last block first, so a
+    block that wrote past its batch element's last row would leave the next
+    element's first rows (or the buffer's tail) wrong."""
+    _assert_outproj_close(*_run_outproj(outproj_lib, b, n, heads, d, kv, seed=n + heads + d,
+                                        poison=poison))
+
+
+def test_outproj_source_is_bitwise_deterministic(outproj_lib):
+    """A second call on the same inputs gives the same output bit for bit:
+    no atomics, every sum in one order."""
+    first, second = (_run_outproj(outproj_lib, 1, 130, 3, 64, 120, seed=3, poison=True)
+                     for _ in range(2))
+    assert torch.equal(first[0], second[0])
+    _assert_outproj_close(*first)
+
+
+def test_outproj_entry_point_refuses_what_the_kernel_does_not_take(outproj_lib):
+    """Head dim 32 or 256, H*D past 1024 and kv_len outside [1, N] return
+    cudaErrorInvalidValue (1) before any launch."""
+    k7 = lambda heads, d, kv: outproj_lib(None, None, None, 1, 64, heads, d, kv, 1.0, None)
+    assert k7(2, 32, 64) == 1 and k7(1, 256, 64) == 1
+    assert k7(17, 64, 64) == 1 and k7(9, 128, 64) == 1
+    assert k7(2, 64, 0) == 1 and k7(2, 64, 65) == 1
