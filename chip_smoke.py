@@ -131,7 +131,18 @@ phases that each print one JSON line:
                   plain time, TFLOP/s and bound;
  21. profile_attn_bwd — the port's `tools/profile_attn_bwd.py` `main()` at
                   [8,12,1601,64]: K3, K3's backward, the autograd of plain
-                  attention and SDPA's backward.
+                  attention and SDPA's backward;
+ 22. bench_path — the port's benchmark `bench.py` `main()` at full width on
+                  both protocols (crop 624 and 640, 4 frames a run, at most 3
+                  interleaved rounds; its JSON line, with 0 < mfu_pct <= 100);
+                  one slide frame's FLOPs by `utils/flops.py::program_flops`
+                  as served (the kernels' make-up from their launches) and
+                  with `ops/attention.py::_on_cuda` patched to False (every
+                  attention branch plain, counted by FlopCounterMode), on the
+                  unfused, fused and int8 paths: within 0.5%, the gap exactly
+                  the pad keys' N x (N - kv_len) scores; the suite
+                  (`tools/bench_suite.py`) workloads 2 (with its MFU line) and
+                  9 at few iterations.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -1272,6 +1283,20 @@ def phase_kernel_lnqkv() -> list:
 FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
 
 
+@contextlib.contextmanager
+def fused_lnqkv(on: bool):
+    """DENSECLIP_FUSED_LNQKV set to 1 (or 0) inside the block only."""
+    before = os.environ.get(FUSED_ENV)
+    os.environ[FUSED_ENV] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(FUSED_ENV, None)
+        else:
+            os.environ[FUSED_ENV] = before
+
+
 def phase_lnqkv_path(unfused_profile: dict) -> dict:
     """main_path's slide protocol with the fused LN + qkv + attention kernel
     (DENSECLIP_FUSED_LNQKV=1, set here and unset on the way out); its device
@@ -1297,9 +1322,7 @@ def phase_lnqkv_path(unfused_profile: dict) -> dict:
     delta = lambda before: {k: v - before[k] for k, v in read_launches().items()}
 
     torch.cuda.empty_cache()
-    previous = os.environ.get(FUSED_ENV)
-    os.environ[FUSED_ENV] = "1"
-    try:
+    with fused_lnqkv(True):
         predict(frames[0], "argmax")  # warm-up: cuDNN plans, the cached text tower
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1326,11 +1349,6 @@ def phase_lnqkv_path(unfused_profile: dict) -> dict:
         whole_launches = delta(before)
         profile = phase_profile(lambda f: predict(f, "argmax"), frames[:2],
                                 path="fused_lnqkv_serving")
-    finally:
-        if previous is None:
-            os.environ.pop(FUSED_ENV, None)
-        else:
-            os.environ[FUSED_ENV] = previous
     before = read_launches()
     unfused_out = predict(frames[0], "device")  # the K1 path: the variable unset
     unfused_launches = delta(before)
@@ -2021,6 +2039,116 @@ def phase_profile_attn_bwd() -> dict:
     return res
 
 
+BENCH_ARGS = ["--iters", "4", "--rounds", "3"]  # the full protocol at fewer frames
+BENCH_KEYS = ("value", "value_reference_protocol", "latency_ms_p50", "latency_ms_p90",
+              "model_tflops_per_image", "mfu_pct", "peak_bf16_tflops", "device",
+              "power_limit_w")
+# served (kernels + their FLOP make-up) against the plain route (aten counts
+# plain attention) on one slide frame, relative
+FLOP_TOL = 5e-3
+FLOP_ROUTES = (  # (route, attn_impl, DENSECLIP_FUSED_LNQKV, the kernel it launches)
+    ("unfused", "auto", False, "qkv_attention"),
+    ("fused", "auto", True, "ln_qkv_attention"),
+    ("int8", "int8", False, "qkv_attention_int8"),
+)
+SUITE_SMOKE_ARGS = ["--workloads", "2", "9", "--iters", "2", "--rounds", "2",
+                    "--out", "build/bench_suite_smoke.json"]
+
+
+@contextlib.contextmanager
+def plain_attention_route():
+    """`ops/attention.py::_on_cuda` answers False: every attention branch of
+    the model takes plain attention, which FlopCounterMode counts."""
+    from denseclip_vit_multimodal_tpu_torch.ops import attention
+
+    on_cuda = attention._on_cuda
+    attention._on_cuda = lambda x: False
+    try:
+        yield
+    finally:
+        attention._on_cuda = on_cuda
+
+
+def phase_bench_path() -> dict:
+    """The port's benchmark through its user entry points: `bench.py`
+    `main()` at full width on both protocols (fewer frames), the FLOP
+    accounting held against FlopCounterMode's count of the plain route on
+    the unfused, fused and int8 paths, and the suite's workloads 2 and 9."""
+    from denseclip_vit_multimodal_tpu_torch import bench
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.tools import bench_suite
+    from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, program_flops
+
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    reset_launches()
+    line = bench.main(BENCH_ARGS)  # prints the bench line
+    launches = read_launches()
+    bench_s = time.perf_counter() - start
+    missing = [k for k in BENCH_KEYS if line.get(k) is None]
+    if missing or not 0.0 < line["mfu_pct"] <= 100.0:
+        raise AssertionError(f"bench line: missing {missing} or MFU out of (0, 100]: {line}")
+    if not launches["qkv_attention"] or any(
+            v for k, v in launches.items() if k != "qkv_attention"):
+        raise AssertionError(f"the bench ran no K1, or another kernel: {launches}")
+
+    # one slide frame counted as served (kernels launched, the tally adding
+    # their FLOPs) and on the plain route; the kernels score N x kv_len,
+    # plain attention (masking the pad keys) N x N
+    engine, frame_fn = bench.setup(bench.parse_args([]))
+    frame = frame_fn(bench.CROP_SHIPPED)
+    backbone = engine.model.backbone
+    layers, width = backbone.layers, backbone.width
+    grid = bench.CROP_SHIPPED[0] // backbone.patch_size
+    kv = grid * grid + 1
+    n = -(-kv // 128) * 128
+    windows = 10
+    gap = layers * windows * attention_flops(1, n, n - kv, width)
+    cause = (f"plain attention scores N x N ({n} x {n}) where the kernels score N x kv_len "
+             f"({n} x {kv}): {layers} layers x {windows} windows x 4 x {n} x {n - kv} x {width}")
+    flop_checks = {}
+    for route, attn_impl, fused, kernel in FLOP_ROUTES:
+        set_attn_impl(engine.model, attn_impl)
+        with fused_lnqkv(fused):
+            frame()  # warm-up
+            reset_launches()
+            served = program_flops(frame)
+            served_launches = read_launches()
+            with plain_attention_route():
+                plain = program_flops(frame)
+                plain_launches = read_launches()
+        check = {"served_flops": served.total, "served_aten_flops": served.aten,
+                 "served_kernel_flops": served.kernels, "by_kernel": served.by_kernel,
+                 "plain_flops": plain.total, "rel_gap": (plain.total - served.total) / plain.total,
+                 "gap_explained_by_pad_keys": plain.total - served.total == gap,
+                 "kernel_launches": served_launches[kernel]}
+        flop_checks[route] = check
+        if not (abs(check["rel_gap"]) <= FLOP_TOL and check["gap_explained_by_pad_keys"]
+                and served_launches[kernel] == layers and plain_launches == served_launches
+                and plain.kernels == 0):
+            raise AssertionError(f"{route}: served and plain FLOP counts disagree ({cause}): "
+                                 f"{check}, launches {served_launches} / {plain_launches}")
+    set_attn_impl(engine.model, "auto")
+    del engine, frame
+    torch.cuda.empty_cache()
+
+    suite = bench_suite.main(SUITE_SMOKE_ARGS)
+    by_metric = {r["metric"]: r for r in suite}
+    for name in ("slide_1024x2048_multitask", "slide_1024x2048_multitask_mfu",
+                 "eval_path_device_1024x2048_slide"):
+        if not by_metric.get(name, {}).get("value", 0) > 0:
+            raise AssertionError(f"suite workload {name} missing or not positive: {suite}")
+    if not by_metric["slide_1024x2048_multitask_mfu"]["value"] <= 100.0:
+        raise AssertionError(f"suite MFU above 100%: {suite}")
+    res = {"phase": "bench_path", "entry_points": ["bench.py main()",
+                                                   "tools/bench_suite.py main()"],
+           "bench": line, "bench_s": bench_s, "launches": launches,
+           "flop_checks": flop_checks, "flop_gap_cause": cause, "flop_tol": FLOP_TOL,
+           "suite": suite, "seconds": time.perf_counter() - start}
+    emit(res)
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -2112,6 +2240,7 @@ def main() -> int:
     long_res = phase_train_long()
     outproj_res = phase_outproj_path()
     pab_res = phase_profile_attn_bwd()
+    bench_res = phase_bench_path()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
@@ -2121,7 +2250,8 @@ def main() -> int:
                             "training_long": long_res["remat_false"]["launches"][name],
                             "training_long_remat": long_res["remat_true"]["launches"][name],
                             "outproj_experiment": outproj_res["launches"][name],
-                            "profile_attn_bwd": pab_res["launches"][name]}
+                            "profile_attn_bwd": pab_res["launches"][name],
+                            "bench": bench_res["launches"][name]}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",

@@ -31,7 +31,8 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
   (fp32 scores and softmax over the whole row).
 * `LAUNCHES` counts K4's ("flash_attention") and K4b's
   ("flash_attention_bwd", its two CUDA kernels as one) launches, never plain
-  calls.
+  calls; K4's launch also hands its FLOPs to `utils/flops.py::
+  record_kernel_flops`.
 
 Output rows at or beyond `valid_len` are unspecified but finite (they are
 computed against the valid keys); callers slice them off.  In the backward,
@@ -53,6 +54,7 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     check_bnhd,
     mha_attention,
 )
+from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, record_kernel_flops
 
 # Below this sequence length plain attention serves (JAX package
 # `_FLASH_MIN_SEQ`); non-causal sequences up to `_ONESHOT_MAX_SEQ` take the
@@ -233,6 +235,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sca
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
     LAUNCHES["flash_attention"] += 1
+    record_kernel_flops("flash_attention", attention_flops(b, n, kv_len, heads * d))
     return out
 
 

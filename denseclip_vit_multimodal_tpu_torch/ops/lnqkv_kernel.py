@@ -24,7 +24,8 @@ gives the kernel's design and its bound on an H100.
 * `lnqkv_supported` is the JAX rule, residency limit included.
 * `LAUNCHES["ln_qkv_attention"]` counts K6's launches (its three CUDA
   kernels count as one), `LAUNCHES["ln_qkv_projection"]` the first stage's
-  alone; never plain calls.
+  alone; never plain calls.  Each launch also hands its FLOPs (the qkv
+  projection, and K6's attention) to `utils/flops.py::record_kernel_flops`.
 
 The constants below are the port's own copies of the JAX package's
 `ops/mha_kernel.py` values the rule reads.
@@ -40,6 +41,11 @@ import torch
 
 from denseclip_vit_multimodal_tpu_torch.ops.attention import plain_attention
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import _kv_len, attention_prescaled
+from denseclip_vit_multimodal_tpu_torch.utils.flops import (
+    attention_flops,
+    projection_flops,
+    record_kernel_flops,
+)
 
 _LANE = 128
 _LOG2E = 1.4426950408889634
@@ -304,6 +310,8 @@ def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w_qkv: tor
     if err != 0:
         raise RuntimeError(f"fused LN + qkv attention kernel launch failed: cudaError {err}")
     LAUNCHES["ln_qkv_attention"] += 1
+    record_kernel_flops("ln_qkv_attention", projection_flops(b, n, dim, 3 * hd)
+                        + attention_flops(b, n, kv_len, hd))
     return out
 
 
@@ -346,6 +354,7 @@ def ln_qkv_projection(
     if err != 0:
         raise RuntimeError(f"fused LN + qkv projection launch failed: cudaError {err}")
     LAUNCHES["ln_qkv_projection"] += 1
+    record_kernel_flops("ln_qkv_projection", projection_flops(b, n, dim, 3 * hd))
     return workspace
 
 

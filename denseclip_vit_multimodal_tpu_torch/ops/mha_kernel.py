@@ -22,7 +22,8 @@ H100.
   for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
   "qkv_attention_int8" for K5, "quantize_qkv_int8" for its prologue (two
   CUDA kernels, one count), "mha_attention" for K3 and "mha_attention_bwd"
-  for K3's backward.
+  for K3's backward.  Each forward launch also hands its FLOPs to
+  `utils/flops.py::record_kernel_flops` (the prologue 0), for MFU.
 
 The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
 TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
@@ -80,6 +81,8 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, record_kernel_flops
 
 _LANE = 128
 _LOG2E = 1.4426950408889634
@@ -250,6 +253,7 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
     if err != 0:
         raise RuntimeError(f"qkv attention kernel launch failed: cudaError {err}")
     LAUNCHES["qkv_attention"] += 1
+    record_kernel_flops("qkv_attention", attention_flops(b, n, kv_len, hd))
     return out, stats
 
 
@@ -470,6 +474,7 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     if err != 0:
         raise RuntimeError(f"one-shot attention kernel launch failed: cudaError {err}")
     LAUNCHES["mha_attention"] += 1
+    record_kernel_flops("mha_attention", attention_flops(b, n, kv_len, heads * d))
     return out
 
 
@@ -697,6 +702,7 @@ def _launch_quantize_int8(qkv: torch.Tensor, num_heads: int, kv_len: int
     if err != 0:
         raise RuntimeError(f"int8 prologue kernel launch failed: cudaError {err}")
     LAUNCHES["quantize_qkv_int8"] += 1
+    record_kernel_flops("quantize_qkv_int8", 0)  # elementwise work
     return q8, vt, scales
 
 
@@ -730,6 +736,7 @@ def _launch_int8(q8: torch.Tensor, vt: torch.Tensor, scales: torch.Tensor, num_h
     if err != 0:
         raise RuntimeError(f"int8 attention kernel launch failed: cudaError {err}")
     LAUNCHES["qkv_attention_int8"] += 1
+    record_kernel_flops("qkv_attention_int8", attention_flops(b, n, kv_len, hd))
     return out
 
 

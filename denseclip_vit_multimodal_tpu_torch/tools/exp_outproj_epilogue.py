@@ -19,7 +19,9 @@ separate matmul?
     excluded, exp2 softmax, P rounded for P V, one division), the head's
     output rounded to the input dtype, then its product with that head's
     rows of W_out, accumulated over the heads in fp32.
-  * `LAUNCHES["qkv_out_attention"]` counts K7's launches.
+  * `LAUNCHES["qkv_out_attention"]` counts K7's launches; each also hands
+    its FLOPs (attention and out-projection) to `utils/flops.py::
+    record_kernel_flops`.
   * `main()` runs the experiment on the card: agreement first (K7 against
     its plain version and against path A), then an interleaved A / B / A2 /
     B2 timing at [10, 1601, 12, 64], where A = K1 (`mha_qkv_attention`) +
@@ -58,6 +60,11 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     attention_prescaled,
     mha_qkv_attention,
     refuse_softmax_knobs,
+)
+from denseclip_vit_multimodal_tpu_torch.utils.flops import (
+    attention_flops,
+    projection_flops,
+    record_kernel_flops,
 )
 
 LAUNCHES: Dict[str, int] = {"qkv_out_attention": 0}
@@ -120,6 +127,8 @@ def _launch(qkv: torch.Tensor, w_out: torch.Tensor, num_heads: int, scale: float
     if err != 0:
         raise RuntimeError(f"out-projection epilogue kernel launch failed: cudaError {err}")
     LAUNCHES["qkv_out_attention"] += 1
+    record_kernel_flops("qkv_out_attention", attention_flops(b, n, kv_len, hd)
+                        + projection_flops(b, n, hd, hd))
     return out
 
 

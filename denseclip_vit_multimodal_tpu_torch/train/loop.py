@@ -51,6 +51,7 @@ from denseclip_vit_multimodal_tpu_torch.train.state import (
     frozen_modules_from_cfg,
 )
 from denseclip_vit_multimodal_tpu_torch.train.step import make_eval_step, make_train_step
+from denseclip_vit_multimodal_tpu_torch.utils.env import collect_env_info
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -144,6 +145,21 @@ def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger
     return metrics
 
 
+def train_step_from_cfg(texts, training_cfg, data_cfg, seed: int = 0):
+    """`make_train_step` with the `training:` section's loss weights, SILog
+    settings and gradient accumulation, and the `data:` section's augmentation."""
+    lw = training_cfg.get("loss_weights", {}) or {}
+    silog_cfg = training_cfg.get("silog_loss", {}) or {}
+    return make_train_step(
+        texts, augment_config_from_data_cfg(data_cfg),
+        loss_weights={k: float(v) for k, v in dict(lw).items()},
+        silog_lambd=float(silog_cfg.get("lambd", 0.5)),
+        silog_eps=float(silog_cfg.get("eps", 1e-6)),
+        grad_accum_steps=int(training_cfg.get("grad_accum_steps", 1)),
+        seed=seed,
+    )
+
+
 def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[int] = None,
           no_validate: bool = False, device="cuda") -> Dict[str, float]:
     """Train from a config on one device; returns the last epoch's mean
@@ -168,6 +184,7 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
     seed = int(training_cfg.get("seed", 42))
     if "ADE20K" in str(data_cfg.get("dataset_type", "")):
         raise ValueError("ADE20K training is not yet ported to the PyTorch package")
+    logger.info("environment:\n%s", collect_env_info())
 
     train_ds = build_dataset(data_cfg, "train")
     loader = DataLoader(train_ds, batch_size=int(training_cfg.get("batch_size", 8)), seed=seed,
@@ -203,16 +220,8 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
 
     state = create_train_state(model, training_cfg, steps_per_epoch)
     logger.info("frozen modules: %s", list(frozen_modules_from_cfg(training_cfg)))
-    lw = training_cfg.get("loss_weights", {}) or {}
     silog_cfg = training_cfg.get("silog_loss", {}) or {}
-    train_step = make_train_step(
-        texts, augment_config_from_data_cfg(data_cfg),
-        loss_weights={k: float(v) for k, v in dict(lw).items()},
-        silog_lambd=float(silog_cfg.get("lambd", 0.5)),
-        silog_eps=float(silog_cfg.get("eps", 1e-6)),
-        grad_accum_steps=int(training_cfg.get("grad_accum_steps", 1)),
-        seed=seed,
-    )
+    train_step = train_step_from_cfg(texts, training_cfg, data_cfg, seed)
     eval_step = make_eval_step(
         texts, augment_config_from_data_cfg(data_cfg, train=False),
         num_classes=len(CITYSCAPES_CLASSES),

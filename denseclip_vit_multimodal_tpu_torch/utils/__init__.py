@@ -1,1 +1,2 @@
-"""Host-side helpers of the port: PNG coding and colour panels (numpy and zlib only)."""
+"""Host-side helpers of the port: PNG coding, colour panels, timing, FLOP accounting and
+the environment report."""
