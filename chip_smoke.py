@@ -142,7 +142,28 @@ phases that each print one JSON line:
                   unfused, fused and int8 paths: within 0.5%, the gap exactly
                   the pad keys' N x (N - kv_len) scores; the suite
                   (`tools/bench_suite.py`) workloads 2 (with its MFU line) and
-                  9 at few iterations.
+                  9 at few iterations;
+ 23. cityscapes_path — the flagship fine-tuned from an OpenAI CLIP checkpoint
+                  on an on-disk Cityscapes tree, both written here from the
+                  seed (16 train and 4 val 1024x2048 triplets over two cities
+                  a split, every PNG row Paeth-filtered by the port's
+                  encoder: RGB, 8-bit labelIds, 16-bit disparity with zeros;
+                  a stub ViT-B/16 archive under OpenAI's names at the
+                  published shapes in fp16): the host ops built by g++ into
+                  build/host/ and held bitwise against numpy; decode ms per
+                  sample by file, and the loader alone at 1 and 8 threads;
+                  `tools/train.py` (CLIP import, 1 warm-up + 4 steps at
+                  batch 8, crop 512x1024: ms/step, data wait, peak memory,
+                  12 K1 a step; the preset freezes both towers, so no K2),
+                  the import's tensors against the archive's, the first
+                  step's loss with the kernels against plain attention, a
+                  profile of a step with its data wait; `tools/test.py` on
+                  val (slide, crop 624 / stride 426: s/frame, 12 K1 a
+                  frame, finite mIoU and depth metrics);
+                  `tools/train.py --load` (1 step from step
+                  0, the checkpoint's weights); `tools/import_checkpoint.py`
+                  on a reference-format checkpoint, then `tools/test.py` on
+                  one frame of it.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -153,6 +174,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import json
 import os
 import struct
@@ -407,6 +429,7 @@ def phase_kernels() -> dict:
         (2, 4736, 12, 64, 4609, 10),  # aug-test scale 0.75
         (2, 640, 8, 128, 640, 50),  # head dim 128
         (4, 777, 12, 64, None, 50),  # ragged N, valid_len None
+        (8, 2176, 12, 64, 2049, 20),  # the flagship's training: batch 8, crop 512x1024
     ]
     results = []
     for case in cases:
@@ -417,7 +440,7 @@ def phase_kernels() -> dict:
                 and stats_in_limits(res) and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape (the first) is the main path's
+    return results  # the slide shape (the first) and the flagship training's (the last)
 
 
 def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
@@ -472,6 +495,7 @@ BWD_CASES = [
     (10, 1536, 12, 64, 1522, 10),  # slide window batch shape
     (2, 640, 8, 128, None, 20),  # head dim 128
     (4, 777, 12, 64, None, 20),  # ragged N, valid_len None
+    (8, 2176, 12, 64, 2049, 10),  # the flagship's training shape (an unfrozen backbone's K2)
 ]
 
 
@@ -485,7 +509,7 @@ def phase_kernel_bwd() -> dict:
                        and res["rerun_bitwise_equal"]):
             raise AssertionError(f"qkv_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
-    return results[0]  # the training shape is the main path's
+    return results  # the heritage training shape (the first) and the flagship's (the last)
 
 
 def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
@@ -1277,7 +1301,7 @@ def phase_kernel_lnqkv() -> list:
                 and res["stats_bitwise_equal"] and res["stage2_bitwise_equal"]):
             raise AssertionError(f"ln_qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape (the first) is the main path's
+    return results  # the slide shape (the first) and the flagship training's (the last)
 
 
 FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
@@ -1427,20 +1451,26 @@ SERVE_ARGS = ["--mode", "slide", "--device-timeout", "120", "--set", "tpu.attn_i
 
 
 def _paeth_png(frame: np.ndarray) -> bytes:
-    """`frame` as a PNG whose rows all carry the Paeth filter, as encoders
-    pick it for most rows of a photograph: the decoder's anti-diagonal path
-    (the server's own bodies above use filter 0)."""
+    """`frame` (uint8 [H, W, 3] RGB or [H, W] gray, or uint16 [H, W] gray) as a
+    PNG whose rows all carry the Paeth filter, as encoders pick it for most
+    rows of a photograph: the decoder's anti-diagonal path (the server's own
+    bodies above use filter 0).  The filter works on bytes, with bpp =
+    channels x bytes per sample: 2 for 16-bit gray, stored big-endian."""
     from denseclip_vit_multimodal_tpu_torch.utils import png
 
-    x = frame.astype(np.int16)
+    h, w = frame.shape[:2]
+    channels = 1 if frame.ndim == 2 else frame.shape[2]
+    size = frame.dtype.itemsize
+    x = np.ascontiguousarray(frame.astype(frame.dtype.newbyteorder(">"))).view(np.uint8)
+    x = x.reshape(h, w, channels * size).astype(np.int16)
     a = np.pad(x, ((0, 0), (1, 0), (0, 0)))[:, :-1]  # left
     b = np.pad(x, ((1, 0), (0, 0), (0, 0)))[:-1]  # up
     c = np.pad(x, ((1, 0), (1, 0), (0, 0)))[:-1, :-1]  # upper left
     pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
     pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    rows = ((x - pred) % 256).astype(np.uint8).reshape(frame.shape[0], -1)
-    raw = np.concatenate([np.full((frame.shape[0], 1), 4, np.uint8), rows], axis=1)
-    ihdr = struct.pack(">IIBBBBB", frame.shape[1], frame.shape[0], 8, 2, 0, 0, 0)
+    rows = ((x - pred) % 256).astype(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8 * size, 2 if channels == 3 else 0, 0, 0, 0)
     return (png.SIGNATURE + png._chunk(b"IHDR", ihdr)
             + png._chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + png._chunk(b"IEND", b""))
 
@@ -2149,6 +2179,365 @@ def phase_bench_path() -> dict:
     return res
 
 
+CITY_TRAIN, CITY_VAL = 16, 4  # triplets of the written tree, over two cities a split
+CITY_HW = (1024, 2048)
+CITY_STEPS = 5  # through tools/train.py; the first is the warm-up
+CITY_DECODE_SAMPLES = 4  # timed one by one, in one thread
+# 512x1024 crops: 32 x 64 + 1 = 2049 tokens, padded once to 2176
+CITY_TOKENS, CITY_PADDED = 32 * 64 + 1, 2176
+CITY_SLIDE_LAUNCHES = 12  # per 1024x2048 frame: one slide batch of 10 windows, 12 layers
+CITY_VISUAL = (768, 12, 16, 197, 512)  # ViT-B/16: width, layers, patch, positions, proj
+CITY_TEXT = (512, 12, 49408, 77, 512)  # width, layers, vocab, positions, projection
+CITY_CONTEXT = 22  # the text tower's capacity: the pos-embed keeps archive[:22]
+
+
+def write_cityscapes_tree(root: str, seed: int) -> None:
+    """A seeded Cityscapes tree written by the port's own encoder, every row
+    Paeth-filtered: `leftImg8bit` RGB, `gtFine_labelIds` 8-bit gray over ids
+    0..33, `disparity` uint16 with zeros (a fifth of the pixels)."""
+    rs = np.random.RandomState(seed)
+    h, w = CITY_HW
+    for split, n, cities in (("train", CITY_TRAIN, ("aachen", "bochum")),
+                             ("val", CITY_VAL, ("frankfurt", "lindau"))):
+        for i in range(n):
+            city = cities[i % 2]
+            disparity = rs.randint(1, 30000, (h, w)).astype(np.uint16)
+            disparity[rs.rand(h, w) < 0.2] = 0
+            for top, suffix, arr in (
+                    ("leftImg8bit", "leftImg8bit", rs.randint(0, 256, (h, w, 3), dtype=np.uint8)),
+                    ("gtFine", "gtFine_labelIds", rs.randint(0, 34, (h, w)).astype(np.uint8)),
+                    ("disparity", "disparity", disparity)):
+                folder = os.path.join(root, top, split, city)
+                os.makedirs(folder, exist_ok=True)
+                with open(os.path.join(folder, f"{city}_{i:06d}_000019_{suffix}.png"), "wb") as f:
+                    f.write(_paeth_png(arr))
+
+
+def write_stub_clip(path: str, seed: int) -> dict:
+    """A stub OpenAI CLIP ViT-B/16 checkpoint: OpenAI's key names at the
+    published shapes, seeded, in fp16 as released, pickled by torch.save."""
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: (0.02 * torch.randn(*shape, generator=gen)).half()
+    one = lambda n: (1.0 + 0.02 * torch.randn(n, generator=gen)).half()
+
+    def tower(prefix: str, w: int, layers: int) -> dict:
+        out = {}
+        for i in range(layers):
+            b = f"{prefix}.resblocks.{i}."
+            out.update({b + "ln_1.weight": one(w), b + "ln_1.bias": rnd(w),
+                        b + "attn.in_proj_weight": rnd(3 * w, w), b + "attn.in_proj_bias": rnd(3 * w),
+                        b + "attn.out_proj.weight": rnd(w, w), b + "attn.out_proj.bias": rnd(w),
+                        b + "ln_2.weight": one(w), b + "ln_2.bias": rnd(w),
+                        b + "mlp.c_fc.weight": rnd(4 * w, w), b + "mlp.c_fc.bias": rnd(4 * w),
+                        b + "mlp.c_proj.weight": rnd(w, 4 * w), b + "mlp.c_proj.bias": rnd(w)})
+        return out
+
+    vw, vl, patch, vpos, vproj = CITY_VISUAL
+    tw, tl, vocab, tpos, tproj = CITY_TEXT
+    state = {"visual.conv1.weight": rnd(vw, 3, patch, patch), "visual.class_embedding": rnd(vw),
+             "visual.positional_embedding": rnd(vpos, vw), "visual.ln_pre.weight": one(vw),
+             "visual.ln_pre.bias": rnd(vw), **tower("visual.transformer", vw, vl),
+             "visual.ln_post.weight": one(vw), "visual.ln_post.bias": rnd(vw),
+             "visual.proj": rnd(vw, vproj), "token_embedding.weight": rnd(vocab, tw),
+             "positional_embedding": rnd(tpos, tw), **tower("transformer", tw, tl),
+             "ln_final.weight": one(tw), "ln_final.bias": rnd(tw),
+             "text_projection": rnd(tw, tproj), "logit_scale": torch.tensor(4.6052).half()}
+    torch.save(state, path)
+    return state
+
+
+_REFERENCE_NAMES = (  # the port's module names -> the reference trainer's
+    (r"^neck\.process\.(\d+)\.conv\.", r"neck.process_layers.\1.0."),
+    (r"^neck\.process\.(\d+)\.bn\.", r"neck.process_layers.\1.1."),
+    (r"^neck\.fuse\.conv\.", "neck.fusion_layer.0."), (r"^neck\.fuse\.bn\.", "neck.fusion_layer.1."),
+    (r"^(decode_head|depth_head)\.conv0\.", r"\1.0."), (r"^(decode_head|depth_head)\.bn0\.", r"\1.1."),
+    (r"^(decode_head|depth_head)\.conv1\.", r"\1.4."),
+)
+
+
+def reference_checkpoint(clip: dict, model_state: dict, epoch: int) -> dict:
+    """A reference trainer's checkpoint (`module.`-prefixed state_dict under
+    the reference's names): the towers from the CLIP archive's tensors, the
+    neck, heads, projections and contexts from `model_state`, and `gamma`."""
+    import re
+
+    ref = {f"backbone.{k[len('visual.'):]}": v for k, v in clip.items() if k.startswith("visual.")}
+    ref.update({f"text_encoder.{k}": v for k, v in clip.items()
+                if not k.startswith("visual.") and k != "logit_scale"})
+    ref["text_encoder.positional_embedding"] = clip["positional_embedding"][:CITY_CONTEXT]
+    for key, value in model_state.items():
+        if key.split(".")[0] in ("neck", "decode_head", "depth_head", "vis_proj", "global_proj",
+                                 "contexts"):
+            for pattern, repl in _REFERENCE_NAMES:
+                key = re.sub(pattern, repl, key)
+            ref[key] = value.cpu()
+    ref["gamma"] = torch.full((CITY_TEXT[4],), 1e-4)
+    return {"epoch": epoch, "best_metric": None,
+            "state_dict": {f"module.{k}": v for k, v in ref.items()}}
+
+
+def endless(loader):
+    """The loader's batches epoch after epoch (closing it closes the epoch's threads)."""
+    for epoch in itertools.count():
+        yield from loader.epoch(epoch)
+
+
+def phase_cityscapes_path() -> dict:
+    """The flagship fine-tuned from a (stub) OpenAI CLIP checkpoint on an
+    on-disk Cityscapes tree, through the user entry points: `tools/train.py`
+    (CLIP import, CITY_STEPS steps), `tools/test.py` on `val` (slide, crop
+    624 / stride 426), `tools/train.py --load` (1 step), and
+    `tools/import_checkpoint.py` on a reference-format checkpoint, then
+    `tools/test.py` on one frame of it.  The tree, the archive and every work
+    dir live in a temporary dir, removed at the end."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
+        return _cityscapes_path(tmp)
+
+
+def _cityscapes_path(tmp: str) -> dict:
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data import _native
+    from denseclip_vit_multimodal_tpu_torch.data import cityscapes as cs
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.tools import import_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.tools import test as test_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import train as train_tool
+    from denseclip_vit_multimodal_tpu_torch.train import checkpoint as ckpt_lib
+    from denseclip_vit_multimodal_tpu_torch.train.clip_import import load_clip_into_model
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss, silog_loss
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+
+    tree, archive = os.path.join(tmp, "cityscapes"), os.path.join(tmp, "ViT-B-16.pt")
+    work_dir, load_dir = os.path.join(tmp, "wd"), os.path.join(tmp, "wd_load")
+    import_dir, ref_path = os.path.join(tmp, "wd_import"), os.path.join(tmp, "reference.pth")
+    sets = ["--set", f"data.path={tree}", f"model.clip_pretrained={archive}"]
+    cfg = load_config(CONFIG, overrides=sets[1:])
+    seed, batch_size = int(cfg.training.seed), int(cfg.training.batch_size)
+    start = time.perf_counter()
+    write_cityscapes_tree(tree, SEED)
+    clip = write_stub_clip(archive, SEED)
+    written_s = time.perf_counter() - start
+    res = {"phase": "cityscapes_path", "config": CONFIG, "tree": {
+        "train": CITY_TRAIN, "val": CITY_VAL, "frame": list(CITY_HW), "filter": "Paeth",
+        "bytes": sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tree) for f in fs)},
+        "archive_bytes": os.path.getsize(archive), "write_s": written_s,
+        "batch": batch_size, "crop": list(cfg.data.crop_size), "tokens": CITY_TOKENS,
+        "padded_tokens": CITY_PADDED}
+    part = lambda *keys: emit({"phase": "cityscapes_path", **{k: res[k] for k in keys}})
+
+    # the host ops: built by g++ into build/host/, bitwise equal to numpy on the tree's files
+    native = _native.status()
+    train_ds = build_dataset(cfg.data, "train")
+    labels = [cs.read_label_ids(t[1]) for t in train_ds.samples[:2]]
+    disparities = [cs.read_disparity(t[2]) for t in train_ds.samples[:2]]
+    native_ok = native["loaded"] and os.sep + os.path.join("build", "host") in native["path"]
+    native_ok = native_ok and all(
+        np.array_equal(_native.remap_labels(lab, cs.ID_TO_TRAIN_ID, cs.IGNORE_INDEX),
+                       cs.remap_labels_numpy(lab)) for lab in labels)
+    native_ok = native_ok and all(
+        np.array_equal(cs.disparity_to_depth(d)[0], cs.disparity_to_depth_numpy(d)[0])
+        for d in disparities)
+    res["native"] = {**native, "bitwise_equal_to_numpy": native_ok}
+    if not native_ok:
+        raise AssertionError(f"native host ops missing or unequal to numpy: {res['native']}")
+
+    # decode ms per sample (one thread), and the loader alone: one thread and
+    # the preset's `workers` (the decode is Python under the GIL)
+    parts = {"image": cs.read_image, "labels": cs.read_label_ids, "disparity": cs.read_disparity}
+    decode_ms = {name: 0.0 for name in parts}
+    for triplet in train_ds.samples[:CITY_DECODE_SAMPLES]:
+        for (name, read), path in zip(parts.items(), triplet):
+            tick = time.perf_counter()
+            read(path)
+            decode_ms[name] += (time.perf_counter() - tick) * 1e3 / CITY_DECODE_SAMPLES
+    res["decode_ms_per_sample"] = {**decode_ms, "total": sum(decode_ms.values())}
+    workers = int(cfg.training.get("workers", 8))
+    res["loader"] = {"samples": CITY_TRAIN, "samples_per_s_by_threads": {}}
+    for threads in (1, workers):
+        loader = DataLoader(train_ds, batch_size=batch_size, seed=seed, num_threads=threads)
+        tick = time.perf_counter()
+        n = sum(b["image"].shape[0] for b in loader.epoch(0))
+        res["loader"]["samples_per_s_by_threads"][threads] = n / (time.perf_counter() - tick)
+
+    # 1. tools/train.py: CLIP import + CITY_STEPS steps on the tree
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    summary = train_tool.main([CONFIG, "--work-dir", work_dir, "--no-validate",
+                               "--max-steps", str(CITY_STEPS), *sets])
+    train_s = time.perf_counter() - tick
+    launches = read_launches()
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    timed = log[1:]  # the first step pays the set-up
+    res["training"] = {
+        "entry_point": "tools/train.py main()", "steps": len(log), "wall_s": train_s,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+        "launches_per_step": {k: v / len(log) for k, v in launches.items()},
+        "ms_per_step": 1e3 * sum(e["step_s"] for e in timed) / len(timed),
+        "data_wait_ms_per_step": 1e3 * sum(e["data_s"] for e in timed) / len(timed),
+        "first_step": {"step_ms": 1e3 * log[0]["step_s"], "data_wait_ms": 1e3 * log[0]["data_s"]},
+        "samples_per_s": batch_size * len(timed) / sum(e["step_s"] + e["data_s"] for e in timed),
+        "losses": [{k: e[k] for k in ("loss_seg", "loss_silog", "loss_total")} for e in log]}
+    emit(res)  # the set-up, the host ops, decode, the loader and the training run
+    if not (summary["step"] == CITY_STEPS == len(log) and all(
+            np.isfinite(e[k]) and not e["skipped"] for e in log
+            for k in ("loss_seg", "loss_silog", "loss_total"))):
+        raise AssertionError(f"tools/train.py did not take {CITY_STEPS} finite steps: {summary}")
+    # the preset trains the neck and heads on frozen towers (no lr_mults: the
+    # backbone and the text tower stay frozen), so the ViT runs K1 forward only
+    if launches != expected_launches(qkv_attention=12 * CITY_STEPS):
+        raise AssertionError(f"expected {12 * CITY_STEPS} K1 launches in training: {launches}")
+
+    # the import on its own: the archive's tensors under the mapping, fp16 -> fp32
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=seed)
+    n_vis, n_txt = load_clip_into_model(model, archive, cfg.model)
+    own = model.state_dict()
+    vw, vl, patch = CITY_VISUAL[:3]
+    want = {
+        "backbone.patch_embed.weight": clip["visual.conv1.weight"].permute(0, 2, 3, 1).reshape(vw, -1),
+        f"backbone.transformer.blocks.{vl // 2}.attn.qkv.weight":
+            clip[f"visual.transformer.resblocks.{vl // 2}.attn.in_proj_weight"],
+        "text_encoder.positional_embedding": clip["positional_embedding"][:CITY_CONTEXT],
+        # shapes match ([768, 512]): taken, as the JAX importer takes it
+        "backbone.proj": clip["visual.proj"],
+    }
+    import_ok = {k: torch.equal(own[k].cpu(), v.float()) for k, v in want.items()}
+    res["import"] = {"visual_tensors": n_vis, "text_tensors": n_txt, "equal": import_ok}
+    if not (all(import_ok.values()) and n_vis == 12 * vl + 8 and n_txt == 12 * CITY_TEXT[1] + 5):
+        raise AssertionError(f"the CLIP import does not place the archive's tensors: {res['import']}")
+
+    # the first step's total loss, kernels against plain attention: the same
+    # CLIP-imported weights, augmented batch and dropout masks
+    aug_cfg = augment_config_from_data_cfg(cfg.data)
+    loader_iter = endless(loader)
+    try:
+        batch = augment_batch(to_device(next(loader_iter), "cuda"), aug_cfg,
+                              torch.Generator().manual_seed(seed))
+
+        def total_loss() -> float:
+            with torch.no_grad():
+                out = model(batch["image"], texts, train=True, gt_hw=tuple(aug_cfg.crop_size),
+                            gen=torch.Generator(device="cuda").manual_seed(seed))
+                return float(cross_entropy_loss(out["seg"], batch["seg"]) + 0.1 * silog_loss(
+                    out["depth"], batch["depth"], batch["depth_mask"]))
+
+        before = read_launches()["qkv_attention"]
+        kernel_loss = total_loss()
+        kernel_launched = read_launches()["qkv_attention"] - before
+        set_attn_impl(model, "xla")
+        plain_loss = total_loss()
+        set_attn_impl(model, "auto")
+        del batch
+        res["vs_plain"] = {"loss_kernel": kernel_loss, "loss_plain": plain_loss,
+                           "loss_rel_diff": abs(kernel_loss - plain_loss) / abs(plain_loss),
+                           "k1_launches": kernel_launched, "tol": TRAIN_TOL}
+        if not (kernel_launched == 12 and res["vs_plain"]["loss_rel_diff"] <= TRAIN_TOL):
+            raise AssertionError(f"the first step disagrees with plain attention: {res['vs_plain']}")
+
+        # where a step's time goes, data wait included (the "frame" is a step)
+        state = create_train_state(model, cfg.training, len(loader))
+        step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+        step(state, to_device(next(loader_iter), "cuda"))  # warm-up
+        res["profile"] = phase_profile(lambda _: step(state, to_device(next(loader_iter), "cuda")),
+                                       [0], path="cityscapes_training")
+    finally:
+        loader_iter.close()
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    # 2. tools/test.py on val: the flagship's slide protocol
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    results = test_tool.main([CONFIG, work_dir, "--mode", "slide", "--single-protocol",
+                              "--eval", "mIoU", "depth", *sets])
+    launches = read_launches()
+    keys = ["mIoU", "pixel_acc"] + [f"depth/{k}" for k in
+                                    ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")]
+    res["eval"] = {"entry_point": "tools/test.py main()", "frames": CITY_VAL,
+                   "timed_frames": CITY_VAL - 1, "wall_s": time.perf_counter() - tick,
+                   "s_per_frame": 1.0 / results["images_per_sec"],
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+                   "metrics": {k: results.get(k) for k in keys}}
+    part("import", "vs_plain", "eval")
+    if launches != expected_launches(qkv_attention=CITY_SLIDE_LAUNCHES * CITY_VAL):
+        raise AssertionError(f"expected {CITY_SLIDE_LAUNCHES} K1 launches a frame: {launches}")
+    if not all(results.get(k) is not None and np.isfinite(results[k]) for k in keys):
+        raise AssertionError(f"non-finite evaluation metrics: {res['eval']['metrics']}")
+
+    # 3. tools/train.py --load: the checkpoint's weights, a fresh optimizer, step 0
+    source = torch.load(os.path.join(work_dir, "checkpoints", "latest"), map_location="cpu",
+                        weights_only=True)
+    loaded = {}
+    load_model_weights = ckpt_lib.load_model_weights
+
+    def capture(path, model, which="latest"):
+        epoch = load_model_weights(path, model, which)
+        loaded.update({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        return epoch
+
+    ckpt_lib.load_model_weights = capture
+    reset_launches()
+    try:
+        summary = train_tool.main([CONFIG, "--work-dir", load_dir, "--no-validate",
+                                   "--max-steps", "1", "--load", work_dir, *sets])
+    finally:
+        ckpt_lib.load_model_weights = load_model_weights
+    launches = read_launches()
+    with open(os.path.join(load_dir, "train_log.jsonl")) as f:
+        load_log = [json.loads(line) for line in f]
+    res["load"] = {"entry_point": "tools/train.py --load", "source_step": source["step"],
+                   "steps": [e["step"] for e in load_log], "launches": launches,
+                   "weights_equal_checkpoint": sorted(loaded) == sorted(source["model"]) and all(
+                       torch.equal(loaded[k], source["model"][k]) for k in loaded),
+                   "loss_total": load_log[0]["loss_total"]}
+    part("load")
+    if not (res["load"]["weights_equal_checkpoint"] and summary["step"] == 1
+            and [e["step"] for e in load_log] == [1] and np.isfinite(load_log[0]["loss_total"])
+            and launches == expected_launches(qkv_attention=12)):
+        raise AssertionError(f"--load did not start at step 0 from the checkpoint: {res['load']}")
+
+    # 4. tools/import_checkpoint.py on a reference-format checkpoint, then one frame of it
+    torch.save(reference_checkpoint(clip, source["model"], epoch=3), ref_path)
+    import_checkpoint.main([CONFIG, ref_path, "--out", import_dir, *sets])
+    imported = torch.load(os.path.join(import_dir, "checkpoints", "latest"), map_location="cpu",
+                          weights_only=True)["model"]
+    same = ("neck.fuse.bn.running_var", "decode_head.classifier.weight", "depth_head.conv1.bias",
+            "vis_proj.weight", "contexts")
+    import_ok = {k: torch.equal(imported[k], want[k].float()) for k in want}
+    import_ok.update({k: torch.equal(imported[k], source["model"][k]) for k in same})
+    reset_launches()
+    results = test_tool.main([CONFIG, import_dir, "--mode", "slide", "--single-protocol",
+                              "--max-samples", "1", "--eval", "mIoU", "depth", *sets])
+    launches = read_launches()
+    res["import_checkpoint"] = {"entry_point": "tools/import_checkpoint.py main()",
+                                "equal": import_ok, "launches": launches,
+                                "metrics": {k: results.get(k) for k in keys}}
+    part("import_checkpoint")
+    if not all(import_ok.values()):
+        raise AssertionError(f"import_checkpoint misplaced tensors: {import_ok}")
+    if launches != expected_launches(qkv_attention=CITY_SLIDE_LAUNCHES) or not all(
+            results.get(k) is not None and np.isfinite(results[k]) for k in keys):
+        raise AssertionError(f"tools/test.py on the imported checkpoint: {res['import_checkpoint']}")
+    torch.cuda.empty_cache()
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -2220,8 +2609,10 @@ def main() -> int:
         return 1
     smi = phase_device()
     phase_build()
-    slide = phase_kernels()[0]
-    train_shape = phase_kernel_bwd()
+    k1_cases = phase_kernels()
+    slide, k1_city = k1_cases[0], k1_cases[-1]
+    k2_cases = phase_kernel_bwd()
+    train_shape, k2_city = k2_cases[0], k2_cases[-1]
     flashes = phase_kernel_flash()
     longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
     serving = phase_kernel_int8()[0]
@@ -2241,6 +2632,7 @@ def main() -> int:
     outproj_res = phase_outproj_path()
     pab_res = phase_profile_attn_bwd()
     bench_res = phase_bench_path()
+    city_res = phase_cityscapes_path()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
@@ -2251,7 +2643,9 @@ def main() -> int:
                             "training_long_remat": long_res["remat_true"]["launches"][name],
                             "outproj_experiment": outproj_res["launches"][name],
                             "profile_attn_bwd": pab_res["launches"][name],
-                            "bench": bench_res["launches"][name]}
+                            "bench": bench_res["launches"][name],
+                            "cityscapes_training": city_res["training"]["launches"][name],
+                            "cityscapes_eval": city_res["eval"]["launches"][name]}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
@@ -2264,20 +2658,22 @@ def main() -> int:
         **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal",
                                "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res},
     }
-    at_256 = lambda res: {k: res[k] for k in (
-        "shape", "valid_len", "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
-        "tflops", "tflops_5_products", "tflops_8_products", "rerun_bitwise_equal",
+    at_shape = lambda res: {k: res[k] for k in (
+        "shape", "valid_len", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "tflops", "tflops_5_products", "tflops_8_products", "rerun_bitwise_equal",
         "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res}
     emit({"kernels": [
-        entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
-              main_res["launches"]["qkv_attention"]),
-        entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240", train_shape,
-              train_res["launches"]["qkv_attention_bwd"]),
+        {**entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
+                 main_res["launches"]["qkv_attention"]),
+         "cityscapes_training_shape": at_shape(k1_city)},
+        {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
+                 train_shape, train_res["launches"]["qkv_attention_bwd"]),
+         "cityscapes_training_shape": at_shape(k2_city)},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),
          "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "
                    "warpgroup, wgmma consumer warpgroups",
-         "head_dim_256": at_256(flash_256)},
+         "head_dim_256": at_shape(flash_256)},
         {**entry("qkv_attention_int8", "qkv_attention_int8.cu", "ops/mha_kernel.py:586",
                  serving, serve_res["launches"]["qkv_attention_int8"]),
          "design": "int8 wgmma (m64n128k32 S, register-A P V) + TMA, two passes over K"},
@@ -2297,11 +2693,11 @@ def main() -> int:
                  "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
                  ":1146 (dq, call :1456)", flash_bwd,
                  long_res["remat_false"]["launches"]["flash_attention_bwd"]),
-         "head_dim_256": at_256(flash_bwd_256)},
+         "head_dim_256": at_shape(flash_bwd_256)},
         {**entry("mha_attention_bwd", "qkv_attention_bwd.cu",
                  "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
                  pab_res["launches"]["mha_attention_bwd"]),
-         "head_dim_256": at_256(oneshot_bwd_256)},
+         "head_dim_256": at_shape(oneshot_bwd_256)},
         {**entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
                  outproj_res, outproj_res["launches"]["qkv_out_attention"]),
          "design": "attention on TMA + wgmma with every head's output kept in shared memory, "

@@ -13,7 +13,17 @@ JAX package the resampling is separable and runs as two matrix products per
 array (`out = Wy @ src @ Wx^T`); the geometry (scale, integer crop offset,
 flip) is drawn per sample on the host from a `torch.Generator`, so the
 device never waits on a random number.  The depth mask is depth > 0 after
-the transform.  ColorJitter is not ported: asking for it raises.
+the transform.
+
+ColorJitter (the reference's `A.ColorJitter(0.4, 0.4, 0.4, hue=0.1, p=0.8)`
+under `color_jitter: true`) runs on the device after the resampling (so
+after the flip) and before normalisation, on [0, 255] float RGB, with the
+JAX package's formulas: brightness, contrast and saturation factors uniform
+in [max(0, 1 - x), 1 + x], the hue offset uniform in [-hue, hue], contrast
+and saturation blended against the ITU-R 601 gray (its mean for contrast),
+hue through HSV, the four in a random order, the whole with probability
+`color_jitter_prob`.  Its draws come from the same host generator, after the
+sample's geometry; `color_jitter` takes them explicitly.
 
 `eval_preprocess_batch` is the validation transform: resize to the crop
 (antialiased, as `jax.image.resize`) and normalise; labels keep their size.
@@ -28,6 +38,8 @@ import torch
 from denseclip_vit_multimodal_tpu_torch.models.layers import resize_bilinear
 
 Geometry = Tuple[float, float, float, float, bool]  # (sy, sx, oy, ox, flip)
+# (brightness, contrast, saturation factors, hue offset, order of the four ops)
+Jitter = Tuple[float, float, float, float, Tuple[int, ...]]
 
 
 class AugmentConfig(NamedTuple):
@@ -37,6 +49,12 @@ class AugmentConfig(NamedTuple):
     norm_mean: Tuple[float, float, float] = (0.48145466, 0.4578275, 0.40821073)
     norm_std: Tuple[float, float, float] = (0.26862954, 0.26130258, 0.27577711)
     ignore_index: int = 255
+    # ColorJitter half-ranges; all zero disables it
+    brightness: float = 0.0
+    contrast: float = 0.0
+    saturation: float = 0.0
+    hue: float = 0.0
+    color_jitter_prob: float = 1.0
 
 
 def normalize_image(image: torch.Tensor, mean: Sequence[float], std: Sequence[float]
@@ -132,10 +150,90 @@ def _resample_nearest_mm(arr: torch.Tensor, wy_nn: torch.Tensor, wx_nn: torch.Te
     return vals.to(arr.dtype) if arr.is_floating_point() else torch.round(vals).to(arr.dtype)
 
 
+def _sample_jitter(gen: torch.Generator, cfg: AugmentConfig) -> Optional[Jitter]:
+    """Draw one sample's ColorJitter: None when the config has none or the
+    draw against `color_jitter_prob` skips it."""
+    if not (cfg.brightness or cfg.contrast or cfg.saturation or cfg.hue):
+        return None
+    u = torch.rand(5, generator=gen, dtype=torch.float32)
+    order = tuple(torch.randperm(4, generator=gen).tolist())
+
+    def factor(uu, half):
+        lo, hi = _f32(max(0.0, 1.0 - half)), _f32(1.0 + half)
+        return float(lo + (hi - lo) * uu)
+
+    if not bool(u[4] < cfg.color_jitter_prob):
+        return None
+    return (factor(u[0], cfg.brightness), factor(u[1], cfg.contrast),
+            factor(u[2], cfg.saturation), float(_f32(-cfg.hue) + _f32(2 * cfg.hue) * u[3]), order)
+
+
+def _rgb_to_hsv(rgb: torch.Tensor):
+    """[..., 3] RGB in [0, 1] -> (h, s, v), h in [0, 1)."""
+    r, g, b = rgb.unbind(-1)
+    maxc, minc = rgb.amax(-1), rgb.amin(-1)
+    delta = maxc - minc
+    safe = delta.clamp(min=1e-12)
+    zero = torch.zeros_like(maxc)
+    s = torch.where(maxc > 0, delta / maxc.clamp(min=1e-12), zero)
+    rc, gc, bc = (maxc - r) / safe, (maxc - g) / safe, (maxc - b) / safe
+    h = torch.where(maxc == r, bc - gc, torch.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(delta > 0, torch.remainder(h / 6.0, 1.0), zero)
+    return h, s, maxc
+
+
+def _hsv_to_rgb(h: torch.Tensor, s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    i = torch.floor(h * 6.0)
+    f = h * 6.0 - i
+    p = v * (1.0 - s)
+    q = v * (1.0 - f * s)
+    t = v * (1.0 - (1.0 - f) * s)
+    idx = (i.to(torch.int64) % 6)[..., None]
+    pick = lambda *c: torch.stack(c, -1).gather(-1, idx)[..., 0]
+    return torch.stack([pick(v, q, p, p, t, v), pick(t, v, v, q, p, p),
+                        pick(p, p, t, v, v, q)], dim=-1)
+
+
+_GRAY_WEIGHTS = (0.299, 0.587, 0.114)  # ITU-R 601, torchvision's rgb_to_grayscale
+
+
+def _gray(img: torch.Tensor) -> torch.Tensor:
+    w = torch.tensor(_GRAY_WEIGHTS, dtype=torch.float32, device=img.device)
+    return (img * w).sum(-1, keepdim=True)
+
+
+def color_jitter(img: torch.Tensor, jitter: Jitter) -> torch.Tensor:
+    """ColorJitter of [..., 3] float RGB in [0, 255] with the given factors,
+    hue offset and order of the ops (0 brightness, 1 contrast, 2 saturation,
+    3 hue)."""
+    fb, fc, fs, fh, order = jitter
+
+    def brightness(x):
+        return (x * fb).clamp(0.0, 255.0)
+
+    def contrast(x):
+        m = _gray(x).mean()
+        return (fc * x + (1.0 - fc) * m).clamp(0.0, 255.0)
+
+    def saturation(x):
+        return (fs * x + (1.0 - fs) * _gray(x)).clamp(0.0, 255.0)
+
+    def hue(x):
+        h, s, v = _rgb_to_hsv(x / 255.0)
+        return _hsv_to_rgb(torch.remainder(h + fh, 1.0), s, v) * 255.0
+
+    ops = (brightness, contrast, saturation, hue)
+    for t in order:
+        img = ops[t](img)
+    return img
+
+
 def augment_sample(image: torch.Tensor, seg: Optional[torch.Tensor], depth: Optional[torch.Tensor],
-                   cfg: AugmentConfig, geometry: Geometry) -> Dict[str, torch.Tensor]:
-    """One sample through the fused chain, given its geometry: image [H, W, 3],
-    seg [H, W] int, depth [H, W] float -> crop-sized arrays on their device."""
+                   cfg: AugmentConfig, geometry: Geometry, jitter: Optional[Jitter] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """One sample through the fused chain, given its geometry and jitter (None:
+    none): image [H, W, 3], seg [H, W] int, depth [H, W] float -> crop-sized
+    arrays on their device."""
     src_hw = (image.shape[0], image.shape[1])
     y, x = _source_coords_1d(geometry, cfg.crop_size, src_hw, device=image.device)
     wy_lin, wx_lin, wy_nn, wx_nn = _interp_matrices(y, x, src_hw)
@@ -147,6 +245,8 @@ def augment_sample(image: torch.Tensor, seg: Optional[torch.Tensor], depth: Opti
         out["depth"] = d
         out["depth_mask"] = d > 0.0
     img = _resample_bilinear_mm(image, wy_lin, wx_lin)
+    if jitter is not None:
+        img = color_jitter(img, jitter)
     out["image"] = normalize_image(img, cfg.norm_mean, cfg.norm_std)
     return out
 
@@ -154,15 +254,16 @@ def augment_sample(image: torch.Tensor, seg: Optional[torch.Tensor], depth: Opti
 def augment_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig, gen: torch.Generator
                   ) -> Dict[str, torch.Tensor]:
     """Augment every sample of `batch` ('image' [B,H,W,3]; optional 'seg',
-    'depth' [B,H,W]) with geometry drawn from the host generator `gen`."""
+    'depth' [B,H,W]) with geometry and jitter drawn from the host generator
+    `gen`, sample by sample."""
     image = batch["image"]
     src_hw = (image.shape[1], image.shape[2])
-    samples = [
-        augment_sample(image[i], None if "seg" not in batch else batch["seg"][i],
-                       None if "depth" not in batch else batch["depth"][i],
-                       cfg, _sample_geometry(gen, src_hw, cfg))
-        for i in range(image.shape[0])
-    ]
+    samples = []
+    for i in range(image.shape[0]):
+        geometry = _sample_geometry(gen, src_hw, cfg)
+        samples.append(augment_sample(image[i], None if "seg" not in batch else batch["seg"][i],
+                                      None if "depth" not in batch else batch["depth"][i],
+                                      cfg, geometry, _sample_jitter(gen, cfg)))
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 
@@ -186,12 +287,13 @@ def eval_preprocess_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig
 
 def augment_config_from_data_cfg(data_cfg, train: bool = True) -> AugmentConfig:
     """The AugmentConfig from the `data:` config section (the JAX package's
-    keys); `train=False` gives the evaluation one (no flip, no jitter)."""
+    keys); `train=False` gives the evaluation one (no flip, no jitter).
+    `color_jitter: true` sets the reference's 0.4 / 0.4 / 0.4 / hue 0.1 at
+    p 0.8; `augment.{brightness,contrast,saturation,hue,color_jitter_prob}`
+    override them."""
     aug = data_cfg.get("augment", {}) or {}
-    jitter = bool(data_cfg.get("color_jitter", False)) or any(
-        float(aug.get(k, 0.0)) for k in ("brightness", "contrast", "saturation", "hue"))
-    if jitter and train:
-        raise ValueError("ColorJitter is not yet ported to the PyTorch package")
+    cj = bool(data_cfg.get("color_jitter", False)) and train
+    jitter = lambda key, on: float(aug.get(key, on if cj else 0.0)) if train else 0.0
     return AugmentConfig(
         crop_size=tuple(data_cfg.get("crop_size", (512, 1024))),
         scale_range=tuple(data_cfg.get("scale_range", (0.5, 2.0))),
@@ -199,4 +301,9 @@ def augment_config_from_data_cfg(data_cfg, train: bool = True) -> AugmentConfig:
         norm_mean=tuple(data_cfg.get("norm_mean", AugmentConfig().norm_mean)),
         norm_std=tuple(data_cfg.get("norm_std", AugmentConfig().norm_std)),
         ignore_index=int(data_cfg.get("ignore_label", 255)),
+        brightness=jitter("brightness", 0.4),
+        contrast=jitter("contrast", 0.4),
+        saturation=jitter("saturation", 0.4),
+        hue=jitter("hue", 0.1),
+        color_jitter_prob=float(aug.get("color_jitter_prob", 0.8 if cj else 1.0)),
     )

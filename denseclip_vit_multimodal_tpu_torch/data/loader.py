@@ -90,9 +90,12 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def build_dataset(data_cfg, split: str):
-    """Dataset dispatch on `data.dataset_type`; only the synthetic backend
-    (`data.synthetic: true` or type SyntheticDataset) is ported."""
+    """Dataset dispatch on `data.dataset_type`: the synthetic backend
+    (`data.synthetic: true` or type SyntheticDataset) and the Cityscapes
+    readers (CityscapesDepthSegDataset, CityscapesDataset) rooted at
+    `data.path`.  ADE20K is not ported yet."""
     dtype_name = data_cfg.get("dataset_type", "CityscapesDepthSegDataset")
+    root = str(data_cfg.get("path", "data/cityscapes"))
     if dtype_name == "SyntheticDataset" or data_cfg.get("synthetic", False):
         from denseclip_vit_multimodal_tpu_torch.data.synthetic import SyntheticDataset
 
@@ -107,5 +110,13 @@ def build_dataset(data_cfg, split: str):
             seed=int(syn.get("seed", 0)) + (0 if split == "train" else 7919),
             learnable=bool(syn.get("learnable", False)),
         )
-    raise ValueError(f"dataset_type {dtype_name!r} not yet ported to the PyTorch package "
-                     "(set data.synthetic=true)")
+    if dtype_name == "CityscapesDepthSegDataset":
+        from denseclip_vit_multimodal_tpu_torch.data.cityscapes import CityscapesDepthSegDataset
+
+        return CityscapesDepthSegDataset(root, split=split,
+                                         depth_max=float(data_cfg.get("depth_max", 80.0)))
+    if dtype_name == "CityscapesDataset":
+        from denseclip_vit_multimodal_tpu_torch.data.cityscapes import CityscapesDataset
+
+        return CityscapesDataset(root, split=split)
+    raise ValueError(f"dataset_type {dtype_name!r} not yet ported to the PyTorch package")

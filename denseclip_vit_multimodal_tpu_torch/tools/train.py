@@ -8,7 +8,10 @@ Runs on `cuda` unless `--device cpu`.  Validates every `eval_interval`
 epochs unless `--no-validate`.  `--deterministic` calls
 `utils/env.py::set_determinism` before anything runs (the JAX flag's
 "highest matmul precision": TF32 off, deterministic algorithms where PyTorch
-has them).  `--load` is not ported yet.
+has them).  `--resume` continues a run from its checkpoint (weights,
+optimizer, step); `--load` warm-starts from a checkpoint's weights and
+BatchNorm statistics alone, with a fresh optimizer at step 0 (a work dir of
+`tools/train.py` or of `tools/import_checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ def parse_args(argv=None):
     p.add_argument("config", help="config YAML path or preset name")
     p.add_argument("--work-dir", default=None, help="output directory")
     p.add_argument("--resume", default=None, help="checkpoint file or work dir to resume from")
+    p.add_argument("--load", default=None,
+                   help="checkpoint file or work dir to warm-start the weights from")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--deterministic", action="store_true",
                    help="TF32 off and deterministic algorithms (utils/env.py::set_determinism)")
@@ -49,8 +54,9 @@ def main(argv=None):
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(str(args.config)))[0])
     metrics = train(cfg, work_dir, resume=args.resume, max_steps=args.max_steps,
-                    no_validate=args.no_validate, device=args.device)
+                    no_validate=args.no_validate, device=args.device, load=args.load)
     print({k: round(v, 4) for k, v in metrics.items()})
+    return metrics
 
 
 if __name__ == "__main__":

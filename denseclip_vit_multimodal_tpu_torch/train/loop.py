@@ -18,11 +18,19 @@ carries over from the reference loop:
     pixel accuracy, the depth errors and the validation losses, reduced on
     the device and read once per epoch; a better mIoU saves `best`.
 
-Per-step metrics (and `step_s`, the host seconds of the step, from the batch
-on the host to its losses read back) go to `<work_dir>/train_log.jsonl`, and
-every `log_interval` steps to the log; validation metrics to the log.  CLIP
-checkpoint import, orbax checkpoints, the validation PNG panels and the
-mesh / FSDP / pipeline / multi-host branches are not ported.
+  * `model.clip_pretrained`, where the file exists, is imported into the
+    towers (`train/clip_import.py`) before anything else touches the
+    weights; a missing file trains from the seeded init with a warning;
+  * `load=` (`tools/train.py --load`) warm-starts: the model's weights and
+    BatchNorm statistics from a checkpoint of the port's format, a fresh
+    optimizer and step 0; a checkpoint of another model raises.
+
+Per-step metrics (with `step_s`, the host seconds of the step, from the batch
+on the host to its losses read back, and `data_s`, the host seconds spent
+waiting for that batch) go to `<work_dir>/train_log.jsonl`, and every
+`log_interval` steps to the log; validation metrics to the log.  Orbax
+checkpoints, the validation PNG panels and the mesh / FSDP / pipeline /
+multi-host branches are not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_
 from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
 from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES, build_denseclip
 from denseclip_vit_multimodal_tpu_torch.train import checkpoint as ckpt_lib
+from denseclip_vit_multimodal_tpu_torch.train.clip_import import load_clip_into_model
 from denseclip_vit_multimodal_tpu_torch.train.metrics import (
     accuracy_from_confusion,
     finalize_depth_errors,
@@ -161,14 +170,17 @@ def train_step_from_cfg(texts, training_cfg, data_cfg, seed: int = 0):
 
 
 def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[int] = None,
-          no_validate: bool = False, device="cuda") -> Dict[str, float]:
+          no_validate: bool = False, device="cuda", load: Optional[str] = None
+          ) -> Dict[str, float]:
     """Train from a config on one device; returns the last epoch's mean
-    training metrics, the last validation's metrics and the global `step`."""
+    training metrics, the last validation's metrics and the global `step`.
+    `resume` continues a run (weights, optimizer, step); `load` warm-starts
+    from a checkpoint's weights alone."""
     logger = setup_logger(work_dir)
     shutdown = GracefulShutdown(logger)  # before the build: a SIGTERM then still stops cleanly
     try:
-        return _train(cfg, work_dir, resume, max_steps, no_validate, torch.device(device), logger,
-                      shutdown)
+        return _train(cfg, work_dir, resume, load, max_steps, no_validate, torch.device(device),
+                      logger, shutdown)
     finally:
         shutdown.restore()
         for handler in list(logger.handlers):
@@ -176,7 +188,7 @@ def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[
             logger.removeHandler(handler)
 
 
-def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdown
+def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, shutdown
            ) -> Dict[str, float]:
     tpu_cfg = cfg.get("tpu", {}) or {}
     training_cfg = cfg.get("training", {}) or {}
@@ -213,9 +225,10 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
     logger.info("params: %.2fM on %s", count_params(model) / 1e6, device)
     clip_path = cfg.model.get("clip_pretrained")
     if clip_path and os.path.exists(str(clip_path)):
-        raise NotImplementedError("CLIP checkpoint import is not yet ported to the PyTorch "
-                                  f"package ({clip_path})")
-    if clip_path:
+        n_vis, n_txt = load_clip_into_model(model, clip_path, cfg.model)
+        logger.info("loaded CLIP weights from %s: %d visual / %d text tensors", clip_path,
+                    n_vis, n_txt)
+    elif clip_path:
         logger.warning("clip_pretrained %s not found; training from scratch", clip_path)
 
     state = create_train_state(model, training_cfg, steps_per_epoch)
@@ -233,6 +246,10 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
         last_epoch, best_metric = ckpt_lib.restore_checkpoint(resume, state)
         start_epoch = last_epoch + 1
         logger.info("resumed from %s at epoch %d, step %d", resume, start_epoch, state.step)
+    elif load:
+        loaded_epoch = ckpt_lib.load_model_weights(load, state.model)
+        logger.info("warm-started weights from %s (its epoch %d); optimizer fresh, step 0",
+                    load, loaded_epoch)
     if hasattr(cfg, "dump"):
         cfg.dump(os.path.join(work_dir, "final_config.yaml"))
 
@@ -250,20 +267,23 @@ def _train(cfg, work_dir, resume, max_steps, no_validate, device, logger, shutdo
             t_epoch = time.time()
             sums: Dict[str, float] = {}
             steps = 0
+            tock = time.perf_counter()
             for host_batch in loader.epoch(epoch):
                 tick = time.perf_counter()
+                data_s = tick - tock  # waiting for the loader's threads
                 metrics = train_step(state, to_device(host_batch, device))
                 step_s = time.perf_counter() - tick  # the step reads its losses back: synced
                 steps += 1
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + v
                 log_file.write(json.dumps({"epoch": epoch, "step": state.step, **metrics,
-                                           "step_s": step_s}) + "\n")
+                                           "step_s": step_s, "data_s": data_s}) + "\n")
                 if state.step % log_interval == 0:
                     logger.info("epoch %d step %d: %s", epoch, state.step,
                                 {k: round(v, 4) for k, v in metrics.items()})
                 if budget_met() or shutdown.requested:
                     break
+                tock = time.perf_counter()
             epoch_means = {k: v / max(steps, 1) for k, v in sums.items()}
             logger.info("epoch %d done in %.1fs: %s", epoch, time.time() - t_epoch,
                         {k: round(v, 4) for k, v in epoch_means.items()})

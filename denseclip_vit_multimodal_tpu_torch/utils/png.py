@@ -1,21 +1,27 @@
 """PNG decode and encode with zlib and numpy alone (no Pillow).
 
-The JAX package's server decodes and encodes through Pillow; the port's
-server takes PNG through this module, so it serves on a machine that has no
-Pillow.
+The JAX package decodes and encodes through Pillow; the port's server and
+its Cityscapes readers take PNG through this module, so they run on a
+machine that has no Pillow.
 
 * `read_header` parses the IHDR chunk only (the size is known before any
   pixel is inflated, for the server's decompression-bomb guard).
 * `decode_png` takes 8-bit, non-interlaced gray, gray + alpha, RGB, RGBA and
   palette images and returns uint8 RGB [H, W, 3], as Pillow's
   `convert("RGB")` does: gray is replicated, alpha dropped, palette indices
-  looked up (indices past the palette read black).  All five row filters
-  are undone: None / Sub / Up row by row, any image with Average or Paeth
-  rows (what most encoders write for photographs) by anti-diagonals.  Other
-  bit depths, interlacing, and images whose unfilter would take more than
-  `MAX_UNFILTER_STEPS` numpy steps raise `ValueError`.
-* `encode_png` writes uint8 RGB [H, W, 3] (or gray [H, W]) with filter 0 on
-  every row.
+  looked up (indices past the palette read black).
+* `decode_png_array` returns the samples as the file holds them, as
+  `np.asarray(Image.open(...))` does: 8-bit gray uint8 [H, W], 16-bit gray
+  uint16 [H, W] (big-endian in the file), 8-bit RGB uint8 [H, W, 3] (gray +
+  alpha and RGBA [H, W, 2 | 4], palette images their indices [H, W]).  It
+  reads Cityscapes' labels and disparity maps raw.
+* Both undo all five row filters on BYTES, with bpp = channels x bytes per
+  sample (2 for 16-bit gray): None / Sub / Up row by row, any image with
+  Average or Paeth rows (what most encoders write for photographs) by
+  anti-diagonals.  Other bit depths, interlacing, and images whose unfilter
+  would take more than `MAX_UNFILTER_STEPS` numpy steps raise `ValueError`.
+* `encode_png` writes uint8 RGB [H, W, 3], uint8 gray [H, W] or uint16 gray
+  [H, W] with filter 0 on every row.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from __future__ import annotations
 import functools
 import struct
 import zlib
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
@@ -155,13 +161,17 @@ def _unfilter_wavefront(ftypes: np.ndarray, rows: np.ndarray, bpp: int) -> np.nd
     return out
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """PNG bytes -> uint8 RGB [H, W, 3]."""
+def _decode_samples(data: bytes, gray16: bool
+                    ) -> Tuple[PNGHeader, np.ndarray, Optional[np.ndarray]]:
+    """PNG bytes -> (header, samples [H, W, channels]; uint8, or uint16 for
+    16-bit gray where `gray16`, palette [n, 3] or None).  Palette images give
+    their indices: the caller looks them up."""
     hdr = read_header(data)
-    if hdr.bit_depth != 8 or hdr.color_type not in _CHANNELS or hdr.interlace != 0:
+    depth_ok = hdr.bit_depth == 8 or (gray16 and hdr.bit_depth == 16 and hdr.color_type == 0)
+    if not depth_ok or hdr.color_type not in _CHANNELS or hdr.interlace != 0:
         raise ValueError(f"unsupported PNG: bit depth {hdr.bit_depth}, color type "
-                         f"{hdr.color_type}, interlace {hdr.interlace} (8-bit, "
-                         "non-interlaced only)")
+                         f"{hdr.color_type}, interlace {hdr.interlace} (8-bit"
+                         f"{' or 16-bit gray' if gray16 else ''}, non-interlaced only)")
     if hdr.width < 1 or hdr.height < 1:
         raise ValueError(f"PNG of size {hdr.width}x{hdr.height}")
     idat, palette = [], None
@@ -173,7 +183,8 @@ def decode_png(data: bytes) -> np.ndarray:
     if hdr.color_type == 3 and palette is None:
         raise ValueError("palette PNG without a PLTE chunk")
     ch = _CHANNELS[hdr.color_type]
-    stride = 1 + hdr.width * ch
+    bpp = ch * hdr.bit_depth // 8  # bytes per pixel: the filters' unit
+    stride = 1 + hdr.width * bpp
     need = hdr.height * stride
     try:
         inflate = zlib.decompressobj()
@@ -192,14 +203,29 @@ def decode_png(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG of {hdr.height}x{hdr.width} would take {steps} unfilter steps "
                          f"(at most {MAX_UNFILTER_STEPS})")
     unfilter = _unfilter_rows if by_rows else _unfilter_wavefront
-    px = unfilter(ftypes, filtered, ch).reshape(hdr.height, hdr.width, ch)
+    px = unfilter(ftypes, filtered, bpp)  # bytes; samples only after the unfilter
+    if hdr.bit_depth == 16:
+        px = px.view(">u2").astype(np.uint16)
+    return hdr, px.reshape(hdr.height, hdr.width, ch), palette
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 RGB [H, W, 3]."""
+    hdr, px, palette = _decode_samples(data, gray16=False)
     if hdr.color_type == 3:
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[px[..., 0]]
-    if ch <= 2:  # gray, gray + alpha
+    if px.shape[-1] <= 2:  # gray, gray + alpha
         return np.repeat(px[..., :1], 3, axis=-1)
     return np.ascontiguousarray(px[..., :3])
+
+
+def decode_png_array(data: bytes) -> np.ndarray:
+    """PNG bytes -> the samples as stored: [H, W] for gray and palette
+    images (uint16 at bit depth 16), else [H, W, channels] uint8."""
+    _, px, _ = _decode_samples(data, gray16=True)
+    return px[..., 0] if px.shape[-1] == 1 else px
 
 
 def _chunk(ctype: bytes, body: bytes) -> bytes:
@@ -208,16 +234,19 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def encode_png(image: np.ndarray, level: int = 6) -> bytes:
-    """uint8 RGB [H, W, 3] or gray [H, W] -> PNG bytes (filter 0, zlib `level`)."""
-    if image.dtype != np.uint8 or image.ndim not in (2, 3) or (
-            image.ndim == 3 and image.shape[-1] != 3):
-        raise ValueError(f"encode_png takes uint8 [H, W, 3] or [H, W], got "
-                         f"{image.dtype} {image.shape}")
+    """uint8 RGB [H, W, 3], uint8 gray [H, W] or uint16 gray [H, W] -> PNG
+    bytes (filter 0, zlib `level`)."""
+    gray16 = image.dtype == np.uint16 and image.ndim == 2
+    if not gray16 and (image.dtype != np.uint8 or image.ndim not in (2, 3) or (
+            image.ndim == 3 and image.shape[-1] != 3)):
+        raise ValueError(f"encode_png takes uint8 [H, W, 3], uint8 [H, W] or uint16 [H, W], "
+                         f"got {image.dtype} {image.shape}")
     h, w = image.shape[:2]
     color_type = 2 if image.ndim == 3 else 0
-    rows = np.ascontiguousarray(image).reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    rows = np.ascontiguousarray(image.astype(">u2") if gray16 else image).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, -1)], axis=1)
+    ihdr = struct.pack(">IIBBBBB", w, h, 16 if gray16 else 8, color_type, 0, 0, 0)
     return (SIGNATURE
-            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+            + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + _chunk(b"IEND", b""))

@@ -125,8 +125,13 @@ def test_augment_config_from_heritage_preset():
     assert (cfg.scale_range, cfg.hflip_prob, cfg.norm_mean, cfg.norm_std, cfg.ignore_index) == (
         tuple(want.scale_range), want.hflip_prob, tuple(want.norm_mean), tuple(want.norm_std),
         want.ignore_index)
-    with pytest.raises(ValueError, match="ColorJitter is not yet ported"):
-        t_aug.augment_config_from_data_cfg(Config({"color_jitter": True}))
+    # `color_jitter: true` maps to the reference's ColorJitter, as in the JAX package
+    jitter = t_aug.augment_config_from_data_cfg(Config({"color_jitter": True}))
+    want = j_aug.augment_config_from_data_cfg({"color_jitter": True})
+    assert (jitter.brightness, jitter.contrast, jitter.saturation, jitter.hue,
+            jitter.color_jitter_prob) == (want.brightness, want.contrast, want.saturation,
+                                          want.hue, want.color_jitter_prob) == (0.4, 0.4, 0.4,
+                                                                                0.1, 0.8)
 
 
 @pytest.mark.parametrize("kw", [{}, {"learnable": True}, {"with_depth": False, "seed": 3}])
@@ -164,5 +169,11 @@ def test_build_dataset_synthetic_and_refusals():
     j = j_loader.build_dataset(data, "train")
     np.testing.assert_array_equal(t[1]["image"], j[1]["image"])
     assert t_loader.build_dataset(Config(data), "val").seed == j_loader.build_dataset(data, "val").seed
+    # the Cityscapes readers are rooted at data.path, as in the JAX package
+    for kind in ("CityscapesDepthSegDataset", "CityscapesDataset"):
+        with pytest.raises(RuntimeError, match="Image directory not found: /nonexistent"):
+            t_loader.build_dataset(Config({"dataset_type": kind, "path": "/nonexistent"}), "train")
+        with pytest.raises(RuntimeError, match="Image directory not found: /nonexistent"):
+            j_loader.build_dataset({"dataset_type": kind, "path": "/nonexistent"}, "train")
     with pytest.raises(ValueError, match="not yet ported"):
-        t_loader.build_dataset(Config({"dataset_type": "CityscapesDepthSegDataset"}), "train")
+        t_loader.build_dataset(Config({"dataset_type": "ADE20K"}), "train")

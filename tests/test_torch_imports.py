@@ -108,11 +108,15 @@ def test_every_kernel_source_is_built():
 @pytest.mark.parametrize("module", ["ops.lnqkv_kernel", "tools.selftest",
                                     "tools.exp_outproj_epilogue", "tools.profile_attn_bwd",
                                     "tools.time_fwd_trees", "utils.benchtime", "ops.attention",
-                                    "models.layers"])
+                                    "models.layers", "data.cityscapes", "data._native",
+                                    "train.clip_import", "train.weights",
+                                    "tools.import_checkpoint"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
     """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
-    tools, the timing helpers and the remat-aware layers import on a machine
-    with neither JAX nor a card (nothing is compiled at import)."""
+    tools, the timing helpers, the remat-aware layers, the Cityscapes readers
+    with their host ops, the CLIP import and the checkpoint import tool
+    import on a machine with neither JAX nor a card (nothing is compiled or
+    built at import)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('denseclip_vit_multimodal_tpu_torch.{module}')\n"
