@@ -163,7 +163,21 @@ phases that each print one JSON line:
                   `tools/train.py --load` (1 step from step
                   0, the checkpoint's weights); `tools/import_checkpoint.py`
                   on a reference-format checkpoint, then `tools/test.py` on
-                  one frame of it.
+                  one frame of it;
+ 24. rn50_path  — the original DenseCLIP (CLIP RN50 + attention pool,
+                  context decoder, FPN with the score map concatenated into
+                  c4) on `configs/denseclip_rn50_cityscapes.yaml` at full
+                  width, on cityscapes_path's tree, from a stub OpenAI RN50
+                  archive (its key names and shapes, fp16): `tools/train.py`
+                  at batch 16, crop 512x512, 1 warm-up + 2 timed steps
+                  (ms/step, data wait, peak memory, losses); the checkpoint
+                  in bf16 on the card against fp32 on the CPU (a 512x512
+                  window and a 2-sample training loss, rel. 5e-2);
+                  a profile of one step on a batch decoded beforehand;
+                  `tools/test.py` whole and slide (crop 640, stride 426) on
+                  the 4 val frames (s/frame, peak memory); a served whole
+                  frame's FLOPs and its profile.  No kernel of the port is
+                  on this path: every launch count must stay 0.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -2213,35 +2227,92 @@ def write_cityscapes_tree(root: str, seed: int) -> None:
                     f.write(_paeth_png(arr))
 
 
-def write_stub_clip(path: str, seed: int) -> dict:
-    """A stub OpenAI CLIP ViT-B/16 checkpoint: OpenAI's key names at the
-    published shapes, seeded, in fp16 as released, pickled by torch.save."""
+def _stub_draws(seed: int):
+    """Seeded fp16 draws of a stub archive: small normals and LayerNorm /
+    BatchNorm scales near 1."""
     gen = torch.Generator().manual_seed(seed)
     rnd = lambda *shape: (0.02 * torch.randn(*shape, generator=gen)).half()
     one = lambda n: (1.0 + 0.02 * torch.randn(n, generator=gen)).half()
+    return gen, rnd, one
 
-    def tower(prefix: str, w: int, layers: int) -> dict:
-        out = {}
-        for i in range(layers):
-            b = f"{prefix}.resblocks.{i}."
-            out.update({b + "ln_1.weight": one(w), b + "ln_1.bias": rnd(w),
-                        b + "attn.in_proj_weight": rnd(3 * w, w), b + "attn.in_proj_bias": rnd(3 * w),
-                        b + "attn.out_proj.weight": rnd(w, w), b + "attn.out_proj.bias": rnd(w),
-                        b + "ln_2.weight": one(w), b + "ln_2.bias": rnd(w),
-                        b + "mlp.c_fc.weight": rnd(4 * w, w), b + "mlp.c_fc.bias": rnd(4 * w),
-                        b + "mlp.c_proj.weight": rnd(w, 4 * w), b + "mlp.c_proj.bias": rnd(w)})
-        return out
 
+def _stub_tower(rnd, one, prefix: str, w: int, layers: int) -> dict:
+    out = {}
+    for i in range(layers):
+        b = f"{prefix}.resblocks.{i}."
+        out.update({b + "ln_1.weight": one(w), b + "ln_1.bias": rnd(w),
+                    b + "attn.in_proj_weight": rnd(3 * w, w), b + "attn.in_proj_bias": rnd(3 * w),
+                    b + "attn.out_proj.weight": rnd(w, w), b + "attn.out_proj.bias": rnd(w),
+                    b + "ln_2.weight": one(w), b + "ln_2.bias": rnd(w),
+                    b + "mlp.c_fc.weight": rnd(4 * w, w), b + "mlp.c_fc.bias": rnd(4 * w),
+                    b + "mlp.c_proj.weight": rnd(w, 4 * w), b + "mlp.c_proj.bias": rnd(w)})
+    return out
+
+
+def _stub_text(rnd, one, text) -> dict:
+    tw, tl, vocab, tpos, tproj = text
+    return {"token_embedding.weight": rnd(vocab, tw), "positional_embedding": rnd(tpos, tw),
+            **_stub_tower(rnd, one, "transformer", tw, tl), "ln_final.weight": one(tw),
+            "ln_final.bias": rnd(tw), "text_projection": rnd(tw, tproj),
+            "logit_scale": torch.tensor(4.6052).half()}
+
+
+def write_stub_clip(path: str, seed: int) -> dict:
+    """A stub OpenAI CLIP ViT-B/16 checkpoint: OpenAI's key names at the
+    published shapes, seeded, in fp16 as released, pickled by torch.save."""
+    _, rnd, one = _stub_draws(seed)
     vw, vl, patch, vpos, vproj = CITY_VISUAL
-    tw, tl, vocab, tpos, tproj = CITY_TEXT
     state = {"visual.conv1.weight": rnd(vw, 3, patch, patch), "visual.class_embedding": rnd(vw),
              "visual.positional_embedding": rnd(vpos, vw), "visual.ln_pre.weight": one(vw),
-             "visual.ln_pre.bias": rnd(vw), **tower("visual.transformer", vw, vl),
+             "visual.ln_pre.bias": rnd(vw), **_stub_tower(rnd, one, "visual.transformer", vw, vl),
              "visual.ln_post.weight": one(vw), "visual.ln_post.bias": rnd(vw),
-             "visual.proj": rnd(vw, vproj), "token_embedding.weight": rnd(vocab, tw),
-             "positional_embedding": rnd(tpos, tw), **tower("transformer", tw, tl),
-             "ln_final.weight": one(tw), "ln_final.bias": rnd(tw),
-             "text_projection": rnd(tw, tproj), "logit_scale": torch.tensor(4.6052).half()}
+             "visual.proj": rnd(vw, vproj), **_stub_text(rnd, one, CITY_TEXT)}
+    torch.save(state, path)
+    return state
+
+
+def write_stub_rn50_clip(path: str, seed: int) -> dict:
+    """A stub OpenAI CLIP RN50 checkpoint: `ModifiedResNet`'s key names at the
+    published shapes (3-conv stem, [3, 4, 6, 3] bottlenecks with
+    `downsample.0` / `.1`, `attnpool` with its [50, 2048] pos-embed and
+    c_proj to 1024) and the 512-wide text tower projecting to 1024, seeded,
+    in fp16, pickled by torch.save.  Each conv's weights are scaled by
+    1 / sqrt(fan-in), so the activations keep their size through the stages."""
+    gen, rnd, one = _stub_draws(seed)
+    width, layers, grid, out_dim = RN50_VISUAL
+    state = {}
+
+    def conv_bn(conv: str, bn: str, cout: int, cin: int, k: int) -> None:
+        w = torch.randn(cout, cin, k, k, generator=gen) / (cin * k * k) ** 0.5
+        state[f"visual.{conv}.weight"] = w.half()
+        state.update({f"visual.{bn}.weight": one(cout), f"visual.{bn}.bias": rnd(cout),
+                      f"visual.{bn}.running_mean": rnd(cout),
+                      f"visual.{bn}.running_var": (0.5 + torch.rand(cout, generator=gen)).half(),
+                      f"visual.{bn}.num_batches_tracked": torch.tensor(0)})
+
+    conv_bn("conv1", "bn1", width // 2, 3, 3)
+    conv_bn("conv2", "bn2", width // 2, width // 2, 3)
+    conv_bn("conv3", "bn3", width, width // 2, 3)
+    cin = width
+    for li, (blocks, mult) in enumerate(zip(layers, (1, 2, 4, 8)), start=1):
+        planes = width * mult
+        for bi in range(blocks):
+            b = f"layer{li}.{bi}"
+            conv_bn(f"{b}.conv1", f"{b}.bn1", planes, cin, 1)
+            conv_bn(f"{b}.conv2", f"{b}.bn2", planes, planes, 3)
+            conv_bn(f"{b}.conv3", f"{b}.bn3", planes * 4, planes, 1)
+            if bi == 0:
+                conv_bn(f"{b}.downsample.0", f"{b}.downsample.1", planes * 4, cin, 1)
+            cin = planes * 4
+    embed = width * 32
+    state["visual.attnpool.positional_embedding"] = (
+        torch.randn(grid * grid + 1, embed, generator=gen) / embed**0.5).half()
+    for name, cout in (("q_proj", embed), ("k_proj", embed), ("v_proj", embed),
+                       ("c_proj", out_dim)):
+        state[f"visual.attnpool.{name}.weight"] = (
+            torch.randn(cout, embed, generator=gen) / embed**0.5).half()
+        state[f"visual.attnpool.{name}.bias"] = rnd(cout)
+    state.update(_stub_text(rnd, one, RN50_TEXT))
     torch.save(state, path)
     return state
 
@@ -2282,16 +2353,19 @@ def endless(loader):
         yield from loader.epoch(epoch)
 
 
-def phase_cityscapes_path() -> dict:
+def phase_cityscapes_path(tmp=None) -> dict:
     """The flagship fine-tuned from a (stub) OpenAI CLIP checkpoint on an
     on-disk Cityscapes tree, through the user entry points: `tools/train.py`
     (CLIP import, CITY_STEPS steps), `tools/test.py` on `val` (slide, crop
     624 / stride 426), `tools/train.py --load` (1 step), and
     `tools/import_checkpoint.py` on a reference-format checkpoint, then
-    `tools/test.py` on one frame of it.  The tree, the archive and every work
-    dir live in a temporary dir, removed at the end."""
+    `tools/test.py` on one frame of it.  The tree (`<tmp>/cityscapes`), the
+    archive and every work dir live in `tmp`, a temporary dir removed at the
+    end unless the caller gives one."""
     import tempfile
 
+    if tmp is not None:
+        return _cityscapes_path(tmp)
     with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
         return _cityscapes_path(tmp)
 
@@ -2538,6 +2612,196 @@ def _cityscapes_path(tmp: str) -> dict:
     return res
 
 
+RN50_CONFIG = "configs/denseclip_rn50_cityscapes.yaml"
+RN50_VISUAL = (64, (3, 4, 6, 3), 7, 1024)  # RN50: width, blocks, pool grid, output dim
+RN50_TEXT = (512, 12, 49408, 77, 1024)  # width, layers, vocab, positions, projection
+RN50_STEPS = 3  # at the preset's batch 16: 1 warm-up + 2 timed (the cut: fewer steps)
+RN50_CPU_BATCH = 2  # samples of the step's loss held against fp32 on the CPU
+
+
+def phase_rn50_path(tree=None) -> dict:
+    """The original DenseCLIP (CLIP RN50 + attention pool, context decoder,
+    FPN with the score map concatenated into c4) on its Cityscapes preset at
+    full width, through the user entry points, from a stub OpenAI RN50
+    archive: `tools/train.py` at batch 16 and crop 512x512, `tools/test.py`
+    whole and slide (crop 640, stride 426) on the val frames.  No kernel of
+    the port is on this path (the JAX package sends the pool, the decoder
+    and the text tower to XLA attention): every count must stay 0.  `tree`
+    is a written Cityscapes tree (cityscapes_path's); without one, one is
+    written here."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="rn50_smoke_") as tmp:
+        if tree is None:
+            tree = os.path.join(tmp, "cityscapes")
+            write_cityscapes_tree(tree, SEED)
+        return _rn50_path(tmp, tree)
+
+
+def _rn50_path(tmp: str, tree: str) -> dict:
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.tools import test as test_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import train as train_tool
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import load_model_weights
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.utils.flops import program_flops
+
+    archive, work_dir = os.path.join(tmp, "RN50.pt"), os.path.join(tmp, "wd")
+    sets = ["--set", f"data.path={tree}", f"model.clip_pretrained={archive}"]
+    cfg = load_config(RN50_CONFIG, overrides=sets[1:])
+    seed, batch_size = int(cfg.training.seed), int(cfg.training.batch_size)
+    tick = time.perf_counter()
+    write_stub_rn50_clip(archive, SEED)
+    res = {"phase": "rn50_path", "config": RN50_CONFIG, "archive_bytes": os.path.getsize(archive),
+           "archive_write_s": time.perf_counter() - tick, "batch": batch_size,
+           "crop": list(cfg.data.crop_size), "cut": f"{RN50_STEPS} steps (1 warm-up)"}
+    launches_total = collections.Counter()
+
+    # 1. tools/train.py: the RN50 recipe (backbone lr x0.1, text tower frozen)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    summary = train_tool.main([RN50_CONFIG, "--work-dir", work_dir, "--no-validate",
+                               "--max-steps", str(RN50_STEPS), *sets])
+    train_s = time.perf_counter() - tick
+    launches = read_launches()
+    launches_total.update(launches)
+    with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    with open(os.path.join(work_dir, "train.log")) as f:
+        imported = [line.strip() for line in f if "loaded CLIP weights" in line]
+    timed = log[1:]  # the first step pays the set-up
+    step_ms = 1e3 * sum(e["step_s"] for e in timed) / len(timed)
+    wait_ms = 1e3 * sum(e["data_s"] for e in timed) / len(timed)
+    res["training"] = {
+        "entry_point": "tools/train.py main()", "steps": len(log), "wall_s": train_s,
+        "import": imported, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "ms_per_step": step_ms, "data_wait_ms_per_step": wait_ms,
+        "first_step": {"step_ms": 1e3 * log[0]["step_s"], "data_wait_ms": 1e3 * log[0]["data_s"]},
+        "samples_per_s": batch_size * len(timed) / sum(e["step_s"] + e["data_s"] for e in timed),
+        "losses": [{k: e[k] for k in ("loss_seg", "loss_total", "lr")} for e in log]}
+    emit({"phase": "rn50_path", "training": res["training"]})
+    if not (summary["step"] == RN50_STEPS == len(log) and len(imported) == 1 and all(
+            np.isfinite(e["loss_total"]) and not e["skipped"] for e in log)):
+        raise AssertionError(f"tools/train.py did not take {RN50_STEPS} finite steps: {summary}")
+    if launches != expected_launches():
+        raise AssertionError(f"a kernel launched on the RN50 training path: {launches}")
+
+    # 2. where a step's device time goes: the trainer's step on one batch
+    #    decoded beforehand (one thread: on the card one decode thread ran
+    #    4.9x faster than eight, cityscapes_path)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=seed)
+    load_model_weights(work_dir, model)
+    loader = DataLoader(build_dataset(cfg.data, "train"), batch_size=batch_size, seed=seed,
+                        num_threads=1)
+    samples = loader.epoch(0)
+    try:
+        host_batch = next(samples)
+    finally:
+        samples.close()
+    state = create_train_state(model, cfg.training, len(loader))
+    step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+    reset_launches()
+    step(state, to_device(host_batch, "cuda"))  # warm-up
+    prof = phase_profile(lambda b: step(state, to_device(b, "cuda")), [host_batch],
+                         path="rn50_training_step")
+    res["training"]["profile"] = {
+        "device_busy_ms": prof["device_busy_ms_per_frame"],
+        "busy_share_of_the_step": prof["device_busy_share"],
+        "busy_share_with_data_wait": prof["device_busy_ms_per_frame"] / (step_ms + wait_ms)}
+    emit({"phase": "rn50_path", "training_profile": res["training"]["profile"]})
+    del state, step
+
+    # 3. the checkpoint in bf16 on the card against fp32 on the CPU: one
+    #    512x512 window (inference), and the training loss of RN50_CPU_BATCH
+    #    augmented samples of that batch (batch statistics)
+    load_model_weights(work_dir, model)
+    cpu_model, _ = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                                   device="cpu", seed=seed)
+    load_model_weights(work_dir, cpu_model)
+    window = torch.from_numpy(np.random.RandomState(SEED).randn(1, 512, 512, 3).astype(np.float32))
+    aug_cfg = augment_config_from_data_cfg(cfg.data)
+    few = {k: v[:RN50_CPU_BATCH] for k, v in host_batch.items()}
+    batch = augment_batch(to_device(few, "cpu"), aug_cfg, torch.Generator().manual_seed(seed))
+    crop = tuple(aug_cfg.crop_size)
+    losses = {}
+    with torch.no_grad():
+        ref, got = cpu_model(window, texts), model(window.cuda(), texts)
+        for name, net, dev in (("card_bf16", model, "cuda"), ("cpu_fp32", cpu_model, "cpu")):
+            out = net(batch["image"].to(dev), texts, train=True, gt_hw=crop)
+            losses[name] = float(cross_entropy_loss(out["seg"], batch["seg"].to(dev)))
+    res["reference"] = {"window": [1, 512, 512, 3], "seg_rel_l2": rel_l2(got["seg"].cpu(),
+                                                                          ref["seg"]),
+                        "train_loss": losses, "train_samples": RN50_CPU_BATCH,
+                        "train_loss_rel_diff": abs(losses["card_bf16"] - losses["cpu_fp32"])
+                        / abs(losses["cpu_fp32"]), "tol": REFERENCE_TOL}
+    emit({"phase": "rn50_path", "reference": res["reference"]})
+    if not (res["reference"]["seg_rel_l2"] <= REFERENCE_TOL
+            and res["reference"]["train_loss_rel_diff"] <= REFERENCE_TOL):
+        raise AssertionError(f"bf16 RN50 on the card disagrees with fp32 on the CPU: "
+                             f"{res['reference']}")
+    launches_total.update(read_launches())
+    del cpu_model, ref, got, batch, host_batch
+
+    # 4. tools/test.py on val, whole frames and the slide protocol
+    keys = ["mIoU", "pixel_acc"]
+    res["eval"] = {}
+    for mode in ("whole", "slide"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        tick = time.perf_counter()
+        results = test_tool.main([RN50_CONFIG, work_dir, "--mode", mode, "--single-protocol",
+                                  "--eval", "mIoU", *sets])
+        launches = read_launches()
+        launches_total.update(launches)
+        res["eval"][mode] = {"entry_point": "tools/test.py main()", "frames": CITY_VAL,
+                             "timed_frames": CITY_VAL - 1, "wall_s": time.perf_counter() - tick,
+                             "s_per_frame": 1.0 / results["images_per_sec"],
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "launches": launches,
+                             "metrics": {k: results.get(k) for k in keys}}
+        if launches != expected_launches():
+            raise AssertionError(f"a kernel launched on the RN50 {mode} evaluation: {launches}")
+        if not all(results.get(k) is not None and np.isfinite(results[k]) for k in keys):
+            raise AssertionError(f"non-finite evaluation metrics: {res['eval'][mode]}")
+    emit({"phase": "rn50_path", "eval": res["eval"]})
+
+    # 5. one whole frame as served (the tower cached): its FLOPs, and a profile
+    engine = Inferencer(model, texts, num_classes=len(CITYSCAPES_CLASSES))
+    frame = np.random.RandomState(SEED).randint(0, 256, (1,) + CITY_HW + (3,), dtype=np.uint8)
+    whole = lambda f: engine.predict(f, mode="whole", fetch="device")
+    whole(frame)  # warm-up: caches the text tower
+    flops = program_flops(whole, frame)
+    res["whole_frame_tflop"] = flops.total / 1e12
+    res["whole_frame_tokens_at_the_pool"] = (CITY_HW[0] // 32) * (CITY_HW[1] // 32) + 1
+    reset_launches()
+    res["profile"] = phase_profile(whole, [frame], path="rn50_whole_frame")
+    launches_total.update(read_launches())
+    res["launches"] = dict(launches_total)
+    part = {k: res[k] for k in ("whole_frame_tflop", "whole_frame_tokens_at_the_pool", "launches")}
+    emit({"phase": "rn50_path", **part})
+    if res["launches"] != expected_launches():
+        raise AssertionError(f"a kernel launched on the RN50 path: {res['launches']}")
+    del model, engine
+    torch.cuda.empty_cache()
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -2632,7 +2896,11 @@ def main() -> int:
     outproj_res = phase_outproj_path()
     pab_res = phase_profile_attn_bwd()
     bench_res = phase_bench_path()
-    city_res = phase_cityscapes_path()
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
+        city_res = phase_cityscapes_path(tmp)
+        rn50_res = phase_rn50_path(os.path.join(tmp, "cityscapes"))
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
@@ -2645,7 +2913,8 @@ def main() -> int:
                             "profile_attn_bwd": pab_res["launches"][name],
                             "bench": bench_res["launches"][name],
                             "cityscapes_training": city_res["training"]["launches"][name],
-                            "cityscapes_eval": city_res["eval"]["launches"][name]}
+                            "cityscapes_eval": city_res["eval"]["launches"][name],
+                            "rn50_path": rn50_res["launches"][name]}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",

@@ -5,7 +5,13 @@ as the JAX package's `model.init` / checkpoints hold them.  Mapping:
 
   * scan-stacked leaves `.../transformer/blocks/block/<leaf>` carry the layer
     on axis 0 and become `transformer.blocks.{i}.<leaf>`;
-  * `process_{i}` (neck levels) becomes `process.{i}`;
+  * indexed children become ModuleList entries: `process_{i}` (fusion neck
+    levels) -> `process.{i}`, `lateral_{i}` / `output_{i}` (FPN) ->
+    `lateral.{i}` / `output.{i}`, `layer_{i}` (context decoder) ->
+    `layers.{i}`, and a ResNet stage's `block{j}` -> `{j}` (`layer1/block0`
+    -> `layer1.0`, OpenAI's own names); every other module keeps its Flax
+    name (`stem/conv1`, `downsample_bn`, `attnpool/q_proj`,
+    `cross_attn/kv`, `memory_ln_in`, ...);
   * Dense `kernel` [in, out] -> `weight` [out, in]; Conv `kernel` HWIO ->
     `weight` OIHW; LayerNorm / BatchNorm `scale` -> `weight`;
     `token_embedding/embedding` -> `token_embedding.weight`;
@@ -40,10 +46,22 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
             yield prefix + (str(key),), np.asarray(value)
 
 
+_INDEXED = ((re.compile(r"(process|lateral|output)_(\d+)"), r"\1.\2"),
+            (re.compile(r"layer_(\d+)"), r"layers.\1"),
+            (re.compile(r"block(\d+)"), r"\1"))
+
+
+def _module_name(name: str) -> str:
+    for pattern, repl in _INDEXED:
+        if pattern.fullmatch(name):
+            return pattern.sub(repl, name)
+    return name
+
+
 def _map_leaf(collection: str, path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     """One unstacked Flax leaf -> (torch key, array in torch layout)."""
     *mods, leaf = path
-    mods = [f"process.{m[len('process_'):]}" if re.fullmatch(r"process_\d+", m) else m for m in mods]
+    mods = [_module_name(m) for m in mods]
     if collection == "batch_stats":
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:

@@ -4,7 +4,10 @@ device-side `eval_metrics`.
 
 Raw uint8 NHWC images in, a dict of outputs per the `fetch` policy out.  The
 image-independent text tower runs once per model and is cached; it only
-feeds the score map, so a flagship forward does not read it.  `aug_test`
+feeds the score map, so a flagship forward does not read it, while a model
+with a context decoder (the ResNet presets) fuses it with each image's
+visual context inside the forward.  `aug_test` rounds its scaled views to
+the backbone's patch, 32 for a ResNet.  `aug_test`
 stays on the device from the upload to the fetch: per scale one resize, one
 forward over both flip views (the flipped view rides the batch), unflip,
 resize to the frame size and a running fp32 sum.  Both resizes antialias when

@@ -1,4 +1,5 @@
-"""FCN decode head (PyTorch port of the JAX package's `models/heads.py`).
+"""Decode heads (PyTorch port of the JAX package's `models/heads.py`):
+`FCNHead` and the pass-through `IdentityHead`.
 
 The reference assigns an extra `classifier` conv onto torchvision's FCNHead
 Sequential, which APPENDS it, so the head is the 6-op chain
@@ -47,3 +48,11 @@ class FCNHead(nn.Module):
         x = F.relu(batch_norm_nhwc(self.conv0(x), self.bn0, train))
         x = dropout(x, self.dropout_ratio, gen if train else None)
         return self.classifier(self.conv1(x))
+
+
+class IdentityHead(nn.Module):
+    """Pass-through head."""
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return x

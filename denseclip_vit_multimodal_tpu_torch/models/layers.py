@@ -4,10 +4,14 @@ Port of the JAX package's `models/layers.py`.  Parameters are kept in fp32 and
 cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
 `dtype` split does; LayerNorm and BatchNorm compute in fp32.
 
-  * `LayerNorm` / `layer_norm_apply` — fp32 statistics, eps 1e-5, result cast
-    back to the input dtype.
-  * `quick_gelu` — x * sigmoid(1.702 x).
-  * `MultiHeadAttention` — fused [D, 3D] qkv projection; for non-causal bf16
+  * `LayerNorm` / `layer_norm_apply` — fp32 statistics, eps 1e-5 (CLIP's;
+    `FLAX_LAYER_NORM_EPS`, 1e-6, is Flax's default, which the context
+    decoder keeps), result cast back to the input dtype.
+  * `quick_gelu` — x * sigmoid(1.702 x); `gelu` — the exact (erf) GELU.
+  * `MultiHeadAttention` — self-attention with a fused [D, 3D] qkv projection
+    or, built with `cross=True`, cross-attention with a [D, D] q and a
+    [D, 2D] kv projection (`use_qkv_bias=False` drops their biases).
+    Cross-attention always runs as plain attention.  For non-causal bf16
     sequences of 1024..8448 tokens on CUDA the attention runs in the qkv
     kernel (`ops/mha_kernel.py`, K1), otherwise through `attention_core`:
     the flash kernel (`ops/attention.py`, K4) for causal or longer bf16
@@ -99,6 +103,11 @@ def variance_scaling(shape, scale: float, mode: str, gen: torch.Generator) -> to
     return trunc_normal(shape, math.sqrt(scale / fan) / 0.87962566103423978, gen)
 
 
+def lecun_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """Flax's default Dense / Conv kernel initialiser."""
+    return variance_scaling(shape, 1.0, "fan_in", gen)
+
+
 def xavier_uniform(shape, gen: torch.Generator) -> torch.Tensor:
     fan_in, fan_out = _fans(shape)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
@@ -122,6 +131,14 @@ def _set(param: torch.Tensor, value: torch.Tensor) -> None:
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     """CLIP's GELU approximation."""
     return x * torch.sigmoid(1.702 * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The exact GELU, x * Phi(x) (Flax `nn.gelu(approximate=False)`)."""
+    return F.gelu(x, approximate="none")
+
+
+FLAX_LAYER_NORM_EPS = 1e-6  # flax.linen.LayerNorm's default epsilon
 
 
 def layer_norm_apply(
@@ -172,13 +189,15 @@ class Conv2d(nn.Conv2d):
     """Same-padded conv on NHWC tensors, fp32 parameters computed in `dtype`.
 
     The NHWC input is handed to cuDNN as a channels-last NCHW view (a free
-    permute), and the output comes back NHWC the same way.
+    permute), and the output comes back NHWC the same way.  With `stride`
+    the padding stays kernel_size // 2 on every side, as Flax's explicit
+    `padding=[(k // 2, k // 2)] * 2`.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
-                 kernel_init=None, gen: Optional[torch.Generator] = None):
-        super().__init__(in_channels, out_channels, kernel_size,
+                 kernel_init=None, gen: Optional[torch.Generator] = None, stride: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
                          padding=kernel_size // 2, bias=bias)
         self.compute_dtype = dtype
         gen = gen if gen is not None else torch.Generator().manual_seed(0)
@@ -222,18 +241,25 @@ def attention_core(
 
 
 class MultiHeadAttention(nn.Module):
-    """CLIP-style multi-head self-attention with a fused QKV projection.
+    """CLIP-style multi-head attention.
 
-    Parameters: `qkv` Linear(D, 3D) and `out` Linear(D, D).  The kernel
-    dispatch rule is the JAX package's (`_qkv_kernel_applicable`) with "on
-    the TPU" read as "on CUDA", plus K1's one dtype, bf16 (K5 takes bf16 and
-    fp32).
+    Self-attention (the default): a fused `qkv` Linear(D, 3D) and `out`
+    Linear(D, D).  The kernel dispatch rule is the JAX package's
+    (`_qkv_kernel_applicable`) with "on the TPU" read as "on CUDA", plus K1's
+    one dtype, bf16 (K5 takes bf16 and fp32).
+
+    `cross=True` builds the cross-attention layout instead: `q` Linear(D, D)
+    and `kv` Linear(D, 2D) over the memory, then `out`; it is called with
+    `kv=` and runs plain attention over every memory token (the JAX module
+    passes `valid_len=None` there).  `use_qkv_bias=False` drops the q / k / v
+    biases (the reference's einsum `Attention`); `out` keeps its bias.
     """
 
     def __init__(self, dim: int, num_heads: int, causal: bool = False,
                  attn_impl: str = ATTN_AUTO,
                  dtype: torch.dtype = torch.float32,
-                 gen: Optional[torch.Generator] = None):
+                 gen: Optional[torch.Generator] = None,
+                 use_qkv_bias: bool = True, cross: bool = False):
         super().__init__()
         if dim % num_heads:
             raise ValueError(f"width {dim} is not divisible by {num_heads} heads")
@@ -242,8 +268,14 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.causal = causal
         self.attn_impl = attn_impl
+        self.cross = cross
         xavier = lambda s, g: xavier_uniform(s, g)
-        self.qkv = Linear(dim, 3 * dim, dtype=dtype, kernel_init=xavier, gen=gen)
+        proj = lambda n: Linear(dim, n * dim, bias=use_qkv_bias, dtype=dtype, kernel_init=xavier,
+                                gen=gen)
+        if cross:
+            self.q, self.kv = proj(1), proj(2)
+        else:
+            self.qkv = proj(3)
         self.out = Linear(dim, dim, dtype=dtype, kernel_init=xavier, gen=gen)
 
     def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int,
@@ -261,15 +293,16 @@ class MultiHeadAttention(nn.Module):
 
     def _lnqkv_applicable(self, x: torch.Tensor, dim: int) -> bool:
         """The JAX rule for the fused LN + qkv + attention kernel (K6), read
-        on every call: `DENSECLIP_FUSED_LNQKV=1`, not causal (the qkv
-        projection always has a bias here), K1's regime for the attn_impl
+        on every call: `DENSECLIP_FUSED_LNQKV=1`, not causal, a qkv
+        projection with a bias, K1's regime for the attn_impl
         (under `int8` that is K6 at any N up to 8448, unquantized: JAX checks
         the fused branch first), `qkv_supported` and `lnqkv_supported` at N.
         K6 takes bf16 only where it runs, on a CUDA tensor; a CPU tensor (the
         tests patch `_on_cuda`) runs its plain version, which takes fp32 too.
         The JAX package keeps the fusion opt-in: it lost 7% end to end on a
         TPU v5e."""
-        if os.environ.get("DENSECLIP_FUSED_LNQKV", "0") != "1" or self.causal:
+        if (os.environ.get("DENSECLIP_FUSED_LNQKV", "0") != "1" or self.causal
+                or self.qkv.bias is None):
             return False
         if x.is_cuda and self.qkv.compute_dtype != torch.bfloat16:
             return False
@@ -277,12 +310,17 @@ class MultiHeadAttention(nn.Module):
                 and lnqkv_supported(self.num_heads, dim, n=x.shape[1]))
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
-                pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None
-                ) -> torch.Tensor:
-        """Self-attention.  `pre_ln=(scale, bias, eps)` hands the preceding
-        LayerNorm's affine parameters in unapplied, so that K6 can serve the
-        whole chain; where it does not, the norm is applied here and the
-        other routes follow.  The parameters are the same either way."""
+                pre_ln: Optional[Tuple[torch.Tensor, torch.Tensor, float]] = None,
+                kv: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Self-attention, or cross-attention into `kv` [B, M, D] (a module
+        built with `cross=True`).  `pre_ln=(scale, bias, eps)` hands the
+        preceding LayerNorm's affine parameters in unapplied, so that K6 can
+        serve the whole chain; where it does not, the norm is applied here and
+        the other routes follow.  The parameters are the same either way."""
+        if self.cross != (kv is not None):
+            raise ValueError("a cross-attention layer takes kv=, a self-attention layer none")
+        if kv is not None:
+            return self._cross(x, kv)
         b, n, dim = x.shape
         if pre_ln is not None:
             ln_scale, ln_bias, ln_eps = pre_ln
@@ -301,6 +339,14 @@ class MultiHeadAttention(nn.Module):
         q, k, v = (heads(t) for t in qkv.split(dim, dim=-1))
         out = attention_core(q, k, v, causal=self.causal, impl=self.attn_impl,
                              valid_len=valid_len)
+        return self.out(out.reshape(b, n, dim))
+
+    def _cross(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        b, n, dim = x.shape
+        m = kv.shape[1]
+        heads = lambda t, rows: t.reshape(b, rows, self.num_heads, dim // self.num_heads)
+        k, v = (heads(t, m) for t in self.kv(kv).split(dim, dim=-1))
+        out = attention_core(heads(self.q(x), n), k, v, causal=self.causal, impl=ATTN_XLA)
         return self.out(out.reshape(b, n, dim))
 
 

@@ -44,7 +44,10 @@ def main(argv=None) -> dict:
     model, texts = build_model(cfg, args.device)
     h, w = args.shape
     image = torch.zeros(args.batch, h, w, 3, device=args.device)
-    with torch.inference_mode():
+    # no_grad, not inference mode: a model that reads its score map runs the
+    # text tower on its learnable contexts here, which FlopCounterMode's module
+    # tracker cannot follow under inference mode (utils/flops.py::program_flops)
+    with torch.no_grad():
         flops = program_flops(model, image, texts)
     n_params = count_params(model)
 

@@ -1,11 +1,12 @@
 """OpenAI CLIP and reference DenseCLIP checkpoints -> the port's `state_dict`
 (the port's counterpart of the JAX package's `train/clip_import.py`).
 
-`load_clip_into_model` is the cold start of the flagship's training: the
-`visual.*` keys of an OpenAI CLIP file feed the ViT, the text-tower keys
+`load_clip_into_model` is the cold start of training: the `visual.*` keys of
+an OpenAI CLIP file feed the backbone (a ViT archive the ViT, a ResNet archive
+— no `visual.class_embedding` — the ResNet), the text-tower keys
 (`transformer.*`, `token_embedding`, `positional_embedding`, `ln_final`,
-`text_projection`) the prompt text tower.  The importers write straight onto
-the port's names, whose layouts are torch's own, so no tensor is transposed:
+`text_projection`) the text tower.  The importers write straight onto the
+port's names, whose layouts are torch's own, so no tensor is transposed:
 
   * `visual.conv1.weight` [width, 3, P, P] -> `patch_embed.weight`
     [width, P*P*3], patches in (row, column, channel) order;
@@ -16,19 +17,27 @@ the port's names, whose layouts are torch's own, so no tensor is transposed:
     truncated 77 -> the model's capacity;
   * `visual.proj` and `text_projection` are taken only where their shapes
     match the model's, else left at their init, as in the JAX package;
+  * a ResNet's keys keep their names (`conv1` .. `bn3` into `stem.*`,
+    `layer{i}.{j}.*`, `downsample.0` / `.1` -> `downsample_conv` /
+    `downsample_bn`), its BatchNorm running statistics included; the
+    attention pool's pos-embed is resized to the model's grid
+    (input_resolution / 32), and its q / k / v / c projections are copied;
   * any other shape mismatch raises.
 
 `import_reference_denseclip` migrates a whole reference DenseCLIP
-`state_dict` (towers, `vis_proj` / `global_proj`, `contexts`, fusion neck,
-FCN heads with their BatchNorm statistics).  `gamma` only scales the context
-decoder's output, which the port's models do not have: it is dropped.  A
-context decoder's keys, and a ResNet CLIP archive, raise: their modules
-(`models/context_decoder.py`, `models/resnet.py`) are not ported yet.
+`state_dict` (a ViT or ResNet backbone, the text tower, `vis_proj` /
+`global_proj`, `contexts`, `gamma`, the context decoder, the fusion neck, FCN
+heads with their BatchNorm statistics).  The decoder's einsum attentions have
+separate q / k / v projections without bias: self-attention's are fused into
+`qkv` [3D, D], cross-attention's k and v into `kv` [2D, D].  `gamma` is
+dropped where the model has no context decoder (nothing reads it).  Neck keys
+other than the fusion neck's (an FPN's) raise, as the JAX package's importer
+reads the fusion neck alone.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -120,6 +129,43 @@ def import_text_state(state: Mapping[str, torch.Tensor], layers: int, context_le
     return out
 
 
+def import_resnet_state(state: Mapping[str, torch.Tensor], layers: Sequence[int],
+                        spacial_dim: int, with_attnpool: bool = True) -> State:
+    """`visual.*` keys of a ResNet CLIP checkpoint -> `CLIPResNet` /
+    `CLIPResNetWithAttention` state_dict entries (BatchNorm running
+    statistics included).  The attention pool's pos-embed is resized to
+    `spacial_dim` x `spacial_dim`; `with_attnpool=False` leaves the pool out."""
+    out: State = {}
+    for i in (1, 2, 3):
+        out[f"stem.conv{i}.weight"] = state[f"visual.conv{i}.weight"]
+        out.update(_module(state, f"visual.bn{i}", f"stem.bn{i}"))
+    for li, blocks in enumerate(layers, start=1):
+        for bi in range(blocks):
+            src, dst = f"visual.layer{li}.{bi}", f"layer{li}.{bi}"
+            for ci in (1, 2, 3):
+                out[f"{dst}.conv{ci}.weight"] = state[f"{src}.conv{ci}.weight"]
+                out.update(_module(state, f"{src}.bn{ci}", f"{dst}.bn{ci}"))
+            if f"{src}.downsample.0.weight" in state:
+                out[f"{dst}.downsample_conv.weight"] = state[f"{src}.downsample.0.weight"]
+                out.update(_module(state, f"{src}.downsample.1", f"{dst}.downsample_bn"))
+    if with_attnpool and "visual.attnpool.positional_embedding" in state:
+        out["attnpool.positional_embedding"] = _resize_grid_pos_embed(
+            state["visual.attnpool.positional_embedding"], spacial_dim)
+        for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+            for leaf in ("weight", "bias"):
+                out[f"attnpool.{name}.{leaf}"] = state[f"visual.attnpool.{name}.{leaf}"]
+    return out
+
+
+def _resnet_entries(state: Mapping[str, torch.Tensor], own: Mapping[str, torch.Tensor],
+                    layers: Sequence[int]) -> State:
+    """The ResNet importer at the model's pool grid (read off its pos-embed)."""
+    pos = own.get("backbone.attnpool.positional_embedding")
+    grid = 0 if pos is None else int(round((pos.shape[0] - 1) ** 0.5))
+    return _prefixed("backbone.", import_resnet_state(state, layers, grid,
+                                                      with_attnpool=pos is not None))
+
+
 def _write(model: nn.Module, entries: Mapping[str, torch.Tensor]) -> int:
     """Copy `entries` (full state_dict keys) into `model`; every key must be
     one of the model's, with its shape.  Returns the number written."""
@@ -140,29 +186,24 @@ def _prefixed(prefix: str, entries: Mapping[str, torch.Tensor]) -> State:
     return {f"{prefix}{k}": v for k, v in entries.items()}
 
 
-def _resnet_not_ported() -> ValueError:
-    return ValueError("a ResNet CLIP checkpoint needs models/resnet.py, which is not yet "
-                      "ported to the PyTorch package")
-
-
 def load_clip_into_model(model: nn.Module, clip_path: str, model_cfg) -> Tuple[int, int]:
-    """Load an OpenAI CLIP ViT checkpoint into a DenseCLIP model in place;
-    returns the numbers of visual and text tensors written."""
+    """Load an OpenAI CLIP checkpoint, ViT or ResNet, into a DenseCLIP model
+    in place; returns the numbers of visual and text tensors written."""
     bb, te = dict(model_cfg["backbone"]), dict(model_cfg["text_encoder"])
     state = load_clip_state_dict(clip_path)
-    if "visual.class_embedding" not in state:
-        raise _resnet_not_ported()
     own = model.state_dict()
-    vit = import_vit_state(
-        state, layers=int(bb.get("layers", 12)),
-        base_grid=int(bb.get("input_resolution", 224)) // int(bb.get("patch_size", 16)),
-        proj_shape=tuple(own["backbone.proj"].shape))
+    if "visual.class_embedding" in state:
+        visual = _prefixed("backbone.", import_vit_state(
+            state, layers=int(bb.get("layers", 12)),
+            base_grid=int(bb.get("input_resolution", 224)) // int(bb.get("patch_size", 16)),
+            proj_shape=tuple(own["backbone.proj"].shape)))
+    else:
+        visual = _resnet_entries(state, own, tuple(bb.get("layers", (3, 4, 6, 3))))
     text = import_text_state(
         state, layers=int(te.get("transformer_layers", 12)),
         context_length=own["text_encoder.positional_embedding"].shape[0],
         embed_dim=own["text_encoder.text_projection"].shape[1])
-    return (_write(model, _prefixed("backbone.", vit)),
-            _write(model, _prefixed("text_encoder.", text)))
+    return _write(model, visual), _write(model, _prefixed("text_encoder.", text))
 
 
 def _count_indexed(state: Mapping[str, torch.Tensor], fmt: str) -> int:
@@ -179,27 +220,59 @@ def _module(state: Mapping[str, torch.Tensor], src: str, dst: str,
             if f"{src}.{leaf}" in state}
 
 
+def _decoder_attention(state: Mapping[str, torch.Tensor], src: str, dst: str, cross: bool
+                       ) -> State:
+    """The reference's einsum `Attention` (unbiased q / k / v, biased `proj`)
+    -> the port's fused self-attention (`qkv`) or cross-attention (`q`, `kv`)."""
+    w = {n: state[f"{src}.{n}_proj.weight"] for n in ("q", "k", "v")}
+    out = _module(state, f"{src}.proj", f"{dst}.out")
+    if cross:
+        out[f"{dst}.q.weight"] = w["q"]
+        out[f"{dst}.kv.weight"] = torch.cat([w["k"], w["v"]], dim=0)
+    else:
+        out[f"{dst}.qkv.weight"] = torch.cat([w["q"], w["k"], w["v"]], dim=0)
+    return out
+
+
+def _context_decoder(state: Mapping[str, torch.Tensor]) -> State:
+    """Reference `ContextDecoder` (memory_proj / text_proj / out_proj
+    Sequentials of LN and Linear, `decoder.{i}` layers) -> `context_decoder.*`."""
+    src, dst = "context_decoder", "context_decoder"
+    out: State = {}
+    for seq, names in (("memory_proj", ("memory_ln_in", "memory_proj", "memory_ln_out")),
+                       ("text_proj", ("text_ln", "text_proj")), ("out_proj", ("out_ln", "out_proj"))):
+        for i, name in enumerate(names):
+            out.update(_module(state, f"{src}.{seq}.{i}", f"{dst}.{name}"))
+    for i in range(_count_indexed(state, f"{src}.decoder.{{i}}.")):
+        s_layer, d_layer = f"{src}.decoder.{i}", f"{dst}.layers.{i}"
+        for norm in ("norm1", "norm2", "norm3"):
+            out.update(_module(state, f"{s_layer}.{norm}", f"{d_layer}.{norm}"))
+        out.update(_decoder_attention(state, f"{s_layer}.self_attn", f"{d_layer}.self_attn", False))
+        out.update(_decoder_attention(state, f"{s_layer}.cross_attn", f"{d_layer}.cross_attn", True))
+        out.update(_module(state, f"{s_layer}.mlp.0", f"{d_layer}.mlp_fc"))
+        out.update(_module(state, f"{s_layer}.mlp.3", f"{d_layer}.mlp_proj"))
+    return out
+
+
 def import_reference_denseclip(state: Mapping[str, torch.Tensor], model: nn.Module) -> int:
     """A reference DenseCLIP `state_dict` (trained or not) -> `model` in place.
-    Layer counts and the pos-embed grid come from the state and the model, so
-    any ViT preset works.  Returns the number of tensors written."""
+    Layer counts and the pos-embed grids come from the state and the model, so
+    any preset works.  Returns the number of tensors written."""
     state = {k: torch.as_tensor(v).float() for k, v in state.items()}
-    cd = sorted(k for k in state if k.startswith("context_decoder."))
-    if cd:
-        raise ValueError(f"reference checkpoint has context decoder keys ({cd[0]}, ...): "
-                         "they need models/context_decoder.py, which is not yet ported to the "
-                         "PyTorch package")
-    if "backbone.class_embedding" not in state:
-        raise _resnet_not_ported()
     own = model.state_dict()
     entries: State = {}
 
     vis = {f"visual.{k[len('backbone.'):]}": v for k, v in state.items()
            if k.startswith("backbone.")}
-    n_pos = own["backbone.positional_embedding"].shape[0]
-    entries.update(_prefixed("backbone.", import_vit_state(
-        vis, layers=_count_indexed(state, "backbone.transformer.resblocks.{i}."),
-        base_grid=int(round((n_pos - 1) ** 0.5)), proj_shape=tuple(own["backbone.proj"].shape))))
+    if "backbone.class_embedding" in state:
+        n_pos = own["backbone.positional_embedding"].shape[0]
+        entries.update(_prefixed("backbone.", import_vit_state(
+            vis, layers=_count_indexed(state, "backbone.transformer.resblocks.{i}."),
+            base_grid=int(round((n_pos - 1) ** 0.5)),
+            proj_shape=tuple(own["backbone.proj"].shape))))
+    else:
+        layers = tuple(_count_indexed(state, f"backbone.layer{li}.{{i}}.") for li in (1, 2, 3, 4))
+        entries.update(_resnet_entries(vis, own, layers))
 
     text = {k[len("text_encoder."):]: v for k, v in state.items() if k.startswith("text_encoder.")}
     entries.update(_prefixed("text_encoder.", import_text_state(
@@ -210,10 +283,17 @@ def import_reference_denseclip(state: Mapping[str, torch.Tensor], model: nn.Modu
     if "vis_proj.weight" in state:
         entries.update(_module(state, "vis_proj", "vis_proj"))
         entries.update(_module(state, "global_proj", "global_proj"))
-    if "contexts" in state:
-        entries["contexts"] = state["contexts"]
+    for key in ("contexts", "gamma"):
+        if key in state and key in own:  # without a context decoder nothing reads gamma
+            entries[key] = state[key]
+    if any(k.startswith("context_decoder.") for k in state):
+        entries.update(_context_decoder(state))
 
-    if any(k.startswith("neck.") for k in state):
+    neck = sorted(k for k in state if k.startswith("neck."))
+    if neck:
+        if not any(k.startswith(("neck.process_layers.", "neck.fusion_layer.")) for k in neck):
+            raise ValueError(f"reference neck keys ({neck[0]}, ...) are not the fusion neck's: "
+                             "only ViTFeatureFusionNeck weights are imported, as in the JAX package")
         for i in range(_count_indexed(state, "neck.process_layers.{i}.")):
             entries.update(_module(state, f"neck.process_layers.{i}.0", f"neck.process.{i}.conv"))
             entries.update(_module(state, f"neck.process_layers.{i}.1", f"neck.process.{i}.bn"))

@@ -15,11 +15,13 @@ others form one group per (label, decay) with the label's lr multiplier.
   * the lr of an update is schedule(count) * mult, where count is the number
     of updates applied so far (0 for the first).
 
-Trainable parameters that get no gradient (`contexts`, `vis_proj`,
-`global_proj`: the training forward never reads them) are given zero
-gradients before each update, as JAX hands them zeros: AdamW then still
-decays them, where `torch.optim.AdamW` would skip a parameter whose `.grad`
-is None.
+Trainable parameters that get no gradient are given zero gradients before
+each update, as JAX hands them zeros: AdamW then still decays them, where
+`torch.optim.AdamW` would skip a parameter whose `.grad` is None.  Only
+parameters with no path to the loss are left so: on the flagship `contexts`,
+`vis_proj` and `global_proj` (nothing reads the score map); with a context
+decoder or score concatenation (the ResNet presets) they, `gamma` and the
+decoder get their real gradients, through the frozen text tower.
 """
 
 from __future__ import annotations

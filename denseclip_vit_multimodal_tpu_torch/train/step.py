@@ -125,9 +125,10 @@ def make_eval_step(
 
     `batch` holds device tensors: image [B,H,W,3] uint8, seg [B,H,W], optional
     depth [B,H,W].  Results (device tensors): seg_pred, confusion, loss_seg;
-    depth_pred, depth_sums, depth_count, loss_silog.  The text tower does not
-    run: only the score map reads it, and the eval forward computes none (the
-    JAX step hoists it out of its program instead).
+    depth_pred, depth_sums, depth_count, loss_silog.  The text tower runs only
+    for a model whose forward reads the score map (a context decoder, score
+    concatenation), once per batch; the flagship's eval forward computes no
+    score map (the JAX step hoists the tower out of its program instead).
     """
 
     @torch.inference_mode()

@@ -26,7 +26,11 @@ from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASS
 from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip as t_build
 from denseclip_vit_multimodal_tpu_torch.train import clip_import as t_ci
 from denseclip_vit_multimodal_tpu_torch.train import weights as t_weights
-from torch_clip_files import reference_state
+from torch_clip_files import (
+    reference_context_decoder_state,
+    reference_state,
+    write_stub_clip,
+)
 
 WIDTH, LAYERS, HEADS, PATCH, RES = 64, 3, 4, 8, 32  # base grid 4 x 4
 TWIDTH, TLAYERS, THEADS, TEMBED = 48, 2, 4, 24
@@ -232,28 +236,124 @@ def test_reference_import_matches_jax_bitwise(archives, jax_init):
     assert torch.equal(got["neck.fuse.bn.running_var"], torch.from_numpy(ref["neck.fusion_layer.1.running_var"]))
 
 
-def test_reference_import_refuses_what_is_not_ported(archives, jax_init):
+def test_reference_import_refuses_what_is_not_ported(archives, jax_init, tmp_path):
+    """Named for what it checked before the context decoder and the ResNet
+    were ported: a shape mismatch still raises, and so do an FPN's neck keys
+    (the JAX importer reads the fusion neck alone); a context decoder's keys
+    and a ResNet backbone now import bit for bit as the JAX importers do."""
     _, clip_state = archives
     model, _ = _port_model(jax_init[2])
     ref = _reference_state(model.state_dict(), clip_state, np.random.RandomState(6))
-    with pytest.raises(ValueError, match="models/context_decoder.py"):
-        t_ci.import_reference_denseclip({**ref, "context_decoder.memory_proj.0.weight":
-                                         np.ones(4, np.float32)}, model)
-    resnet = {k: v for k, v in ref.items() if not k.startswith("backbone.")}
-    resnet["backbone.conv1.weight"] = np.ones((8, 3, 3, 3), np.float32)
-    with pytest.raises(ValueError, match="models/resnet.py"):
-        t_ci.import_reference_denseclip(resnet, model)
     with pytest.raises(ValueError, match="shape mismatch for neck.fuse.conv.weight"):
         t_ci.import_reference_denseclip({**ref, "neck.fusion_layer.0.weight":
                                          np.ones((1, 1, 1, 1), np.float32)}, model)
 
+    # a ViT with a context decoder: the JAX package's whole-model importer
+    jm, texts = j_build(CD_CFG, CITYSCAPES_CLASSES)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1), jnp.asarray(IMG),
+                                                 jnp.asarray(texts)))
+    model, _ = t_build(CD_CFG, CITYSCAPES_CLASSES, device="cpu")
+    load_flax_variables(model, variables)
+    own = {k: v for k, v in model.state_dict().items() if not k.startswith("context_decoder.")}
+    ref = _reference_state(own, clip_state, np.random.RandomState(7))
+    ref.update(reference_context_decoder_state(16, TEMBED, 2, seed=8))
+    loaded = j_ci.import_reference_denseclip(dict(ref), variables)
+    want = flax_to_state_dict(jax.tree.map(np.asarray, loaded))
+    assert t_ci.import_reference_denseclip(ref, model) == len(want)
+    got = model.state_dict()
+    assert any(k.startswith("context_decoder.layers.1.cross_attn.kv") for k in want)
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+
+    # a ResNet backbone: the JAX package's ResNet, text, decoder and head importers
+    rn_ref, rn_model, _ = _rn_reference(tmp_path, np.random.RandomState(9))
+    want_tree = _jax_rn_import(rn_ref)
+    want = flax_to_state_dict(want_tree)
+    assert t_ci.import_reference_denseclip(rn_ref, rn_model) == len(want)
+    got = rn_model.state_dict()
+    for key, value in want.items():
+        assert torch.equal(got[key], value), key
+    with pytest.raises(ValueError, match="not the fusion neck's"):
+        t_ci.import_reference_denseclip({**rn_ref, "neck.inner_blocks.0.0.weight":
+                                         np.ones((32, 32, 1, 1), np.float32)}, rn_model)
+
+
+CD_CFG = {**MODEL_CFG, "context_decoder": {"type": "ContextDecoder", "transformer_width": 16,
+                                           "transformer_heads": 2, "transformer_layers": 2}}
+RN_CFG = {**MODEL_CFG, "score_concat_index": 3,
+          "backbone": {"type": "CLIPResNetWithAttention", "layers": [1, 1, 1, 1], "width": 8,
+                       "output_dim": 40, "input_resolution": 64},
+          "context_decoder": CD_CFG["context_decoder"],
+          "neck": {"type": "FPN", "in_channels": [32, 64, 128, 256], "out_channels": 32,
+                   "num_outs": 4}}
+RN_VISUAL = (8, (1, 1, 1, 1), 2, 40)  # width, layers, pool grid, output dim
+
+
+def _rn_reference(tmp_path, rs):
+    """(reference state_dict with a ResNet backbone and a context decoder,
+    the port's RN model, the JAX variables it holds)."""
+    jm, texts = j_build(RN_CFG, CITYSCAPES_CLASSES)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(2), jnp.asarray(IMG),
+                                                 jnp.asarray(texts)))
+    model, _ = t_build(RN_CFG, CITYSCAPES_CLASSES, device="cpu")
+    load_flax_variables(model, variables)
+    clip = write_stub_clip(str(tmp_path / "rn_ref.pt"), RN_VISUAL, (TWIDTH, TLAYERS, 49408, 77, TEMBED),
+                           seed=10, resnet=True)
+    clip = {k: v.float() for k, v in clip.items() if k != "logit_scale"
+            and not k.endswith("num_batches_tracked")}
+    own = {k: v for k, v in model.state_dict().items()
+           if not k.startswith(("context_decoder.", "neck."))}
+    ref = _reference_state(own, clip, rs)
+    ref.update(reference_context_decoder_state(16, TEMBED, 2, seed=11))
+    ref["gamma"] = rs.randn(TEMBED).astype(np.float32)
+    return ref, model, variables
+
+
+def _jax_rn_import(ref):
+    """What the JAX package's importers make of `ref`, as one variables tree."""
+    vis = {f"visual.{k[len('backbone.'):]}": v for k, v in ref.items() if k.startswith("backbone.")}
+    bb_p, bb_s = j_ci.import_resnet_params(vis, layers=(1, 1, 1, 1), spacial_dim=2)
+    text = {k[len("text_encoder."):]: v for k, v in ref.items() if k.startswith("text_encoder.")}
+    params = {"backbone": bb_p, "contexts": ref["contexts"], "gamma": ref["gamma"],
+              "text_encoder": j_ci.import_text_params(text, TLAYERS, 13, TEMBED),
+              "context_decoder": j_ci._context_decoder(ref, "context_decoder"),
+              "vis_proj": j_ci._conv(ref, "vis_proj"),
+              "global_proj": j_ci._linear(ref, "global_proj")}
+    stats = {"backbone": bb_s}
+    for head in ("decode_head", "depth_head"):
+        params[head], stats[head] = j_ci._fcn_head(ref, head)
+    return {"params": params, "batch_stats": stats}
+
 
 def test_clip_import_refuses_a_resnet_archive(tmp_path):
-    path = str(tmp_path / "RN50.pt")
-    torch.save({"visual.conv1.weight": torch.ones(32, 3, 3, 3).half()}, path)
-    model, _ = t_build(MODEL_CFG, CITYSCAPES_CLASSES, device="cpu")
-    with pytest.raises(ValueError, match="models/resnet.py"):
-        t_ci.load_clip_into_model(model, path, MODEL_CFG)
+    """Named for the refusal it checked before the ResNet was ported: a stub
+    OpenAI ResNet archive (its key names and shapes, fp16) now imports as
+    the JAX package's `load_clip_into_variables` imports it, bit for bit, at
+    the model's pool grid (2 x 2) and from a 7 x 7 one, whose resized
+    pos-embed agrees within 1e-6."""
+    jm, texts = j_build(RN_CFG, CITYSCAPES_CLASSES)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(3), jnp.asarray(IMG),
+                                                 jnp.asarray(texts)))
+    for grid in (2, 7):
+        path = str(tmp_path / f"RN_{grid}.pt")
+        write_stub_clip(path, RN_VISUAL[:2] + (grid,) + RN_VISUAL[3:],
+                        (TWIDTH, TLAYERS, 49408, 77, TEMBED), seed=12, resnet=True)
+        loaded, j_vis, j_txt = j_ci.load_clip_into_variables(variables, path, RN_CFG)
+        want = flax_to_state_dict(jax.tree.map(np.asarray, loaded))
+        model, _ = t_build(RN_CFG, CITYSCAPES_CLASSES, device="cpu")
+        load_flax_variables(model, variables)
+        # JAX counts a text leaf once for all its stacked layers
+        assert (j_vis, j_txt) == (104, 12 + 5)
+        assert t_ci.load_clip_into_model(model, path, RN_CFG) == (104, 12 * TLAYERS + 5)
+        got = model.state_dict()
+        pos = "backbone.attnpool.positional_embedding"
+        for key, value in want.items():
+            if key == pos and grid != 2:
+                np.testing.assert_allclose(got[key].numpy(), value.numpy(), atol=1e-6, rtol=0)
+            else:
+                assert torch.equal(got[key], value), key
+        assert not torch.equal(got["backbone.stem.bn1.running_var"],
+                               flax_to_state_dict(variables)["backbone.stem.bn1.running_var"])
 
 
 def test_import_checkpoint_cli_matches_jax(archives, jax_init, tmp_path):

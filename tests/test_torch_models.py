@@ -333,13 +333,25 @@ def test_convert_rejects_unknown_and_missing_leaves(tiny_pair):
 
 
 @pytest.mark.parametrize("section,override", [
-    ("backbone", {"type": "CLIPResNet"}),
+    ("backbone", {"type": "CLIPResNet", "layers": [1, 1, 1, 1], "width": 8}),
     ("text_encoder", {"type": "CLIPTextEncoder"}),
     ("neck", {"type": "FPN"}),
     ("context_decoder", {"type": "ContextDecoder"}),
 ])
 def test_build_refuses_what_is_not_ported(tiny_model_cfg, section, override):
+    """Named for the refusals it checked before these modules were ported:
+    each type now builds into its module (their parity with the JAX package
+    is in tests/test_torch_{resnet,rn_path,fpn,context_decoder}.py), and an
+    unregistered type in the section raises the JAX package's error."""
     cfg = dict(tiny_model_cfg)
     cfg[section] = dict(cfg.get(section) or {}, **override)
-    with pytest.raises(ValueError, match="not yet ported"):
+    model, _ = t_build(cfg, CITYSCAPES_CLASSES, device="cpu")
+    assert type(getattr(model, section)).__name__ == override["type"]
+    if section == "context_decoder":  # the JAX build_denseclip does not read its type
+        assert model.gamma is not None
+        return
+    cfg[section] = dict(cfg[section], type="_Unregistered")
+    with pytest.raises(ValueError, match=f"Unsupported {section} type: _Unregistered"):
         t_build(cfg, CITYSCAPES_CLASSES, device="cpu")
+    with pytest.raises(ValueError, match=f"Unsupported {section} type: _Unregistered"):
+        j_build(cfg, CITYSCAPES_CLASSES)
