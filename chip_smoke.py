@@ -152,7 +152,7 @@ phases that each print one JSON line:
                   published shapes in fp16): the host ops built by g++ into
                   build/host/ and held bitwise against numpy; decode ms per
                   sample by file, and the loader alone at 1 and 8 threads;
-                  `tools/train.py` (CLIP import, 1 warm-up + 4 steps at
+                  `tools/train.py` (CLIP import, 1 warm-up + 2 steps at
                   batch 8, crop 512x1024: ms/step, data wait, peak memory,
                   12 K1 a step; the preset freezes both towers, so no K2),
                   the import's tensors against the archive's, the first
@@ -177,7 +177,33 @@ phases that each print one JSON line:
                   `tools/test.py` whole and slide (crop 640, stride 426) on
                   the 4 val frames (s/frame, peak memory); a served whole
                   frame's FLOPs and its profile.  No kernel of the port is
-                  on this path: every launch count must stay 0.
+                  on this path: every launch count must stay 0;
+ 25. ade20k_path — the three ADE20K presets on a tree written here (16
+                  training and 4 validation baseline 4:2:0 JPEGs of ADE20K's
+                  varied sizes by the numpy encoder `utils/_jpeg_writer.py`,
+                  8-bit label PNGs over 0..150; stub ViT-B/16 and RN50
+                  archives): the host's JPEG decode, resize and label ms a
+                  sample and the loader's samples/s at 1 and 8 threads;
+                  `configs/denseclip_vitb16_ade20k.yaml` through
+                  `tools/train.py` (batch 8, crop 512, the backbone at lr
+                  x0.1 as the RN presets ship it, 1 warm-up + 3 steps:
+                  ms/step, data wait, peak memory; 12 K1 forward and 12 K2
+                  backward launches a step, every one at [8,1152,2304] valid
+                  1025), the first step's loss with the kernels against plain
+                  attention (and the training forward's seg logits), a
+                  profiled step (busy share); `tools/test.py` on
+                  the validation split, slide at crop 640 / stride 426 on the
+                  512x683 canvas (s/frame, 12 K1 a frame at [2,1408,2304]
+                  valid 1281, 150 class IoUs; whole mode refused as the JAX
+                  ViT refuses it: 683 is not a multiple of the patch), one
+                  frame's seg logits against plain attention; `build_service`
+                  answering one JPEG of the tree as `predict_array` answers
+                  its decoded pixels; `configs/denseclip_rn50_512x512_80k.yaml`
+                  from the stub RN50 archive through `tools/train.py` (batch
+                  16, crop 512, 3 steps) and `tools/test.py` whole on the 4
+                  frames; one whole 512x683 frame of
+                  `configs/denseclip_rn101_512x512_80k.yaml` at full width
+                  from seeded weights.  No kernel launches on the RN paths.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -188,6 +214,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import io
 import itertools
 import json
 import os
@@ -444,6 +471,8 @@ def phase_kernels() -> dict:
         (2, 640, 8, 128, 640, 50),  # head dim 128
         (4, 777, 12, 64, None, 50),  # ragged N, valid_len None
         (8, 2176, 12, 64, 2049, 20),  # the flagship's training: batch 8, crop 512x1024
+        (8, 1152, 12, 64, 1025, 20),  # the ADE20K ViT preset's training: batch 8, crop 512
+        (2, 1408, 12, 64, 1281, 50),  # its slide frame: two 512x640 windows of the 512x683 canvas
     ]
     results = []
     for case in cases:
@@ -454,7 +483,7 @@ def phase_kernels() -> dict:
                 and stats_in_limits(res) and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape (the first) and the flagship training's (the last)
+    return results  # the slide shape, ..., the flagship's training, the two ADE20K shapes
 
 
 def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
@@ -510,6 +539,7 @@ BWD_CASES = [
     (2, 640, 8, 128, None, 20),  # head dim 128
     (4, 777, 12, 64, None, 20),  # ragged N, valid_len None
     (8, 2176, 12, 64, 2049, 10),  # the flagship's training shape (an unfrozen backbone's K2)
+    (8, 1152, 12, 64, 1025, 10),  # the ADE20K ViT preset's training: batch 8, crop 512
 ]
 
 
@@ -523,7 +553,7 @@ def phase_kernel_bwd() -> dict:
                        and res["rerun_bitwise_equal"]):
             raise AssertionError(f"qkv_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
-    return results  # the heritage training shape (the first) and the flagship's (the last)
+    return results  # the heritage training shape, ..., the flagship's, the ADE20K preset's
 
 
 def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
@@ -1315,7 +1345,7 @@ def phase_kernel_lnqkv() -> list:
                 and res["stats_bitwise_equal"] and res["stage2_bitwise_equal"]):
             raise AssertionError(f"ln_qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape (the first) and the flagship training's (the last)
+    return results  # the slide shape, ..., the flagship's training, the two ADE20K shapes
 
 
 FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
@@ -2195,7 +2225,7 @@ def phase_bench_path() -> dict:
 
 CITY_TRAIN, CITY_VAL = 16, 4  # triplets of the written tree, over two cities a split
 CITY_HW = (1024, 2048)
-CITY_STEPS = 5  # through tools/train.py; the first is the warm-up
+CITY_STEPS = 3  # through tools/train.py; the first is the warm-up
 CITY_DECODE_SAMPLES = 4  # timed one by one, in one thread
 # 512x1024 crops: 32 x 64 + 1 = 2049 tokens, padded once to 2176
 CITY_TOKENS, CITY_PADDED = 32 * 64 + 1, 2176
@@ -2802,6 +2832,404 @@ def _rn50_path(tmp: str, tree: str) -> dict:
     return res
 
 
+ADE_VIT_CONFIG = "configs/denseclip_vitb16_ade20k.yaml"
+ADE_RN50_CONFIG = "configs/denseclip_rn50_512x512_80k.yaml"
+ADE_RN101_CONFIG = "configs/denseclip_rn101_512x512_80k.yaml"
+# (height, width) of the written tree: ADE20K's varied sizes, landscape and
+# portrait; 16 training images so that the RN preset's batch of 16 is one step
+ADE_TRAIN_HW = [(512, 683), (683, 512), (480, 640), (768, 1024), (1400, 2100), (375, 500),
+                (512, 512), (600, 800)] * 2
+ADE_VAL_HW = [(512, 683), (683, 512), (768, 1024), (640, 480)]
+ADE_CANVAS = (512, 683)  # the dataset's fixed canvas (h, w)
+ADE_VIT_STEPS = 4  # at the preset's batch 8, crop 512: 1 warm-up + 3 timed
+ADE_RN50_STEPS = 3  # at the preset's batch 16: 1 warm-up + 2 timed
+# crop 512: 32 x 32 + 1 = 1025 tokens, padded once to 1152
+ADE_TOKENS, ADE_PADDED = 32 * 32 + 1, 1152
+# the preset's slide protocol (crop 640 / stride 426) on the 512x683 canvas:
+# two 512x640 windows, 32 x 40 + 1 = 1281 tokens, padded to 1408, one batch
+ADE_EVAL_TOKENS, ADE_EVAL_PADDED, ADE_EVAL_WINDOWS = 32 * 40 + 1, 1408, 2
+
+
+def write_ade20k_tree(root: str, seed: int) -> None:
+    """A seeded ADE20K tree: baseline 4:2:0 JPEGs written by the numpy
+    encoder (`utils/_jpeg_writer.py`: the card has no Pillow) of smooth
+    gradients with noise, and 8-bit label PNGs of 16x16-pixel blocks over
+    0..150 (0: background) by the port's PNG encoder."""
+    from denseclip_vit_multimodal_tpu_torch.utils._jpeg_writer import encode_jpeg
+    from denseclip_vit_multimodal_tpu_torch.utils.png import encode_png
+
+    rs = np.random.RandomState(seed)
+    for split, sizes, prefix in (("training", ADE_TRAIN_HW, "ADE_train"),
+                                 ("validation", ADE_VAL_HW, "ADE_val")):
+        img_dir = os.path.join(root, "ADEChallengeData2016", "images", split)
+        ann_dir = os.path.join(root, "ADEChallengeData2016", "annotations", split)
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(ann_dir, exist_ok=True)
+        for i, (h, w) in enumerate(sizes):
+            y, x = np.mgrid[0:h, 0:w]
+            base = np.stack([x * 255 // w, y * 255 // h, (x + 2 * y) * 255 // (w + 2 * h)], -1)
+            img = np.clip(base + rs.randint(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+            blocks = rs.randint(0, 151, (-(-h // 16), -(-w // 16))).astype(np.uint8)
+            label = np.repeat(np.repeat(blocks, 16, 0), 16, 1)[:h, :w]
+            name = f"{prefix}_{i + 1:08d}"
+            with open(os.path.join(img_dir, name + ".jpg"), "wb") as f:
+                f.write(encode_jpeg(img, quality=90))
+            with open(os.path.join(ann_dir, name + ".png"), "wb") as f:
+                f.write(encode_png(label))
+
+
+@contextlib.contextmanager
+def recorded_k1_k2_shapes():
+    """Counts (qkv shape, valid length) of every K1 and K2 launch while open."""
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
+
+    seen = {"qkv_attention": collections.Counter(), "qkv_attention_bwd": collections.Counter()}
+    fwd, bwd = mha_kernel._launch, mha_kernel._launch_bwd
+
+    def launch(qkv, num_heads, scale, kv_len, with_stats=False):
+        seen["qkv_attention"][(tuple(qkv.shape), kv_len)] += 1
+        return fwd(qkv, num_heads, scale, kv_len, with_stats)
+
+    def launch_bwd(qkv, out, dout, stats, num_heads, scale, kv_len):
+        seen["qkv_attention_bwd"][(tuple(qkv.shape), kv_len)] += 1
+        return bwd(qkv, out, dout, stats, num_heads, scale, kv_len)
+
+    mha_kernel._launch, mha_kernel._launch_bwd = launch, launch_bwd
+    try:
+        yield seen
+    finally:
+        mha_kernel._launch, mha_kernel._launch_bwd = fwd, bwd
+
+
+def shapes_json(seen: dict) -> dict:
+    return {k: [{"shape": list(s), "valid_len": kv, "launches": n} for (s, kv), n in c.items()]
+            for k, c in seen.items()}
+
+
+def ade20k_host_numbers(tree: str) -> dict:
+    """The host's part of an ADE20K sample, one thread: JPEG decode, the
+    bilinear resize to the canvas, the label (PNG decode, nearest resize,
+    remap) in ms per sample; the loader alone at 1 and 8 threads."""
+    from denseclip_vit_multimodal_tpu_torch.data import ade20k
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader
+    from denseclip_vit_multimodal_tpu_torch.utils import imageio
+    from denseclip_vit_multimodal_tpu_torch.utils.png import decode_png_array
+
+    ds = ade20k.ADE20KSegmentation(tree, split="train")
+    ch, cw = ds.canvas_size
+    ms = {"jpeg_decode": 0.0, "resize_bilinear": 0.0, "label": 0.0}
+    for img_path, label_path in ds.samples:
+        with open(img_path, "rb") as f:
+            data = f.read()
+        tick = time.perf_counter()
+        img = imageio.decode_jpeg(data)
+        mid = time.perf_counter()
+        imageio.resize_bilinear_u8(img, (cw, ch))
+        end = time.perf_counter()
+        with open(label_path, "rb") as f:
+            ldata = f.read()
+        ade20k.remap_labels(imageio.resize_nearest(decode_png_array(ldata), (cw, ch)))
+        ms["jpeg_decode"] += (mid - tick) * 1e3 / len(ds)
+        ms["resize_bilinear"] += (end - mid) * 1e3 / len(ds)
+        ms["label"] += (time.perf_counter() - end) * 1e3 / len(ds)
+    rates = {}
+    for threads in (1, 8):  # 4 epochs of the tree: 64 samples in batches of 8
+        loader = DataLoader(ds, batch_size=8, seed=SEED, num_threads=threads)
+        tick = time.perf_counter()
+        n = sum(b["image"].shape[0] for epoch in range(4) for b in loader.epoch(epoch))
+        rates[threads] = n / (time.perf_counter() - tick)
+    return {"samples": len(ds), "ms_per_sample": {**ms, "total": sum(ms.values())},
+            "loader_samples_per_s_by_threads": rates,  # cityscapes_path prints its PNG loader's
+            "library": str(imageio._LIBRARY.lib._name)}
+
+
+def phase_ade20k_path() -> dict:
+    """The three ADE20K presets on a JPEG tree written here, through the user
+    entry points (see the module note, phase 25)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="ade20k_smoke_") as tmp:
+        return _ade20k_path(tmp)
+
+
+def _ade20k_path(tmp: str) -> dict:
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.ade20k import ADE20K_CLASSES, ADE20KSegmentation
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.tools import serve
+    from denseclip_vit_multimodal_tpu_torch.tools import test as test_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import train as train_tool
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import load_model_weights
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.losses import cross_entropy_loss
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.utils import imageio
+
+    start = time.perf_counter()
+    tree = os.path.join(tmp, "ade20k")
+    vit_archive, rn_archive = os.path.join(tmp, "ViT-B-16.pt"), os.path.join(tmp, "RN50.pt")
+    vit_wd, rn_wd = os.path.join(tmp, "wd_vit"), os.path.join(tmp, "wd_rn50")
+    write_ade20k_tree(tree, SEED)
+    write_stub_clip(vit_archive, SEED)
+    write_stub_rn50_clip(rn_archive, SEED)
+    res = {"phase": "ade20k_path", "tree": {
+        "train": len(ADE_TRAIN_HW), "val": len(ADE_VAL_HW), "canvas": list(ADE_CANVAS),
+        "jpeg": "baseline 4:2:0, quality 90 (utils/_jpeg_writer.py)",
+        "bytes": sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tree) for f in fs)},
+        "write_s": time.perf_counter() - start}
+    res["host"] = ade20k_host_numbers(tree)
+    emit(res)
+
+    # 1. the ViT-B/16 preset through tools/train.py (CLIP import), K1 + K2 on every layer.
+    #    As shipped it sets no lr_mults, so both towers stay frozen (as in the JAX
+    #    package) and no backward runs through the ViT: the smoke trains the
+    #    backbone at lr x0.1, the paper's recipe (the RN50 / RN101 presets ship it)
+    sets = ["--set", f"data.path={tree}", f"model.clip_pretrained={vit_archive}",
+            "training.save_interval=1000", "training.lr_mults.backbone=0.1"]
+    cfg = load_config(ADE_VIT_CONFIG, overrides=sets[1:])
+    seed, batch_size = int(cfg.training.seed), int(cfg.training.batch_size)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    with recorded_k1_k2_shapes() as seen:
+        summary = train_tool.main([ADE_VIT_CONFIG, "--work-dir", vit_wd, "--no-validate",
+                                   "--max-steps", str(ADE_VIT_STEPS), *sets])
+    train_s = time.perf_counter() - tick
+    launches = read_launches()
+    with open(os.path.join(vit_wd, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    timed = log[1:]
+    step_ms = 1e3 * sum(e["step_s"] for e in timed) / len(timed)
+    wait_ms = 1e3 * sum(e["data_s"] for e in timed) / len(timed)
+    vit = {"config": ADE_VIT_CONFIG, "entry_point": "tools/train.py main()", "batch": batch_size,
+           "overrides": sets[1:],
+           "crop": list(cfg.data.crop_size), "steps": len(log), "wall_s": train_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "launches": launches,
+           "launch_shapes": shapes_json(seen), "ms_per_step": step_ms,
+           "data_wait_ms_per_step": wait_ms,
+           "samples_per_s": batch_size * len(timed) / sum(e["step_s"] + e["data_s"] for e in timed),
+           "losses": [e["loss_total"] for e in log]}
+    res["vit_training"] = vit
+    emit({"phase": "ade20k_path", "vit_training": vit})
+    k_shape = ((batch_size, ADE_PADDED, 3 * 768), ADE_TOKENS)
+    want = {"qkv_attention": {k_shape: 12 * ADE_VIT_STEPS},
+            "qkv_attention_bwd": {k_shape: 12 * ADE_VIT_STEPS}}
+    if not (summary["step"] == ADE_VIT_STEPS == len(log)
+            and all(np.isfinite(e["loss_total"]) and not e["skipped"] for e in log)):
+        raise AssertionError(f"tools/train.py did not take {ADE_VIT_STEPS} finite steps: {summary}")
+    if launches != expected_launches(qkv_attention=12 * ADE_VIT_STEPS,
+                                     qkv_attention_bwd=12 * ADE_VIT_STEPS) or {
+            k: dict(c) for k, c in seen.items()} != want:
+        raise AssertionError(f"expected 12 K1 forward and 12 K2 backward launches a step at "
+                             f"{k_shape}: {launches} {vit['launch_shapes']}")
+
+    # the first step's loss with the kernels against plain attention (the same
+    # weights, augmented batch and dropout masks), and a profiled step with its wait
+    model, texts = build_denseclip(cfg.model, ADE20K_CLASSES, dtype=torch.bfloat16, device="cuda",
+                                   seed=seed)
+    load_model_weights(vit_wd, model)
+    aug_cfg = augment_config_from_data_cfg(cfg.data)
+    train_ds = build_dataset(cfg.data, "train")
+    loader = DataLoader(train_ds, batch_size=batch_size, seed=seed,
+                        num_threads=int(cfg.training.get("workers", 4)))
+    loader_iter = endless(loader)
+    try:
+        batch = augment_batch(to_device(next(loader_iter), "cuda"), aug_cfg,
+                              torch.Generator().manual_seed(seed))
+
+        def loss_of(backward: bool):
+            model.zero_grad(set_to_none=True)
+            out = model(batch["image"], texts, train=True, gt_hw=tuple(aug_cfg.crop_size),
+                        gen=torch.Generator(device="cuda").manual_seed(seed))
+            loss = cross_entropy_loss(out["seg"], batch["seg"])
+            if backward:
+                loss.backward()
+            return float(loss), out["seg"].detach().float()
+
+        reset_launches()
+        kernel_loss, kernel_seg = loss_of(True)
+        kernel_launched = read_launches()
+        set_attn_impl(model, "xla")
+        with torch.no_grad():
+            plain_loss, plain_seg = loss_of(False)
+        set_attn_impl(model, "auto")
+        model.zero_grad(set_to_none=True)
+        res["vit_vs_plain"] = {"loss_kernel": kernel_loss, "loss_plain": plain_loss,
+                               "loss_rel_diff": abs(kernel_loss - plain_loss) / abs(plain_loss),
+                               "seg_rel_l2": rel_l2(kernel_seg, plain_seg),
+                               "launches": kernel_launched, "tol": TRAIN_TOL,
+                               "seg_tol": PATH_TOL}
+        del batch, kernel_seg, plain_seg
+        if not (kernel_launched == expected_launches(qkv_attention=12, qkv_attention_bwd=12)
+                and res["vit_vs_plain"]["loss_rel_diff"] <= TRAIN_TOL
+                and res["vit_vs_plain"]["seg_rel_l2"] <= PATH_TOL):
+            raise AssertionError(f"the ADE20K step disagrees with plain attention: "
+                                 f"{res['vit_vs_plain']}")
+        state = create_train_state(model, cfg.training, len(loader))
+        step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+        step(state, to_device(next(loader_iter), "cuda"))  # warm-up
+        prof = phase_profile(lambda _: step(state, to_device(next(loader_iter), "cuda")), [0],
+                             path="ade20k_vit_training")
+    finally:
+        loader_iter.close()
+    vit["profile"] = {"device_busy_ms": prof["device_busy_ms_per_frame"],
+                      "busy_share_of_the_step_with_its_wait": prof["device_busy_share"],
+                      "busy_share_timed_steps": prof["device_busy_ms_per_frame"] / (step_ms + wait_ms)}
+    emit({"phase": "ade20k_path", "vit_vs_plain": res["vit_vs_plain"],
+          "vit_training_profile": vit["profile"]})
+    del state, step
+    torch.cuda.empty_cache()
+
+    # 2. tools/test.py on the validation split: slide at the preset's protocol
+    #    (crop 640 / stride 426 on the 512x683 canvas); whole mode is refused
+    #    there, as the JAX ViT refuses it (683 is not a multiple of the patch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    with recorded_k1_k2_shapes() as seen:
+        results = test_tool.main([ADE_VIT_CONFIG, vit_wd, "--mode", "slide", "--single-protocol",
+                                  *sets])
+    launches = read_launches()
+    e_shape = ((ADE_EVAL_WINDOWS, ADE_EVAL_PADDED, 3 * 768), ADE_EVAL_TOKENS)
+    res["vit_eval"] = {"entry_point": "tools/test.py main()", "mode": "slide", "crop": [640, 640],
+                       "stride": [426, 426], "frames": len(ADE_VAL_HW),
+                       "timed_frames": len(ADE_VAL_HW) - 1, "wall_s": time.perf_counter() - tick,
+                       "s_per_frame": 1.0 / results["images_per_sec"],
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                       "launches": launches, "launch_shapes": shapes_json(seen),
+                       "mIoU": results.get("mIoU"), "pixel_acc": results.get("pixel_acc"),
+                       "class_ious": sum(k.startswith("iou/") for k in results)}
+    try:
+        test_tool.main([ADE_VIT_CONFIG, vit_wd, "--mode", "whole", "--max-samples", "1", *sets])
+        whole = "ran"
+    except ValueError as e:
+        whole = f"refused: {e}"
+    res["vit_eval"]["whole"] = whole
+    if not (launches == expected_launches(qkv_attention=12 * len(ADE_VAL_HW))
+            and {k: dict(c) for k, c in seen.items()} == {
+                "qkv_attention": {e_shape: 12 * len(ADE_VAL_HW)}, "qkv_attention_bwd": {}}):
+        raise AssertionError(f"expected 12 K1 launches a frame at {e_shape}: {res['vit_eval']}")
+    if not (np.isfinite(results["mIoU"]) and res["vit_eval"]["class_ious"] == 150
+            and "not divisible by patch 16" in whole):
+        raise AssertionError(f"tools/test.py on the ADE20K preset: {res['vit_eval']}")
+
+    # the seg logits of one val frame with the kernels against plain attention
+    val_ds = ADE20KSegmentation(tree, split="val")
+    frame = val_ds[0]["image"][None]
+    engine = Inferencer(model, texts, num_classes=len(ADE20K_CLASSES))
+    slide = lambda: engine.predict(frame, mode="slide", crop=(640, 640), stride=(426, 426),
+                                   fetch="device")["seg_logits"].float()
+    got = slide()
+    set_attn_impl(model, "xla")
+    ref = slide()
+    set_attn_impl(model, "auto")
+    res["vit_eval"]["vs_plain"] = {"seg_rel_l2": rel_l2(got, ref), "tol": PATH_TOL,
+                                   "shape": list(got.shape)}
+    emit({"phase": "ade20k_path", "vit_eval": res["vit_eval"]})
+    if not (res["vit_eval"]["vs_plain"]["seg_rel_l2"] <= PATH_TOL
+            and tuple(got.shape) == (1, *ADE_CANVAS, 150)):
+        raise AssertionError(f"ADE20K slide logits disagree with plain attention: "
+                             f"{res['vit_eval']['vs_plain']}")
+    del model, engine, got, ref
+    torch.cuda.empty_cache()
+
+    # 3. build_service on the preset; one JPEG of the tree as an HTTP body
+    args = serve.parse_args([ADE_VIT_CONFIG, vit_wd, "--mode", "slide", *sets])
+    service, _ = serve.build_service(args)
+    try:
+        with open(val_ds.samples[1][0], "rb") as f:
+            body = f.read()
+        hdr = imageio.read_jpeg_header(body)
+        reset_launches()
+        tick = time.perf_counter()
+        status, ctype, payload = service.handle_predict(body, {})
+        http_s = time.perf_counter() - tick
+        answer = np.load(io.BytesIO(payload)) if status == 200 else None
+        want_seg = service.predict_array(imageio.decode_jpeg(body))["seg"]
+        res["serve"] = {"entry_point": "tools/serve.py build_service + handle_predict",
+                        "body": {"bytes": len(body), "width": hdr.width, "height": hdr.height,
+                                 "mode": hdr.mode}, "status": status, "content_type": ctype,
+                        "seconds": http_s, "launches": read_launches(),
+                        "equal_to_predict_array": answer is not None
+                        and np.array_equal(answer["seg"], want_seg)}
+    finally:
+        service.close()
+    emit({"phase": "ade20k_path", "serve": res["serve"]})
+    if not (status == 200 and res["serve"]["equal_to_predict_array"]
+            and want_seg.shape == (hdr.height, hdr.width)):
+        raise AssertionError(f"the JPEG body's answer is not predict_array's: {res['serve']}")
+    torch.cuda.empty_cache()
+
+    # 4. the RN50 preset (the paper's ADE20K setting) from the stub RN50 archive:
+    #    tools/train.py at batch 16, crop 512, then tools/test.py whole on the val frames
+    rn_sets = ["--set", f"data.path={tree}", f"model.clip_pretrained={rn_archive}",
+               "training.save_interval=1000"]
+    rn_cfg = load_config(ADE_RN50_CONFIG, overrides=rn_sets[1:])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    summary = train_tool.main([ADE_RN50_CONFIG, "--work-dir", rn_wd, "--no-validate",
+                               "--max-steps", str(ADE_RN50_STEPS), *rn_sets])
+    with open(os.path.join(rn_wd, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    timed = log[1:]
+    rn = {"config": ADE_RN50_CONFIG, "batch": int(rn_cfg.training.batch_size),
+          "crop": list(rn_cfg.data.crop_size), "steps": len(log),
+          "wall_s": time.perf_counter() - tick,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "ms_per_step": 1e3 * sum(e["step_s"] for e in timed) / len(timed),
+          "data_wait_ms_per_step": 1e3 * sum(e["data_s"] for e in timed) / len(timed),
+          "losses": [e["loss_total"] for e in log], "launches": read_launches()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    results = test_tool.main([ADE_RN50_CONFIG, rn_wd, "--mode", "whole", *rn_sets])
+    rn["eval_whole"] = {"frames": len(ADE_VAL_HW), "s_per_frame": 1.0 / results["images_per_sec"],
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "mIoU": results.get("mIoU"), "launches": read_launches()}
+    res["rn50"] = rn
+    emit({"phase": "ade20k_path", "rn50": rn})
+    if not (summary["step"] == ADE_RN50_STEPS == len(log)
+            and all(np.isfinite(e["loss_total"]) and not e["skipped"] for e in log)
+            and np.isfinite(results["mIoU"])):
+        raise AssertionError(f"the RN50 ADE20K preset did not train and evaluate: {rn}")
+    if rn["launches"] != expected_launches() or rn["eval_whole"]["launches"] != expected_launches():
+        raise AssertionError(f"a kernel launched on the RN50 ADE20K path: {rn}")
+    torch.cuda.empty_cache()
+
+    # 5. the RN101 preset: one whole 512x683 frame at full width from seeded weights
+    rn101_cfg = load_config(ADE_RN101_CONFIG)
+    model, texts = build_denseclip(rn101_cfg.model, ADE20K_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    engine = Inferencer(model, texts, augment_config_from_data_cfg(rn101_cfg.data, train=False),
+                        num_classes=len(ADE20K_CLASSES))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    whole = lambda: engine.predict(frame, mode="whole", fetch="device")["seg_logits"]
+    out = whole().float()
+    ms = cuda_ms(whole, iters=3, warmup=1)
+    res["rn101"] = {"config": ADE_RN101_CONFIG, "frame": list(frame.shape),
+                    "logits": list(out.shape), "finite": bool(torch.isfinite(out).all()),
+                    "ms_per_frame": ms, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "launches": read_launches()}
+    emit({"phase": "ade20k_path", "rn101": res["rn101"]})
+    if not (res["rn101"]["finite"] and tuple(out.shape) == (1, *ADE_CANVAS, 150)
+            and res["rn101"]["launches"] == expected_launches()):
+        raise AssertionError(f"the RN101 ADE20K frame: {res['rn101']}")
+    del model, engine, out
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - start
+    emit({"phase": "ade20k_path", "seconds": res["seconds"]})
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -2874,9 +3302,9 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     k1_cases = phase_kernels()
-    slide, k1_city = k1_cases[0], k1_cases[-1]
+    slide, k1_city, k1_ade, k1_ade_eval = k1_cases[0], k1_cases[-3], k1_cases[-2], k1_cases[-1]
     k2_cases = phase_kernel_bwd()
-    train_shape, k2_city = k2_cases[0], k2_cases[-1]
+    train_shape, k2_city, k2_ade = k2_cases[0], k2_cases[-2], k2_cases[-1]
     flashes = phase_kernel_flash()
     longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
     serving = phase_kernel_int8()[0]
@@ -2901,6 +3329,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
         city_res = phase_cityscapes_path(tmp)
         rn50_res = phase_rn50_path(os.path.join(tmp, "cityscapes"))
+    ade_res = phase_ade20k_path()
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
@@ -2914,7 +3343,12 @@ def main() -> int:
                             "bench": bench_res["launches"][name],
                             "cityscapes_training": city_res["training"]["launches"][name],
                             "cityscapes_eval": city_res["eval"]["launches"][name],
-                            "rn50_path": rn50_res["launches"][name]}
+                            "rn50_path": rn50_res["launches"][name],
+                            "ade20k_training": ade_res["vit_training"]["launches"][name],
+                            "ade20k_eval": ade_res["vit_eval"]["launches"][name],
+                            "ade20k_rn50_rn101": (ade_res["rn50"]["launches"][name]
+                                                  + ade_res["rn50"]["eval_whole"]["launches"][name]
+                                                  + ade_res["rn101"]["launches"][name])}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
@@ -2934,10 +3368,12 @@ def main() -> int:
     emit({"kernels": [
         {**entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
                  main_res["launches"]["qkv_attention"]),
-         "cityscapes_training_shape": at_shape(k1_city)},
+         "cityscapes_training_shape": at_shape(k1_city),
+         "ade20k_training_shape": at_shape(k1_ade), "ade20k_eval_shape": at_shape(k1_ade_eval)},
         {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
                  train_shape, train_res["launches"]["qkv_attention_bwd"]),
-         "cityscapes_training_shape": at_shape(k2_city)},
+         "cityscapes_training_shape": at_shape(k2_city),
+         "ade20k_training_shape": at_shape(k2_ade)},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),
          "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "

@@ -83,21 +83,16 @@ def parse_args(argv=None):
 def build_model(cfg, device, attn_impl=None):
     """(model, texts) of a config on `device`, in its `tpu.compute_dtype`
     (bf16 by default) with its `tpu.attn_impl` unless `attn_impl` is given;
-    weights random from `SEED`.  Cityscapes classes only (ADE20K is not
-    ported)."""
+    weights random from `SEED`; the class list of the config's dataset."""
     import torch
 
-    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
-        CITYSCAPES_CLASSES,
-        build_denseclip,
-    )
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
+    from denseclip_vit_multimodal_tpu_torch.train.loop import class_names_for
 
-    if "ADE20K" in str((cfg.get("data", {}) or {}).get("dataset_type", "")):
-        raise ValueError("ADE20K is not yet ported to the PyTorch package")
     tpu_cfg = cfg.get("tpu", {}) or {}
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         str(tpu_cfg.get("compute_dtype", "bfloat16"))]
-    return build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=dtype,
+    return build_denseclip(cfg.model, class_names_for(cfg.get("data", {}) or {}), dtype=dtype,
                            attn_impl=attn_impl or str(tpu_cfg.get("attn_impl", "auto")),
                            device=device, seed=SEED)
 
@@ -129,7 +124,8 @@ def setup(args) -> Tuple[object, Callable[[Tuple[int, int]], Callable[[], Dict]]
     model, texts = build_model(cfg, args.device)
     _, _, window_batch = resolve_test_protocol(cfg)
     engine = Inferencer(model, texts, augment_config_from_data_cfg(cfg.get("data", {}),
-                                                                   train=False))
+                                                                   train=False),
+                        num_classes=len(texts))
     h, w = args.image
     frame = np.random.RandomState(SEED).randint(0, 255, (1, h, w, 3), dtype=np.uint8)
     image = engine.preprocess(torch.from_numpy(frame).to(args.device))

@@ -1,1 +1,1 @@
-"""Data pipeline of the port: synthetic dataset, threaded loader, on-device augmentation."""
+"""Data pipeline of the port: synthetic, Cityscapes and ADE20K datasets, threaded loader, on-device augmentation."""

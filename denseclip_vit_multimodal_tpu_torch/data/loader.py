@@ -91,9 +91,9 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 def build_dataset(data_cfg, split: str):
     """Dataset dispatch on `data.dataset_type`: the synthetic backend
-    (`data.synthetic: true` or type SyntheticDataset) and the Cityscapes
-    readers (CityscapesDepthSegDataset, CityscapesDataset) rooted at
-    `data.path`.  ADE20K is not ported yet."""
+    (`data.synthetic: true` or type SyntheticDataset), the Cityscapes readers
+    (CityscapesDepthSegDataset, CityscapesDataset) and ADE20K
+    (ADE20KSegmentation / ADE20K), rooted at `data.path`."""
     dtype_name = data_cfg.get("dataset_type", "CityscapesDepthSegDataset")
     root = str(data_cfg.get("path", "data/cityscapes"))
     if dtype_name == "SyntheticDataset" or data_cfg.get("synthetic", False):
@@ -119,4 +119,8 @@ def build_dataset(data_cfg, split: str):
         from denseclip_vit_multimodal_tpu_torch.data.cityscapes import CityscapesDataset
 
         return CityscapesDataset(root, split=split)
-    raise ValueError(f"dataset_type {dtype_name!r} not yet ported to the PyTorch package")
+    if dtype_name in ("ADE20KSegmentation", "ADE20K"):
+        from denseclip_vit_multimodal_tpu_torch.data.ade20k import ADE20KSegmentation
+
+        return ADE20KSegmentation(root, split=split)
+    raise ValueError(f"Unsupported dataset_type: {dtype_name}")

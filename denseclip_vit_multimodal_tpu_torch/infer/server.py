@@ -14,9 +14,13 @@
   `torch.cuda.synchronize`.
 - **Compact fetches**: only the seg argmax and the depth cross to the host
   (`fetch='packed'`: uint8 seg + float16 depth).
-- **No Pillow, no matplotlib for PNG**: PNG bodies go through `utils/png.py`,
-  panels through `utils/visualize.py`.  Other image formats are decoded by
-  Pillow when it can be imported, and answer 400 saying so when it cannot.
+- **No Pillow, no matplotlib for PNG and baseline JPEG**: PNG bodies go
+  through `utils/png.py`, JPEG bodies through `utils/imageio.py` (the size
+  from the markers before any pixel is decoded), panels through
+  `utils/visualize.py`.  A JPEG mode the port's decoder refuses
+  (progressive, arithmetic-coded, 12-bit, CMYK, ...) and other image formats
+  are decoded by Pillow when it can be imported, and answer 400 naming the
+  mode or saying so when it cannot.
 
 Endpoints: `GET /healthz` (JSON liveness, model and protocol, seconds since
 the last success, in-flight age), `GET /metrics` (Prometheus text:
@@ -46,7 +50,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
-from denseclip_vit_multimodal_tpu_torch.utils import png
+from denseclip_vit_multimodal_tpu_torch.utils import imageio, png
 from denseclip_vit_multimodal_tpu_torch.utils.visualize import colorize_depth, colorize_seg
 
 #: formats handle_predict can encode; validated BEFORE any device work.
@@ -115,11 +119,26 @@ def _open_with_pillow(body: bytes):
     return Image.open(io.BytesIO(body))
 
 
+def _decode_jpeg(body: bytes) -> np.ndarray:
+    """The port's decoder; a mode it refuses goes to Pillow where it is there."""
+    try:
+        return imageio.decode_jpeg(body)
+    except imageio.UnsupportedJPEG as e:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise ValueError(f"{e}, and Pillow, which would, is not installed") from None
+        return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"), np.uint8)
+
+
 def _decoder(body: bytes) -> Tuple[int, int, Callable[[], np.ndarray]]:
     """(width, height, decode) of an image body; only the header is read here."""
     if png.is_png(body):
         hdr = png.read_header(body)
         return hdr.width, hdr.height, lambda: png.decode_png(body)
+    if imageio.is_jpeg(body):
+        jhdr = imageio.read_jpeg_header(body)
+        return jhdr.width, jhdr.height, lambda: _decode_jpeg(body)
     image = _open_with_pillow(body)
     w, h = image.size
     return w, h, lambda: np.asarray(image.convert("RGB"), np.uint8)

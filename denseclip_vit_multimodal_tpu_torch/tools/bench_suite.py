@@ -175,7 +175,8 @@ def main(argv=None) -> List[dict]:
     on_cuda = device.type == "cuda"
     model, texts = build_model(cfg, device, args.attn_impl)
     engine = Inferencer(model, texts, augment_config_from_data_cfg(cfg.get("data", {}) or {},
-                                                                   train=False))
+                                                                   train=False),
+                        num_classes=len(texts))
     arch = arch_name(cfg.model.get("backbone", {}))
     has_depth = model.depth_head is not None
     task = "multitask" if has_depth else "seg"

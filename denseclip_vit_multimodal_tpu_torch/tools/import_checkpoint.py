@@ -61,21 +61,17 @@ def main(argv=None) -> str:
     import torch
 
     from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_config_path
-    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
-        CITYSCAPES_CLASSES,
-        build_denseclip,
-    )
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
     from denseclip_vit_multimodal_tpu_torch.train.checkpoint import save_checkpoint
     from denseclip_vit_multimodal_tpu_torch.train.clip_import import import_reference_denseclip
+    from denseclip_vit_multimodal_tpu_torch.train.loop import class_names_for
     from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
 
     cfg = load_config(resolve_config_path(args.config), overrides=args.overrides)
-    if "ADE20K" in str((cfg.get("data", {}) or {}).get("dataset_type", "")):
-        raise ValueError("ADE20K checkpoints are not yet ported to the PyTorch package")
     tpu_cfg = cfg.get("tpu", {}) or {}
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         str(tpu_cfg.get("compute_dtype", "bfloat16"))]
-    model, _ = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=dtype, device=args.device)
+    model, _ = build_denseclip(cfg.model, class_names_for(cfg.get("data", {}) or {}), dtype=dtype, device=args.device)
 
     state_dict, epoch, best = load_reference_state_dict(args.torch_ckpt)
     print(f"read {len(state_dict)} tensors from {args.torch_ckpt} (epoch {epoch})")

@@ -56,11 +56,9 @@ def main(argv=None):
     from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
     from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
-    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
-        CITYSCAPES_CLASSES,
-        build_denseclip,
-    )
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
     from denseclip_vit_multimodal_tpu_torch.train.checkpoint import load_model_weights
+    from denseclip_vit_multimodal_tpu_torch.train.loop import class_names_for
     from denseclip_vit_multimodal_tpu_torch.train.metrics import (
         accuracy_from_confusion,
         finalize_depth_errors,
@@ -71,9 +69,7 @@ def main(argv=None):
     args.crop, args.stride, args.window_batch = resolve_test_protocol(
         cfg, args.crop, args.stride, args.window_batch)
     data_cfg = cfg.get("data", {}) or {}
-    if "ADE20K" in str(data_cfg.get("dataset_type", "")):
-        raise ValueError("ADE20K evaluation is not yet ported to the PyTorch package")
-    class_names = CITYSCAPES_CLASSES
+    class_names = class_names_for(data_cfg)
     tpu_cfg = cfg.get("tpu", {}) or {}
     dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[
         str(tpu_cfg.get("compute_dtype", "bfloat16"))]

@@ -154,6 +154,16 @@ def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger
     return metrics
 
 
+def class_names_for(data_cfg) -> tuple:
+    """The class list of the config's dataset: ADE20K's 150 or Cityscapes' 19."""
+    get = data_cfg.get if hasattr(data_cfg, "get") else dict(data_cfg).get
+    if "ADE20K" in str(get("dataset_type", "CityscapesDepthSegDataset")):
+        from denseclip_vit_multimodal_tpu_torch.data.ade20k import ADE20K_CLASSES
+
+        return ADE20K_CLASSES
+    return CITYSCAPES_CLASSES
+
+
 def train_step_from_cfg(texts, training_cfg, data_cfg, seed: int = 0):
     """`make_train_step` with the `training:` section's loss weights, SILog
     settings and gradient accumulation, and the `data:` section's augmentation."""
@@ -194,8 +204,7 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     training_cfg = cfg.get("training", {}) or {}
     data_cfg = cfg.get("data", {}) or {}
     seed = int(training_cfg.get("seed", 42))
-    if "ADE20K" in str(data_cfg.get("dataset_type", "")):
-        raise ValueError("ADE20K training is not yet ported to the PyTorch package")
+    class_names = class_names_for(data_cfg)
     logger.info("environment:\n%s", collect_env_info())
 
     train_ds = build_dataset(data_cfg, "train")
@@ -203,8 +212,9 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                         num_threads=int(training_cfg.get("workers", 8)))
     val_loader = None
     if not no_validate:
+        val_split = "validation" if "ADE20K" in str(data_cfg.get("dataset_type", "")) else "val"
         try:
-            val_loader = DataLoader(build_dataset(data_cfg, "val"),
+            val_loader = DataLoader(build_dataset(data_cfg, val_split),
                                     batch_size=int(training_cfg.get("batch_size", 8)), seed=seed,
                                     num_threads=int(training_cfg.get("workers", 8)),
                                     shuffle=False, drop_last=False)
@@ -219,7 +229,7 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
         max_steps = iters if not max_steps else min(int(max_steps), iters)
 
     model, texts = build_denseclip(
-        cfg.model, CITYSCAPES_CLASSES, dtype=_DTYPES[str(tpu_cfg.get("compute_dtype", "bfloat16"))],
+        cfg.model, class_names, dtype=_DTYPES[str(tpu_cfg.get("compute_dtype", "bfloat16"))],
         attn_impl=str(tpu_cfg.get("attn_impl", "auto")), device=device, seed=seed,
         remat=tpu_cfg.get("remat", False))
     logger.info("params: %.2fM on %s", count_params(model) / 1e6, device)
@@ -237,7 +247,7 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     train_step = train_step_from_cfg(texts, training_cfg, data_cfg, seed)
     eval_step = make_eval_step(
         texts, augment_config_from_data_cfg(data_cfg, train=False),
-        num_classes=len(CITYSCAPES_CLASSES),
+        num_classes=len(class_names),
         depth_max=float(data_cfg.get("depth_max", 80.0)),
         silog_lambd=float(silog_cfg.get("lambd", 0.5)),  # comparable with the training loss
     )

@@ -175,5 +175,12 @@ def test_build_dataset_synthetic_and_refusals():
             t_loader.build_dataset(Config({"dataset_type": kind, "path": "/nonexistent"}), "train")
         with pytest.raises(RuntimeError, match="Image directory not found: /nonexistent"):
             j_loader.build_dataset({"dataset_type": kind, "path": "/nonexistent"}, "train")
-    with pytest.raises(ValueError, match="not yet ported"):
-        t_loader.build_dataset(Config({"dataset_type": "ADE20K"}), "train")
+    # ADE20K is ported: rooted at data.path, it refuses a missing tree as JAX does;
+    # an unknown type raises JAX's message
+    for kind in ("ADE20K", "ADE20KSegmentation"):
+        with pytest.raises(RuntimeError, match="Image directory not found: /nonexistent"):
+            t_loader.build_dataset(Config({"dataset_type": kind, "path": "/nonexistent"}), "train")
+        with pytest.raises(RuntimeError, match="Image directory not found: /nonexistent"):
+            j_loader.build_dataset({"dataset_type": kind, "path": "/nonexistent"}, "train")
+    with pytest.raises(ValueError, match="Unsupported dataset_type: NoSuchDataset"):
+        t_loader.build_dataset(Config({"dataset_type": "NoSuchDataset"}), "train")
