@@ -152,7 +152,7 @@ phases that each print one JSON line:
                   published shapes in fp16): the host ops built by g++ into
                   build/host/ and held bitwise against numpy; decode ms per
                   sample by file, and the loader alone at 1 and 8 threads;
-                  `tools/train.py` (CLIP import, 1 warm-up + 2 steps at
+                  `tools/train.py` (CLIP import, 1 warm-up + 1 step at
                   batch 8, crop 512x1024: ms/step, data wait, peak memory,
                   12 K1 a step; the preset freezes both towers, so no K2),
                   the import's tensors against the archive's, the first
@@ -169,7 +169,7 @@ phases that each print one JSON line:
                   c4) on `configs/denseclip_rn50_cityscapes.yaml` at full
                   width, on cityscapes_path's tree, from a stub OpenAI RN50
                   archive (its key names and shapes, fp16): `tools/train.py`
-                  at batch 16, crop 512x512, 1 warm-up + 2 timed steps
+                  at batch 16, crop 512x512, 1 warm-up + 1 timed step
                   (ms/step, data wait, peak memory, losses); the checkpoint
                   in bf16 on the card against fp32 on the CPU (a 512x512
                   window and a 2-sample training loss, rel. 5e-2);
@@ -203,7 +203,45 @@ phases that each print one JSON line:
                   16, crop 512, 3 steps) and `tools/test.py` whole on the 4
                   frames; one whole 512x683 frame of
                   `configs/denseclip_rn101_512x512_80k.yaml` at full width
-                  from seeded weights.  No kernel launches on the RN paths.
+                  from seeded weights.  No kernel launches on the RN paths;
+ 26. flash_path — the flagship built with `attn_impl: flash` beside `auto`
+                  on one seeded 1024x2048 slide frame: at the shipped crop
+                  624 both take 12 K1 at [10,1536,2304] and agree bitwise;
+                  at crop 384 (577 tokens, below K1's 1024-token floor under
+                  `auto`) `auto` takes plain attention and `flash` 24 K1 at
+                  [10,577,2304]: logits within PATH_TOL, ms a frame each;
+ 27. vitl14_seg_path — on cityscapes_path's tree, through `tools/train.py`
+                  (2 steps at batch 8 with one loader thread, then
+                  validation with its panels), `tools/test.py --mode slide
+                  --show-dir --out --format-dir` (2 frames, both protocols)
+                  and `tools/infer.py --mode slide` (one val image):
+                  `configs/denseclip_vitl14_cityscapes_multitask.yaml` at
+                  full width and depth (24 layers of 16 heads, remat as
+                  shipped, the backbone at lr x0.1, seeded init: no ViT-L-14
+                  archive, the missing-file path): 48 K1 + 24 K2 a step at
+                  [8,2688,3072] valid 2593 (remat runs K1 again in the
+                  backward), 24 K1 a window chunk at [10,2048,3072] valid
+                  2026 (crop 630) and [10,2176,3072] valid 2117 (644); whole
+                  mode refused on the frame as the JAX ViT refuses it, a
+                  slide aug-test frame run; then
+                  `configs/denseclip_vitb16_cityscapes_seg.yaml` the same
+                  way, with no depth output anywhere.  Each held against
+                  the phase's own model on the checkpoint: the panels' tiles
+                  (decoded by the port's decoder) against the colourisers on
+                  its eval step's predictions, the npz against
+                  `predict(fetch="packed")`, the labelId PNGs against
+                  `labelids_from_trainids` of the npz, infer's PNGs against
+                  the colourisers, and one slide frame's logits against
+                  plain attention.  ms/step, data wait, peak memory,
+                  s/frame, every launch's shape; then ViT-L/14's training
+                  step alone on a decoded batch by CUDA events (1 warm-up +
+                  3).
+
+rn50_path and cityscapes_path's `tools/train.py` run 2 steps each (1
+warm-up + 1 timed; 3 before the ViT-L/14 phase came), cityscapes_path's
+profiled step warms up on a batch it already decoded and its `--load` run
+decodes on one thread, to keep the script near 700 s; the seconds of every
+phase are printed before the `kernels` line.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -473,6 +511,10 @@ def phase_kernels() -> dict:
         (8, 2176, 12, 64, 2049, 20),  # the flagship's training: batch 8, crop 512x1024
         (8, 1152, 12, 64, 1025, 20),  # the ADE20K ViT preset's training: batch 8, crop 512
         (2, 1408, 12, 64, 1281, 50),  # its slide frame: two 512x640 windows of the 512x683 canvas
+        (8, 2688, 16, 64, 2593, 10),  # ViT-L/14 training: batch 8, crop 504x1008, 16 heads
+        (10, 2048, 16, 64, 2026, 20),  # its slide window batch (crop 630, window batch 10)
+        (10, 2176, 16, 64, 2117, 20),  # its reference protocol (crop 644)
+        (10, 577, 12, 64, None, 50),  # attn_impl flash: crop-384 windows, 577 tokens, unpadded
     ]
     results = []
     for case in cases:
@@ -483,7 +525,7 @@ def phase_kernels() -> dict:
                 and stats_in_limits(res) and res["stats_call_output_bitwise_equal"]):
             raise AssertionError(f"qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape, ..., the flagship's training, the two ADE20K shapes
+    return results  # the slide shape, ..., the two ADE20K shapes, the three ViT-L/14, flash's
 
 
 def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
@@ -540,6 +582,7 @@ BWD_CASES = [
     (4, 777, 12, 64, None, 20),  # ragged N, valid_len None
     (8, 2176, 12, 64, 2049, 10),  # the flagship's training shape (an unfrozen backbone's K2)
     (8, 1152, 12, 64, 1025, 10),  # the ADE20K ViT preset's training: batch 8, crop 512
+    (8, 2688, 16, 64, 2593, 10),  # ViT-L/14 training: batch 8, crop 504x1008, 16 heads
 ]
 
 
@@ -553,7 +596,7 @@ def phase_kernel_bwd() -> dict:
                        and res["rerun_bitwise_equal"]):
             raise AssertionError(f"qkv_attention_bwd disagrees with its plain version ({bad}): {res}")
         results.append(res)
-    return results  # the heritage training shape, ..., the flagship's, the ADE20K preset's
+    return results  # the heritage training shape, ..., the flagship's, ADE20K's, ViT-L/14's
 
 
 def flash_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, causal: bool,
@@ -1345,7 +1388,7 @@ def phase_kernel_lnqkv() -> list:
                 and res["stats_bitwise_equal"] and res["stage2_bitwise_equal"]):
             raise AssertionError(f"ln_qkv_attention disagrees with its plain version: {res}")
         results.append(res)
-    return results  # the slide shape, ..., the flagship's training, the two ADE20K shapes
+    return results  # the slide shape, ..., the two ADE20K shapes, the three ViT-L/14, flash's
 
 
 FUSED_ENV = "DENSECLIP_FUSED_LNQKV"
@@ -2225,7 +2268,7 @@ def phase_bench_path() -> dict:
 
 CITY_TRAIN, CITY_VAL = 16, 4  # triplets of the written tree, over two cities a split
 CITY_HW = (1024, 2048)
-CITY_STEPS = 3  # through tools/train.py; the first is the warm-up
+CITY_STEPS = 2  # through tools/train.py; the first is the warm-up (3 until the ViT-L/14 phase)
 CITY_DECODE_SAMPLES = 4  # timed one by one, in one thread
 # 512x1024 crops: 32 x 64 + 1 = 2049 tokens, padded once to 2176
 CITY_TOKENS, CITY_PADDED = 32 * 64 + 1, 2176
@@ -2530,7 +2573,8 @@ def _cityscapes_path(tmp: str) -> dict:
     aug_cfg = augment_config_from_data_cfg(cfg.data)
     loader_iter = endless(loader)
     try:
-        batch = augment_batch(to_device(next(loader_iter), "cuda"), aug_cfg,
+        first = next(loader_iter)
+        batch = augment_batch(to_device(first, "cuda"), aug_cfg,
                               torch.Generator().manual_seed(seed))
 
         def total_loss() -> float:
@@ -2556,7 +2600,7 @@ def _cityscapes_path(tmp: str) -> dict:
         # where a step's time goes, data wait included (the "frame" is a step)
         state = create_train_state(model, cfg.training, len(loader))
         step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
-        step(state, to_device(next(loader_iter), "cuda"))  # warm-up
+        step(state, to_device(first, "cuda"))  # warm-up, on the batch decoded above
         res["profile"] = phase_profile(lambda _: step(state, to_device(next(loader_iter), "cuda")),
                                        [0], path="cityscapes_training")
     finally:
@@ -2598,8 +2642,11 @@ def _cityscapes_path(tmp: str) -> dict:
     ckpt_lib.load_model_weights = capture
     reset_launches()
     try:
+        # one loader thread: this run checks the weights and the step, and
+        # one thread decodes the Paeth files ~5x faster than eight (GIL)
         summary = train_tool.main([CONFIG, "--work-dir", load_dir, "--no-validate",
-                                   "--max-steps", "1", "--load", work_dir, *sets])
+                                   "--max-steps", "1", "--load", work_dir, *sets,
+                                   "training.workers=1"])
     finally:
         ckpt_lib.load_model_weights = load_model_weights
     launches = read_launches()
@@ -2645,7 +2692,7 @@ def _cityscapes_path(tmp: str) -> dict:
 RN50_CONFIG = "configs/denseclip_rn50_cityscapes.yaml"
 RN50_VISUAL = (64, (3, 4, 6, 3), 7, 1024)  # RN50: width, blocks, pool grid, output dim
 RN50_TEXT = (512, 12, 49408, 77, 1024)  # width, layers, vocab, positions, projection
-RN50_STEPS = 3  # at the preset's batch 16: 1 warm-up + 2 timed (the cut: fewer steps)
+RN50_STEPS = 2  # at the preset's batch 16: 1 warm-up + 1 timed (the cut: fewer steps)
 RN50_CPU_BATCH = 2  # samples of the step's loss held against fp32 on the CPU
 
 
@@ -3230,6 +3277,443 @@ def _ade20k_path(tmp: str) -> dict:
     return res
 
 
+VITL_CONFIG = "configs/denseclip_vitl14_cityscapes_multitask.yaml"
+SEG_CONFIG = "configs/denseclip_vitb16_cityscapes_seg.yaml"
+PRESET_STEPS = 2  # one epoch of the tree at batch 8 (1 warm-up + 1 timed), then validation
+PRESET_EVAL_FRAMES = 2  # tools/test.py --max-samples per protocol (the first untimed)
+PRESET_TIMED_STEPS = 3  # the step alone, by CUDA events, after a warm-up
+
+
+def _k1_key(batch: int, tokens: int, width: int) -> tuple:
+    """(qkv shape, valid_len) of a K1 / K2 launch on `tokens` ViT tokens, padded
+    once to a multiple of 128 from 1024 tokens on (models/vit.py)."""
+    padded = tokens if tokens < 1024 or tokens % 128 == 0 else -(-tokens // 128) * 128
+    return ((batch, padded, 3 * width), tokens)
+
+
+def _panel_expectations(model, texts, cfg, class_names) -> dict:
+    """The validation panels `train()` should have written for epoch 0: the
+    phase's own eval step on the same val batches and weights, the first
+    sample and the best batch's sample 0 (seg accuracy, first strict max)."""
+    import types
+
+    from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.train.metrics import accuracy_from_confusion
+    from denseclip_vit_multimodal_tpu_torch.train.step import make_eval_step
+    from denseclip_vit_multimodal_tpu_torch.utils import visualize as vis
+
+    eval_step = make_eval_step(texts, augment_config_from_data_cfg(cfg.data, train=False),
+                               num_classes=len(class_names),
+                               depth_max=float(cfg.data.get("depth_max", 80.0)))
+    loader = DataLoader(build_dataset(cfg.data, "val"), batch_size=int(cfg.training.batch_size),
+                        shuffle=False, drop_last=False, num_threads=1)
+    first = best = best_acc = None
+    for batch in loader.epoch(0):
+        dev = to_device(batch, "cuda")
+        results = eval_step(types.SimpleNamespace(model=model), dev)
+        sample = {"image": batch["image"][0], "seg_pred": results["seg_pred"][0].cpu().numpy(),
+                  "seg_gt": np.asarray(batch["seg"][0]),
+                  "depth_pred": (results["depth_pred"][0].float().cpu().numpy()
+                                 if "depth_pred" in results else None),
+                  "depth_gt": np.asarray(batch["depth"][0]) if "depth" in batch else None}
+        acc = float(accuracy_from_confusion(results["confusion"]))
+        first = sample if first is None else first
+        if best is None or acc > best_acc:
+            best, best_acc = sample, acc
+
+    def multi_task(s):
+        tiles = [("input", s["image"]), ("seg pred", vis.colorize_seg(s["seg_pred"])),
+                 ("seg gt", vis.colorize_seg(s["seg_gt"]))]
+        if s["depth_pred"] is not None:
+            tiles.append(("depth pred", vis.colorize_depth(s["depth_pred"])))
+        if s["depth_gt"] is not None:
+            tiles.append(("depth gt", vis.colorize_depth(s["depth_gt"])))
+        return tiles
+
+    return {"epoch_0.png": ("", multi_task(first)),
+            "best_epoch_0.png": (f"best batch accuracy {best_acc * 100:.2f}%", multi_task(best)),
+            "comparison_epoch_0.png": ("Validation Epoch 0 - Best Accuracy Image", [
+                ("Input Image", best["image"]),
+                ("Prediction", vis.colorize_scaled(best["seg_pred"])),
+                ("Ground Truth", vis.colorize_scaled(best["seg_gt"]))])}
+
+
+def _panels_match(vis_dir: str, expected: dict) -> dict:
+    """Each panel decoded by the port's own PNG decoder, cut into its tiles,
+    against the expected titles and tiles (bitwise)."""
+    from denseclip_vit_multimodal_tpu_torch.utils.visualize import read_panels
+
+    out = {}
+    for name, (title, tiles) in expected.items():
+        path = os.path.join(vis_dir, name)
+        if not os.path.exists(path):
+            out[name] = "missing"
+            continue
+        with open(path, "rb") as f:
+            got_title, got = read_panels(f.read())
+        out[name] = {"bytes": os.path.getsize(path), "tiles": [n for n, _ in got],
+                     "title": got_title,
+                     "equal": got_title == title and [n for n, _ in got] == [n for n, _ in tiles]
+                     and all(np.array_equal(a, b) for (_, a), (_, b) in zip(got, tiles))}
+    return out
+
+
+def _preset_path(tmp: str, tree: str, config: str, tag: str, train_sets: list,
+                 expect_train: dict, expect_eval: dict, expect_infer: dict,
+                 device_step: bool = False) -> dict:
+    """One Cityscapes preset through the three user entry points on `tree`:
+    `tools/train.py` (PRESET_STEPS steps, then validation with its panels),
+    `tools/test.py --mode slide` at the preset's protocol and the reference
+    one with `--show-dir --out --format-dir`, and `tools/infer.py --mode
+    slide` on one val image; each output held against what this phase
+    computes on the same weights, and every K1 / K2 launch's shape counted."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
+    from denseclip_vit_multimodal_tpu_torch.data.cityscapes import labelids_from_trainids
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.tools import infer as infer_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import test as test_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import train as train_tool
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import load_model_weights
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.utils.png import decode_png, decode_png_array
+    from denseclip_vit_multimodal_tpu_torch.utils.visualize import (
+        colorize_depth,
+        colorize_seg,
+        read_panels,
+    )
+
+    start = time.perf_counter()
+    wd = os.path.join(tmp, f"wd_{tag}")
+    sets = ["--set", f"data.path={tree}", "training.save_interval=1000",
+            "training.workers=1", *train_sets]  # one loader thread: the PNG decode's fastest
+    cfg = load_config(config, overrides=sets[1:])
+    res = {"config": config, "overrides": sets[1:]}
+
+    # 1. tools/train.py: PRESET_STEPS steps, then validation with its panels
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    with recorded_k1_k2_shapes() as seen:
+        summary = train_tool.main([config, "--work-dir", wd, "--max-steps", str(PRESET_STEPS),
+                                   *sets])
+    with open(os.path.join(wd, "train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    with open(os.path.join(wd, "train.log")) as f:
+        train_log = f.read()
+    timed = log[1:]
+    training = {
+        "entry_point": "tools/train.py main()", "batch": int(cfg.training.batch_size),
+        "crop": list(cfg.data.crop_size), "remat": cfg.tpu.get("remat", False),
+        "steps": len(log), "wall_s": time.perf_counter() - tick,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "ms_per_step": 1e3 * sum(e["step_s"] for e in timed) / len(timed),
+        "data_wait_ms_per_step": 1e3 * sum(e["data_s"] for e in timed) / len(timed),
+        "losses": [e["loss_total"] for e in log], "launches": read_launches(),
+        "launch_shapes": shapes_json(seen), "miou": summary.get("miou"),
+        "clip_missing_warning": "not found; training from scratch" in train_log}
+    res["training"] = training
+    emit({"phase": f"{tag}_path", "training": training})
+    if not (summary["step"] == PRESET_STEPS == len(log) and np.isfinite(summary["miou"])
+            and training["clip_missing_warning"]
+            and all(np.isfinite(e["loss_total"]) and not e["skipped"] for e in log)):
+        raise AssertionError(f"{config}: tools/train.py did not train and validate: {training}")
+    if {k: dict(c) for k, c in seen.items()} != expect_train:
+        raise AssertionError(f"{config}: training launches {training['launch_shapes']}, "
+                             f"expected {expect_train}")
+
+    # the phase's own model on the checkpoint: panels, logits, npz and PNGs
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED, remat=cfg.tpu.get("remat", False))
+    load_model_weights(wd, model)
+    vis_dir = os.path.join(wd, "visualizations")
+    panels = _panels_match(vis_dir, _panel_expectations(model, texts, cfg, CITYSCAPES_CLASSES))
+    res["panels"] = panels
+    emit({"phase": f"{tag}_path", "panels": panels})
+    if not all(isinstance(p, dict) and p["equal"] for p in panels.values()):
+        raise AssertionError(f"{config}: the validation panels disagree: {panels}")
+
+    # 2. tools/test.py slide on val, both protocols, with the three outputs
+    crop, stride, window_batch = resolve_test_protocol(cfg, None, None, None)
+    out_npz, show, fmt = (os.path.join(tmp, f"{tag}_{n}") for n in ("preds.npz", "show", "fmt"))
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tick = time.perf_counter()
+    with recorded_k1_k2_shapes() as seen:
+        results = test_tool.main([config, wd, "--mode", "slide", "--max-samples",
+                                  str(PRESET_EVAL_FRAMES), "--show-dir", show, "--out", out_npz,
+                                  "--format-dir", fmt, *sets])
+    evaluation = {"entry_point": "tools/test.py main()", "crop": list(crop),
+                  "stride": list(stride), "window_batch": window_batch,
+                  "frames": PRESET_EVAL_FRAMES, "wall_s": time.perf_counter() - tick,
+                  "s_per_frame": 1.0 / results["images_per_sec"],
+                  "ref_s_per_frame": 1.0 / results["ref/images_per_sec"],
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "launches": read_launches(), "launch_shapes": shapes_json(seen),
+                  "mIoU": results.get("mIoU"), "ref_mIoU": results.get("ref/mIoU"),
+                  "depth_abs_rel": results.get("depth/abs_rel")}
+    saved = np.load(out_npz)
+    engine = Inferencer(model, texts, augment_config_from_data_cfg(cfg.data, train=False),
+                        num_classes=len(CITYSCAPES_CLASSES))
+    val_ds = build_dataset(cfg.data, "val")
+    npz_equal = formats_equal = shows_equal = True
+    for i in range(PRESET_EVAL_FRAMES):
+        want = engine.predict(val_ds[i]["image"][None], mode="slide", crop=tuple(crop),
+                              stride=tuple(stride), window_batch=window_batch, fetch="packed")
+        npz_equal &= np.array_equal(saved[f"seg_{i}"], want["seg"][0]) and (
+            np.array_equal(saved[f"depth_{i}"], want["depth"][0]) if "depth" in want
+            else f"depth_{i}" not in saved)
+        with open(os.path.join(fmt, f"frame_{i:05d}_labelIds.png"), "rb") as f:
+            formats_equal &= np.array_equal(decode_png_array(f.read()),
+                                            labelids_from_trainids(saved[f"seg_{i}"]))
+        with open(os.path.join(show, f"frame_{i:05d}.png"), "rb") as f:
+            title, tiles = read_panels(f.read())
+        shows_equal &= title == f"frame {i}" and np.array_equal(
+            dict(tiles)["seg pred"], colorize_seg(saved[f"seg_{i}"]))
+    evaluation.update({"npz_keys": sorted(saved.files), "npz_equal_to_packed": bool(npz_equal),
+                       "labelids_equal": bool(formats_equal),
+                       "show_dir_seg_tiles_equal": bool(shows_equal)})
+    res["eval"] = evaluation
+    emit({"phase": f"{tag}_path", "eval": evaluation})
+    if {k: dict(c) for k, c in seen.items()} != expect_eval:
+        raise AssertionError(f"{config}: evaluation launches {evaluation['launch_shapes']}, "
+                             f"expected {expect_eval}")
+    if not (npz_equal and formats_equal and shows_equal and np.isfinite(results["mIoU"])
+            and np.isfinite(results["ref/mIoU"])):
+        raise AssertionError(f"{config}: tools/test.py's outputs disagree: {evaluation}")
+
+    # 3. tools/infer.py on one val image (slide at the preset's protocol)
+    image_path = val_ds.samples[0][0]
+    reset_launches()
+    with recorded_k1_k2_shapes() as seen:
+        written = infer_tool.main([config, wd, image_path, "-o", os.path.join(tmp, f"{tag}_inf"),
+                                   "--mode", "slide", *sets])
+    infer_launches = read_launches()
+    with open(image_path, "rb") as f:
+        frame = decode_png(f.read())[None]
+    want = engine.predict(frame, mode="slide", crop=tuple(crop), stride=tuple(stride),
+                          window_batch=window_batch, fetch="argmax")
+    arrays = {"seg": colorize_seg(want["seg"][0])}
+    if "depth" in want:
+        arrays["depth"] = colorize_depth(want["depth"][0], float(cfg.data.get("depth_max", 80.0)))
+    decoded = {}
+    for path in written:
+        with open(path, "rb") as f:
+            decoded[path.rsplit("_", 1)[1][:-len(".png")]] = decode_png(f.read())
+    infer_res = {"entry_point": "tools/infer.py main()", "written": [os.path.basename(p)
+                                                                     for p in written],
+                 "launches": infer_launches, "launch_shapes": shapes_json(seen),
+                 "pngs_equal": decoded.keys() == arrays.keys()
+                 and all(np.array_equal(decoded[k], arrays[k]) for k in arrays)}
+    res["infer"] = infer_res
+    if {k: dict(c) for k, c in seen.items()} != expect_infer or not infer_res["pngs_equal"]:
+        raise AssertionError(f"{config}: tools/infer.py: {infer_res}, expected {expect_infer}")
+
+    # 4. one slide frame's seg logits with the kernels against plain attention
+    slide = lambda: engine.predict(frame, mode="slide", crop=tuple(crop), stride=tuple(stride),
+                                   window_batch=window_batch, fetch="device")["seg_logits"].float()
+    got = slide()
+    torch.cuda.synchronize()
+    tick = time.perf_counter()
+    got = slide()
+    torch.cuda.synchronize()
+    slide_s = time.perf_counter() - tick
+    set_attn_impl(model.backbone, "xla")
+    ref = slide()
+    set_attn_impl(model.backbone, "auto")
+    res["vs_plain"] = {"seg_rel_l2": rel_l2(got, ref), "tol": PATH_TOL,
+                       "kernel_slide_frame_s": slide_s}
+    res["infer"]["vs_plain"] = res["vs_plain"]
+    emit({"phase": f"{tag}_path", "infer": infer_res})
+    if not res["vs_plain"]["seg_rel_l2"] <= PATH_TOL:
+        raise AssertionError(f"{config}: slide logits disagree with plain attention: "
+                             f"{res['vs_plain']}")
+    res["model"], res["engine"], res["frame"] = model, engine, frame
+    res["seconds"] = time.perf_counter() - start
+    if not device_step:
+        return res
+
+    # 5. the training step alone on one batch decoded beforehand, by CUDA events
+    #    (the CLI's `step_s` also holds the loader thread's decode under the GIL);
+    #    it trains the phase's model, so it comes after every check on the weights
+    samples = DataLoader(build_dataset(cfg.data, "train"), batch_size=int(cfg.training.batch_size),
+                         seed=SEED, num_threads=1).epoch(0)
+    try:
+        batch = to_device(next(samples), "cuda")
+    finally:
+        samples.close()
+    state = create_train_state(model, cfg.training, 2)
+    step = train_step_from_cfg(texts, cfg.training, cfg.data, SEED)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    training["device_step_ms"] = cuda_ms(lambda: step(state, dict(batch)), iters=PRESET_TIMED_STEPS,
+                                         warmup=1)
+    training["device_step_launches"] = {k: v / (PRESET_TIMED_STEPS + 1)
+                                        for k, v in read_launches().items() if v}
+    training["device_step_peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": f"{tag}_path", "device_step": {k: training[k] for k in (
+        "device_step_ms", "device_step_launches", "device_step_peak_mem_gib")}})
+    del state, step, batch
+    res["seconds"] = time.perf_counter() - start
+    return res
+
+
+def phase_vitl14_seg_path(tree: str) -> dict:
+    """The ViT-L/14 preset (24 layers of 16 heads, remat as shipped, the
+    backbone at lr x0.1 so that K2 runs) and the seg-only preset on
+    cityscapes_path's tree, through `tools/train.py`, `tools/test.py` and
+    `tools/infer.py` (`_preset_path`); ViT-L/14's whole mode on the frame
+    refused as the JAX ViT refuses it (1024 is not a multiple of patch 14),
+    its slide aug-test (sizes rounded to the patch grid) run once."""
+    import tempfile
+
+    start = time.perf_counter()
+    res = {"phase": "vitl14_seg_path"}
+    with tempfile.TemporaryDirectory(prefix="vitl14_seg_smoke_") as tmp:
+        w = 1024
+        train_k = _k1_key(8, 36 * 72 + 1, w)  # crop 504x1008, batch 8
+        res["vitl14"] = vitl = _preset_path(
+            tmp, tree, VITL_CONFIG, "vitl14", ["training.lr_mults.backbone=0.1"],
+            # remat: each layer's K1 runs again in the backward's recompute
+            {"qkv_attention": {train_k: 2 * 24 * PRESET_STEPS,
+                               _k1_key(4, 36 * 72 + 1, w): 24},  # validation: 4 val frames
+             "qkv_attention_bwd": {train_k: 24 * PRESET_STEPS}},
+            {"qkv_attention": {_k1_key(10, 45 * 45 + 1, w): 24 * PRESET_EVAL_FRAMES,  # crop 630
+                               _k1_key(10, 46 * 46 + 1, w): 24 * PRESET_EVAL_FRAMES},  # 644
+             "qkv_attention_bwd": {}},
+            {"qkv_attention": {_k1_key(10, 45 * 45 + 1, w): 24}, "qkv_attention_bwd": {}},
+            device_step=True)
+        # whole mode on the 1024x2048 frame is refused, as the JAX ViT refuses
+        # it (1024 = 73 x 14 + 2); aug-test rounds every scaled size to the
+        # patch grid (both packages), so it runs
+        try:
+            vitl["engine"].predict(vitl["frame"], mode="whole", fetch="device")
+            whole = "ran"
+        except ValueError as e:
+            whole = f"refused: {e}"
+        reset_launches()
+        with recorded_k1_k2_shapes() as seen:
+            tick = time.perf_counter()
+            aug = vitl["engine"].aug_test(vitl["frame"], mode="slide", crop=(630, 630),
+                                          stride=(426, 426), window_batch=10, fetch="device")
+            finite = bool(torch.isfinite(aug["seg_logits"]).all()
+                          and torch.isfinite(aug["depth"]).all())
+            aug_s = time.perf_counter() - tick
+        vitl["modes"] = {"whole": whole, "aug_test_slide": {
+            "finite": finite, "shape": list(aug["seg_logits"].shape), "s_per_frame": aug_s,
+            "launches": read_launches(), "launch_shapes": shapes_json(seen)}}
+        del aug
+        emit({"phase": "vitl14_seg_path", "vitl14_modes": vitl["modes"]})
+        if not ("not divisible by patch 14" in whole and finite):
+            raise AssertionError(f"ViT-L/14 whole mode / aug-test: {vitl['modes']}")
+        for k in ("model", "engine", "frame"):
+            vitl.pop(k)
+        torch.cuda.empty_cache()
+
+        w = 768
+        res["seg_only"] = seg = _preset_path(
+            tmp, tree, SEG_CONFIG, "seg_only", [],
+            {"qkv_attention": {_k1_key(8, 32 * 64 + 1, w): 12 * PRESET_STEPS,  # frozen towers
+                               _k1_key(4, 32 * 64 + 1, w): 12},
+             "qkv_attention_bwd": {}},
+            {"qkv_attention": {_k1_key(10, 39 * 39 + 1, w): 12 * PRESET_EVAL_FRAMES,  # crop 624
+                               _k1_key(10, 40 * 40 + 1, w): 12 * PRESET_EVAL_FRAMES},  # 640
+             "qkv_attention_bwd": {}},
+            {"qkv_attention": {_k1_key(10, 39 * 39 + 1, w): 12}, "qkv_attention_bwd": {}})
+        for k in ("model", "engine", "frame"):
+            seg.pop(k)
+        if (any(k.startswith("depth") for k in seg["eval"]["npz_keys"])
+                or seg["infer"]["written"] != [os.path.basename(seg["infer"]["written"][0])]
+                or any(t.startswith("depth") for p in seg["panels"].values() for t in p["tiles"])):
+            raise AssertionError(f"the seg-only preset wrote a depth output: {seg}")
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - start
+    emit({"phase": "vitl14_seg_path", "seconds": res["seconds"]})
+    return res
+
+
+FLASH_CROPS = ((624, 20), (384, 10))  # the shipped window (1522 tokens); 577 tokens, below 1024
+FLASH_ROUNDS = 6  # interleaved timings of each impl a crop (a frame's wall time is host-noisy)
+
+
+def phase_flash_path() -> dict:
+    """The flagship built with `attn_impl: flash` beside `auto` on one seeded
+    1024x2048 slide frame, at the shipped crop (both take K1) and at crop 384
+    (577 tokens: `auto` takes plain attention, `flash` K1 at any length):
+    the same logits within PATH_TOL, K1 launches and shapes, ms a frame
+    (CUDA events around 3 queued frames, FLASH_ROUNDS rounds interleaved,
+    the median; the frame is on the card before the clock starts)."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+
+    cfg = load_config(CONFIG)
+    frame = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, (1, 1024, 2048, 3), dtype=np.uint8)).cuda()  # uploaded once, outside the timing
+    engines = {}
+    for impl in ("auto", "flash"):
+        model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                       attn_impl=impl, device="cuda", seed=SEED)
+        engines[impl] = Inferencer(model, texts, augment_config_from_data_cfg(cfg.data, False),
+                                   num_classes=len(CITYSCAPES_CLASSES))
+    res = {"phase": "flash_path", "config": CONFIG, "frame": list(frame.shape), "crops": []}
+    total = expected_launches()
+    for crop, wb in FLASH_CROPS:
+        row = {"crop": crop, "window_batch": wb}
+        logits = {}
+        for impl, engine in engines.items():
+            run = lambda: engine.predict(frame, mode="slide", crop=(crop, crop), stride=(426, 426),
+                                         window_batch=wb, fetch="device")["seg_logits"]
+            run()  # warm-up
+            reset_launches()
+            with recorded_k1_k2_shapes() as seen:
+                logits[impl] = run().float()
+                torch.cuda.synchronize()
+            launched = read_launches()
+            if impl == "flash":
+                total = {k: total[k] + v for k, v in launched.items()}
+            row[impl] = {"launches": launched, "launch_shapes": shapes_json(seen), "ms": []}
+        for r in range(FLASH_ROUNDS):  # interleaved, the order alternating (ABBA ...)
+            for impl in (("auto", "flash") if r % 2 == 0 else ("flash", "auto")):
+                run = lambda: engines[impl].predict(frame, mode="slide", crop=(crop, crop),
+                                                    stride=(426, 426), window_batch=wb,
+                                                    fetch="device")["seg_logits"]
+                row[impl]["ms"].append(cuda_ms(run, iters=3, warmup=1))
+        for impl in engines:
+            row[impl]["ms_per_frame"] = float(np.median(row[impl]["ms"]))
+        row["flash_wins_rounds"] = sum(f < a for f, a in zip(row["flash"]["ms"], row["auto"]["ms"]))
+        row["seg_rel_l2_flash_vs_auto"] = rel_l2(logits["flash"], logits["auto"])
+        res["crops"].append(row)
+        emit({"phase": "flash_path", **row})
+        tokens = (crop // 16) ** 2 + 1
+        windows = 15 if crop == 384 else 10  # the 3 x 5 and 2 x 5 grids at stride 426
+        flash_k1 = {_k1_key(min(wb, windows), tokens, 768): 12 * -(-windows // wb)}
+        auto_k1 = flash_k1 if tokens >= 1024 else {}
+        got = lambda impl: {(tuple(d["shape"]), d["valid_len"]): d["launches"]
+                            for d in row[impl]["launch_shapes"]["qkv_attention"]}
+        if not (row["seg_rel_l2_flash_vs_auto"] <= PATH_TOL and got("flash") == flash_k1
+                and got("auto") == auto_k1):
+            raise AssertionError(f"flash vs auto at crop {crop}: {row}, expected K1 {flash_k1} "
+                                 f"under flash and {auto_k1} under auto")
+    res["launches"] = total
+    del engines
+    torch.cuda.empty_cache()
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -3299,37 +3783,50 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    smi = phase_device()
-    phase_build()
-    k1_cases = phase_kernels()
-    slide, k1_city, k1_ade, k1_ade_eval = k1_cases[0], k1_cases[-3], k1_cases[-2], k1_cases[-1]
-    k2_cases = phase_kernel_bwd()
-    train_shape, k2_city, k2_ade = k2_cases[0], k2_cases[-2], k2_cases[-1]
-    flashes = phase_kernel_flash()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        tick = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = round(time.perf_counter() - tick, 1)
+
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    k1_cases = timed("kernel", phase_kernels)
+    slide, k1_city, k1_ade, k1_ade_eval = k1_cases[0], k1_cases[-7], k1_cases[-6], k1_cases[-5]
+    k1_vitl_train, k1_vitl, k1_vitl_ref, k1_flash = k1_cases[-4:]
+    k2_cases = timed("kernel_bwd", phase_kernel_bwd)
+    train_shape, k2_city, k2_ade, k2_vitl = k2_cases[0], k2_cases[-3], k2_cases[-2], k2_cases[-1]
+    flashes = timed("kernel_flash", phase_kernel_flash)
     longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
-    serving = phase_kernel_int8()[0]
-    oneshot = phase_kernel_oneshot()[0]
-    fused = phase_kernel_lnqkv()[0]
-    main_res = phase_main_path()
-    lnqkv_res = phase_lnqkv_path(main_res["profile"])
-    train_res = phase_train_path()
-    eval_res = phase_eval_path()
-    serve_res = phase_serve_path()
-    selftest_res = phase_selftest()
-    oneshot_bwds = phase_kernel_oneshot_bwd()
+    serving = timed("kernel_int8", phase_kernel_int8)[0]
+    oneshot = timed("kernel_oneshot", phase_kernel_oneshot)[0]
+    fused = timed("kernel_lnqkv", phase_kernel_lnqkv)[0]
+    main_res = timed("main_path", phase_main_path)
+    lnqkv_res = timed("lnqkv_path", phase_lnqkv_path, main_res["profile"])
+    flash_res = timed("flash_path", phase_flash_path)
+    train_res = timed("train_path", phase_train_path)
+    eval_res = timed("eval_path", phase_eval_path)
+    serve_res = timed("serve_path", phase_serve_path)
+    selftest_res = timed("selftest", phase_selftest)
+    oneshot_bwds = timed("kernel_oneshot_bwd", phase_kernel_oneshot_bwd)
     oneshot_bwd, oneshot_bwd_256 = oneshot_bwds[0], oneshot_bwds[-1]
-    flash_bwds = phase_kernel_flash_bwd()
+    flash_bwds = timed("kernel_flash_bwd", phase_kernel_flash_bwd)
     flash_bwd, flash_bwd_256 = flash_bwds[0], flash_bwds[-1]
-    long_res = phase_train_long()
-    outproj_res = phase_outproj_path()
-    pab_res = phase_profile_attn_bwd()
-    bench_res = phase_bench_path()
+    long_res = timed("train_long", phase_train_long)
+    outproj_res = timed("outproj_path", phase_outproj_path)
+    pab_res = timed("profile_attn_bwd", phase_profile_attn_bwd)
+    bench_res = timed("bench_path", phase_bench_path)
     import tempfile
 
     with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
-        city_res = phase_cityscapes_path(tmp)
-        rn50_res = phase_rn50_path(os.path.join(tmp, "cityscapes"))
-    ade_res = phase_ade20k_path()
+        city_res = timed("cityscapes_path", phase_cityscapes_path, tmp)
+        rn50_res = timed("rn50_path", phase_rn50_path, os.path.join(tmp, "cityscapes"))
+        vitl_res = timed("vitl14_seg_path", phase_vitl14_seg_path, os.path.join(tmp, "cityscapes"))
+    ade_res = timed("ade20k_path", phase_ade20k_path)
+    emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
                             "aug_test": eval_res["launches"][name],
@@ -3348,7 +3845,12 @@ def main() -> int:
                             "ade20k_eval": ade_res["vit_eval"]["launches"][name],
                             "ade20k_rn50_rn101": (ade_res["rn50"]["launches"][name]
                                                   + ade_res["rn50"]["eval_whole"]["launches"][name]
-                                                  + ade_res["rn101"]["launches"][name])}
+                                                  + ade_res["rn101"]["launches"][name]),
+                            "flash": flash_res["launches"][name],
+                            **{f"{tag}_{part}": sum(vitl_res[tag][k]["launches"][name] for k in ks)
+                               for tag in ("vitl14", "seg_only")
+                               for part, ks in (("training", ("training",)),
+                                                ("eval", ("eval", "infer")))}}
     entry = lambda name, source, replaces, res, launches: {
         "name": name, "route": "cuda",
         "source": f"denseclip_vit_multimodal_tpu_torch/csrc/{source}",
@@ -3369,11 +3871,14 @@ def main() -> int:
         {**entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
                  main_res["launches"]["qkv_attention"]),
          "cityscapes_training_shape": at_shape(k1_city),
-         "ade20k_training_shape": at_shape(k1_ade), "ade20k_eval_shape": at_shape(k1_ade_eval)},
+         "ade20k_training_shape": at_shape(k1_ade), "ade20k_eval_shape": at_shape(k1_ade_eval),
+         "vitl14_training_shape": at_shape(k1_vitl_train), "vitl14_eval_shape": at_shape(k1_vitl),
+         "vitl14_reference_protocol_shape": at_shape(k1_vitl_ref),
+         "flash_below_1024_shape": at_shape(k1_flash)},
         {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
                  train_shape, train_res["launches"]["qkv_attention_bwd"]),
          "cityscapes_training_shape": at_shape(k2_city),
-         "ade20k_training_shape": at_shape(k2_ade)},
+         "ade20k_training_shape": at_shape(k2_ade), "vitl14_training_shape": at_shape(k2_vitl)},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),
          "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "

@@ -234,7 +234,7 @@ def build_denseclip(
 
     Weights come from a seeded `torch.Generator` with the Flax initialisers'
     distributions (load real weights with `convert.load_flax_variables`).
-    `attn_impl` ("auto", "xla" or "int8") reaches the ViT only: the text
+    `attn_impl` ("auto", "xla", "int8" or "flash") reaches the ViT only: the text
     tower, the context decoder and the ResNet's attention pool keep plain
     attention (`xla`), as in the JAX package.  So does `remat` (the
     `tpu.remat` value: false or true / "full";

@@ -18,7 +18,12 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.
     With `attn_impl="int8"` (the opt-in quantized serving path) non-causal
     sequences of at most 8448 tokens on CUDA take the int8 kernel (K5)
-    instead, and everything else the `auto` rules.  With
+    instead, and everything else the `auto` rules.  With `attn_impl="flash"`
+    (the JAX package's rule, "on the TPU" read as "on CUDA") non-causal
+    sequences of at most 8448 tokens on CUDA take K1 at any length, with no
+    1024-token floor, and every other call on CUDA takes `flash_attention`
+    (K3 or K4); a CUDA tensor of another dtype than bf16 raises
+    `TypeError`, and off CUDA `flash` takes the `auto` rules.  With
     `DENSECLIP_FUSED_LNQKV=1` the block's LayerNorm, the qkv projection and
     the attention run as one kernel (`ops/lnqkv_kernel.py`, K6) on the
     inference path, where the rule below holds.
@@ -72,7 +77,8 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
 ATTN_XLA = "xla"  # plain PyTorch attention everywhere (name kept from the JAX package)
 ATTN_AUTO = "auto"  # the kernels where the dispatch rules hold
 ATTN_INT8 = "int8"  # the opt-in quantized serving path (K5; inference only)
-ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA, ATTN_INT8)
+ATTN_FLASH = "flash"  # the kernels at every length they take, on CUDA
+ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA, ATTN_INT8, ATTN_FLASH)
 
 
 # --------------------------------------------------------------------------
@@ -219,6 +225,15 @@ class Conv2d(nn.Conv2d):
 # --------------------------------------------------------------------------
 
 
+def require_flash_dtype(x: torch.Tensor) -> None:
+    """`attn_impl: flash` on CUDA runs the bf16 kernels.  The JAX package
+    would run its kernels in fp32 there; the port's take bf16 only, and
+    plain attention would hide the kernel, so another dtype raises."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"attn_impl 'flash' runs the bfloat16 kernels on CUDA, got {x.dtype}; "
+                        "fp32 inputs to the kernels are not ported yet (ROADMAP §2)")
+
+
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -229,11 +244,18 @@ def attention_core(
     valid_len: Optional[int] = None,
 ) -> torch.Tensor:
     """Attention on [B, N, H, Dh] by the configured impl (the JAX package's
-    `attention_core` for `auto`, `xla` and `int8`): `auto` takes
+    `attention_core` for `auto`, `xla`, `int8` and `flash`): `auto` takes
     `flash_attention` where `flash_supported` holds, and plain attention
     elsewhere.  `int8` quantizes only in the fused-qkv path, so what reaches
-    this core (causal, more than 8448 tokens, the CPU) takes `auto`."""
+    this core (causal, more than 8448 tokens, the CPU) takes `auto`.
+    `flash` takes `flash_attention` for every call on CUDA (bf16 only:
+    `require_flash_dtype`) and `auto` off CUDA."""
     if impl == ATTN_INT8:
+        impl = ATTN_AUTO
+    if impl == ATTN_FLASH:
+        if _attention._on_cuda(q):
+            require_flash_dtype(q)
+            return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
         impl = ATTN_AUTO
     if impl == ATTN_AUTO and flash_supported(q):
         return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
@@ -280,11 +302,13 @@ class MultiHeadAttention(nn.Module):
 
     def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int,
                                dtype: Optional[torch.dtype] = None) -> bool:
-        """`dtype`: the compute dtype the kernel would see (default qkv's)."""
+        """`dtype`: the compute dtype the kernel would see (default qkv's).
+        Under `flash` the regime takes any dtype: a CUDA tensor of another
+        dtype than bf16 then raises in `forward` (`require_flash_dtype`)."""
         if self.attn_impl == ATTN_XLA or self.causal:
             return False
         n = qkv.shape[1]
-        if self.attn_impl == ATTN_INT8:  # no 1024-token floor, any dtype K5 writes
+        if self.attn_impl in (ATTN_INT8, ATTN_FLASH):  # no 1024-token floor
             regime = _attention._on_cuda(qkv) and n <= _ONESHOT_MAX_SEQ
         else:
             regime = (_attention._on_cuda(qkv) and (dtype or qkv.dtype) == torch.bfloat16
@@ -295,8 +319,9 @@ class MultiHeadAttention(nn.Module):
         """The JAX rule for the fused LN + qkv + attention kernel (K6), read
         on every call: `DENSECLIP_FUSED_LNQKV=1`, not causal, a qkv
         projection with a bias, K1's regime for the attn_impl
-        (under `int8` that is K6 at any N up to 8448, unquantized: JAX checks
-        the fused branch first), `qkv_supported` and `lnqkv_supported` at N.
+        (under `int8` and `flash` that is K6 at any N up to 8448, under `int8`
+        unquantized: JAX checks the fused branch first), `qkv_supported` and
+        `lnqkv_supported` at N.
         K6 takes bf16 only where it runs, on a CUDA tensor; a CPU tensor (the
         tests patch `_on_cuda`) runs its plain version, which takes fp32 too.
         The JAX package keeps the fusion opt-in: it lost 7% end to end on a
@@ -332,6 +357,8 @@ class MultiHeadAttention(nn.Module):
             x = layer_norm_apply(x, ln_scale, ln_bias, ln_eps).to(self.qkv.compute_dtype)
         qkv = self.qkv(x)
         if self._qkv_kernel_applicable(qkv, dim):
+            if self.attn_impl == ATTN_FLASH:
+                require_flash_dtype(qkv)
             attn = mha_qkv_attention_int8 if self.attn_impl == ATTN_INT8 else mha_qkv_attention
             return self.out(attn(qkv, self.num_heads, valid_len=valid_len))
         # strided views of the fused projection (row stride 3 * dim), no copy
@@ -502,8 +529,8 @@ class Transformer(nn.Module):
 
 
 def set_attn_impl(module: nn.Module, impl: str) -> None:
-    """Switch every attention layer under `module` to `impl` ("auto", "xla"
-    or "int8"; a causal layer under "int8" keeps the `auto` rules)."""
+    """Switch every attention layer under `module` to `impl` ("auto", "xla",
+    "int8" or "flash"; a causal layer under "int8" keeps the `auto` rules)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not yet ported (have {ATTN_IMPLS})")
     for m in module.modules():

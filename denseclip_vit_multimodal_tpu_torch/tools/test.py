@@ -10,13 +10,27 @@ and only those small totals are read at the end.  The throughput clock starts
 after the first batch, which pays the one-time set-up.  In slide mode, when
 the config's crop differs from the reference protocol's, the reference
 protocol is scored too (skip it with `--single-protocol`).  Runs on `cuda`
-unless `--device cpu`.  Orbax checkpoints, `--shard-windows`, `--show-dir`,
-`--out` and `--format-dir` are not ported yet.
+unless `--device cpu`.
+
+On the primary protocol pass only, as in the JAX package: `--show-dir DIR`
+writes a panel per frame (`frame_00000.png`, ... through
+`utils/visualize.py::save_multi_task_panel`, titled `frame N`); `--out
+FILE.npz` saves every frame's prediction in one `np.savez_compressed`
+(`seg_N` uint8, `depth_N` float16); `--format-dir DIR` writes Cityscapes
+submission PNGs (`frame_00000_labelIds.png`, 8-bit gray, trainId ->
+labelId by `data/cityscapes.py::labelids_from_trainids`).  These fetch each
+batch's predictions to the host.  `--fetch-logits` also copies the fp32
+logit canvas to the host every batch.  `--shard-windows` runs unsharded,
+with a warning, on one device (or outside slide mode); spreading windows
+over several devices is not ported (parallelism) and raises.  Orbax
+checkpoints are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
 import time
 
 
@@ -34,7 +48,20 @@ def parse_args(argv=None):
     p.add_argument("--aug-test", action="store_true",
                    help="multi-scale (0.5-1.75) + flip logit averaging")
     p.add_argument("--batch-size", type=int, default=1)
+    p.add_argument("--shard-windows", action="store_true",
+                   help="slide mode: spread each frame's windows over the devices "
+                        "(one device: runs unsharded with a warning)")
     p.add_argument("--max-samples", type=int, default=None)
+    p.add_argument("--fetch-logits", action="store_true",
+                   help="also copy the fp32 logit canvas to the host every batch")
+    p.add_argument("--show-dir", default=None, metavar="DIR",
+                   help="save an input / prediction (/ ground truth) panel PNG per frame")
+    p.add_argument("--out", default=None, metavar="FILE.npz",
+                   help="save every frame's prediction (uint8 seg, float16 depth) to one "
+                        ".npz, keys seg_N / depth_N")
+    p.add_argument("--format-dir", default=None, metavar="DIR",
+                   help="write the predictions as Cityscapes submission labelId PNGs, "
+                        "named by dataset order")
     p.add_argument("--single-protocol", action="store_true",
                    help="slide mode: skip the second pass at the reference protocol")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -46,6 +73,7 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
 
+    import numpy as np
     import torch
 
     from denseclip_vit_multimodal_tpu_torch.core.config import (
@@ -54,6 +82,7 @@ def main(argv=None):
         resolve_test_protocol,
     )
     from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
+    from denseclip_vit_multimodal_tpu_torch.data.cityscapes import labelids_from_trainids
     from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
@@ -64,7 +93,17 @@ def main(argv=None):
         finalize_depth_errors,
         miou_from_confusion,
     )
+    from denseclip_vit_multimodal_tpu_torch.utils.png import encode_png
+    from denseclip_vit_multimodal_tpu_torch.utils.visualize import save_multi_task_panel
 
+    if args.shard_windows:
+        devices = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
+        if args.mode == "slide" and devices > 1:
+            raise NotImplementedError(
+                f"--shard-windows over {devices} devices is not ported yet (parallelism, "
+                "ROADMAP §1 item 6)")
+        print("WARNING: --shard-windows needs --mode slide and >1 device; running unsharded",
+              file=sys.stderr)
     cfg = load_config(resolve_config_path(args.config), overrides=args.overrides)
     args.crop, args.stride, args.window_batch = resolve_test_protocol(
         cfg, args.crop, args.stride, args.window_batch)
@@ -84,8 +123,32 @@ def main(argv=None):
     infer = Inferencer(model, texts, aug_cfg, num_classes=len(class_names))
     max_depth = float(data_cfg.get("depth_max", 80.0))
 
-    def evaluate(crop, stride, window_batch):
+    def save_artifacts(batch, out, seen: int, out_arrays: dict) -> None:
+        """--show-dir / --out / --format-dir for one batch (a host fetch)."""
+        seg_np = out["seg"].to(torch.int32).cpu().numpy()
+        depth_np = out["depth"].float().cpu().numpy() if "depth" in out else None
+        for b in range(seg_np.shape[0]):
+            idx = seen + b
+            if args.show_dir:
+                save_multi_task_panel(
+                    os.path.join(args.show_dir, f"frame_{idx:05d}.png"), batch["image"][b],
+                    seg_np[b], seg_gt=batch["seg"][b] if "seg" in batch else None,
+                    depth_pred=depth_np[b] if depth_np is not None else None,
+                    depth_gt=batch["depth"][b] if "depth" in batch else None,
+                    max_depth=max_depth, title=f"frame {idx}")
+            if args.out:
+                out_arrays[f"seg_{idx}"] = seg_np[b].astype(np.uint8)
+                if depth_np is not None:
+                    out_arrays[f"depth_{idx}"] = depth_np[b].astype(np.float16)
+            if args.format_dir:
+                os.makedirs(args.format_dir, exist_ok=True)
+                with open(os.path.join(args.format_dir, f"frame_{idx:05d}_labelIds.png"),
+                          "wb") as f:
+                    f.write(encode_png(labelids_from_trainids(seg_np[b])))
+
+    def evaluate(crop, stride, window_batch, artifacts=False):
         cm = d_sums = d_count = out = None
+        out_arrays = {}  # --out: uint8 seg / float16 depth per frame
         seen = seen_at_t0 = 0
         t0 = time.perf_counter()
         kw = dict(mode=args.mode, crop=tuple(crop), stride=tuple(stride),
@@ -103,6 +166,10 @@ def main(argv=None):
         for batch in loader.epoch(0):
             out = (infer.aug_test(batch["image"], **kw) if args.aug_test
                    else infer.predict(batch["image"], **kw))
+            if args.fetch_logits:
+                out["seg_logits"].float().cpu().numpy()  # the opt-in canvas copy
+            if artifacts and (args.show_dir or args.out or args.format_dir):
+                save_artifacts(batch, out, seen, out_arrays)
             if "seg" in batch or "depth" in batch:
                 c, s, n = infer.eval_metrics(out, seg_gt=batch.get("seg"),
                                              depth_gt=batch.get("depth"),
@@ -141,9 +208,12 @@ def main(argv=None):
         if d_sums is not None:
             results.update({f"depth/{k}": float(v)
                             for k, v in finalize_depth_errors(d_sums, d_count).items()})
+        if artifacts and args.out and out_arrays:
+            np.savez_compressed(args.out, **out_arrays)
+            print(f"saved {sum(k.startswith('seg') for k in out_arrays)} frames to {args.out}")
         return results
 
-    results = evaluate(args.crop, args.stride, args.window_batch)
+    results = evaluate(args.crop, args.stride, args.window_batch, artifacts=True)
     for k, v in results.items():
         print(f"{k}: {v:.4f}")
 

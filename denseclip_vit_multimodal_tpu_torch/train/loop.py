@@ -28,9 +28,10 @@ carries over from the reference loop:
 Per-step metrics (with `step_s`, the host seconds of the step, from the batch
 on the host to its losses read back, and `data_s`, the host seconds spent
 waiting for that batch) go to `<work_dir>/train_log.jsonl`, and every
-`log_interval` steps to the log; validation metrics to the log.  Orbax
-checkpoints, the validation PNG panels and the mesh / FSDP / pipeline /
-multi-host branches are not ported.
+`log_interval` steps to the log; validation metrics to the log, and, under
+`training.save_visualizations` (default true), the validation panels to
+`<work_dir>/visualizations/` (`validate`).  Orbax checkpoints and the mesh /
+FSDP / pipeline / multi-host branches are not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ import signal
 import time
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
@@ -61,6 +63,10 @@ from denseclip_vit_multimodal_tpu_torch.train.state import (
 )
 from denseclip_vit_multimodal_tpu_torch.train.step import make_eval_step, make_train_step
 from denseclip_vit_multimodal_tpu_torch.utils.env import collect_env_info
+from denseclip_vit_multimodal_tpu_torch.utils.visualize import (
+    save_comparison_panel,
+    save_multi_task_panel,
+)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -115,19 +121,59 @@ def setup_logger(work_dir: str) -> logging.Logger:
     return logger
 
 
-def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger
+def _panel_sample(batch: Dict[str, torch.Tensor], results: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Optional[torch.Tensor]]:
+    """The first sample of a batch: what the panels show (device tensors)."""
+    return {"image": batch["image"][0], "seg_pred": results["seg_pred"][0],
+            "seg_gt": batch["seg"][0] if "seg" in batch else None,
+            "depth_pred": results["depth_pred"][0] if "depth_pred" in results else None,
+            "depth_gt": batch["depth"][0] if "depth" in batch else None}
+
+
+def _fetch(sample: Dict[str, Optional[torch.Tensor]]) -> Dict[str, Optional[np.ndarray]]:
+    return {k: None if v is None else v.cpu().numpy() for k, v in sample.items()}
+
+
+def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger,
+             visualize_to: Optional[str] = None, epoch: Optional[int] = None
              ) -> Dict[str, float]:
     """Run the eval epoch; returns scalar metrics (miou, pixel_acc, depth_*,
-    val_loss_*).  Every sum stays on the device until the end of the epoch."""
+    val_loss_*).  Every sum stays on the device until the end of the epoch.
+
+    `visualize_to` saves the first sample's panel there on the first batch,
+    and after the loop `best_<name>` (the sample 0 of the batch with the
+    highest seg accuracy) and, where there is seg ground truth,
+    `comparison_<name>` (`utils/visualize.py`).  The best batch is tracked
+    on the device (`torch.where` over the sample's tensors) and fetched
+    once.  A failed panel is logged as a warning, as in the JAX package."""
     device = next(state.model.parameters()).device
     cm_total = depth_sums = depth_count = None
     loss_sums: Dict[str, torch.Tensor] = {}
     n_batches = 0
+    best_acc = best_sample = None
     for batch in val_loader.epoch(0):
-        results = eval_step(state, to_device(batch, device))
+        batch = to_device(batch, device)
+        results = eval_step(state, batch)
+        if visualize_to and n_batches == 0:
+            try:
+                first = _fetch(_panel_sample(batch, results))
+                save_multi_task_panel(visualize_to, first["image"].astype(np.uint8),
+                                      first["seg_pred"], seg_gt=first["seg_gt"],
+                                      depth_pred=first["depth_pred"], depth_gt=first["depth_gt"])
+            except Exception as e:  # a panel never stops the evaluation
+                logger.warning("visualization failed: %s", e)
         if "confusion" in results:
             cm = results["confusion"]
             cm_total = cm if cm_total is None else cm_total + cm
+            if visualize_to:
+                acc, sample = accuracy_from_confusion(cm), _panel_sample(batch, results)
+                if best_sample is None:
+                    best_acc, best_sample = acc, sample
+                else:
+                    take = acc > best_acc
+                    best_acc = torch.where(take, acc, best_acc)
+                    best_sample = {k: None if v is None else torch.where(take, sample[k], v)
+                                   for k, v in best_sample.items()}
         if "depth_sums" in results:
             ds, dc = results["depth_sums"], results["depth_count"]
             if depth_sums is None:
@@ -150,6 +196,20 @@ def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger
         metrics.update({f"depth_{k}": float(v) for k, v in depth.items()})
     for k, v in loss_sums.items():
         metrics[f"val_{k}"] = float(v) / max(n_batches, 1)
+    if best_sample is not None:
+        try:
+            d, b = os.path.split(visualize_to)
+            best = _fetch(best_sample)  # the one host fetch of the best batch
+            image = best["image"].astype(np.uint8)
+            save_multi_task_panel(os.path.join(d, f"best_{b}"), image, best["seg_pred"],
+                                  seg_gt=best["seg_gt"], depth_pred=best["depth_pred"],
+                                  depth_gt=best["depth_gt"],
+                                  title=f"best batch accuracy {float(best_acc) * 100:.2f}%")
+            if best["seg_gt"] is not None:
+                save_comparison_panel(os.path.join(d, f"comparison_{b}"), image,
+                                      best["seg_pred"], best["seg_gt"], epoch=epoch)
+        except Exception as e:  # a panel never stops the evaluation
+            logger.warning("best-image visualization failed: %s", e)
     logger.info("validation: %s", {k: round(v, 4) for k, v in metrics.items()})
     return metrics
 
@@ -304,7 +364,11 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                             epoch, state.step)
                 break
             if val_loader is not None and (epoch + 1) % eval_interval == 0:
-                last_val = validate(state, eval_step, val_loader, logger)
+                vis_path = None
+                if bool(training_cfg.get("save_visualizations", True)):
+                    vis_path = os.path.join(work_dir, "visualizations", f"epoch_{epoch}.png")
+                last_val = validate(state, eval_step, val_loader, logger,
+                                    visualize_to=vis_path, epoch=epoch)
                 score = last_val.get("miou", -1.0)
                 if score > best_metric:
                     best_metric = score

@@ -21,7 +21,9 @@ machine that has no Pillow.
   anti-diagonals.  Other bit depths, interlacing, and images whose unfilter
   would take more than `MAX_UNFILTER_STEPS` numpy steps raise `ValueError`.
 * `encode_png` writes uint8 RGB [H, W, 3], uint8 gray [H, W] or uint16 gray
-  [H, W] with filter 0 on every row.
+  [H, W] with filter 0 on every row, and, where `text` is given, one tEXt
+  chunk per (keyword, value) pair between IHDR and IDAT; `read_text` reads
+  them back.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from __future__ import annotations
 import functools
 import struct
 import zlib
-from typing import Iterator, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
@@ -233,9 +235,31 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
         ">I", zlib.crc32(ctype + body))
 
 
-def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+def read_text(data: bytes) -> Dict[str, str]:
+    """The tEXt chunks of a PNG as {keyword: text} (Latin-1), in file order."""
+    if not is_png(data):
+        raise ValueError("not a PNG")
+    out = {}
+    for ctype, body in _chunks(data):
+        if ctype == b"tEXt":
+            key, _, value = body.partition(b"\0")
+            out[key.decode("latin-1")] = value.decode("latin-1")
+    return out
+
+
+def _text_chunk(key: str, value: str) -> bytes:
+    kw = key.encode("latin-1")
+    if not 1 <= len(kw) <= 79 or b"\0" in kw or kw != kw.strip() or b"  " in kw:
+        raise ValueError(f"invalid PNG tEXt keyword {key!r}")
+    return _chunk(b"tEXt", kw + b"\0" + value.encode("latin-1"))
+
+
+def encode_png(image: np.ndarray, level: int = 6,
+               text: Optional[Sequence[Tuple[str, str]]] = None) -> bytes:
     """uint8 RGB [H, W, 3], uint8 gray [H, W] or uint16 gray [H, W] -> PNG
-    bytes (filter 0, zlib `level`)."""
+    bytes (filter 0, zlib `level`).  `text`: (keyword, value) pairs written
+    as tEXt chunks before the image data; without it the bytes are those of
+    the image alone."""
     gray16 = image.dtype == np.uint16 and image.ndim == 2
     if not gray16 and (image.dtype != np.uint8 or image.ndim not in (2, 3) or (
             image.ndim == 3 and image.shape[-1] != 3)):
@@ -248,5 +272,6 @@ def encode_png(image: np.ndarray, level: int = 6) -> bytes:
     ihdr = struct.pack(">IIBBBBB", w, h, 16 if gray16 else 8, color_type, 0, 0, 0)
     return (SIGNATURE
             + _chunk(b"IHDR", ihdr)
+            + b"".join(_text_chunk(k, v) for k, v in (text or ()))
             + _chunk(b"IDAT", zlib.compress(raw.tobytes(), level))
             + _chunk(b"IEND", b""))

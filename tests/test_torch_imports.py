@@ -110,7 +110,8 @@ def test_every_kernel_source_is_built():
                                     "tools.time_fwd_trees", "utils.benchtime", "ops.attention",
                                     "models.layers", "data.cityscapes", "data._native",
                                     "train.clip_import", "train.weights",
-                                    "tools.import_checkpoint"])
+                                    "tools.import_checkpoint", "tools.infer",
+                                    "utils.visualize"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
     """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
     tools, the timing helpers, the remat-aware layers, the Cityscapes readers
@@ -128,3 +129,37 @@ def test_new_modules_import_without_jax_or_a_gpu(module):
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_panels_and_evaluation_outputs_need_no_pillow_or_matplotlib():
+    """The validation panels, `tools/test.py`'s outputs and `tools/infer.py`'s
+    PNGs are drawn and encoded with Pillow and matplotlib unimportable (the
+    card has neither)."""
+    code = (
+        "import sys, tempfile, os\n"
+        "sys.modules['PIL'] = sys.modules['matplotlib'] = None  # any import of them fails\n"
+        "import numpy as np\n"
+        "from denseclip_vit_multimodal_tpu_torch.tools import infer, test\n"
+        "from denseclip_vit_multimodal_tpu_torch.train import loop\n"
+        "from denseclip_vit_multimodal_tpu_torch.utils import visualize as v\n"
+        "from denseclip_vit_multimodal_tpu_torch.data.cityscapes import labelids_from_trainids\n"
+        "from denseclip_vit_multimodal_tpu_torch.utils.png import encode_png\n"
+        "d = tempfile.mkdtemp()\n"
+        "rs = np.random.RandomState(0)\n"
+        "img, seg = rs.randint(0, 256, (8, 12, 3), dtype=np.uint8), rs.randint(0, 19, (8, 12))\n"
+        "v.save_multi_task_panel(os.path.join(d, 'a.png'), img, seg, seg_gt=seg,\n"
+        "                        depth_pred=rs.rand(8, 12) * 80, depth_gt=rs.rand(8, 12) * 80)\n"
+        "v.save_comparison_panel(os.path.join(d, 'b.png'), img, seg, seg, epoch=1)\n"
+        "encode_png(labelids_from_trainids(seg))\n"
+        "encode_png(v.colorize_depth(rs.rand(8, 12) * 80))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'PIL', 'matplotlib'}\n"
+        "             and sys.modules[m] is not None)\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("ok")

@@ -281,7 +281,7 @@ def test_int8_dispatch_needs_cuda_and_attn_impl_names():
     assert tm.attn_impl == "auto"
     with pytest.raises(ValueError, match="not yet ported"):
         t_layers.set_attn_impl(tm, "ring")
-    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8")
+    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8", "flash")
 
 
 @pytest.mark.parametrize("valid_len", [None, 120])
