@@ -237,6 +237,29 @@ phases that each print one JSON line:
                   step alone on a decoded batch by CUDA events (1 warm-up +
                   3).
 
+ 28. export_path — the flagship served from exported programs:
+                  `tools/export.py`'s `main()` on a seeded checkpoint at full
+                  width (slide 624 / 426 / window batch 20, 1024x2048) with
+                  `--fetch logits` and `packed` (export seconds, bundle MiB,
+                  the graph's kernel ops); the packed bundle in a fresh
+                  process that imports the loader only (load s, 3 frames by
+                  CUDA events after a warm-up, 12 K1 a frame, no model
+                  module in `sys.modules`); one frame of each bundle against
+                  the live `Inferencer` (logits rel. L2 <= 1e-4, and whether
+                  bitwise; packed seg equal on >= 99.99% of pixels); the
+                  exported frame against the live one in this process (4
+                  interleaved turns of 3 frames, packed, CUDA events; also
+                  the program with its metadata asserts kept) and a profile
+                  of each; a simulated failed kernel build inside the
+                  program raising;
+                  int8 (12 K5 + 12 prologue a frame) and fused (12 K6)
+                  exports against the live path under the same setting;
+                  `tools/serve.py --from-export` over HTTP (3 timed PNG
+                  requests, each npz equal to `predict` of the decoded
+                  frame); host microseconds of a K1 call through its op and
+                  direct; `tools/exp_serving_concurrency.py`'s `main()` at
+                  --clients 1 4 --requests 3.
+
 rn50_path and cityscapes_path's `tools/train.py` run 2 steps each (1
 warm-up + 1 timed; 3 before the ViT-L/14 phase came), cityscapes_path's
 profiled step warms up on a batch it already decoded and its `--load` run
@@ -3714,6 +3737,283 @@ def phase_flash_path() -> dict:
     return res
 
 
+EXPORT_DIR = "build/export_smoke"  # gitignored; removed at the end of the phase
+EXPORT_FRAMES = 3  # after a warm-up, in the fresh process
+EXPORT_TOL = 1e-4  # rel. L2 of the bundle's logits canvas against the live path's
+EXPORT_SEG_AGREE = 0.9999  # share of pixels where the packed seg equals the live one
+# The fresh process: the loader alone, no model code, 3 timed frames (stdout: one JSON line)
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from denseclip_vit_multimodal_tpu_torch.infer.exported import ExportedInferencer
+from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import LAUNCHES
+bundle, seed, frames = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+tick = time.perf_counter()
+infer = ExportedInferencer(bundle)
+load_s = time.perf_counter() - tick
+kw = dict(mode=infer.mode, crop=infer.crop, stride=infer.stride, fetch=infer.export_fetch)
+rs = np.random.RandomState(seed)
+imgs = [rs.randint(0, 256, infer.input_shape, dtype=np.uint8) for _ in range(frames)]
+tick = time.perf_counter()
+infer.predict(imgs[0], **kw)  # warm-up: the kernels' build and first launches
+torch.cuda.synchronize()
+first_s = time.perf_counter() - tick
+torch.cuda.reset_peak_memory_stats()
+LAUNCHES["qkv_attention"] = 0
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+outs = [infer.predict(img, **kw) for img in imgs]
+end.record()
+torch.cuda.synchronize()
+pkg = "denseclip_vit_multimodal_tpu_torch."
+print(json.dumps({
+    "load_s": load_s, "first_frame_s": first_s,
+    "ms_per_frame": start.elapsed_time(end) / frames,
+    "k1_launches_per_frame": LAUNCHES["qkv_attention"] / frames,
+    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+    "seg_sums": [int(o["seg"].astype(np.int64).sum()) for o in outs],
+    "model_modules_loaded": sorted(m for m in ("models", "models.vit", "models.denseclip",
+                                                "core.config") if pkg + m in sys.modules)}))
+"""
+
+
+def _bundle_mib(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 2**20
+
+
+def _op_dispatch_us(calls: int = 2000) -> dict:
+    """Host microseconds a call of K1 through its op and through the launch
+    it wraps, at a shape whose kernel is tiny ([1,128,384]: the host's
+    share), in turns (op, direct, direct, op)."""
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel
+
+    qkv = torch.randn(1, 128, 384, device="cuda", dtype=torch.bfloat16)
+    runs = {"op": lambda: mha_kernel.QKV_ATTENTION_OP(qkv, 2, 0.125, 128),
+            "direct": lambda: mha_kernel._launch(qkv, 2, 0.125, 128)[0]}
+    us = collections.defaultdict(list)
+    for name in ("op", "direct", "direct", "op"):
+        runs[name]()
+        torch.cuda.synchronize()
+        tick = time.perf_counter()
+        for _ in range(calls):
+            runs[name]()
+        torch.cuda.synchronize()
+        us[name].append((time.perf_counter() - tick) / calls * 1e6)
+    return {f"{name}_us_per_call": min(v) for name, v in us.items()}
+
+
+def phase_export_path() -> dict:
+    """The flagship served from exported programs: `tools/export.py`'s
+    `main()` on a seeded checkpoint at full width (slide 624 / 426 / window
+    batch 20 on 1024x2048 frames), the bundle loaded in a fresh process that
+    imports no model code, each bundle against the live `Inferencer`, the
+    int8 and fused exports, `tools/serve.py --from-export` over HTTP and
+    `tools/exp_serving_concurrency.py`'s `main()`."""
+    import io
+    import shutil
+    import threading
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.infer.exported import ExportedInferencer
+    from denseclip_vit_multimodal_tpu_torch.infer.server import make_server
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.ops import _build, mha_kernel
+    from denseclip_vit_multimodal_tpu_torch.tools import exp_serving_concurrency
+    from denseclip_vit_multimodal_tpu_torch.tools import export as export_tool
+    from denseclip_vit_multimodal_tpu_torch.tools import serve as serve_tool
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.utils import png
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    cfg = load_config(CONFIG)
+    crop, stride, window_batch = resolve_test_protocol(cfg)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    work = os.path.join(EXPORT_DIR, "work")
+    save_checkpoint(work, create_train_state(model, cfg.training, 1), epoch=0)
+    engine = Inferencer(model, texts, num_classes=19)
+    live = lambda frame, fetch: engine.predict(frame, mode="slide", crop=crop, stride=stride,
+                                               window_batch=window_batch, fetch=fetch)
+    res = {"phase": "export_path", "config": CONFIG, "crop": crop, "stride": stride,
+           "window_batch": window_batch, "frame": [1024, 2048]}
+
+    def export(tag: str, fetch: str, *sets: str) -> str:
+        out = os.path.join(EXPORT_DIR, tag)
+        tick = time.perf_counter()
+        meta = export_tool.main([CONFIG, work, out, "--shape", "1024", "2048", "--mode", "slide",
+                                 "--fetch", fetch, *(["--set", *sets] if sets else [])])
+        res[tag] = {"export_s": time.perf_counter() - tick, "bundle_mib": _bundle_mib(out),
+                    "graph_ops": meta["ops"]}
+        return out
+
+    def against_live(tag: str, bundle: str, frame) -> dict:
+        """One frame through the bundle (in this process) and the live path:
+        launches of the bundle's frame, logits canvas rel. L2, bitwise flag."""
+        infer = ExportedInferencer(bundle)
+        kw = dict(mode="slide", crop=crop, stride=stride, fetch="logits")
+        infer.predict(frame, **kw)  # warm-up
+        reset_launches()
+        got = infer.predict(frame, **kw)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        want = live(frame, "logits")
+        a = torch.from_numpy(np.concatenate([got["seg_logits"], got["depth"][..., None]], -1))
+        b = torch.from_numpy(np.concatenate([want["seg_logits"], want["depth"][..., None]], -1))
+        res[tag].update({"launches_per_frame": launches, "logits_rel_l2_vs_live": rel_l2(a, b),
+                         "bitwise_equal_to_live": bool(torch.equal(a, b))})
+        if not res[tag]["logits_rel_l2_vs_live"] <= EXPORT_TOL:
+            raise AssertionError(f"{tag} bundle disagrees with the live path: {res[tag]}")
+        return infer
+
+    rs = np.random.RandomState(SEED + 7)
+    frame = rs.randint(0, 256, (1, 1024, 2048, 3), dtype=np.uint8)
+    logits_dir = export("logits", "logits")
+    packed_dir = export("packed", "packed")
+
+    # 2. the packed bundle in a fresh process that imports the loader only
+    env = {**os.environ, "PYTHONPATH": os.getcwd()}
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, packed_dir, str(SEED + 8),
+                           str(EXPORT_FRAMES)], capture_output=True, text=True, timeout=600,
+                          env=env)
+    if proc.returncode != 0:
+        raise AssertionError(f"the fresh process failed:\n{proc.stdout}{proc.stderr}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["fresh_process"] = child
+    if child["k1_launches_per_frame"] != 12 or child["model_modules_loaded"]:
+        raise AssertionError(f"fresh process: {child}")
+
+    # 3. parity with the live Inferencer on one frame
+    logits_infer = against_live("logits", logits_dir, frame)
+    packed = ExportedInferencer(packed_dir).predict(frame, mode="slide", crop=crop,
+                                                    stride=stride, fetch="packed")
+    want = live(frame, "packed")
+    res["packed"]["seg_agree_share_vs_live"] = float((packed["seg"] == want["seg"]).mean())
+    res["packed"]["depth_bitwise_equal_to_live"] = bool(np.array_equal(packed["depth"],
+                                                                       want["depth"]))
+    if res["packed"]["seg_agree_share_vs_live"] < EXPORT_SEG_AGREE:
+        raise AssertionError(f"packed bundle's seg disagrees with the live path: {res['packed']}")
+
+    # the exported frame against the live one in this process: packed fetch,
+    # 3 frames a turn, turns interleaved (live, exported, exported, live, ...)
+    packed_infer = ExportedInferencer(packed_dir)
+    # the program as torch.export.load gives it, with its metadata asserts
+    # (the loader drops them: infer/exported.py::without_metadata_asserts)
+    with_asserts = torch.export.load(os.path.join(packed_dir, "program.pt2")).module()
+    runs = {"live": lambda f: live(f, "packed"),
+            "exported": lambda f: packed_infer.predict(f, mode="slide", crop=crop, stride=stride,
+                                                       fetch="packed"),
+            "exported_with_asserts": lambda f: [t.cpu().numpy() for t in with_asserts(
+                torch.from_numpy(f).to("cuda"))]}
+    turn_frames = [rs.randint(0, 256, (1, 1024, 2048, 3), dtype=np.uint8)
+                   for _ in range(EXPORT_FRAMES)]
+    turns = collections.defaultdict(list)
+    for name in ("live", "exported", "exported_with_asserts") * 2 + (
+            "exported_with_asserts", "exported", "live") * 2:
+        runs[name](turn_frames[0])  # warm-up of the turn
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for f in turn_frames:
+            runs[name](f)
+        end.record()
+        torch.cuda.synchronize()
+        turns[name].append(start.elapsed_time(end) / len(turn_frames))
+    res["frame_ms"] = {name: {"turns": ms, "median": float(np.median(ms))}
+                       for name, ms in turns.items()}
+    res["frame_ms"]["exported_over_live"] = (res["frame_ms"]["exported"]["median"]
+                                             / res["frame_ms"]["live"]["median"])
+    res["profile_live"] = phase_profile(runs["live"], turn_frames, path="live_slide_packed")
+    res["profile_exported"] = phase_profile(runs["exported"], turn_frames,
+                                            path="exported_slide_packed")
+    del packed_infer, with_asserts
+
+    # no fallback: a kernel that cannot be built inside the program raises
+    load_library = _build.load_library
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for {name} (simulated)")
+
+    mha_kernel._kernel_fn.cache_clear()
+    _build.load_library = no_build
+    try:
+        logits_infer.predict(frame, mode="slide", crop=crop, stride=stride, fetch="logits")
+        raise AssertionError("the exported program ran without its kernel")
+    except RuntimeError as e:
+        res["failed_build_raises"] = str(e)[:80]
+    finally:
+        _build.load_library = load_library
+        mha_kernel._kernel_fn.cache_clear()
+    del logits_infer
+
+    # 4. the int8 and fused exports, each against the live path under its setting
+    int8_dir = export("int8", "logits", "tpu.attn_impl=int8")
+    set_attn_impl(model, "int8")
+    try:
+        against_live("int8", int8_dir, frame)
+    finally:
+        set_attn_impl(model, "auto")
+    with fused_lnqkv(True):
+        against_live("fused", export("fused", "logits"), frame)
+    for tag, want in (("logits", {"qkv_attention": 12}),
+                      ("int8", {"qkv_attention_int8": 12, "quantize_qkv_int8": 12}),
+                      ("fused", {"ln_qkv_attention": 12})):
+        if res[tag]["launches_per_frame"] != want:
+            raise AssertionError(f"{tag} bundle launches a frame: {res[tag]}, want {want}")
+
+    # 5. tools/serve.py --from-export over HTTP: each npz equals predict of the decoded frame
+    service, epoch = serve_tool.build_service(serve_tool.parse_args(
+        ["--from-export", packed_dir, "--fetch", "packed", "--device-timeout", "120"]))
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    latencies, equal = [], []
+    try:
+        frames = [rs.randint(0, 256, (1024, 2048, 3), dtype=np.uint8) for _ in range(4)]
+        bodies = [png.encode_png(f) for f in frames]
+        for i, (img, body) in enumerate(zip(frames, bodies)):
+            tick = time.perf_counter()
+            status, _, data = _http(server.server_address[1], "POST", "/v1/predict", body)
+            if i:  # the first warms up
+                latencies.append(time.perf_counter() - tick)
+            if status != 200:
+                raise AssertionError(f"HTTP {status}: {data[:200]}")
+            got = np.load(io.BytesIO(data))
+            want = service.inferencer.predict(png.decode_png(body)[None], mode="slide", crop=crop,
+                                              stride=stride, fetch="packed")
+            equal.append(bool(np.array_equal(got["seg"], want["seg"][0])
+                              and np.array_equal(got["depth"], want["depth"][0])))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        service.close()
+    res["serve_from_export"] = {"epoch": epoch, "http_latency_s": latencies,
+                                "npz_equal_to_predict": equal,
+                                "device_s_total": service.stats.device_seconds_total}
+    if not all(equal) or epoch is not None:
+        raise AssertionError(f"serve --from-export: {res['serve_from_export']}")
+    res["op_dispatch"] = _op_dispatch_us()
+    del engine, model, service
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 6. the concurrency tool on the live flagship
+    reset_launches()
+    res["serving_concurrency"] = exp_serving_concurrency.main(
+        ["--clients", "1", "4", "--requests", "3"])
+    res["launches"] = read_launches()
+    emit(res)
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
@@ -3807,6 +4107,7 @@ def main() -> int:
     main_res = timed("main_path", phase_main_path)
     lnqkv_res = timed("lnqkv_path", phase_lnqkv_path, main_res["profile"])
     flash_res = timed("flash_path", phase_flash_path)
+    export_res = timed("export_path", phase_export_path)
     train_res = timed("train_path", phase_train_path)
     eval_res = timed("eval_path", phase_eval_path)
     serve_res = timed("serve_path", phase_serve_path)
@@ -3847,6 +4148,9 @@ def main() -> int:
                                                   + ade_res["rn50"]["eval_whole"]["launches"][name]
                                                   + ade_res["rn101"]["launches"][name]),
                             "flash": flash_res["launches"][name],
+                            **{f"exported_{tag}_frame": export_res[tag]["launches_per_frame"].get(
+                                name, 0) for tag in ("logits", "int8", "fused")},
+                            "serving_concurrency": export_res["launches"][name],
                             **{f"{tag}_{part}": sum(vitl_res[tag][k]["launches"][name] for k in ks)
                                for tag in ("vitl14", "seg_only")
                                for part, ks in (("training", ("training",)),

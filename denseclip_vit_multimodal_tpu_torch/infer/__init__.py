@@ -1,9 +1,4 @@
-"""Inference engines of the port: whole-image and batched slide-window."""
-
-from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer, package_outputs
-from denseclip_vit_multimodal_tpu_torch.infer.slide import (
-    count_map,
-    slide_grid,
-    slide_inference,
-    window_origins,
-)
+"""Inference of the port: `engine` (whole, slide and aug-test on a model),
+`slide`, `outputs` (the fetch policies), `server` (HTTP) and `exported`
+(serving an exported program).  Nothing is imported here, so that
+`infer.exported` loads a bundle without the model code."""

@@ -23,46 +23,10 @@ import numpy as np
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.data.augment import AugmentConfig, normalize_image
-from denseclip_vit_multimodal_tpu_torch.infer.slide import slide_inference
+from denseclip_vit_multimodal_tpu_torch.infer.outputs import package_outputs
+from denseclip_vit_multimodal_tpu_torch.infer.slide import clamp_protocol, slide_inference
 from denseclip_vit_multimodal_tpu_torch.models.layers import resize_bilinear
 from denseclip_vit_multimodal_tpu_torch.train.metrics import confusion_matrix, depth_errors
-
-
-def package_outputs(seg_logits: torch.Tensor, depth: Optional[torch.Tensor], fetch: str):
-    """Package (seg_logits [B,H,W,K], depth [B,H,W(,1)]) per the `fetch` policy.
-
-    fetch='logits' — fp32 logit canvas + int32 argmax + fp32 depth as numpy.
-    fetch='argmax' — int32 argmax + fp32 depth as numpy.
-    fetch='packed' — argmax as uint8 (num_classes <= 256) + depth as float16,
-                     cast on the device before the copy to the host.
-    fetch='device' — tensors left on the device: seg_logits, seg, depth.
-    """
-    if depth is not None and depth.dim() == 4:
-        depth = depth[..., 0]
-    if fetch == "device":
-        out = {"seg_logits": seg_logits, "seg": seg_logits.argmax(dim=-1)}
-        if depth is not None:
-            out["depth"] = depth
-        return out
-    if fetch == "packed":
-        if seg_logits.shape[-1] > 256:
-            raise ValueError(
-                f"fetch='packed' needs num_classes <= 256, got {seg_logits.shape[-1]}; "
-                "use fetch='argmax'"
-            )
-        out = {"seg": seg_logits.argmax(dim=-1).to(torch.uint8).cpu().numpy()}
-        if depth is not None:
-            out["depth"] = depth.to(torch.float16).cpu().numpy()
-        return out
-    out = {}
-    if fetch == "logits":
-        out["seg_logits"] = seg_logits.float().cpu().numpy()
-    elif fetch != "argmax":
-        raise ValueError(f"Unknown fetch policy: {fetch!r}")
-    out["seg"] = seg_logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
-    if depth is not None:
-        out["depth"] = depth.float().cpu().numpy()
-    return out
 
 
 class Inferencer:
@@ -92,14 +56,16 @@ class Inferencer:
         return cached[2]
 
     def _forward_logits(self, image: torch.Tensor, mode: str, crop: Tuple[int, int],
-                        stride: Tuple[int, int], window_batch: int, cached_text):
-        """(seg [B,H,W,K] fp32, depth [B,H,W,1] fp32 or None) at the input size."""
+                        stride: Tuple[int, int], window_batch: int, cached_text,
+                        inverse_count: Optional[torch.Tensor] = None):
+        """(seg [B,H,W,K] fp32, depth [B,H,W,1] fp32 or None) at the input size.
+        `inverse_count`: `slide_inference`'s 1 / count map, when the caller
+        holds it (an exported program keeps it as a buffer)."""
         if mode == "whole":
             out = self.model(image, self.texts, cached_text=cached_text)
             depth = out.get("depth")
             return out["seg"].float(), None if depth is None else depth.float()
-        crop = (min(crop[0], image.shape[1]), min(crop[1], image.shape[2]))
-        stride = (min(stride[0], crop[0]), min(stride[1], crop[1]))
+        crop, stride = clamp_protocol(tuple(image.shape[1:3]), crop, stride)
         n_out = self.num_classes + (1 if self.with_depth else 0)
 
         def window_forward(windows):
@@ -110,7 +76,7 @@ class Inferencer:
             return torch.cat([p.float() for p in parts], dim=-1)
 
         fused = slide_inference(window_forward, image, n_out, crop=crop, stride=stride,
-                                window_batch=window_batch)
+                                window_batch=window_batch, inverse_count=inverse_count)
         seg = fused[..., : self.num_classes]
         depth = fused[..., self.num_classes :] if self.with_depth else None
         return seg, depth

@@ -13,7 +13,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +48,16 @@ def count_map(
     return cnt
 
 
+def clamp_protocol(hw: Tuple[int, int], crop: Tuple[int, int], stride: Tuple[int, int]
+                   ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The (crop, stride) a frame of size `hw` is slid with: the window
+    clamped to the frame, the stride to the window."""
+    crop = (min(crop[0], hw[0]), min(crop[1], hw[1]))
+    return crop, (min(stride[0], crop[0]), min(stride[1], crop[1]))
+
+
 @functools.lru_cache(maxsize=8)
-def _inverse_count_map(
+def inverse_count_map(
     hw: Tuple[int, int], crop: Tuple[int, int], stride: Tuple[int, int], device: torch.device
 ) -> torch.Tensor:
     """[H, W] fp32 1 / count on `device`, built once per grid (a constant of
@@ -64,9 +72,13 @@ def slide_inference(
     crop: Tuple[int, int] = (640, 640),
     stride: Tuple[int, int] = (426, 426),
     window_batch: int = 0,
+    inverse_count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Slide `forward` (windows [N, ch, cw, 3] -> logits [N, h', w', K]) over
-    `image`; returns [B, H, W, num_outputs] fp32 averaged logits."""
+    `image`; returns [B, H, W, num_outputs] fp32 averaged logits.
+    `inverse_count` is `inverse_count_map` of this grid where the caller
+    holds it, as an exported program does (the cache below would keep a
+    traced tensor)."""
     b, h, w, _ = image.shape
     ch, cw = min(crop[0], h), min(crop[1], w)
     crop = (ch, cw)
@@ -92,5 +104,6 @@ def slide_inference(
         if (lh, lw) != (ch, cw):
             win = resize_bilinear(win, (ch, cw))
         canvas[:, y : y + ch, x : x + cw] += win
-    inv_cnt = _inverse_count_map((h, w), crop, tuple(stride), image.device)
-    return canvas * inv_cnt[None, :, :, None]
+    if inverse_count is None:
+        inverse_count = inverse_count_map((h, w), crop, tuple(stride), image.device)
+    return canvas * inverse_count[None, :, :, None]

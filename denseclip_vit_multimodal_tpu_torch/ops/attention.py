@@ -12,7 +12,8 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
   `ops/mha_kernel.py::mha_attention` (K3 and, under autograd, K3's backward
   on CUDA, head dim 64, 128 or 256, bf16 only: another dtype raises
   `TypeError`, as in the K4 branch; the plain versions on the CPU).  The K4
-  branch launches `csrc/flash_attention.cu` (the forward core
+  branch calls the op `denseclip_torch::flash_attention` (`ops/_library.py`),
+  which launches `csrc/flash_attention.cu` (the forward core
   `csrc/attention_fwd.cuh` under the bundled kernel's numerics, head dim 64,
   128 or 256) for a CUDA tensor, or raises on anything the kernel does not
   take; for a tensor on the CPU it runs the plain version.
@@ -49,9 +50,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from denseclip_vit_multimodal_tpu_torch.ops._library import define
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     bnhd_args,
     check_bnhd,
+    check_device,
     mha_attention,
 )
 from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, record_kernel_flops
@@ -239,6 +242,17 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sca
     return out
 
 
+FLASH_ATTENTION_OP = define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, float scale, int kv_len) -> Tensor",
+    cpu=lambda q, k, v, causal, scale, kv_len: flash_attention_reference(
+        q, k, v, causal=causal, sm_scale=scale, valid_len=kv_len),
+    cuda=_launch,
+    fake=lambda q, k, v, causal, scale, kv_len: q.new_empty(q.shape),
+    flops=lambda q, k, v, causal, scale, kv_len: attention_flops(
+        q.shape[0], q.shape[1], kv_len, q.shape[2] * q.shape[3]),
+)
+
+
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                 dout: torch.Tensor, stats: torch.Tensor, causal: bool, scale: float,
                 kv_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -329,9 +343,5 @@ def flash_attention(
         return mha_attention(q, k, v, sm_scale=scale, valid_len=kv_len)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, sm_scale=scale,
-                                         valid_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention for device {q.device}")
-    return _launch(q, k, v, causal, scale, kv_len)
+    check_device(q, "flash attention")
+    return FLASH_ATTENTION_OP(q, k, v, causal, scale, kv_len)

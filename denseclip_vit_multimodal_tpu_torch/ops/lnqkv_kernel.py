@@ -6,8 +6,9 @@ Port of the JAX package's `ops/lnqkv_kernel.py`: the TPU kernel
 `DENSECLIP_FUSED_LNQKV=1` (`models/layers.py`).  The source's header note
 gives the kernel's design and its bound on an H100.
 
-* `ln_qkv_attention` launches K6 for a CUDA tensor, or raises on anything
-  the kernel does not take; for a CPU tensor it runs the plain version.
+* `ln_qkv_attention` calls the op `denseclip_torch::ln_qkv_attention`
+  (`ops/_library.py`): K6 for a CUDA tensor, or a raise on anything the
+  kernel does not take; the plain version for a CPU tensor.
   When autograd records the call it goes through `LNQKVAttentionFunction`,
   whose backward is the VJP of `lnqkv_reference`, as the JAX `_lnqkv_bwd`:
   stray gradients are correct, not fast.
@@ -39,8 +40,13 @@ from typing import Dict, Optional
 
 import torch
 
+from denseclip_vit_multimodal_tpu_torch.ops._library import define
 from denseclip_vit_multimodal_tpu_torch.ops.attention import plain_attention
-from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import _kv_len, attention_prescaled
+from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+    _kv_len,
+    attention_prescaled,
+    check_device,
+)
 from denseclip_vit_multimodal_tpu_torch.utils.flops import (
     attention_flops,
     projection_flops,
@@ -358,13 +364,22 @@ def ln_qkv_projection(
     return workspace
 
 
-def _forward(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len):
-    if x.device.type == "cpu":
-        return ln_qkv_attention_reference(x, gamma, beta, w_qkv, b_qkv, num_heads,
-                                          sm_scale=scale, eps=eps, valid_len=kv_len)
-    if x.device.type != "cuda":
-        raise ValueError(f"no fused LN + qkv attention for device {x.device}")
-    return _launch(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len)
+def _ln_qkv_attention_fake(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len):
+    hd, _ = _shapes(x, gamma, beta, w_qkv, b_qkv, num_heads)
+    return x.new_empty(x.shape[0], x.shape[1], hd)
+
+
+LN_QKV_ATTENTION_OP = define(
+    "ln_qkv_attention(Tensor x, Tensor gamma, Tensor beta, Tensor w_qkv, Tensor b_qkv, "
+    "int num_heads, float scale, float eps, int kv_len) -> Tensor",
+    cpu=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len:
+        ln_qkv_attention_reference(x, gamma, beta, w_qkv, b_qkv, num_heads, sm_scale=scale,
+                                   eps=eps, valid_len=kv_len),
+    cuda=_launch, fake=_ln_qkv_attention_fake,
+    flops=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len: (
+        projection_flops(x.shape[0], x.shape[1], x.shape[2], w_qkv.shape[1])
+        + attention_flops(x.shape[0], x.shape[1], kv_len, w_qkv.shape[1] // 3)),
+)
 
 
 class LNQKVAttentionFunction(torch.autograd.Function):
@@ -376,7 +391,8 @@ class LNQKVAttentionFunction(torch.autograd.Function):
                 kv_len: int):
         ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv)
         ctx.attrs = (num_heads, scale, eps, kv_len)
-        return _forward(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len)
+        check_device(x, "fused LN + qkv attention")
+        return LN_QKV_ATTENTION_OP(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len)
 
     @staticmethod
     def backward(ctx, g):
@@ -412,4 +428,5 @@ def ln_qkv_attention(
     args = (x, gamma, beta, w_qkv, b_qkv)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return LNQKVAttentionFunction.apply(*args, num_heads, scale, float(eps), kv_len)
-    return _forward(*args, num_heads, scale, float(eps), kv_len)
+    check_device(x, "fused LN + qkv attention")
+    return LN_QKV_ATTENTION_OP(*args, num_heads, scale, float(eps), kv_len)

@@ -7,8 +7,9 @@ VJP `_qkv_bwd` -> `_mha_bwd_pallas` -> `_bwd_kernel` (K2, backward;
 Each source's (or core's) header note gives its design and its bound on an
 H100.
 
-* `mha_qkv_attention` launches the forward kernel for a CUDA tensor, or
-  raises on anything the kernel does not take.  For a tensor on the CPU it
+* `mha_qkv_attention` calls the op `denseclip_torch::qkv_attention`
+  (`ops/_library.py`): for a CUDA tensor it launches the forward kernel, or
+  raises on anything the kernel does not take; for a tensor on the CPU it
   runs the plain version; there is no other way to reach the plain version.
   When autograd records the call it goes through `QKVAttentionFunction`,
   whose backward is K2 on CUDA and the plain backward on the CPU.
@@ -32,9 +33,10 @@ code in `csrc/attention_fwd.cuh`) and its custom VJP `_mha_bwd` ->
 K2's numerics, `csrc/qkv_attention_bwd.cu`, reading q / k / v / O / dO by
 stride; head dim 64, 128 or 256, as K3):
 
-* `mha_attention` launches K3 for CUDA tensors, reading q / k / v by stride
-  (views of the fused projection need no copy), or raises on anything the
-  kernel does not take; for CPU tensors it runs `mha_attention_reference`.
+* `mha_attention` calls the op `denseclip_torch::mha_attention`: K3 for CUDA
+  tensors, reading q / k / v by stride (views of the fused projection need
+  no copy), or a raise on anything the kernel does not take;
+  `mha_attention_reference` for CPU tensors.
   When autograd records the call it goes through `MHAAttentionFunction`:
   K3 then also writes each row's max and sum, and the backward is K3's
   backward on CUDA, `mha_attention_bwd_reference` on the CPU.
@@ -58,8 +60,9 @@ two launches):
 * `int8_attention_plain` is the kernel body in plain PyTorch; both products
   are exact (fp64 holds every int32 sum), so only exp2 ulps and the order of
   the fp32 denominator sum separate it from the kernel.
-* `mha_qkv_attention_int8` launches the prologue kernel and K5 for a CUDA
-  tensor and runs the plain versions for a CPU tensor.  When autograd
+* `mha_qkv_attention_int8` calls the ops `denseclip_torch::quantize_qkv_int8`
+  and `denseclip_torch::qkv_attention_int8`: the prologue kernel and K5 for
+  a CUDA tensor, the plain versions for a CPU tensor.  When autograd
   records it, the backward is the JAX straight-through one
   (`Int8AttentionFunction`): the bf16 backward of the unquantized qkv, i.e.
   K1's forward for the row statistics and K2 (the plain versions on the
@@ -82,6 +85,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from denseclip_vit_multimodal_tpu_torch.ops._library import define
 from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, record_kernel_flops
 
 _LANE = 128
@@ -124,6 +128,14 @@ def _split_shape(qkv: torch.Tensor, num_heads: int):
     if hd % num_heads:
         raise ValueError(f"width {hd} is not divisible by {num_heads} heads")
     return b, n, hd, hd // num_heads
+
+
+def check_device(x: torch.Tensor, what: str) -> None:
+    """ValueError unless `x` lies on the CPU (the plain version) or on CUDA
+    (the kernel).  Tracing's fake tensors report one of the two, so a traced
+    call reaches the op's fake implementation; an eager meta tensor does not."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {x.device}")
 
 
 def _kv_len(valid_len: Optional[int], n: int) -> int:
@@ -257,6 +269,22 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
     return out, stats
 
 
+def _qkv_attention_fake(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int):
+    b, n, hd, _ = _split_shape(qkv, num_heads)
+    return qkv.new_empty(b, n, hd)
+
+
+QKV_ATTENTION_OP = define(
+    "qkv_attention(Tensor qkv, int num_heads, float scale, int kv_len) -> Tensor",
+    cpu=lambda qkv, num_heads, scale, kv_len: mha_qkv_attention_reference(
+        qkv, num_heads, sm_scale=scale, valid_len=kv_len),
+    cuda=lambda qkv, num_heads, scale, kv_len: _launch(qkv, num_heads, scale, kv_len)[0],
+    fake=_qkv_attention_fake,
+    flops=lambda qkv, num_heads, scale, kv_len: attention_flops(
+        qkv.shape[0], qkv.shape[1], kv_len, qkv.shape[2] // 3),
+)
+
+
 def _bwd_scratch(b: int, heads: int, n: int, d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernels' scratch: Dc of every row (fp32 [B, H, N]) and
     bf16(q * scale * log2 e), bf16(dO * r) (bf16 [2, B, H, N, D]), written
@@ -344,11 +372,8 @@ def mha_qkv_attention(
     kv_len = _kv_len(valid_len, n)
     if torch.is_grad_enabled() and qkv.requires_grad:
         return QKVAttentionFunction.apply(qkv, num_heads, scale, kv_len)
-    if qkv.device.type == "cpu":
-        return mha_qkv_attention_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no qkv attention for device {qkv.device}")
-    return _launch(qkv, num_heads, scale, kv_len)[0]
+    check_device(qkv, "qkv attention")
+    return QKV_ATTENTION_OP(qkv, num_heads, scale, kv_len)
 
 
 # --------------------------------------------------------------------------
@@ -478,6 +503,17 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return out
 
 
+MHA_ATTENTION_OP = define(
+    "mha_attention(Tensor q, Tensor k, Tensor v, float scale, int kv_len) -> Tensor",
+    cpu=lambda q, k, v, scale, kv_len: mha_attention_reference(q, k, v, sm_scale=scale,
+                                                               valid_len=kv_len),
+    cuda=lambda q, k, v, scale, kv_len: _launch_mha(q, k, v, scale, kv_len),
+    fake=lambda q, k, v, scale, kv_len: q.new_empty(q.shape),
+    flops=lambda q, k, v, scale, kv_len: attention_flops(
+        q.shape[0], q.shape[1], kv_len, q.shape[2] * q.shape[3]),
+)
+
+
 def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                     dout: torch.Tensor, stats: torch.Tensor, scale: float, kv_len: int):
     """K3's backward: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the
@@ -561,11 +597,8 @@ def mha_attention(
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return MHAAttentionFunction.apply(q, k, v, scale, kv_len)
-    if q.device.type == "cpu":
-        return mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"no one-shot attention for device {q.device}")
-    return _launch_mha(q, k, v, scale, kv_len)
+    check_device(q, "one-shot attention")
+    return MHA_ATTENTION_OP(q, k, v, scale, kv_len)
 
 
 # --------------------------------------------------------------------------
@@ -740,6 +773,44 @@ def _launch_int8(q8: torch.Tensor, vt: torch.Tensor, scales: torch.Tensor, num_h
     return out
 
 
+def _quantize_int8_plain(qkv: torch.Tensor, num_heads: int, kv_len: int):
+    q8, scales = quantize_qkv_int8(qkv, num_heads, kv_len)
+    return q8, value_key_major(q8, num_heads), scales
+
+
+def _quantize_int8_fake(qkv: torch.Tensor, num_heads: int, kv_len: int):
+    b, n, hd, d = _split_shape(qkv, num_heads)
+    ldv = (n + _V_ALIGN - 1) // _V_ALIGN * _V_ALIGN
+    return (qkv.new_empty(b, n, 3 * hd, dtype=torch.int8),
+            qkv.new_empty(b, num_heads, d, ldv, dtype=torch.int8),
+            qkv.new_empty(b, 3, num_heads, dtype=torch.float32))
+
+
+# The prologue: (q8, V's key-major copy, scales).  The CPU version writes q8's
+# v third too (K5's plain version reads V there); the kernel leaves it unwritten.
+QUANTIZE_QKV_INT8_OP = define(
+    "quantize_qkv_int8(Tensor qkv, int num_heads, int kv_len) -> (Tensor, Tensor, Tensor)",
+    cpu=_quantize_int8_plain, cuda=_launch_quantize_int8, fake=_quantize_int8_fake,
+)
+
+
+def _int8_attention_fake(q8, vt, scales, num_heads: int, scale: float, kv_len: int,
+                         out_dtype: torch.dtype):
+    b, n, hd, _ = _split_shape(q8, num_heads)
+    return q8.new_empty(b, n, hd, dtype=out_dtype)
+
+
+QKV_ATTENTION_INT8_OP = define(
+    "qkv_attention_int8(Tensor q8, Tensor vt, Tensor scales, int num_heads, float scale, "
+    "int kv_len, ScalarType out_dtype) -> Tensor",
+    cpu=lambda q8, vt, scales, num_heads, scale, kv_len, out_dtype: int8_attention_plain(
+        q8, scales, num_heads, scale, kv_len, out_dtype),
+    cuda=_launch_int8, fake=_int8_attention_fake,
+    flops=lambda q8, vt, scales, num_heads, scale, kv_len, out_dtype: attention_flops(
+        q8.shape[0], q8.shape[1], kv_len, q8.shape[2] // 3),
+)
+
+
 class Int8AttentionFunction(torch.autograd.Function):
     """K5 forward, the JAX straight-through backward (`_qkv_mha_int8`'s VJP
     is `_qkv_bwd`): the bf16 backward of the UNQUANTIZED qkv.  On CUDA that
@@ -768,12 +839,9 @@ class Int8AttentionFunction(torch.autograd.Function):
 
 
 def _int8_forward(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
-    if qkv.device.type == "cpu":
-        return mha_qkv_attention_int8_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no int8 qkv attention for device {qkv.device}")
-    q8, vt, scales = _launch_quantize_int8(qkv, num_heads, kv_len)
-    return _launch_int8(q8, vt, scales, num_heads, scale, kv_len, qkv.dtype)
+    check_device(qkv, "int8 qkv attention")
+    q8, vt, scales = QUANTIZE_QKV_INT8_OP(qkv, num_heads, kv_len)
+    return QKV_ATTENTION_INT8_OP(q8, vt, scales, num_heads, scale, kv_len, qkv.dtype)
 
 
 def mha_qkv_attention_int8(

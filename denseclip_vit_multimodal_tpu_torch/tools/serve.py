@@ -5,10 +5,13 @@
         --port 8000 --warmup 1024 2048 --set tpu.attn_impl=int8
     curl -s -X POST --data-binary @frame.png 'localhost:8000/v1/predict?format=json'
 
+    # or from a tools/export.py bundle, with no config, checkpoint or model code:
+    python3 -m denseclip_vit_multimodal_tpu_torch.tools.serve --from-export out_dir --port 8000
+
 CHECKPOINT is a checkpoint file of the port's own format or a work dir (its
 `checkpoints/latest`).  The endpoint contract is in `infer/server.py`.  Runs
-on `cuda` unless `--device cpu`.  `--from-export` waits for `infer/exported.py`,
-which is not ported yet.
+on `cuda` unless `--device cpu`; a bundle is served on the device it was
+exported on (`infer/exported.py`).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ def parse_args(argv=None):
     p.add_argument("config", nargs="?", help="config YAML path or preset name")
     p.add_argument("checkpoint", nargs="?", help="checkpoint file or work dir")
     p.add_argument("--from-export", default=None, metavar="DIR",
-                   help="serve an exported bundle (not yet ported: needs infer/exported.py)")
+                   help="serve a tools/export.py bundle (torch.export program, weights inside) "
+                        "with no config, checkpoint or model code; the protocol comes from "
+                        "the bundle's meta.json")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--mode", choices=["whole", "slide"], default=None,
@@ -51,11 +56,47 @@ def parse_args(argv=None):
     return args
 
 
+def build_service_from_export(args):
+    """export dir -> (InferenceService, epoch None).
+
+    The bundle's meta.json fixes mode, crop, stride and window batch; a CLI
+    protocol flag that conflicts with it exits rather than being ignored.
+    aug_test is not exportable (one program per scale)."""
+    from denseclip_vit_multimodal_tpu_torch.infer.exported import ExportedInferencer
+    from denseclip_vit_multimodal_tpu_torch.infer.server import InferenceService
+
+    infer = ExportedInferencer(args.from_export, device=args.device)
+    for flag, ours in (("crop", infer.crop), ("stride", infer.stride)):
+        want = getattr(args, flag)
+        if want is not None and tuple(want) != ours:
+            raise SystemExit(f"--{flag} {tuple(want)} conflicts with the export's {flag}={ours}; "
+                             "re-export to change the protocol")
+    if args.mode is not None and args.mode != infer.mode:
+        raise SystemExit(f"--mode {args.mode} conflicts with the export's mode={infer.mode!r}; "
+                         "re-export to change the protocol")
+    if args.window_batch is not None and int(args.window_batch) != infer.window_batch:
+        raise SystemExit(f"--window-batch {args.window_batch} conflicts with the export's "
+                         f"window_batch={infer.window_batch}; re-export to change the protocol")
+    if args.aug_test:
+        raise SystemExit("--aug-test cannot be served from an export")
+    # a 'logits' export serves either fetch policy (packaged from the
+    # program's canvas); a baked one serves exactly its own
+    if infer.export_fetch in ("argmax", "packed") and args.fetch != infer.export_fetch:
+        raise SystemExit(f"export was baked with fetch={infer.export_fetch!r}; "
+                         f"serve with --fetch {infer.export_fetch} or re-export")
+    service = InferenceService(
+        infer, mode=infer.mode, crop=infer.crop, stride=infer.stride,
+        window_batch=infer.window_batch, depth_max=infer.depth_max,
+        model_name=infer.model_name, fetch=args.fetch, device_timeout=args.device_timeout,
+    )
+    return service, None
+
+
 def build_service(args):
-    """config + checkpoint -> (InferenceService, restored epoch), no socket."""
+    """config + checkpoint (or an export dir) -> (InferenceService, restored
+    epoch), no socket."""
     if getattr(args, "from_export", None):
-        raise NotImplementedError("--from-export needs infer/exported.py, which is not yet "
-                                  "ported to the PyTorch package")
+        return build_service_from_export(args)
     import torch
 
     from denseclip_vit_multimodal_tpu_torch.core.config import (
@@ -104,9 +145,9 @@ def main(argv=None):
         service.warmup(tuple(args.warmup))
     server = make_server(service, args.host, args.port,
                          max_body_bytes=int(args.max_body_mb * (1 << 20)))
-    print(f"serving {args.config} (epoch {epoch}) on http://{args.host}:"
-          f"{server.server_address[1]}  mode={service.mode} crop={service.crop} "
-          f"stride={service.stride}", flush=True)
+    origin = args.from_export or f"{args.config} (epoch {epoch})"
+    print(f"serving {origin} on http://{args.host}:{server.server_address[1]}  "
+          f"mode={service.mode} crop={service.crop} stride={service.stride}", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -7,15 +7,17 @@ scanned ViT body counted once, and the Pallas attention counted zero.  Here:
   * `program_flops(fn, *args)` runs `fn` once and returns its forward FLOPs:
     the aten ops that ran, as `torch.utils.flop_counter.FlopCounterMode`
     counts them, plus the FLOPs of every hand-written kernel launched during
-    the call.  The kernels are launched through ctypes (`ops/_build.py`), so
-    FlopCounterMode counts them as zero: the blind spot the JAX module
-    records for Pallas.  The make-up term is keyed on the launches that
-    happened, not on a copy of the dispatch rule: each forward kernel
-    wrapper calls `record_kernel_flops` next to its launch count, and the
-    call appends to every open tally (`kernel_tally`); with no tally open it
-    does nothing.  A run on the CPU, where the wrappers run the kernels'
-    plain versions, launches nothing and so adds nothing: FlopCounterMode
-    counts the plain versions themselves.
+    the call.  Each kernel is a `torch.library` op (`ops/_library.py`) whose
+    CUDA implementation launches through ctypes, so FlopCounterMode sees
+    neither inside it: the blind spot the JAX module records for Pallas.
+    The make-up term is keyed on the launches that happened, not on a copy
+    of the dispatch rule: each forward launch calls `record_kernel_flops`
+    next to its launch count, and the call appends to every open tally
+    (`kernel_tally`); with no tally open it does nothing.  A run on the CPU,
+    where the ops run the kernels' plain versions, launches nothing and so
+    adds nothing: FlopCounterMode counts each op there by the formula
+    registered with it (`ops/_library.py::define`), its plain version's
+    count below, and counts it zero on CUDA, where the tally has it.
   * Each kernel's FLOPs (`attention_flops`, `projection_flops`) are the count
     FlopCounterMode gives its plain version at the same shapes, so the total
     is the same whichever implementation ran: K1, K3 and K4 4·B·N·kv_len·H·D

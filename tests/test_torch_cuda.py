@@ -748,3 +748,27 @@ def test_oneshot_branch_trains_head_dim_256_and_refuses_fp32(cuda):
     with pytest.raises(TypeError):
         attention.flash_attention(q32, k32, v32, valid_len=1025)
     assert {**mha_kernel.LAUNCHES, **attention.LAUNCHES} == before
+
+
+def test_kernel_ops_pass_opcheck_on_cuda(cuda):
+    """The six forward kernels as `denseclip_torch` ops (`ops/_library.py`):
+    the CUDA implementation against the fake one (shapes, dtypes, strides)
+    and through aot_autograd.  The prologue leaves q8's v third unwritten
+    (K5 reads V from its key-major copy), so two of its runs differ there:
+    it is held to its schema and fake implementation only."""
+    qkv = _qkv(2, 300, 2, 64)
+    q, k, v = (t.view(2, 300, 2, 64) for t in qkv.split(128, dim=-1))
+    scale = 64**-0.5
+    q8, vt, scales = mha_kernel.QUANTIZE_QKV_INT8_OP(qkv, 2, 290)
+    x, gamma, beta, w, bias = _lnqkv_inputs(1, 300, 256, 4)
+    cases = [
+        (mha_kernel.QKV_ATTENTION_OP, (qkv, 2, scale, 290), None),
+        (mha_kernel.MHA_ATTENTION_OP, (q, k, v, scale, 290), None),
+        (attention.FLASH_ATTENTION_OP, (q, k, v, True, scale, 290), None),
+        (mha_kernel.QUANTIZE_QKV_INT8_OP, (qkv, 2, 290), ("test_schema", "test_faketensor")),
+        (mha_kernel.QKV_ATTENTION_INT8_OP, (q8, vt, scales, 2, scale, 290, torch.bfloat16), None),
+        (lnqkv_kernel.LN_QKV_ATTENTION_OP, (x, gamma, beta, w, bias, 4, scale, 1e-5, 290), None),
+    ]
+    for op, args, utils in cases:
+        kw = {} if utils is None else {"test_utils": utils}
+        assert set(torch.library.opcheck(op, args, **kw).values()) == {"SUCCESS"}, op

@@ -121,7 +121,7 @@ ROUTES = [("auto", False), ("int8", False), ("auto", True)]
 ROUTE_IDS = ["K1", "K5", "K6"]
 # the plain version each route's kernel branch runs on the CPU
 ROUTE_PLAIN = {"K1": (mha_kernel, "mha_qkv_attention_reference"),
-               "K5": (mha_kernel, "mha_qkv_attention_int8_reference"),
+               "K5": (mha_kernel, "int8_attention_plain"),
                "K6": (lnqkv_kernel, "ln_qkv_attention_reference")}
 
 

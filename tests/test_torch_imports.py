@@ -111,13 +111,16 @@ def test_every_kernel_source_is_built():
                                     "models.layers", "data.cityscapes", "data._native",
                                     "train.clip_import", "train.weights",
                                     "tools.import_checkpoint", "tools.infer",
-                                    "utils.visualize"])
+                                    "utils.visualize", "ops._library", "infer.outputs",
+                                    "infer.exported", "tools.export",
+                                    "tools.exp_serving_concurrency"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
     """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
     tools, the timing helpers, the remat-aware layers, the Cityscapes readers
-    with their host ops, the CLIP import and the checkpoint import tool
-    import on a machine with neither JAX nor a card (nothing is compiled or
-    built at import)."""
+    with their host ops, the CLIP import, the checkpoint import tool, the
+    kernel ops' registration, the export and its loader and the concurrency
+    tool import on a machine with neither JAX nor a card (nothing is
+    compiled or built at import)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('denseclip_vit_multimodal_tpu_torch.{module}')\n"

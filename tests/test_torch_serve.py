@@ -300,8 +300,22 @@ def test_cli_build_service_from_checkpoint(tmp_path):
         service.close()
     with pytest.raises(SystemExit):
         serve_tool.parse_args([CONFIG])  # no checkpoint, no export
-    with pytest.raises(NotImplementedError, match="exported"):
-        serve_tool.build_service(serve_tool.parse_args(["--from-export", str(tmp_path)]))
+    # --from-export serves a tools/export.py bundle of the same checkpoint
+    from denseclip_vit_multimodal_tpu_torch.tools import export as export_tool
+
+    bundle = str(tmp_path / "bundle")
+    export_tool.main([CONFIG, str(tmp_path), bundle, "--shape", *map(str, FRAME), "--mode",
+                      "whole", "--fetch", "packed", "--device", "cpu", "--set", *TINY])
+    service, epoch = serve_tool.build_service(serve_tool.parse_args(
+        ["--from-export", bundle, "--device", "cpu", "--fetch", "packed"]))
+    try:
+        assert epoch is None and service.mode == "whole" and service.fetch == "packed"
+        res = service.predict_array(np.random.RandomState(1).randint(0, 256, FRAME + (3,),
+                                                                     np.uint8))
+        assert res["seg"].shape == res["depth"].shape == FRAME
+        assert res["seg"].dtype == np.uint8 and res["depth"].dtype == np.float16
+    finally:
+        service.close()
 
 
 # --------------------------------------------------------------------------
