@@ -42,7 +42,7 @@ phases that each print one JSON line:
                   augmented on the card: 1 warm-up and 5 timed steps (CUDA
                   events; ms/step, samples/s, peak memory, K1 / K2 launches
                   per step, losses), one step with the kernels against plain
-                  attention and fp32, a profile of 2 steps, and 2 steps plus
+                  attention and fp32 (under `attn_impl: xla`), a profile of 2 steps, and 2 steps plus
                   a validation through the user entry point `train()`, whose
                   checkpoint the next phase evaluates;
  10. eval_path  — the user entry point `tools/test.py` on that checkpoint
@@ -121,7 +121,8 @@ phases that each print one JSON line:
                   step-1 losses held against each other; then one step's
                   backbone gradients on fixed weights, batch and masks:
                   remat against none, the kernels (K4b) against plain
-                  attention and fp32; what a rerun of the step moves and
+                  attention and fp32 (under `attn_impl: xla`, the plain
+                  yardstick, though the kernels take fp32 too); what a rerun of the step moves and
                   which ops PyTorch names nondeterministic; a profile of one
                   step;
  20. outproj_path — the port's `tools/exp_outproj_epilogue.py` `main()`: K7
@@ -259,6 +260,29 @@ phases that each print one JSON line:
                   frame); host microseconds of a K1 call through its op and
                   direct; `tools/exp_serving_concurrency.py`'s `main()` at
                   --clients 1 4 --requests 3.
+ 29. fp32_path  — `tpu.compute_dtype: float32` through the kernels (TF32 off,
+                  printed): the six fp32 kernels (K1, K3, K4 in
+                  `csrc/attention_fp32.cu`; K2, K3's backward, K4b in
+                  `csrc/attention_bwd_fp32.cu`) against their plain versions
+                  at the fp32 paths' shapes (outputs max abs <= 1e-4, rel. L2
+                  <= 1e-5; row statistics as the bf16 kernels'; gradients rel.
+                  L2 <= 1e-4 and max abs <= 1e-4 of the largest, masked keys
+                  exactly 0, a rerun bitwise; NaN in the pad keys of most
+                  cases), with SDPA's fp32 time and the bounds at 66.9 TFLOP/s
+                  and the 3xTF32 ceiling; then the flagship in fp32: a slide
+                  frame (12 K1 fp32, logits within 1e-4 of `attn_impl: xla`),
+                  `flash` at crop 384 (24 K1 fp32), the heritage preset
+                  through `train()` (1 warm-up + 2 steps: 12 K1 + 12 K2 fp32 a
+                  step; step-1 loss within 1e-5 of one xla step; backbone
+                  seg-loss gradients within 1e-3 of xla under deterministic
+                  algorithms, a rerun's motion and xla's on an image nudged
+                  by 1e-6 beside), `tools/test.py
+                  --aug-test` on its checkpoint (2 frames: 36 K1 + 36 K4 fp32
+                  a frame), the 1536 crop through `train()` (1 warm-up + 2
+                  steps: 12 K4 + 12 K4b fp32 a step, step-1 loss within 5e-2
+                  of train_long's bf16 run), the self-test's fp32 lines, and
+                  `tools/profile_attn_bwd.py --dtype float32`; each path's
+                  launches by name, times and peak memory.
 
 rn50_path and cityscapes_path's `tools/train.py` run 2 steps each (1
 warm-up + 1 timed; 3 before the ViT-L/14 phase came), cityscapes_path's
@@ -845,15 +869,18 @@ def step_grads(net, batch: dict, texts, crop, seed: int):
                                         if name.startswith("backbone.")]), leaves
 
 def fp32_twin(model, model_cfg, seed: int, remat=False):
-    """`model`'s weights in an fp32 model (plain attention: the kernels take
-    bf16), trainable where `model` is."""
+    """`model`'s weights in an fp32 model under `attn_impl: xla` (plain
+    attention: the yardstick of both bf16 routes, though the kernels take
+    fp32 too), trainable where `model` is."""
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
         CITYSCAPES_CLASSES,
         build_denseclip,
     )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
 
     twin, _ = build_denseclip(model_cfg, CITYSCAPES_CLASSES, dtype=torch.float32, device="cuda",
                               seed=seed, remat=remat)
+    set_attn_impl(twin, "xla")
     twin.load_state_dict(model.state_dict())
     for (_, p), (_, q) in zip(model.named_parameters(), twin.named_parameters()):
         q.requires_grad_(p.requires_grad)
@@ -931,7 +958,7 @@ def phase_train_path() -> dict:
     plain_loss, plain_grads, plain_total_grads = loss_and_grads(model)[:3]
     set_attn_impl(model, "auto")
     model.zero_grad(set_to_none=True)
-    # the same weights in fp32 (plain attention: the kernels take bf16) as the
+    # the same weights in fp32 under attn_impl xla (plain attention) as the
     # yardstick both bf16 paths are measured against
     ref_model = fp32_twin(model, cfg.model, seed)
     ref_loss, ref_grads, ref_total_grads = loss_and_grads(ref_model)[:3]
@@ -1004,31 +1031,19 @@ def phase_eval_path() -> dict:
         CITYSCAPES_CLASSES,
         build_denseclip,
     )
-    from denseclip_vit_multimodal_tpu_torch.models import layers
     from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
-    from denseclip_vit_multimodal_tpu_torch.ops import attention
     from denseclip_vit_multimodal_tpu_torch.ops.attention import LAUNCHES as FLASH_LAUNCHES
     from denseclip_vit_multimodal_tpu_torch.tools.test import main as test_main
-
-    # count the plain-attention calls of the evaluation (the text tower's,
-    # cached once per model, included): the ViT's must all go to K1 / K4
-    plain_calls = collections.Counter()
-    plain = attention.plain_attention
-
-    def counted_plain(q, *args, **kwargs):
-        plain_calls[q.shape[1]] += 1
-        return plain(q, *args, **kwargs)
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     start = time.perf_counter()
-    layers.plain_attention = attention.plain_attention = counted_plain
-    try:
+    # the plain-attention calls of the evaluation (the text tower's, cached
+    # once per model, included): the ViT's must all go to K1 / K4
+    with counted_plain_attention() as plain_calls:
         results = test_main([CONFIG, TRAIN_WORK_DIR, "--aug-test", "--mode", "whole",
                              "--eval", "mIoU", "depth", "--set", *EVAL_OVERRIDES])
-    finally:
-        layers.plain_attention = attention.plain_attention = plain
     wall_s = time.perf_counter() - start
     launches = read_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -4014,7 +4029,517 @@ def phase_export_path() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# fp32 through the attention kernels (`tpu.compute_dtype: float32`)
+# --------------------------------------------------------------------------
+
+PEAK_FP32_FLOPS = 66.9e12  # H100 SXM fp32 FMA rate outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3  # the 3xTF32 ceiling: three TF32 products per fp32 one
+# The fp32 kernels against their fp32 plain versions (TF32 off): outputs max
+# abs and relative L2 on the rows below valid_len; gradients relative L2 and
+# max abs as a share of the largest reference magnitude, per gradient.
+FP32_MAX_TOL, FP32_REL_TOL = 1e-4, 1e-5
+FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL = 1e-4, 1e-4
+FP32_PATH_TOL = 1e-4  # rel. L2, the fp32 slide frame's logits, kernels vs attn_impl xla
+FP32_LOSS_TOL = 1e-5  # relative, the fp32 step-1 total loss, kernels vs xla
+FP32_GRAD_TOL = 1e-3  # rel. L2, backbone seg-loss gradients, kernels vs xla, fp32
+FP32_LONG_TOL = 5e-2  # relative, the fp32 long-crop step-1 loss against the bf16 kernel route's
+FP32_SET = "tpu.compute_dtype=float32"
+FP32_STEPS = 3  # train() on the crop-640 and long-crop paths: 1 warm-up + 2 (bf16: 6 and 4)
+FP32_WORK_DIR = "build/train_fp32"  # gitignored; removed at the end of the phase
+FP32_AUG_FRAMES = 2  # tools/test.py --aug-test in fp32: the first pays the set-up (bf16: 3)
+
+# (kernel, b, n, heads, head_dim, valid_len, causal, iters, NaN in the pad keys)
+FP32_FWD_CASES = [
+    ("qkv_attention_fp32", 10, 1536, 12, 64, 1522, False, 5, False),  # slide window batch
+    ("qkv_attention_fp32", 4, 1664, 12, 64, 1601, False, 5, True),  # crop-640 training
+    ("qkv_attention_fp32", 2, 8320, 12, 64, 8193, False, 2, False),  # aug-test scale 1.0
+    ("qkv_attention_fp32", 10, 577, 12, 64, None, False, 10, False),  # flash, crop 384
+    ("qkv_attention_fp32", 2, 1024, 12, 64, None, False, 10, False),  # the self-test's case
+    ("mha_attention_fp32", 2, 1024, 12, 64, None, False, 10, False),  # the self-test's case
+    ("mha_attention_fp32", 2, 1100, 8, 128, 1050, False, 5, True),  # head dim 128
+    ("mha_attention_fp32", 1, 1030, 2, 256, 1025, False, 5, True),  # head dim 256
+    ("flash_attention_fp32", 2, 25216, 12, 64, 25089, False, 2, False),  # aug-test scale 1.75
+    ("flash_attention_fp32", 2, 18560, 12, 64, 18433, False, 2, False),  # aug-test scale 1.5
+    ("flash_attention_fp32", 2, 12928, 12, 64, 12801, False, 2, False),  # aug-test scale 1.25
+    ("flash_attention_fp32", 2, 9344, 12, 64, 9217, False, 3, True),  # long-crop training
+    ("flash_attention_fp32", 2, 2100, 12, 64, 2000, True, 5, True),  # causal, pad keys
+    ("flash_attention_fp32", 2, 8704, 4, 256, 8600, False, 3, True),  # head dim 256
+]
+FP32_BWD_CASES = [
+    ("qkv_attention_bwd_fp32", 4, 1664, 12, 64, 1601, False, 3, True),  # crop-640 training
+    ("mha_attention_bwd_fp32", 8, 1601, 12, 64, None, False, 2, False),  # profile_attn_bwd's
+    ("mha_attention_bwd_fp32", 2, 1100, 8, 128, 1050, False, 3, True),  # head dim 128
+    ("mha_attention_bwd_fp32", 1, 1030, 2, 256, 1025, False, 3, True),  # head dim 256
+    ("flash_attention_bwd_fp32", 2, 9344, 12, 64, 9217, False, 2, True),  # long-crop training
+    ("flash_attention_bwd_fp32", 1, 2048, 4, 64, 2000, True, 3, True),  # causal, pad keys
+    ("flash_attention_bwd_fp32", 1, 1100, 2, 256, 1050, True, 3, True),  # head dim 256
+]
+
+
+def fp32_bounds(flops: float, nbytes: float) -> dict:
+    """The least time of an fp32 kernel on an H100 SXM at its fp32 FMA peak,
+    and the 3xTF32 ceiling beside it (the later tensor-core redesign)."""
+    ops_s, bytes_s = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, bytes_s) * 1e3}
+
+
+def _fp32_forward(kernel: str, b: int, n: int, heads: int, d: int, kv: int, causal: bool,
+                  poison: bool):
+    """Seeded fp32 q / k / v (views of one fused qkv, NaN in the pad keys
+    with `poison`) and the kernel's launch: (qkv, q, k, v, run(stats) ->
+    [B, N, H, D] output, plain() -> its plain version's)."""
+    from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device="cuda")
+    q, k, v = (t.view(b, n, heads, d) for t in qkv.split(heads * d, dim=-1))
+    if poison:
+        poison_pad_keys(k, v, kv)
+    scale = d**-0.5
+    if kernel == "qkv_attention_fp32":
+        def run(stats=None):
+            out, st = mha_kernel._launch(qkv, heads, scale, kv, with_stats=stats is not None)
+            if stats is not None:
+                stats.copy_(st)
+            return out.view(b, n, heads, d)
+
+        plain = lambda: mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=kv).view(
+            b, n, heads, d)
+    elif kernel == "mha_attention_fp32":
+        run = lambda stats=None: mha_kernel._launch_mha(q, k, v, scale, kv, stats)
+        plain = lambda: mha_kernel.mha_attention_reference(q, k, v, valid_len=kv)
+    else:
+        run = lambda stats=None: attention._launch(q, k, v, causal, scale, kv, stats)
+        plain = lambda: attention.flash_attention_reference(q, k, v, causal=causal, valid_len=kv)
+    return qkv, q, k, v, run, plain
+
+
+def fp32_forward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_len, causal: bool,
+                      iters: int, poison: bool) -> dict:
+    """An fp32 forward kernel (K1, K3 or K4) against its plain version, its
+    row statistics against the plain ones, with SDPA's fp32 time beside."""
+    import torch.nn.functional as F
+
+    kv = n if valid_len is None else valid_len
+    qkv, q, k, v, run, plain = _fp32_forward(kernel, b, n, heads, d, kv, causal, poison)
+    stats = torch.empty(b, heads, n, 2, device="cuda")
+    out, ref = run(stats), plain()
+    again = run()
+    torch.cuda.synchronize()
+    err = out[:, :kv] - ref[:, :kv]
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
+    library = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+    rows = kv if kernel == "flash_attention_fp32" else n  # K4's work: the valid rows
+    flops = 4.0 * b * heads * rows * kv * d * (0.5 if causal else 1.0)
+    nbytes = 4.0 * (qkv.numel() + b * n * heads * d)
+    res = {
+        "phase": "fp32_path", "part": "kernel", "name": kernel, "shape": [b, n, heads, d],
+        "valid_len": valid_len, "causal": causal, "poisoned_pad_keys": poison,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / ref[:, :kv].norm()),
+        "finite": bool(torch.isfinite(out[:, :kv]).all()),
+        "stats_call_output_bitwise_equal": bitwise_equal(out, again),
+        **row_stats_errors(stats[:, :, :kv], q[:, :kv], k, kv, d**-0.5,
+                           prescaled=kernel != "flash_attention_fp32", causal=causal),
+        "ms": cuda_ms(run, iters), "plain_ms": cuda_ms(plain, 1, warmup=1),
+        "library_ms": cuda_ms(library, iters), **fp32_bounds(flops, nbytes),
+    }
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    return res
+
+
+def fp32_backward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_len, causal: bool,
+                       iters: int, poison: bool) -> dict:
+    """An fp32 backward kernel (K2, K3's backward or K4b) against its plain
+    version on the fp32 forward's output and statistics, per gradient, with
+    the masked keys held to exactly 0, a rerun held bitwise equal, and SDPA's
+    fp32 backward time beside."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
+
+    fwd = kernel.replace("_bwd", "")
+    kv = n if valid_len is None else valid_len
+    qkv, q, k, v, run, _ = _fp32_forward(fwd, b, n, heads, d, kv, causal, poison)
+    stats = torch.empty(b, heads, n, 2, device="cuda")
+    out = run(stats)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dout = torch.randn(b, n, heads, d, generator=gen, device="cuda")
+    scale, hd = d**-0.5, heads * d
+    if kernel == "qkv_attention_bwd_fp32":
+        o2, do2 = out.reshape(b, n, hd), dout.reshape(b, n, hd)
+        bwd = lambda: tuple(mha_kernel._launch_bwd(qkv, o2, do2, stats, heads, scale, kv).split(
+            hd, dim=-1))
+        plain = lambda: tuple(mha_kernel.mha_qkv_attention_bwd_reference(
+            qkv, o2, do2, heads, valid_len=kv).split(hd, dim=-1))
+    elif kernel == "mha_attention_bwd_fp32":
+        bwd = lambda: mha_kernel._launch_mha_bwd(q, k, v, out, dout, stats, scale, kv)
+        plain = lambda: mha_kernel.mha_attention_bwd_reference(q, k, v, out, dout, valid_len=kv)
+    else:
+        bwd = lambda: attention._launch_bwd(q, k, v, out, dout, stats, causal, scale, kv)
+        plain = lambda: attention.flash_attention_bwd_reference(q, k, v, out, dout,
+                                                                causal=causal, valid_len=kv)
+    got, ref = bwd(), plain()
+    torch.cuda.synchronize()
+    rows = kv if kernel == "flash_attention_bwd_fp32" else n
+    res = {"phase": "fp32_path", "part": "kernel_bwd", "name": kernel,
+           "shape": [b, n, heads, d], "valid_len": valid_len, "causal": causal,
+           "poisoned_pad_keys": poison,
+           "finite": all(bool(torch.isfinite(g[:, :kv]).all()) for g in got),
+           "masked_dkdv_exact_zero": bool((got[1][:, kv:] == 0).all() and (got[2][:, kv:] == 0).all()),
+           "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got)}
+    grad_errors(res, got, ref, rows, kv)
+    del ref
+    lib = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    lib[1], lib[2] = lib[1][:, :, :kv].contiguous(), lib[2][:, :, :kv].contiguous()
+    lib = [t.requires_grad_(True) for t in lib]
+    lib_out = F.scaled_dot_product_attention(*lib, is_causal=causal)
+    lib_grad = dout.transpose(1, 2).contiguous()
+    library = lambda: torch.autograd.grad(lib_out, lib, lib_grad, retain_graph=True)
+    flops = 10.0 * b * heads * rows * kv * d * (0.5 if causal else 1.0)
+    nbytes = 4.0 * 8 * b * n * hd + 4.0 * stats.numel()  # q, k, v, O, dO in; dq, dk, dv out
+    res.update({"ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(plain, 1, warmup=1),
+                "library_ms": cuda_ms(library, iters), **fp32_bounds(flops, nbytes)})
+    res["tflops_5_products"] = flops / (res["ms"] * 1e-3) / 1e12
+    res["tflops_7_products"] = res["tflops_5_products"] * 7 / 5
+    return res
+
+
+def _fp32_kernel_checks() -> dict:
+    """Every fp32 kernel against its plain version at the fp32 paths' shapes."""
+    results = collections.defaultdict(list)
+    for case in FP32_FWD_CASES:
+        res = fp32_forward_case(*case)
+        emit(res)
+        if not (res["finite"] and res["max_abs_err"] <= FP32_MAX_TOL
+                and res["rel_l2_err"] <= FP32_REL_TOL and stats_in_limits(res)
+                and res["stats_call_output_bitwise_equal"]):
+            raise AssertionError(f"{res['name']} disagrees with its plain version: {res}")
+        results[res["name"]].append(res)
+        torch.cuda.empty_cache()
+    for case in FP32_BWD_CASES:
+        res = fp32_backward_case(*case)
+        emit(res)
+        bad = [p for p in ("dq", "dk", "dv")
+               if not (res[p]["rel_l2_err"] <= FP32_BWD_REL_TOL
+                       and res[p]["max_abs_err"] <= FP32_BWD_MAX_TOL * res[p]["max_abs_ref"])]
+        if bad or not (res["finite"] and res["masked_dkdv_exact_zero"]
+                       and res["rerun_bitwise_equal"]):
+            raise AssertionError(f"{res['name']} disagrees with its plain version ({bad}): {res}")
+        results[res["name"]].append(res)
+        torch.cuda.empty_cache()
+    return dict(results)
+
+
+@contextlib.contextmanager
+def counted_plain_attention():
+    """Counts plain-attention calls (the module-level function the ViT and
+    the text tower call) by token count while open."""
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+    from denseclip_vit_multimodal_tpu_torch.ops import attention
+
+    calls = collections.Counter()
+    plain = attention.plain_attention
+
+    def counted(q, *args, **kwargs):
+        calls[q.shape[1]] += 1
+        return plain(q, *args, **kwargs)
+
+    layers.plain_attention = attention.plain_attention = counted
+    try:
+        yield calls
+    finally:
+        layers.plain_attention = attention.plain_attention = plain
+
+
+def _fp32_slide_and_flash() -> dict:
+    """The flagship in fp32 on one seeded 1024x2048 slide frame: 12 K1 fp32
+    launches (crop 624 / stride 426 / window batch 20), no plain attention
+    but the text tower's, logits against `attn_impl: xla`; then `flash` at
+    crop 384 (24 K1 fp32 at [10,577,2304] and [5,577,2304])."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+
+    cfg = load_config(CONFIG, overrides=[FP32_SET])
+    crop, stride, window_batch = resolve_test_protocol(cfg)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                                   device="cuda", seed=SEED)
+    engine = Inferencer(model, texts, num_classes=19)
+    frame = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, (1, 1024, 2048, 3), dtype=np.uint8)).cuda()
+    predict = lambda **kw: engine.predict(frame, mode="slide", fetch="device", **kw)
+    predict(crop=crop, stride=stride, window_batch=window_batch)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with counted_plain_attention() as plain_calls, recorded_k1_k2_shapes() as seen:
+        kernel_out = predict(crop=crop, stride=stride, window_batch=window_batch)
+        torch.cuda.synchronize()
+    slide = {"crop": crop, "stride": stride, "window_batch": window_batch,
+             "launches": read_launches(), "launch_shapes": shapes_json(seen),
+             "plain_attention_calls_by_tokens": dict(plain_calls),
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "ms_per_frame": cuda_ms(lambda: predict(crop=crop, stride=stride,
+                                                     window_batch=window_batch), 3, warmup=0)}
+    set_attn_impl(model, "xla")
+    plain_out = predict(crop=crop, stride=stride, window_batch=window_batch)
+    slide["plain_ms_per_frame"] = cuda_ms(lambda: predict(crop=crop, stride=stride,
+                                                          window_batch=window_batch), 2, warmup=0)
+    slide["seg_rel_l2_vs_xla"] = rel_l2(kernel_out["seg_logits"], plain_out["seg_logits"])
+    slide["depth_rel_l2_vs_xla"] = rel_l2(kernel_out["depth"], plain_out["depth"])
+    del kernel_out, plain_out
+    set_attn_impl(model, "flash")
+    flash_crop, flash_wb = FLASH_CROPS[1]
+    run = lambda: predict(crop=(flash_crop, flash_crop), stride=(426, 426), window_batch=flash_wb)
+    run()  # warm-up
+    reset_launches()
+    with recorded_k1_k2_shapes() as seen:
+        run()
+        torch.cuda.synchronize()
+    flash = {"crop": flash_crop, "window_batch": flash_wb, "launches": read_launches(),
+             "launch_shapes": shapes_json(seen), "ms_per_frame": cuda_ms(run, 3, warmup=0)}
+    del engine, model
+    torch.cuda.empty_cache()
+    if slide["launches"] != expected_launches(qkv_attention_fp32=12):
+        raise AssertionError(f"fp32 slide frame: expected 12 K1 fp32 launches: {slide}")
+    if set(plain_calls) - {TEXT_TOKENS}:
+        raise AssertionError(f"fp32 ViT attention reached plain attention: {slide}")
+    if not max(slide["seg_rel_l2_vs_xla"], slide["depth_rel_l2_vs_xla"]) <= FP32_PATH_TOL:
+        raise AssertionError(f"fp32 slide frame disagrees with attn_impl xla: {slide}")
+    if flash["launches"] != expected_launches(qkv_attention_fp32=24):
+        raise AssertionError(f"fp32 flash crop-384 frame: expected 24 K1 fp32 launches: {flash}")
+    return {"slide": slide, "flash": flash}
+
+
+def _fp32_training() -> dict:
+    """The heritage preset in fp32 through `train()` (batch 4, crop 640, 1
+    warm-up + 2 steps: 12 K1 fp32 + 12 K2 fp32 a step), its step-1 loss
+    against one `attn_impl: xla` step, and one step's backbone gradients of
+    the segmentation loss, kernels against xla, on fixed weights and batch."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train
+
+    overrides = TRAIN_OVERRIDES + [FP32_SET, "data.synthetic_options.length=12"]
+
+    def run(extra, steps, work_dir):
+        shutil.rmtree(work_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        summary = train(load_config(TRAIN_CONFIG, overrides=overrides + extra), work_dir,
+                        max_steps=steps, no_validate=True, device="cuda")
+        with open(os.path.join(work_dir, "train_log.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        return {"summary": summary, "launches": read_launches(),
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "losses": [r["loss_total"] for r in rows],
+                "step_ms": [r["step_s"] * 1e3 for r in rows],
+                "ms_per_step": float(np.mean([r["step_s"] for r in rows[1:]] or
+                                             [rows[0]["step_s"]])) * 1e3}
+
+    kernels = run([], FP32_STEPS, FP32_WORK_DIR)  # its checkpoint serves the aug-test
+    plain = run(["tpu.attn_impl=xla"], 1, FP32_WORK_DIR + "_xla")
+    shutil.rmtree(FP32_WORK_DIR + "_xla", ignore_errors=True)
+
+    cfg = load_config(TRAIN_CONFIG, overrides=overrides)
+    seed = int(cfg.training.get("seed", 42))
+    loader = DataLoader(build_dataset(cfg.data, "train"), batch_size=int(cfg.training.batch_size),
+                        seed=seed, num_threads=int(cfg.training.get("workers", 8)))
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                                   device="cuda", seed=seed)
+    aug_cfg = augment_config_from_data_cfg(cfg.data)
+    batch = augment_batch(to_device(next(loader.epoch(0)), "cuda"), aug_cfg,
+                          torch.Generator().manual_seed(seed))
+    crop = tuple(aug_cfg.crop_size)
+    # under deterministic algorithms, so that a rerun's own motion (PyTorch's
+    # nondeterministic backward ops) is measured apart and not charged to the kernels
+    with deterministic_algorithms() as caught:
+        reset_launches()
+        k_loss, k_seg = step_grads(model, batch, texts, crop, seed)[:2]
+        grad_launches = read_launches()
+        k_seg_again = step_grads(model, batch, texts, crop, seed)[1]
+        set_attn_impl(model, "xla")
+        p_loss, p_seg = step_grads(model, batch, texts, crop, seed)[:2]
+        # the step's own conditioning: xla again on the image nudged by 1e-6
+        # relative noise, a change of the size fp32 rounding makes
+        noise = torch.randn(batch["image"].shape, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(seed))
+        nudged = dict(batch, image=batch["image"] * (1.0 + 1e-6 * noise))
+        p_seg_nudged = step_grads(model, nudged, texts, crop, seed)[1]
+    res = {"config": TRAIN_CONFIG, "overrides": overrides, "steps": FP32_STEPS,
+           "kernels": kernels, "xla": plain,
+           "loss_rel_diff_step1_vs_xla": abs(kernels["losses"][0] - plain["losses"][0])
+           / abs(plain["losses"][0]),
+           "grad_step_launches": grad_launches, "grad_step_loss_kernel": k_loss,
+           "grad_step_loss_xla": p_loss,
+           "backbone_seg_grad_rel_l2_vs_xla": rel_l2(k_seg, p_seg),
+           "backbone_seg_grad_rel_l2_rerun": rel_l2(k_seg_again, k_seg),
+           "backbone_seg_grad_rel_l2_xla_vs_image_nudged_1e-6": rel_l2(p_seg_nudged, p_seg),
+           "ops_without_deterministic_implementation": sorted(
+               {str(w.message).split(" does not have a deterministic")[0][:120]
+                for w in caught if "deterministic" in str(w.message)})}
+    del model, batch, nudged, k_seg, p_seg, k_seg_again, p_seg_nudged
+    torch.cuda.empty_cache()
+    per_step = 12 * FP32_STEPS
+    if kernels["launches"] != expected_launches(qkv_attention_fp32=per_step,
+                                                qkv_attention_bwd_fp32=per_step):
+        raise AssertionError(f"fp32 training: expected 12 K1 + 12 K2 fp32 a step: {res}")
+    if plain["launches"] != expected_launches():
+        raise AssertionError(f"the fp32 xla step launched a kernel: {plain['launches']}")
+    if not (res["loss_rel_diff_step1_vs_xla"] <= FP32_LOSS_TOL
+            and res["backbone_seg_grad_rel_l2_vs_xla"] <= FP32_GRAD_TOL
+            and all(np.isfinite(x) for x in kernels["losses"])):
+        raise AssertionError(f"fp32 training with the kernels disagrees with xla: {res}")
+    return res
+
+
+def _fp32_aug_test() -> dict:
+    """`tools/test.py --aug-test --mode whole` in fp32 on two synthetic
+    1024x2048 frames (the first pays the set-up and is not timed), on the
+    fp32 training's checkpoint: 36 K1 fp32 + 36 K4 fp32 launches a frame, no
+    plain attention but the text tower's."""
+    from denseclip_vit_multimodal_tpu_torch.tools.test import main as test_main
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    start = time.perf_counter()
+    with counted_plain_attention() as plain_calls:
+        results = test_main([CONFIG, FP32_WORK_DIR, "--aug-test", "--mode", "whole", "--eval",
+                             "mIoU", "depth", "--set", *EVAL_OVERRIDES,
+                             f"data.synthetic_options.length={FP32_AUG_FRAMES}", FP32_SET])
+    res = {"protocol": "aug_test whole, scales 0.5-1.75, flip", "frames": FP32_AUG_FRAMES,
+           "entry_point_wall_s": time.perf_counter() - start,
+           "s_per_frame": 1.0 / results["images_per_sec"], "launches": read_launches(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "plain_attention_calls_by_tokens": dict(plain_calls),
+           "mIoU": results.get("mIoU")}
+    res["launches_per_frame"] = {k: v / FP32_AUG_FRAMES for k, v in res["launches"].items()}
+    want = {f"{k}_fp32": n * FP32_AUG_FRAMES for k, n in AUG_VIEW_LAUNCHES.items()}
+    if res["launches"] != expected_launches(**want):
+        raise AssertionError(f"fp32 aug-test: expected {want}: {res}")
+    if set(plain_calls) - {TEXT_TOKENS} or not np.isfinite(results.get("mIoU", float("nan"))):
+        raise AssertionError(f"fp32 aug-test reached plain attention or failed: {res}")
+    return res
+
+
+# The fp32 kernels' entries of the `kernels` line: (name, source, the TPU
+# kernel replaced, the fp32 path whose launches it reports).
+FP32_ENTRIES = (
+    ("qkv_attention_fp32", "attention_fp32.cu", "ops/mha_kernel.py:400", "fp32_slide"),
+    ("qkv_attention_bwd_fp32", "attention_bwd_fp32.cu", "ops/mha_kernel.py:240",
+     "fp32_training"),
+    ("mha_attention_fp32", "attention_fp32.cu", "ops/mha_kernel.py:164", "fp32_selftest"),
+    ("mha_attention_bwd_fp32", "attention_bwd_fp32.cu", "ops/mha_kernel.py:240 (via :308, :359)",
+     "fp32_profile_attn_bwd"),
+    ("flash_attention_fp32", "attention_fp32.cu", "ops/attention.py:130", "fp32_aug_test"),
+    ("flash_attention_bwd_fp32", "attention_bwd_fp32.cu",
+     "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and :1146 "
+     "(dq, call :1456)", "fp32_training_long"),
+)
+
+
+def fp32_entries(entry, at_shape, fp32_res: dict) -> list:
+    """The six fp32 kernels' entries: the first case of each (a path's
+    shape) in the entry, the rest by shape."""
+    out = []
+    for name, source, replaces, path in FP32_ENTRIES:
+        first, *rest = fp32_res["kernels"][name]
+        out.append({**entry(name, source, replaces, first,
+                            fp32_res["launches_by_path"][path][name]),
+                    "design": "SIMT fp32 FMA (no TF32), 256 threads on 64 rows, cp.async tiles",
+                    "path": path, "shape": first["shape"], "valid_len": first["valid_len"],
+                    "other_shapes": [at_shape(r) for r in rest]})
+    return out
+
+
+def phase_fp32_path(bf16_long: dict, selftest_res: dict) -> dict:
+    """`tpu.compute_dtype: float32` through the kernels: every fp32 kernel
+    against its plain version, then each fp32 path with its launches by name,
+    times and peak memory (TF32 off for the phase, printed).  `bf16_long` is
+    train_long's bf16 kernel run (the long-crop loss is held against its
+    step 1); `selftest_res` the selftest phase's line (JAX's fp32 case)."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.tools.profile_attn_bwd import main as pab_main
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tf32 = {"matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    emit({"phase": "fp32_path", "part": "settings", **tf32})
+    res = {"phase": "fp32_path", **tf32, "kernels": _fp32_kernel_checks(), "paths": {}}
+    paths = res["paths"]
+    paths.update(_fp32_slide_and_flash())
+    emit({"phase": "fp32_path", "part": "slide_and_flash", **paths})
+    paths["training"] = _fp32_training()
+    emit({"phase": "fp32_path", "part": "training", **paths["training"]})
+    paths["aug_test"] = _fp32_aug_test()
+    emit({"phase": "fp32_path", "part": "aug_test", **paths["aug_test"]})
+    shutil.rmtree(FP32_WORK_DIR, ignore_errors=True)
+    long = _long_run(["tpu.remat=false", FP32_SET], FP32_STEPS)
+    long["loss_rel_diff_step1_vs_bf16_kernels"] = (
+        abs(long["losses"][0] - bf16_long["losses"][0]) / abs(bf16_long["losses"][0]))
+    paths["training_long"] = long
+    emit({"phase": "fp32_path", "part": "training_long", **long})
+    per_step = 12 * FP32_STEPS
+    if long["launches"] != expected_launches(flash_attention_fp32=per_step,
+                                             flash_attention_bwd_fp32=per_step):
+        raise AssertionError(f"fp32 long crop: expected 12 K4 + 12 K4b fp32 a step: {long}")
+    if not (all(np.isfinite(x) for x in long["losses"])
+            and long["loss_rel_diff_step1_vs_bf16_kernels"] <= FP32_LONG_TOL):
+        raise AssertionError(f"fp32 long-crop loss disagrees with the bf16 route's: {long}")
+    fp32_lines = [ln for ln in selftest_res["lines"] if "float32" in ln]
+    paths["selftest"] = {"lines": fp32_lines, "launches": selftest_res["launches"]}
+    if not (len(fp32_lines) == 2 and all(ln.startswith("PASS") for ln in fp32_lines)
+            and selftest_res["launches"]["mha_attention_fp32"] == 1
+            and selftest_res["launches"]["qkv_attention_fp32"] == 1):
+        raise AssertionError(f"the self-test's fp32 case did not pass on the fp32 kernels: "
+                             f"{paths['selftest']}")
+    torch.cuda.empty_cache()
+    reset_launches()
+    pab = pab_main(["--out", "build/profile_attn_bwd_fp32.json", "--dtype", "float32",
+                    "--iters", "3"])
+    paths["profile_attn_bwd"] = {**pab, "launches": read_launches()}
+    emit({"phase": "fp32_path", "part": "profile_attn_bwd", **paths["profile_attn_bwd"]})
+    if not (all(pab[f"relerr_{g}"] <= FP32_BWD_MAX_TOL for g in ("dq", "dk", "dv"))
+            and paths["profile_attn_bwd"]["launches"]["mha_attention_fp32"]
+            and paths["profile_attn_bwd"]["launches"]["mha_attention_bwd_fp32"]):
+        raise AssertionError(f"profile_attn_bwd in fp32: {paths['profile_attn_bwd']}")
+    res["launches_by_path"] = {
+        "fp32_slide": paths["slide"]["launches"], "fp32_flash": paths["flash"]["launches"],
+        "fp32_training": paths["training"]["kernels"]["launches"],
+        "fp32_aug_test": paths["aug_test"]["launches"],
+        "fp32_training_long": paths["training_long"]["launches"],
+        "fp32_selftest": paths["selftest"]["launches"],
+        "fp32_profile_attn_bwd": paths["profile_attn_bwd"]["launches"]}
+    return res
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("attention fp32 (K1 / K3 / K4 fp32)", ("attention_fp32_kernel",)),
+    ("attention backward fp32 (K2 / K3's / K4b fp32)", ("bwd_fp32_",)),
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
     ("mha_attention (K3)", ("mha_attention_kernel",)),
     ("qkv_attention_bwd (K2; K3's backward)", ("qkv_bwd_",)),
@@ -4117,6 +4642,7 @@ def main() -> int:
     flash_bwds = timed("kernel_flash_bwd", phase_kernel_flash_bwd)
     flash_bwd, flash_bwd_256 = flash_bwds[0], flash_bwds[-1]
     long_res = timed("train_long", phase_train_long)
+    fp32_res = timed("fp32_path", phase_fp32_path, long_res["remat_false"], selftest_res)
     outproj_res = timed("outproj_path", phase_outproj_path)
     pab_res = timed("profile_attn_bwd", phase_profile_attn_bwd)
     bench_res = timed("bench_path", phase_bench_path)
@@ -4151,6 +4677,8 @@ def main() -> int:
                             **{f"exported_{tag}_frame": export_res[tag]["launches_per_frame"].get(
                                 name, 0) for tag in ("logits", "int8", "fused")},
                             "serving_concurrency": export_res["launches"][name],
+                            **{path: launches[name] for path, launches
+                               in fp32_res["launches_by_path"].items()},
                             **{f"{tag}_{part}": sum(vitl_res[tag][k]["launches"][name] for k in ks)
                                for tag in ("vitl14", "seg_only")
                                for part, ks in (("training", ("training",)),
@@ -4165,12 +4693,13 @@ def main() -> int:
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
         "library_ms": res["library_ms"],
         **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal",
-                               "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res},
+                               "stats_m_max_abs_err", "stats_l_max_rel_err", "rel_l2_err",
+                               "bound_3xtf32_ms", "tflops") if k in res},
     }
     at_shape = lambda res: {k: res[k] for k in (
         "shape", "valid_len", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "tflops", "tflops_5_products", "tflops_8_products", "rerun_bitwise_equal",
-        "stats_m_max_abs_err", "stats_l_max_rel_err") if k in res}
+        "stats_m_max_abs_err", "stats_l_max_rel_err", "bound_3xtf32_ms") if k in res}
     emit({"kernels": [
         {**entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
                  main_res["launches"]["qkv_attention"]),
@@ -4218,6 +4747,7 @@ def main() -> int:
                    "then the out-projection by wgmma m64n128k16 with W_out by TMA",
          **{k: outproj_res[k] for k in ("a_ms", "A_k1_ms", "A_matmul_ms", "A_cast_ms",
                                         "tflops_b", "verdict")}},
+        *fp32_entries(entry, at_shape, fp32_res),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

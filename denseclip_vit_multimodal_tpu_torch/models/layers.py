@@ -11,18 +11,21 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
   * `MultiHeadAttention` — self-attention with a fused [D, 3D] qkv projection
     or, built with `cross=True`, cross-attention with a [D, D] q and a
     [D, 2D] kv projection (`use_qkv_bias=False` drops their biases).
-    Cross-attention always runs as plain attention.  For non-causal bf16
+    Cross-attention always runs as plain attention.  For non-causal
     sequences of 1024..8448 tokens on CUDA the attention runs in the qkv
     kernel (`ops/mha_kernel.py`, K1), otherwise through `attention_core`:
-    the flash kernel (`ops/attention.py`, K4) for causal or longer bf16
-    sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.
+    the flash kernel (`ops/attention.py`, K4) for causal or longer
+    sequences on CUDA, plain PyTorch (`plain_attention`) for the rest.  The
+    kernels take the model's two compute dtypes, bf16 and fp32 (another
+    dtype raises `TypeError` in their wrappers), as the JAX rules ask
+    nothing about the dtype.
     With `attn_impl="int8"` (the opt-in quantized serving path) non-causal
     sequences of at most 8448 tokens on CUDA take the int8 kernel (K5)
     instead, and everything else the `auto` rules.  With `attn_impl="flash"`
     (the JAX package's rule, "on the TPU" read as "on CUDA") non-causal
     sequences of at most 8448 tokens on CUDA take K1 at any length, with no
     1024-token floor, and every other call on CUDA takes `flash_attention`
-    (K3 or K4); a CUDA tensor of another dtype than bf16 raises
+    (K3 or K4); a CUDA tensor of another dtype than bf16 or fp32 raises
     `TypeError`, and off CUDA `flash` takes the `auto` rules.  With
     `DENSECLIP_FUSED_LNQKV=1` the block's LayerNorm, the qkv projection and
     the attention run as one kernel (`ops/lnqkv_kernel.py`, K6) on the
@@ -225,15 +228,6 @@ class Conv2d(nn.Conv2d):
 # --------------------------------------------------------------------------
 
 
-def require_flash_dtype(x: torch.Tensor) -> None:
-    """`attn_impl: flash` on CUDA runs the bf16 kernels.  The JAX package
-    would run its kernels in fp32 there; the port's take bf16 only, and
-    plain attention would hide the kernel, so another dtype raises."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"attn_impl 'flash' runs the bfloat16 kernels on CUDA, got {x.dtype}; "
-                        "fp32 inputs to the kernels are not ported yet (ROADMAP §2)")
-
-
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -248,13 +242,13 @@ def attention_core(
     `flash_attention` where `flash_supported` holds, and plain attention
     elsewhere.  `int8` quantizes only in the fused-qkv path, so what reaches
     this core (causal, more than 8448 tokens, the CPU) takes `auto`.
-    `flash` takes `flash_attention` for every call on CUDA (bf16 only:
-    `require_flash_dtype`) and `auto` off CUDA."""
+    `flash` takes `flash_attention` for every call on CUDA and `auto` off
+    CUDA.  A CUDA tensor of a dtype the kernels do not take (they take bf16
+    and fp32) raises `TypeError` in their wrappers."""
     if impl == ATTN_INT8:
         impl = ATTN_AUTO
     if impl == ATTN_FLASH:
         if _attention._on_cuda(q):
-            require_flash_dtype(q)
             return flash_attention(q, k, v, causal=causal, valid_len=valid_len)
         impl = ATTN_AUTO
     if impl == ATTN_AUTO and flash_supported(q):
@@ -267,8 +261,8 @@ class MultiHeadAttention(nn.Module):
 
     Self-attention (the default): a fused `qkv` Linear(D, 3D) and `out`
     Linear(D, D).  The kernel dispatch rule is the JAX package's
-    (`_qkv_kernel_applicable`) with "on the TPU" read as "on CUDA", plus K1's
-    one dtype, bf16 (K5 takes bf16 and fp32).
+    (`_qkv_kernel_applicable`) with "on the TPU" read as "on CUDA"; like
+    JAX's, it asks nothing about the dtype (K1 and K5 take bf16 and fp32).
 
     `cross=True` builds the cross-attention layout instead: `q` Linear(D, D)
     and `kv` Linear(D, 2D) over the memory, then `out`; it is called with
@@ -300,19 +294,17 @@ class MultiHeadAttention(nn.Module):
             self.qkv = proj(3)
         self.out = Linear(dim, dim, dtype=dtype, kernel_init=xavier, gen=gen)
 
-    def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int,
-                               dtype: Optional[torch.dtype] = None) -> bool:
-        """`dtype`: the compute dtype the kernel would see (default qkv's).
-        Under `flash` the regime takes any dtype: a CUDA tensor of another
-        dtype than bf16 then raises in `forward` (`require_flash_dtype`)."""
+    def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int) -> bool:
+        """The JAX rule: the regime takes any dtype, as the model's two
+        compute dtypes (bf16, fp32) have kernels; a CUDA tensor of another
+        dtype raises `TypeError` in the kernel's wrapper."""
         if self.attn_impl == ATTN_XLA or self.causal:
             return False
         n = qkv.shape[1]
         if self.attn_impl in (ATTN_INT8, ATTN_FLASH):  # no 1024-token floor
             regime = _attention._on_cuda(qkv) and n <= _ONESHOT_MAX_SEQ
         else:
-            regime = (_attention._on_cuda(qkv) and (dtype or qkv.dtype) == torch.bfloat16
-                      and _FLASH_MIN_SEQ <= n <= _ONESHOT_MAX_SEQ)
+            regime = _attention._on_cuda(qkv) and _FLASH_MIN_SEQ <= n <= _ONESHOT_MAX_SEQ
         return regime and qkv_supported(self.num_heads, dim)
 
     def _lnqkv_applicable(self, x: torch.Tensor, dim: int) -> bool:
@@ -324,6 +316,9 @@ class MultiHeadAttention(nn.Module):
         `lnqkv_supported` at N.
         K6 takes bf16 only where it runs, on a CUDA tensor; a CPU tensor (the
         tests patch `_on_cuda`) runs its plain version, which takes fp32 too.
+        So under `tpu.compute_dtype: float32` on CUDA the fused flag falls
+        back to the unfused route (K1 in fp32), where JAX would run K6 in
+        fp32: K6's fp32 route is ROADMAP §2's next kernel item.
         The JAX package keeps the fusion opt-in: it lost 7% end to end on a
         TPU v5e."""
         if (os.environ.get("DENSECLIP_FUSED_LNQKV", "0") != "1" or self.causal
@@ -331,7 +326,7 @@ class MultiHeadAttention(nn.Module):
             return False
         if x.is_cuda and self.qkv.compute_dtype != torch.bfloat16:
             return False
-        return (self._qkv_kernel_applicable(x, dim, torch.bfloat16)
+        return (self._qkv_kernel_applicable(x, dim)
                 and lnqkv_supported(self.num_heads, dim, n=x.shape[1]))
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
@@ -357,8 +352,6 @@ class MultiHeadAttention(nn.Module):
             x = layer_norm_apply(x, ln_scale, ln_bias, ln_eps).to(self.qkv.compute_dtype)
         qkv = self.qkv(x)
         if self._qkv_kernel_applicable(qkv, dim):
-            if self.attn_impl == ATTN_FLASH:
-                require_flash_dtype(qkv)
             attn = mha_qkv_attention_int8 if self.attn_impl == ATTN_INT8 else mha_qkv_attention
             return self.out(attn(qkv, self.num_heads, valid_len=valid_len))
         # strided views of the fused projection (row stride 3 * dim), no copy

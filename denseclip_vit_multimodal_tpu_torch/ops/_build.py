@@ -29,10 +29,11 @@ NVCC_FLAGS = (
 )
 
 # Every kernel source (csrc/<name>.cu): K1, K2 with K3's backward, K4, K5 and
-# its prologue, K3, K6, K4b, K7.
+# its prologue, K3, K6, K4b, K7; then the fp32 kernels of K1, K3 and K4, and
+# of K2, K3's backward and K4b.
 SOURCES = ("qkv_attention", "qkv_attention_bwd", "flash_attention", "qkv_attention_int8",
            "quantize_qkv_int8", "mha_attention", "ln_qkv_attention", "flash_attention_bwd",
-           "qkv_out_attention")
+           "qkv_out_attention", "attention_fp32", "attention_bwd_fp32")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # Seconds spent in nvcc and its -Xptxas -v report, per library built in this

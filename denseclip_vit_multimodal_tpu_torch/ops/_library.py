@@ -7,7 +7,9 @@ implementations, registered through the low-level API (`Library.define` /
 every call):
 
 * CUDA: the kernel's launch as it was, with its launch count and its FLOPs
-  handed to `utils/flops.py::record_kernel_flops`;
+  handed to `utils/flops.py::record_kernel_flops`; K1's, K3's and K4's pick
+  their bf16 or fp32 kernel by the input dtype, so an fp32 program exports
+  through the same ops (their fake implementations follow the input dtype);
 * CPU: the kernel's plain version;
 * fake: the output shapes and dtypes, touching no data (tracing and export);
 * a FLOP formula for `torch.utils.flop_counter.FlopCounterMode`: on the CPU

@@ -10,19 +10,22 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
 
 * `flash_attention` follows the same dispatch.  The K3 branch runs
   `ops/mha_kernel.py::mha_attention` (K3 and, under autograd, K3's backward
-  on CUDA, head dim 64, 128 or 256, bf16 only: another dtype raises
-  `TypeError`, as in the K4 branch; the plain versions on the CPU).  The K4
+  on CUDA, head dim 64, 128 or 256; the plain versions on the CPU).  The K4
   branch calls the op `denseclip_torch::flash_attention` (`ops/_library.py`),
   which launches `csrc/flash_attention.cu` (the forward core
   `csrc/attention_fwd.cuh` under the bundled kernel's numerics, head dim 64,
-  128 or 256) for a CUDA tensor, or raises on anything the kernel does not
-  take; for a tensor on the CPU it runs the plain version.
+  128 or 256) for a bf16 CUDA tensor and `csrc/attention_fp32.cu`'s
+  `flash_attention_fp32` (the SIMT fp32 core under the same numerics) for
+  an fp32 one, or raises on anything the kernels do not take (another
+  dtype: `TypeError`, as in the K3 branch); for a tensor on the CPU it runs
+  the plain version.
   When autograd records it, it goes through `FlashAttentionFunction`: K4
   also writes each row's max and sum (the bundled kernel's residuals m and
-  l), and the backward is K4b (`csrc/flash_attention_bwd.cu`) on CUDA,
-  `flash_attention_bwd_reference` on the CPU.  q / k / v may be strided
-  views (the split of the fused qkv projection, row stride 3*H*D): the
-  kernels read them by stride, with no copy.
+  l), and the backward is K4b (`csrc/flash_attention_bwd.cu`, or
+  `csrc/attention_bwd_fp32.cu`'s `flash_attention_bwd_fp32` in fp32) on
+  CUDA, `flash_attention_bwd_reference` on the CPU.  q / k / v may be
+  strided views (the split of the fused qkv projection, row stride 3*H*D):
+  the kernels read them by stride, with no copy.
 * `flash_attention_reference` is the plain PyTorch version of K4 with the
   bundled kernel's rounding points (see the CUDA source), one head at a time
   and chunked over query rows, so that it runs at N = 25216 without a
@@ -31,8 +34,9 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
 * `plain_attention` is the counterpart of the JAX package's `_xla_attention`
   (fp32 scores and softmax over the whole row).
 * `LAUNCHES` counts K4's ("flash_attention") and K4b's
-  ("flash_attention_bwd", its two CUDA kernels as one) launches, never plain
-  calls; K4's launch also hands its FLOPs to `utils/flops.py::
+  ("flash_attention_bwd", its two CUDA kernels as one) launches, and those
+  of their fp32 kernels ("flash_attention_fp32", "flash_attention_bwd_fp32"),
+  never plain calls; K4's launch also hands its FLOPs to `utils/flops.py::
   record_kernel_flops`.
 
 Output rows at or beyond `valid_len` are unspecified but finite (they are
@@ -55,6 +59,8 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     bnhd_args,
     check_bnhd,
     check_device,
+    check_kernel_dtype,
+    kernel_name,
     mha_attention,
 )
 from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, record_kernel_flops
@@ -66,7 +72,8 @@ _FLASH_MIN_SEQ = 1024
 _ONESHOT_MAX_SEQ = 8448
 _REF_CHUNK = 4096  # query rows per step of the plain version
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0}
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0,
+                            "flash_attention_fp32": 0, "flash_attention_bwd_fp32": 0}
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -77,9 +84,10 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 
 def flash_supported(q: torch.Tensor) -> bool:
-    """Whether the flash path serves `q` [B, N, H, D]: CUDA, bf16 (the
-    kernels' one dtype), N >= 1024, head dim 64, 128 or 256 (the JAX rule)."""
-    return (_on_cuda(q) and q.dtype == torch.bfloat16 and q.shape[1] >= _FLASH_MIN_SEQ
+    """Whether the flash path serves `q` [B, N, H, D]: CUDA, N >= 1024, head
+    dim 64, 128 or 256 (the JAX rule, which asks nothing about the dtype:
+    the kernels take bf16 and fp32, and raise `TypeError` on another)."""
+    return (_on_cuda(q) and q.shape[1] >= _FLASH_MIN_SEQ
             and q.shape[-1] in (64, 128, 256))
 
 
@@ -204,31 +212,37 @@ def flash_attention_bwd_reference(
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str = "flash_attention"):
+def _kernel_fn(name: str):
     """K4's or K4b's C entry point, compiled at first use."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import load_library
 
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     if name == "flash_attention":
         fn = load_library("flash_attention").flash_attention_bf16
-        fn.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
-    else:
+    elif name == "flash_attention_fp32":
+        fn = load_library("attention_fp32").flash_attention_fp32
+    elif name == "flash_attention_bwd":
         fn = load_library("flash_attention_bwd").flash_attention_bwd_bf16
-        fn.argtypes = [ptr] * 9 + [i64] * 9 + [i] * 6 + [f, ptr]
+    else:
+        fn = load_library("attention_bwd_fp32").flash_attention_bwd_fp32
+    n_ptrs = 9 if "_bwd" in name else 5
+    fn.argtypes = [ptr] * n_ptrs + [i64] * 9 + [i] * 6 + [f, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
             kv_len: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K4 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output.
-    With `stats` (fp32 [B, H, N, 2]) it also writes each row's residuals."""
+    """K4 on CUDA tensors (bf16 or fp32); returns a contiguous [B, N, H, D]
+    output in q's dtype.  With `stats` (fp32 [B, H, N, 2]) it also writes
+    each row's residuals."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "flash attention", (64, 128, 256))
     if stats is not None and (stats.shape != (b, heads, n, 2) or stats.dtype != torch.float32
                               or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be a contiguous fp32 {(b, heads, n, 2)} on q's device")
-    fn = _kernel_fn()
+    name = kernel_name("flash_attention", q.dtype)
+    fn = _kernel_fn(name)
     out = torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -237,8 +251,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, sca
                  b, n, heads, d, kv_len, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
-    LAUNCHES["flash_attention"] += 1
-    record_kernel_flops("flash_attention", attention_flops(b, n, kv_len, heads * d))
+    LAUNCHES[name] += 1
+    record_kernel_flops(name, attention_flops(b, n, kv_len, heads * d))
     return out
 
 
@@ -256,19 +270,22 @@ FLASH_ATTENTION_OP = define(
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                 dout: torch.Tensor, stats: torch.Tensor, causal: bool, scale: float,
                 kv_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4b: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the strided
-    q / k / v, K4's output and residuals and the output's gradient."""
+    """K4b (bf16 or fp32): (dq, dk, dv), contiguous [B, N, H, D] in q's
+    dtype, from the strided q / k / v, K4's output and residuals and the
+    output's gradient."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "flash attention backward", (64, 128, 256))
     for x, what in ((out, "output"), (dout, "output gradient")):
-        if x.shape != q.shape or x.dtype != torch.bfloat16 or not x.is_contiguous():
-            raise ValueError(f"the flash attention backward takes a contiguous bf16 {what} "
-                             f"{tuple(q.shape)}")
+        check_kernel_dtype(x, what, "flash attention backward")
+        if x.shape != q.shape or x.dtype != q.dtype or not x.is_contiguous():
+            raise ValueError(f"the flash attention backward takes a contiguous {q.dtype} "
+                             f"{what} {tuple(q.shape)}")
     if stats is None or stats.shape != (b, heads, n, 2) or not stats.is_contiguous():
         raise ValueError("the flash attention backward needs K4's row residuals")
     # di = rowsum(fp32 O * fp32 dO): the bundled wrapper computes it outside its kernels too
     di = (out.float() * dout.float()).sum(dim=-1).transpose(1, 2).contiguous()
-    fn = _kernel_fn("flash_attention_bwd")
+    name = kernel_name("flash_attention_bwd", q.dtype)
+    fn = _kernel_fn(name)
     dq, dk, dv = (torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device) for _ in range(3))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -277,7 +294,7 @@ def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Te
                  b, n, heads, d, kv_len, int(causal), scale, stream)
     if err != 0:
         raise RuntimeError(f"flash attention backward kernel launch failed: cudaError {err}")
-    LAUNCHES["flash_attention_bwd"] += 1
+    LAUNCHES[name] += 1
     return dq, dk, dv
 
 

@@ -23,8 +23,17 @@ H100.
   for K1, "qkv_attention_bwd" for K2 (its two CUDA kernels count as one),
   "qkv_attention_int8" for K5, "quantize_qkv_int8" for its prologue (two
   CUDA kernels, one count), "mha_attention" for K3 and "mha_attention_bwd"
-  for K3's backward.  Each forward launch also hands its FLOPs to
-  `utils/flops.py::record_kernel_flops` (the prologue 0), for MFU.
+  for K3's backward; the same names with "_fp32" for the fp32 kernels of
+  K1, K2, K3 and K3's backward.  Each forward launch also hands its FLOPs
+  to `utils/flops.py::record_kernel_flops` (the prologue 0), for MFU.
+
+The kernels take bf16 and fp32, as the TPU kernels do (JAX's dispatch asks
+nothing about the dtype): a bf16 tensor launches the tensor-core kernels
+(`csrc/qkv_attention.cu`, `csrc/mha_attention.cu`, `csrc/qkv_attention_bwd.cu`),
+an fp32 one the SIMT fp32 kernels (`csrc/attention_fp32.cu`,
+`csrc/attention_bwd_fp32.cu`: every product an fp32 FMA, no TF32), and any
+other dtype raises `TypeError` naming the two.  The plain versions take
+either; in fp32 their roundings to the input dtype are exact.
 
 The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
 TPU kernel `_kernel` (K3, `csrc/mha_attention.cu`, which shares K1's device
@@ -92,7 +101,11 @@ _LANE = 128
 _LOG2E = 1.4426950408889634
 
 LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-                            "quantize_qkv_int8": 0, "mha_attention": 0, "mha_attention_bwd": 0}
+                            "quantize_qkv_int8": 0, "mha_attention": 0, "mha_attention_bwd": 0,
+                            "qkv_attention_fp32": 0, "qkv_attention_bwd_fp32": 0,
+                            "mha_attention_fp32": 0, "mha_attention_bwd_fp32": 0}
+# The dtypes the attention kernels (K1-K4b) take: bf16 on the tensor cores, fp32 in SIMT.
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 EXP_BF16_ENV = "DENSECLIP_EXP_BF16"
 FAST_EXP2_ENV = "DENSECLIP_FAST_EXP2"
 _REF_CHUNK = 4096  # query rows per step of the one-shot kernels' plain versions
@@ -128,6 +141,18 @@ def _split_shape(qkv: torch.Tensor, num_heads: int):
     if hd % num_heads:
         raise ValueError(f"width {hd} is not divisible by {num_heads} heads")
     return b, n, hd, hd // num_heads
+
+
+def kernel_name(name: str, dtype: torch.dtype) -> str:
+    """The launch counter (and C entry) of kernel `name` for `dtype`: the
+    bf16 kernel's own name, or its fp32 kernel's with "_fp32"."""
+    return f"{name}_fp32" if dtype == torch.float32 else name
+
+
+def check_kernel_dtype(x: torch.Tensor, what: str, kernel: str) -> None:
+    """TypeError unless `x` is bf16 or fp32, the two dtypes the kernels take."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the {kernel} kernels take bfloat16 or float32 {what}, got {x.dtype}")
 
 
 def check_device(x: torch.Tensor, what: str) -> None:
@@ -219,12 +244,24 @@ def _kernel_fn(name: str):
     if name == "qkv_attention":
         fn = load_library("qkv_attention").qkv_attention_bf16
         fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
+    elif name == "qkv_attention_fp32":
+        fn = load_library("attention_fp32").qkv_attention_fp32
+        fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
     elif name == "mha_attention":
         fn = load_library("mha_attention").mha_attention_bf16
+        fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
+    elif name == "mha_attention_fp32":
+        fn = load_library("attention_fp32").mha_attention_fp32
         fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
     elif name == "mha_attention_bwd":
         fn = load_library("qkv_attention_bwd").mha_attention_bwd_bf16
         fn.argtypes = [ptr] * 11 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
+    elif name == "mha_attention_bwd_fp32":
+        fn = load_library("attention_bwd_fp32").mha_attention_bwd_fp32
+        fn.argtypes = [ptr] * 10 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
+    elif name == "qkv_attention_bwd_fp32":
+        fn = load_library("attention_bwd_fp32").qkv_attention_bwd_fp32
+        fn.argtypes = [ptr] * 6 + [i] * 5 + [f, f, ptr]
     elif name == "qkv_attention_int8":
         fn = load_library("qkv_attention_int8").qkv_attention_int8
         fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
@@ -239,20 +276,21 @@ def _kernel_fn(name: str):
 
 
 def _check_kernel_input(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the qkv attention kernels take bfloat16 {what}, got {x.dtype}")
+    check_kernel_dtype(x, what, "qkv attention")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError(f"the qkv attention kernels take a contiguous, 16-byte aligned {what}")
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
             with_stats: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K1; with `with_stats` it also returns each row's (max, sum) for K2."""
+    """K1 (bf16 or fp32); with `with_stats` it also returns each row's
+    (max, sum) for K2."""
     b, n, hd, d = _split_shape(qkv, num_heads)
     _check_kernel_input(qkv, "qkv")
     if d not in (64, 128):
         raise ValueError(f"the qkv attention kernel takes head dim 64 or 128, got {d}")
-    fn = _kernel_fn("qkv_attention")
+    name = kernel_name("qkv_attention", qkv.dtype)
+    fn = _kernel_fn(name)
     out = torch.empty(b, n, hd, dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty(b, num_heads, n, 2, dtype=torch.float32, device=qkv.device)
              if with_stats else None)
@@ -264,8 +302,8 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
         )
     if err != 0:
         raise RuntimeError(f"qkv attention kernel launch failed: cudaError {err}")
-    LAUNCHES["qkv_attention"] += 1
-    record_kernel_flops("qkv_attention", attention_flops(b, n, kv_len, hd))
+    LAUNCHES[name] += 1
+    record_kernel_flops(name, attention_flops(b, n, kv_len, hd))
     return out, stats
 
 
@@ -285,38 +323,46 @@ QKV_ATTENTION_OP = define(
 )
 
 
-def _bwd_scratch(b: int, heads: int, n: int, d: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernels' scratch: Dc of every row (fp32 [B, H, N]) and
-    bf16(q * scale * log2 e), bf16(dO * r) (bf16 [2, B, H, N, D]), written
-    by the dq kernel for the dk/dv kernel."""
-    return (torch.empty(b, heads, n, dtype=torch.float32, device=device),
-            torch.empty(2, b, heads, n, d, dtype=torch.bfloat16, device=device))
+def _bwd_scratch(b: int, heads: int, n: int, d: int, device, dtype: torch.dtype) -> list:
+    """The backward kernels' scratch, written by the dq kernel for the dk/dv
+    kernel: Dc of every row (fp32 [B, H, N]) and, for the bf16 kernels,
+    bf16(q * scale * log2 e), bf16(dO * r) (bf16 [2, B, H, N, D]); the fp32
+    kernels round those on the fly."""
+    dcoef = torch.empty(b, heads, n, dtype=torch.float32, device=device)
+    if dtype == torch.float32:
+        return [dcoef]
+    return [dcoef, torch.empty(2, b, heads, n, d, dtype=torch.bfloat16, device=device)]
 
 
 def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats: torch.Tensor,
                 num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
-    """K2: dqkv from qkv, the forward output, its gradient and K1's row stats."""
+    """K2 (bf16 or fp32): dqkv from qkv, the forward output, its gradient and
+    K1's row stats."""
     b, n, hd, d = _split_shape(qkv, num_heads)
     for x, what in ((qkv, "qkv"), (out, "output"), (dout, "output gradient")):
         _check_kernel_input(x, what)
+    if not out.dtype == dout.dtype == qkv.dtype:
+        raise TypeError(f"output / gradient must be {qkv.dtype} as qkv, got {out.dtype}, "
+                        f"{dout.dtype}")
     if out.shape != (b, n, hd) or dout.shape != (b, n, hd):
         raise ValueError(f"output / gradient must be {(b, n, hd)}, got {tuple(out.shape)}, "
                          f"{tuple(dout.shape)}")
     if stats is None or stats.shape != (b, num_heads, n, 2) or not stats.is_contiguous():
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
-    fn = _kernel_fn("qkv_attention_bwd")
+    name = kernel_name("qkv_attention_bwd", qkv.dtype)
+    fn = _kernel_fn(name)
     dqkv = torch.empty_like(qkv)
-    dcoef, scratch = _bwd_scratch(b, num_heads, n, d, qkv.device)
+    scratch = _bwd_scratch(b, num_heads, n, d, qkv.device, qkv.dtype)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(
             qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
-            dcoef.data_ptr(), scratch.data_ptr(), dqkv.data_ptr(), b, n, num_heads, d, kv_len,
+            *(x.data_ptr() for x in scratch), dqkv.data_ptr(), b, n, num_heads, d, kv_len,
             scale * _LOG2E, scale, stream,
         )
     if err != 0:
         raise RuntimeError(f"qkv attention backward kernel launch failed: cudaError {err}")
-    LAUNCHES["qkv_attention_bwd"] += 1
+    LAUNCHES[name] += 1
     return dqkv
 
 
@@ -394,12 +440,11 @@ def check_bnhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def bnhd_strides(x: torch.Tensor, what: str, kernel: str) -> Tuple[int, int, int]:
     """The batch / token / head strides (elements) of a [B, N, H, D] operand
     that the strided kernels (K3, K4) read, or TypeError / ValueError."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the {kernel} kernel takes bfloat16 {what}, got {x.dtype}")
+    check_kernel_dtype(x, what, kernel)
     sb, sn, sh, sd = x.stride()
-    if sd != 1 or x.data_ptr() % 16 or any(s % 8 for s in (sb, sn, sh)):
+    if sd != 1 or x.data_ptr() % 16 or any(s * x.element_size() % 16 for s in (sb, sn, sh)):
         raise ValueError(f"the {kernel} kernel takes a {what} with unit stride over the "
-                         "head dim, 16-byte aligned, and other strides multiples of 8 elements")
+                         "head dim, 16-byte aligned, and other strides multiples of 16 bytes")
     return sb, sn, sh
 
 
@@ -477,19 +522,23 @@ def bnhd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: str,
                          f"{' or '.join(map(str, head_dims))}, got {q.shape[-1]}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k and v must have one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     return strides
 
 
 def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                 kv_len: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3 on CUDA tensors; returns a contiguous [B, N, H, D] bf16 output.
-    With `stats` (fp32 [B, H, N, 2]) it also writes each row's max and sum."""
+    """K3 on CUDA tensors (bf16 or fp32); returns a contiguous [B, N, H, D]
+    output in q's dtype.  With `stats` (fp32 [B, H, N, 2]) it also writes
+    each row's max and sum."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "one-shot attention", (64, 128, 256))
     if stats is not None and (stats.shape != (b, heads, n, 2) or stats.dtype != torch.float32
                               or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be a contiguous fp32 {(b, heads, n, 2)} on q's device")
-    fn = _kernel_fn("mha_attention")
+    name = kernel_name("mha_attention", q.dtype)
+    fn = _kernel_fn(name)
     out = torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -498,8 +547,8 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
                  b, n, heads, d, kv_len, scale * _LOG2E, stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention kernel launch failed: cudaError {err}")
-    LAUNCHES["mha_attention"] += 1
-    record_kernel_flops("mha_attention", attention_flops(b, n, kv_len, heads * d))
+    LAUNCHES[name] += 1
+    record_kernel_flops(name, attention_flops(b, n, kv_len, heads * d))
     return out
 
 
@@ -516,28 +565,32 @@ MHA_ATTENTION_OP = define(
 
 def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                     dout: torch.Tensor, stats: torch.Tensor, scale: float, kv_len: int):
-    """K3's backward: (dq, dk, dv), contiguous [B, N, H, D] bf16, from the
-    strided q / k / v, K3's output, its gradient and K3's row statistics."""
+    """K3's backward (bf16 or fp32): (dq, dk, dv), contiguous [B, N, H, D] in
+    q's dtype, from the strided q / k / v, K3's output, its gradient and
+    K3's row statistics."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "one-shot attention backward", (64, 128, 256))
     for x, what in ((out, "output"), (dout, "output gradient")):
         if x.shape != q.shape:
             raise ValueError(f"{what} must be {tuple(q.shape)}, got {tuple(x.shape)}")
         _check_kernel_input(x, what)
+        if x.dtype != q.dtype:
+            raise TypeError(f"{what} must be {q.dtype} as q, got {x.dtype}")
     if stats is None or stats.shape != (b, heads, n, 2) or not stats.is_contiguous():
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
-    fn = _kernel_fn("mha_attention_bwd")
+    name = kernel_name("mha_attention_bwd", q.dtype)
+    fn = _kernel_fn(name)
     dq, dk, dv = (torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device) for _ in range(3))
-    dcoef, scratch = _bwd_scratch(b, heads, n, d, q.device)
+    scratch = _bwd_scratch(b, heads, n, d, q.device, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                 stats.data_ptr(), dcoef.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
+                 stats.data_ptr(), *(x.data_ptr() for x in scratch), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), *strides, b, n, heads, d, kv_len,
                  scale * _LOG2E, scale, stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention backward kernel launch failed: cudaError {err}")
-    LAUNCHES["mha_attention_bwd"] += 1
+    LAUNCHES[name] += 1
     return dq, dk, dv
 
 

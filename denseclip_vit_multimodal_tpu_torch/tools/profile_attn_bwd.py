@@ -2,8 +2,9 @@
 
 PyTorch port of the JAX package's `tools/profile_attn_bwd.py`.  At the
 heritage training shape (640x640 crop -> N = 1601, batch 8, 12 heads of 64)
-or any --batch / --seq, on q / k / v / dO of [B, H, N, D] bf16 (handed to
-the kernels as [B, N, H, D] views), it times:
+or any --batch / --seq, on q / k / v / dO of [B, H, N, D] bf16 (or fp32
+with --dtype float32, which runs K3's and its backward's fp32 kernels;
+handed to the kernels as [B, N, H, D] views), it times:
 
   * fwd_kernel   — K3 (`ops/mha_kernel.py::mha_attention`);
   * bwd_kernel   — K3's backward (`_launch_mha_bwd`) on K3's output and row
@@ -19,6 +20,7 @@ gradient.  Timing: `utils/benchtime.py::device_loop_time`.  One JSON line
 per stage, as the JAX tool prints, and a JSON file (`--out`).
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.profile_attn_bwd [--batch 8] [--seq 1601]
+        [--dtype float32]
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ def main(argv=None) -> dict:
     p.add_argument("--heads", type=int, default=12)
     p.add_argument("--head-dim", type=int, default=64)
     p.add_argument("--iters", type=int, default=30)
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     p.add_argument("--out", default="profile_attn_bwd_results.json")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -50,7 +53,8 @@ def main(argv=None) -> dict:
     b, n, h, d = args.batch, args.seq, args.heads, args.head_dim
     scale = d**-0.5
     gen = torch.Generator(device="cuda").manual_seed(0)
-    mk = lambda: torch.randn(b, h, n, d, generator=gen, device="cuda").to(torch.bfloat16)
+    dtype = getattr(torch, args.dtype)
+    mk = lambda: torch.randn(b, h, n, d, generator=gen, device="cuda").to(dtype)
     q, k, v, do = mk(), mk(), mk(), mk()
     bnhd = lambda x: x.transpose(1, 2)  # [B, N, H, D] views of the [B, H, N, D] tensors
     results: dict = {}
@@ -86,7 +90,8 @@ def main(argv=None) -> dict:
     bench("bwd_library",
           lambda: torch.autograd.grad(lib_out, lib_leaves, do, retain_graph=True), ())
 
-    summary = {"shape": [b, h, n, d], "device": torch.cuda.get_device_name(0), **results}
+    summary = {"shape": [b, h, n, d], "dtype": args.dtype,
+               "device": torch.cuda.get_device_name(0), **results}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

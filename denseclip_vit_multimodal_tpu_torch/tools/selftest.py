@@ -4,12 +4,13 @@
 
 Port of the JAX package's `tools/tpu_selftest.py`, with its checks and
 tolerances (max abs error against plain attention, `ops/attention.py::
-plain_attention`, the JAX `xla_attn`): K3 and K1 at [2, 1601, 12, 64] bf16,
-`valid_len` masking of a sequence padded 1500 -> 1536 through K3, the int8
-kernel K5 (after its prologue kernel) at N = 1601, and `flash_attention` at N = 8193, labelled by the
-kernel that ran (K3, by the dispatch: 8193 <= 8448, non-causal).  Every check
-also fails if its kernel was not launched.  The fp32 case of the JAX tool is
-skipped: the kernels take bf16 only.  Runs on CUDA only (no CPU fallback);
+plain_attention`, the JAX `xla_attn`): K3 and K1 at [2, 1601, 12, 64] bf16
+and, the JAX tool's fp32 case, at [2, 1024, 12, 64] fp32 (their fp32
+kernels, tolerance 5e-3), `valid_len` masking of a sequence padded 1500 ->
+1536 through K3, the int8 kernel K5 (after its prologue kernel) at N = 1601,
+and `flash_attention` at N = 8193, labelled by the kernel that ran (K3, by
+the dispatch: 8193 <= 8448, non-causal).  Every check also fails if its
+kernel was not launched.  Runs on CUDA only (no CPU fallback);
 prints PASS / FAIL per check and `SELFTEST OK` or `SELFTEST FAILED`, and
 exits 1 on a failure or without a CUDA device.
 """
@@ -74,17 +75,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return [torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3)]
 
-    n = 1601
-    shape = (2, n, 12, 64)
-    q, k, v = normal(shape, n)
-    ref = plain_attention(q, k, v, False)
-    check(f"one-shot kernel (K3) N={n} bfloat16", lambda: mha_attention(q, k, v), ref, 2e-2,
-          "mha_attention")
-    qkv = torch.cat([x.reshape(2, n, -1) for x in (q, k, v)], dim=-1)
-    check(f"qkv-direct kernel (K1) N={n} bfloat16",
-          lambda: mha_qkv_attention(qkv, 12).reshape(shape), ref, 2e-2, "qkv_attention")
-    print("SKIP one-shot / qkv-direct kernels N=1024 float32: K3 and K1 take bfloat16 only "
-          "(fp32 inputs are not ported)")
+    # the JAX tool's two cases; fp32 takes the fp32 kernels
+    for n, dtype, tol in ((1601, torch.bfloat16, 2e-2), (1024, torch.float32, 5e-3)):
+        shape = (2, n, 12, 64)
+        q, k, v = normal(shape, n, dtype)
+        ref = plain_attention(q, k, v, False)
+        name = str(dtype).split(".")[-1]
+        check(f"one-shot kernel (K3) N={n} {name}", lambda: mha_attention(q, k, v), ref, tol,
+              mha_kernel.kernel_name("mha_attention", dtype))
+        qkv = torch.cat([x.reshape(2, n, -1) for x in (q, k, v)], dim=-1)
+        check(f"qkv-direct kernel (K1) N={n} {name}",
+              lambda: mha_qkv_attention(qkv, 12).reshape(shape), ref, tol,
+              mha_kernel.kernel_name("qkv_attention", dtype))
 
     n, pad_n = 1500, 1536
     q, k, v = normal((1, n, 4, 64), 7)

@@ -1,6 +1,6 @@
 // A CPU emulation of the CUDA subset the port's kernels use, so that the
 // CPU tests can run `csrc/attention_bwd.cuh` (and the sources on
-// hopper.cuh, and the int8 prologue) as written: every CUDA
+// hopper.cuh, the int8 prologue and the fp32 SIMT cores) as written: every CUDA
 // thread of a block is a std::thread, `__syncthreads` a block barrier, and
 // the warp-level operations (shuffles, ldmatrix, mma.sync; mma_bf16.cuh
 // here) exchange their operands through a per-warp slot table between two
@@ -45,6 +45,7 @@ inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 struct alignas(8) float2 { float x, y; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 struct alignas(16) float4 { float x, y, z, w; };
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -156,6 +157,8 @@ extern Sync bars;
 }  // namespace emu
 
 inline void __syncthreads() { emu::cur->bar.arrive_and_wait(); }
+// Every lane of the warp (the fp32 SIMT cores call it with all 32).
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp().bar.arrive_and_wait(); }
 
 template <class T>  // float, int or unsigned
 inline T __shfl_xor_sync(unsigned, T v, int o) {

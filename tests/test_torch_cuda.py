@@ -26,14 +26,19 @@ KERNEL_TOL = 2e-2
 # L2, and max abs error as a share of the largest reference magnitude
 # (chip_smoke.py's KERNEL_BWD_REL_TOL / KERNEL_BWD_MAX_TOL).
 BWD_REL_TOL, BWD_MAX_TOL = 2e-3, 1e-2
+# The fp32 kernels against their plain versions (chip_smoke.py's FP32_*):
+# outputs max abs and relative L2; gradients relative L2 and max abs as a
+# share of the largest, per gradient.
+FP32_MAX_TOL, FP32_REL_TOL = 1e-4, 1e-5
+FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL = 1e-4, 1e-4
 
 
-def _assert_grads_close(got, want, rows, keys):
+def _assert_grads_close(got, want, rows, keys, rel_tol=BWD_REL_TOL, max_tol=BWD_MAX_TOL):
     """dq on rows < `rows`, dk / dv on keys < `keys`, within the backward limits."""
     for name, g, w, lim in zip(("dq", "dk", "dv"), got, want, (rows, keys, keys)):
         g, w = g[:, :lim].float(), w[:, :lim].float()
-        assert float((g - w).norm() / w.norm()) <= BWD_REL_TOL, name
-        assert float((g - w).abs().max()) <= BWD_MAX_TOL * float(w.abs().max()), name
+        assert float((g - w).norm() / w.norm()) <= rel_tol, name
+        assert float((g - w).abs().max()) <= max_tol * float(w.abs().max()), name
 
 
 @pytest.fixture
@@ -77,8 +82,12 @@ def test_kernel_honours_sm_scale(cuda):
 
 def test_wrapper_raises_instead_of_falling_back(cuda):
     qkv = _qkv(1, 64, 2, 64)
-    with pytest.raises(TypeError):
-        mha_kernel.mha_qkv_attention(qkv.float(), 2)
+    before = mha_kernel.LAUNCHES["qkv_attention_fp32"]
+    out = mha_kernel.mha_qkv_attention(qkv.float(), 2)  # fp32: K1's fp32 kernel
+    assert out.dtype == torch.float32
+    assert mha_kernel.LAUNCHES["qkv_attention_fp32"] == before + 1
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        mha_kernel.mha_qkv_attention(qkv.half(), 2)
     with pytest.raises(ValueError):
         mha_kernel.mha_qkv_attention(qkv[:, ::2], 2)  # not contiguous
     with pytest.raises(ValueError):
@@ -88,18 +97,20 @@ def test_wrapper_raises_instead_of_falling_back(cuda):
 @pytest.mark.parametrize("n,dtype,causal,impl,launches", [
     (1100, torch.bfloat16, False, "auto", 1),
     (500, torch.bfloat16, False, "auto", 0),  # short: plain attention
-    (1100, torch.float32, False, "auto", 0),  # the kernel takes bf16 only
+    (1100, torch.float32, False, "auto", 1),  # K1's fp32 kernel
     (1100, torch.bfloat16, True, "auto", 0),  # causal: not K1 (K4: see below)
     (1100, torch.bfloat16, False, "xla", 0),  # forced plain
 ])
 def test_attention_dispatch_rule(cuda, n, dtype, causal, impl, launches):
     mha = MultiHeadAttention(768, 12, causal=causal, attn_impl=impl, dtype=dtype).to(cuda)
     x = torch.from_numpy(np.random.RandomState(0).randn(1, n, 768).astype(np.float32)).to(cuda)
-    before = mha_kernel.LAUNCHES["qkv_attention"]
+    counter = mha_kernel.kernel_name("qkv_attention", dtype)
+    before = dict(mha_kernel.LAUNCHES)
     with torch.inference_mode():
         out = mha(x.to(dtype), valid_len=n - 3)
     assert torch.isfinite(out.float()).all()
-    assert mha_kernel.LAUNCHES["qkv_attention"] - before == launches
+    assert mha_kernel.LAUNCHES[counter] - before[counter] == launches
+    assert sum(mha_kernel.LAUNCHES.values()) - sum(before.values()) == launches
 
 
 @pytest.mark.parametrize("b,n,heads,d,valid_len", [(2, 1100, 12, 64, 1025), (1, 300, 4, 128, None)])
@@ -180,8 +191,11 @@ def test_flash_kernel_matches_plain_version(cuda, b, n, heads, d, valid_len, cau
 
 def test_flash_wrapper_raises_instead_of_falling_back(cuda):
     q = torch.zeros(1, 9000, 2, 64, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(TypeError):
-        attention.flash_attention(q.float(), q.float(), q.float())
+    before = attention.LAUNCHES["flash_attention_fp32"]  # fp32: K4's fp32 kernel
+    assert attention.flash_attention(q.float(), q.float(), q.float()).dtype == torch.float32
+    assert attention.LAUNCHES["flash_attention_fp32"] == before + 1
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attention.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError):
         h32 = torch.zeros(1, 9000, 4, 32, device="cuda", dtype=torch.bfloat16)
         attention.flash_attention(h32, h32, h32)  # head dim 32
@@ -473,13 +487,16 @@ def test_lnqkv_first_stage_matches_plain_projection(cuda, b, n, dim, heads):
 
 def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):
     q, k, v = _strided_bnhd(1, 64, 2, 64, 8, False)
-    with pytest.raises(TypeError):
-        mha_kernel.mha_attention(q.float(), k.float(), v.float())
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        mha_kernel.mha_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         h32 = torch.zeros(1, 64, 4, 32, device="cuda", dtype=torch.bfloat16)
         mha_kernel.mha_attention(h32, h32, h32)  # head dim 32
-    with pytest.raises(TypeError):  # under autograd too: K3 and its backward take bf16
-        mha_kernel.mha_attention(q.float().requires_grad_(True), k.float(), v.float())
+    with pytest.raises(TypeError):  # under autograd too: K3 and its backward take bf16 / fp32
+        mha_kernel.mha_attention(q.half().requires_grad_(True), k.half(), v.half())
+    before = dict(mha_kernel.LAUNCHES)  # fp32: K3's fp32 kernel, no refusal
+    assert mha_kernel.mha_attention(q.float(), k.float(), v.float()).dtype == torch.float32
+    assert mha_kernel.LAUNCHES["mha_attention_fp32"] == before["mha_attention_fp32"] + 1
     x, gamma, beta, w, bias = _lnqkv_inputs(1, 64, 256, 9)
     with pytest.raises(TypeError):
         lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4)
@@ -579,7 +596,9 @@ def test_long_sequence_attention_trains_through_k4b(cuda):
     assert {k: after[k] - before[k] for k in after} == {
         "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
         "quantize_qkv_int8": 0, "mha_attention": 0,
-        "mha_attention_bwd": 0, "flash_attention": 1, "flash_attention_bwd": 1}
+        "mha_attention_bwd": 0, "flash_attention": 1, "flash_attention_bwd": 1,
+        **{f"{k}_fp32": 0 for k in ("qkv_attention", "qkv_attention_bwd", "mha_attention",
+                                    "mha_attention_bwd", "flash_attention", "flash_attention_bwd")}}
     assert torch.isfinite(x.grad.float()).all()
 
 
@@ -724,7 +743,9 @@ def test_flash_branch_takes_head_dim_256_through_k4_and_k4b(cuda, n, causal):
     assert {key: after[key] - before[key] for key in after} == {
         "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
         "quantize_qkv_int8": 0, "mha_attention": 0,
-        "mha_attention_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 1}
+        "mha_attention_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 1,
+        **{f"{k}_fp32": 0 for k in ("qkv_attention", "qkv_attention_bwd", "mha_attention",
+                                    "mha_attention_bwd", "flash_attention", "flash_attention_bwd")}}
     want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
                                                    out.detach(), dout, causal=causal,
                                                    valid_len=n - 3)
@@ -733,8 +754,9 @@ def test_flash_branch_takes_head_dim_256_through_k4_and_k4b(cuda, n, causal):
 
 def test_oneshot_branch_trains_head_dim_256_and_refuses_fp32(cuda):
     """Under autograd on CUDA, `flash_attention`'s K3 branch takes head dim
-    256 through K3 and its backward, and refuses fp32 with `TypeError` before
-    any launch (the one-shot kernels take bf16 only)."""
+    256 through K3 and its backward, in bf16 and, through their fp32
+    kernels, in fp32 (gradients as the plain backward's on the kernel's
+    output); another dtype it refuses with `TypeError` before any launch."""
     q, k, v = (t.detach().requires_grad_(True) for t in _strided_bnhd(1, 1030, 2, 256, 22, True))
     before = dict(mha_kernel.LAUNCHES)
     out = attention.flash_attention(q, k, v, valid_len=1025)
@@ -744,9 +766,20 @@ def test_oneshot_branch_trains_head_dim_256_and_refuses_fp32(cuda):
     assert mha_kernel.LAUNCHES["mha_attention_bwd"] == before["mha_attention_bwd"] + 1
     assert all(torch.isfinite(g.float()).all() for g in grads)
     q32, k32, v32 = (t.detach().float().requires_grad_(True) for t in (q, k, v))
+    before = dict(mha_kernel.LAUNCHES)
+    out = attention.flash_attention(q32, k32, v32, valid_len=1025)
+    dout = torch.ones_like(out)
+    got = torch.autograd.grad(out, (q32, k32, v32), dout)
+    torch.cuda.synchronize()
+    assert mha_kernel.LAUNCHES["mha_attention_fp32"] == before["mha_attention_fp32"] + 1
+    assert mha_kernel.LAUNCHES["mha_attention_bwd_fp32"] == before["mha_attention_bwd_fp32"] + 1
+    want = mha_kernel.mha_attention_bwd_reference(q32.detach(), k32.detach(), v32.detach(),
+                                                  out.detach(), dout, valid_len=1025)
+    _assert_grads_close(got, want, 1030, 1025, FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL)
     before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
     with pytest.raises(TypeError):
-        attention.flash_attention(q32, k32, v32, valid_len=1025)
+        attention.flash_attention(*(t.detach().half().requires_grad_(True) for t in (q, k, v)),
+                                  valid_len=1025)
     assert {**mha_kernel.LAUNCHES, **attention.LAUNCHES} == before
 
 
@@ -772,3 +805,108 @@ def test_kernel_ops_pass_opcheck_on_cuda(cuda):
     for op, args, utils in cases:
         kw = {} if utils is None else {"test_utils": utils}
         assert set(torch.library.opcheck(op, args, **kw).values()) == {"SUCCESS"}, op
+
+
+def _fp32_case(kernel, b, n, heads, d, kv, causal, seed):
+    """An fp32 forward kernel (`kernel`: its bf16 counter's name) through its
+    launching wrapper with row statistics, on views of one fused fp32 qkv
+    with NaN in the K / V rows at or past kv; returns (qkv, q, k, v, out,
+    stats, plain out)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn(b, n, 3 * heads * d, generator=gen, device="cuda")
+    q, k, v = (t.view(b, n, heads, d) for t in qkv.split(heads * d, dim=-1))
+    k[:, kv:] = float("nan")
+    v[:, kv:] = float("nan")
+    scale = d**-0.5
+    stats = torch.empty(b, heads, n, 2, device="cuda")
+    if kernel == "qkv_attention":
+        out, stats = mha_kernel._launch(qkv, heads, scale, kv, with_stats=True)
+        out = out.view(b, n, heads, d)
+        ref = mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=kv).view(b, n, heads, d)
+    elif kernel == "mha_attention":
+        out = mha_kernel._launch_mha(q, k, v, scale, kv, stats)
+        ref = mha_kernel.mha_attention_reference(q, k, v, valid_len=kv)
+    else:
+        out = attention._launch(q, k, v, causal, scale, kv, stats)
+        ref = attention.flash_attention_reference(q, k, v, causal=causal, valid_len=kv)
+    return qkv, q, k, v, out, stats, ref
+
+
+@pytest.mark.parametrize("kernel,b,n,heads,d,valid_len,causal", [
+    ("qkv_attention", 2, 1100, 12, 64, 1025, False),
+    ("qkv_attention", 1, 300, 4, 128, 300, False),
+    ("mha_attention", 2, 1664, 12, 64, 1601, False),
+    ("mha_attention", 1, 1030, 2, 256, 1025, False),
+    ("flash_attention", 1, 9344, 2, 64, 9217, False),
+    ("flash_attention", 1, 1100, 2, 128, 1050, True),
+    ("flash_attention", 1, 1100, 2, 256, 1050, True),
+])
+def test_fp32_forward_kernels_match_plain_versions(cuda, kernel, b, n, heads, d, valid_len,
+                                                   causal):
+    """K1, K3 and K4 in fp32 against their plain versions: outputs on the
+    rows below valid_len, NaN in the pad keys kept out, row statistics."""
+    from denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees import (
+        STATS_L_TOL,
+        STATS_M_TOL,
+        plain_stats,
+        stats_errors,
+    )
+
+    counter = f"{kernel}_fp32"
+    before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}[counter]
+    _, q, k, v, out, stats, ref = _fp32_case(kernel, b, n, heads, d, valid_len, causal, 31)
+    torch.cuda.synchronize()
+    assert {**mha_kernel.LAUNCHES, **attention.LAUNCHES}[counter] == before + 1
+    assert out.dtype == torch.float32 and torch.isfinite(out[:, :valid_len]).all()
+    err = out[:, :valid_len] - ref[:, :valid_len]
+    assert float(err.abs().max()) <= FP32_MAX_TOL
+    assert float(err.norm() / ref[:, :valid_len].norm()) <= FP32_REL_TOL
+    errs = stats_errors(stats[:, :, :valid_len],
+                        plain_stats(q[:, :valid_len], k, valid_len, d**-0.5,
+                                    prescaled=kernel != "flash_attention", causal=causal))
+    assert errs["stats_m_max_abs_err"] <= STATS_M_TOL
+    assert errs["stats_l_max_rel_err"] <= STATS_L_TOL
+
+
+@pytest.mark.parametrize("kernel,b,n,heads,d,valid_len,causal", [
+    ("qkv_attention", 4, 1664, 12, 64, 1601, False),
+    ("qkv_attention", 1, 300, 4, 128, 290, False),
+    ("mha_attention", 1, 1030, 2, 256, 1025, False),
+    ("flash_attention", 1, 9344, 2, 64, 9217, False),
+    ("flash_attention", 1, 2048, 4, 64, 2000, True),
+    ("flash_attention", 1, 1100, 2, 256, 1050, True),
+])
+def test_fp32_backward_kernels_match_plain_versions(cuda, kernel, b, n, heads, d, valid_len,
+                                                    causal):
+    """K2, K3's backward and K4b in fp32 against their plain versions on the
+    fp32 forward's output and statistics, per gradient; keys past valid_len
+    get exactly 0 (their rows hold NaN), and a rerun is bitwise the same."""
+    qkv, q, k, v, out, stats, _ = _fp32_case(kernel, b, n, heads, d, valid_len, causal, 32)
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    dout = torch.randn(b, n, heads, d, generator=gen, device="cuda")
+    scale, hd = d**-0.5, heads * d
+    if kernel == "qkv_attention":
+        do2 = dout.reshape(b, n, hd)
+        bwd = lambda: mha_kernel._launch_bwd(qkv, out.reshape(b, n, hd), do2, stats, heads,
+                                             scale, valid_len).split(hd, dim=-1)
+        want = mha_kernel.mha_qkv_attention_bwd_reference(
+            qkv, out.reshape(b, n, hd), do2, heads, valid_len=valid_len).split(hd, dim=-1)
+        rows = n
+    elif kernel == "mha_attention":
+        bwd = lambda: mha_kernel._launch_mha_bwd(q, k, v, out, dout, stats, scale, valid_len)
+        want = mha_kernel.mha_attention_bwd_reference(q, k, v, out, dout, valid_len=valid_len)
+        rows = n
+    else:
+        bwd = lambda: attention._launch_bwd(q, k, v, out, dout, stats, causal, scale, valid_len)
+        want = attention.flash_attention_bwd_reference(q, k, v, out, dout, causal=causal,
+                                                       valid_len=valid_len)
+        rows = valid_len
+    counter = f"{kernel}_bwd_fp32"
+    before = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}[counter]
+    got, again = tuple(bwd()), tuple(bwd())
+    torch.cuda.synchronize()
+    assert {**mha_kernel.LAUNCHES, **attention.LAUNCHES}[counter] == before + 2
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    assert all(torch.isfinite(g[:, :valid_len]).all() for g in got)
+    _assert_grads_close(got, want, rows, valid_len, FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL)
+    assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()

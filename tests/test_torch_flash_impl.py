@@ -3,7 +3,8 @@ rule, "on the TPU" read as "on CUDA": the dispatch decisions of the fused-qkv
 branch (K1 at any N up to 8448, no 1024-token floor) and of the fused
 LN + qkv branch (K6) at N below and above 1024 and above 8448; every call
 that reaches `attention_core` goes to `flash_attention` on CUDA and to the
-`auto` rules off it; a CUDA fp32 tensor raises `TypeError`; `ring` still
+`auto` rules off it; a CUDA fp32 tensor takes the fp32 kernels as JAX's
+does, and another dtype than bf16 or fp32 raises `TypeError`; `ring` still
 raises; and one bf16 layer under `flash` against the JAX layer, whose K1
 runs in Pallas interpret mode.
 
@@ -110,17 +111,32 @@ def test_attention_core_under_flash_is_jaxs(monkeypatch, recorded, device, n, ca
     assert recorded["port"] == recorded["jax"] == ([("flash", n, causal)] if device else [])
 
 
-def test_fp32_on_cuda_under_flash_raises(on_device):
-    """JAX would run its kernels in fp32 there; the port's take bf16, and
-    plain attention would hide them: a TypeError naming ROADMAP §2."""
+def test_fp32_on_cuda_under_flash_raises(on_device, monkeypatch):
+    """JAX runs its kernels in fp32 there, and so does the port: an fp32
+    layer under `flash` takes the K1 wrapper (its fp32 kernel on CUDA) and
+    the core takes `flash_attention` (past the one-shot limit: K4's fp32
+    kernel), never plain attention; a dtype the kernels do not take (fp16)
+    raises `TypeError` naming the two they take."""
+    routes = []
+    k1, flash = t_layers.mha_qkv_attention, t_layers.flash_attention
+    monkeypatch.setattr(t_layers, "mha_qkv_attention",
+                        lambda qkv, *a, **kw: routes.append(("k1", qkv.dtype)) or k1(qkv, *a, **kw))
+    monkeypatch.setattr(t_layers, "flash_attention",
+                        lambda q, *a, **kw: routes.append(("flash", q.dtype)) or flash(q, *a, **kw))
+
+    def no_plain(*args, **kwargs):
+        raise AssertionError("an fp32 call under flash reached plain attention")
+
+    monkeypatch.setattr(t_layers, "plain_attention", no_plain)
     tm = t_layers.MultiHeadAttention(128, 2, attn_impl="flash").eval()
     x = torch.randn(1, 40, 128)
-    with pytest.raises(TypeError, match=r"attn_impl 'flash'.*float32.*ROADMAP §2"):
-        with torch.no_grad():
-            tm(x)
-    q = torch.randn(1, 9000, 2, 64)  # past the one-shot limit: the core's K4 branch
-    with pytest.raises(TypeError, match="ROADMAP §2"):
-        t_layers.attention_core(q, q, q, impl="flash")
+    with torch.no_grad():
+        assert torch.isfinite(tm(x)).all()
+    q = torch.randn(1, 9000, 1, 64)  # past the one-shot limit: the core's K4 branch
+    assert torch.isfinite(t_layers.attention_core(q, q, q, impl="flash")).all()
+    assert routes == [("k1", torch.float32), ("flash", torch.float32)]
+    with pytest.raises(TypeError, match="bfloat16 or float32"):  # K4's wrapper, before a launch
+        t_attention._launch(q.half(), q.half(), q.half(), False, 0.125, 9000)
 
 
 def test_fp32_off_cuda_under_flash_runs_auto(monkeypatch):

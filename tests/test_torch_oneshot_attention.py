@@ -162,7 +162,7 @@ def test_flash_supported_admits_head_dim_256(monkeypatch):
     monkeypatch.setattr(attention, "_on_cuda", lambda t: True)
     assert [attention.flash_supported(x(d)) for d in (64, 128, 256, 32, 96)] == [
         True, True, True, False, False]
-    assert not attention.flash_supported(x(64, torch.float32))  # the kernels take bf16
+    assert attention.flash_supported(x(64, torch.float32))  # the kernels take fp32 too
     assert not attention.flash_supported(torch.zeros(1, 1023, 2, 64, dtype=torch.bfloat16))
 
 

@@ -149,8 +149,10 @@ def test_autograd_matches_jax_grad_at_head_dim_256():
 def test_fp32_on_the_oneshot_branch_reaches_a_wrapper_that_refuses_it(monkeypatch, wrapper):
     """`flash_attention`'s K3 branch has no dtype route of its own: fp32
     q / k / v "on CUDA" (`_on_cuda` patched) go to `mha_attention`, whose
-    kernel wrappers (K3, K3's backward) take bf16 only and raise `TypeError`
-    before any launch.  On the CPU that branch runs K3's plain versions."""
+    kernel wrappers (K3, K3's backward) take fp32 as JAX's kernels do and
+    pick their fp32 kernels (a CUDA tensor of another dtype they refuse with
+    `TypeError` before any launch).  On the CPU that branch runs K3's plain
+    versions."""
     monkeypatch.setattr(attention, "_on_cuda", lambda t: True)
     routes = []
     mha = attention.mha_attention
@@ -167,9 +169,22 @@ def test_fp32_on_the_oneshot_branch_reaches_a_wrapper_that_refuses_it(monkeypatc
         torch.testing.assert_close(a.grad, w.grad, rtol=RTOL, atol=ATOL)
     before = dict(port_mha.LAUNCHES)
     stats = torch.zeros(1, 2, 90, 2)
-    with pytest.raises(TypeError, match="bfloat16"):
+    picked = []
+
+    def no_build(name):  # records the kernel the wrapper picked; builds nothing
+        picked.append(name)
+        raise LookupError(name)
+
+    monkeypatch.setattr(port_mha, "_kernel_fn", no_build)
+    with pytest.raises(LookupError):
         if wrapper == "forward":
             port_mha._launch_mha(q, k, v, 64**-0.5, 80, stats)
         else:
             port_mha._launch_mha_bwd(q, k, v, q, g, stats, 64**-0.5, 80)
-    assert port_mha.LAUNCHES == before
+    assert picked == ["mha_attention_fp32" if wrapper == "forward" else "mha_attention_bwd_fp32"]
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        if wrapper == "forward":
+            port_mha._launch_mha(q.half(), k.half(), v.half(), 64**-0.5, 80, stats)
+        else:
+            port_mha._launch_mha_bwd(q, k, v, q, g.half(), stats, 64**-0.5, 80)
+    assert port_mha.LAUNCHES == before and len(picked) == 1

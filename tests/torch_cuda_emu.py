@@ -28,19 +28,19 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]*>>>\((\w+)\)")
 _SHARED = re.compile(r"extern __shared__ __align__\(\d+\) unsigned char smem_raw\[\];")
 
 
-def _build(src: str, out: Path, core: str = "attention_bwd") -> ctypes.CDLL:
-    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (core None: the source
-    alone), compiled against the emulation: every `<<<...>>>` launch made an
-    `emu_launch`, every block's dynamic shared memory the emulation's one
-    array."""
+def _build(src: str, out: Path, core="attention_bwd") -> ctypes.CDLL:
+    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (a tuple: several
+    cores; None: the source alone), compiled against the emulation: every
+    `<<<...>>>` launch made an `emu_launch`, every block's dynamic shared
+    memory the emulation's one array."""
     work = out / src
     work.mkdir()
     for header in EMU.glob("*.cuh"):  # found before csrc's by `#include "..."`
         shutil.copy(header, work)
     emulated = lambda text: _SHARED.sub("unsigned char* const smem_raw = emu::smem_base;",
                                         _LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text))
-    if core is not None:
-        (work / f"{core}.cuh").write_text(emulated((CSRC / f"{core}.cuh").read_text()))
+    for name in (core,) if isinstance(core, str) else core or ():
+        (work / f"{name}.cuh").write_text(emulated((CSRC / f"{name}.cuh").read_text()))
     (work / f"{src}.cpp").write_text(
         '#include "cuda_runtime.h"\n' + emulated((CSRC / f"{src}.cu").read_text()))
     lib = out / f"lib{src}.so"
