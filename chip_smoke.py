@@ -2172,6 +2172,12 @@ def phase_outproj_path() -> dict:
         raise AssertionError(f"the out-projection epilogue kernel disagrees: {res}")
     if not launches["qkv_out_attention"] or not launches["qkv_attention"]:
         raise AssertionError(f"the experiment did not run K7 and K1: {launches}")
+    # K7 in fp32 at the experiment's shape, called directly (the tool has no
+    # dtype flag, as the JAX script has none), beside K1 fp32 + torch.matmul
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reset_launches()
+    res["fp32"] = outproj_mode_case(torch.float32, None, b, n, heads, hd // heads, None, 3)
+    res["fp32"]["launches"] = read_launches()
     return res
 
 
@@ -2971,13 +2977,13 @@ def recorded_k1_k2_shapes():
     seen = {"qkv_attention": collections.Counter(), "qkv_attention_bwd": collections.Counter()}
     fwd, bwd = mha_kernel._launch, mha_kernel._launch_bwd
 
-    def launch(qkv, num_heads, scale, kv_len, with_stats=False):
+    def launch(qkv, num_heads, scale, kv_len, *args, **kwargs):
         seen["qkv_attention"][(tuple(qkv.shape), kv_len)] += 1
-        return fwd(qkv, num_heads, scale, kv_len, with_stats)
+        return fwd(qkv, num_heads, scale, kv_len, *args, **kwargs)
 
-    def launch_bwd(qkv, out, dout, stats, num_heads, scale, kv_len):
+    def launch_bwd(qkv, out, dout, stats, num_heads, scale, kv_len, *args):
         seen["qkv_attention_bwd"][(tuple(qkv.shape), kv_len)] += 1
-        return bwd(qkv, out, dout, stats, num_heads, scale, kv_len)
+        return bwd(qkv, out, dout, stats, num_heads, scale, kv_len, *args)
 
     mha_kernel._launch, mha_kernel._launch_bwd = launch, launch_bwd
     try:
@@ -4066,6 +4072,10 @@ FP32_FWD_CASES = [
     ("flash_attention_fp32", 2, 2100, 12, 64, 2000, True, 5, True),  # causal, pad keys
     ("flash_attention_fp32", 2, 8704, 4, 256, 8600, False, 3, True),  # head dim 256
 ]
+FP32_LNQKV_CASES = [  # (b, n, dim, heads, valid_len, iters): K6 in fp32
+    (10, 1536, 768, 12, 1522, 3),  # the fused slide window batch
+    (2, 1100, 768, 6, 1050, 3),  # head dim 128
+]
 FP32_BWD_CASES = [
     ("qkv_attention_bwd_fp32", 4, 1664, 12, 64, 1601, False, 3, True),  # crop-640 training
     ("mha_attention_bwd_fp32", 8, 1601, 12, 64, None, False, 2, False),  # profile_attn_bwd's
@@ -4259,8 +4269,9 @@ def counted_plain_attention():
 def _fp32_slide_and_flash() -> dict:
     """The flagship in fp32 on one seeded 1024x2048 slide frame: 12 K1 fp32
     launches (crop 624 / stride 426 / window batch 20), no plain attention
-    but the text tower's, logits against `attn_impl: xla`; then `flash` at
-    crop 384 (24 K1 fp32 at [10,577,2304] and [5,577,2304])."""
+    but the text tower's, logits against `attn_impl: xla`; the same frame
+    with DENSECLIP_FUSED_LNQKV=1 (12 K6 fp32, no K1), against xla too; then
+    `flash` at crop 384 (24 K1 fp32 at [10,577,2304] and [5,577,2304])."""
     from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
@@ -4290,13 +4301,25 @@ def _fp32_slide_and_flash() -> dict:
              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
              "ms_per_frame": cuda_ms(lambda: predict(crop=crop, stride=stride,
                                                      window_batch=window_batch), 3, warmup=0)}
+    with fused_lnqkv(True):  # K6 in fp32: the fused slide frame
+        predict(crop=crop, stride=stride, window_batch=window_batch)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        fused_out = predict(crop=crop, stride=stride, window_batch=window_batch)
+        torch.cuda.synchronize()
+        fused = {"crop": crop, "env": {FUSED_ENV: "1"}, "launches": read_launches(),
+                 "ms_per_frame": cuda_ms(lambda: predict(crop=crop, stride=stride,
+                                                         window_batch=window_batch), 3, warmup=0)}
     set_attn_impl(model, "xla")
     plain_out = predict(crop=crop, stride=stride, window_batch=window_batch)
     slide["plain_ms_per_frame"] = cuda_ms(lambda: predict(crop=crop, stride=stride,
                                                           window_batch=window_batch), 2, warmup=0)
     slide["seg_rel_l2_vs_xla"] = rel_l2(kernel_out["seg_logits"], plain_out["seg_logits"])
     slide["depth_rel_l2_vs_xla"] = rel_l2(kernel_out["depth"], plain_out["depth"])
-    del kernel_out, plain_out
+    fused["seg_rel_l2_vs_xla"] = rel_l2(fused_out["seg_logits"], plain_out["seg_logits"])
+    fused["depth_rel_l2_vs_xla"] = rel_l2(fused_out["depth"], plain_out["depth"])
+    fused["plain_ms_per_frame"] = slide["plain_ms_per_frame"]
+    del kernel_out, plain_out, fused_out
     set_attn_impl(model, "flash")
     flash_crop, flash_wb = FLASH_CROPS[1]
     run = lambda: predict(crop=(flash_crop, flash_crop), stride=(426, 426), window_batch=flash_wb)
@@ -4317,7 +4340,11 @@ def _fp32_slide_and_flash() -> dict:
         raise AssertionError(f"fp32 slide frame disagrees with attn_impl xla: {slide}")
     if flash["launches"] != expected_launches(qkv_attention_fp32=24):
         raise AssertionError(f"fp32 flash crop-384 frame: expected 24 K1 fp32 launches: {flash}")
-    return {"slide": slide, "flash": flash}
+    if fused["launches"] != expected_launches(ln_qkv_attention_fp32=12):
+        raise AssertionError(f"fp32 fused slide frame: expected 12 K6 fp32 and no K1: {fused}")
+    if not max(fused["seg_rel_l2_vs_xla"], fused["depth_rel_l2_vs_xla"]) <= FP32_PATH_TOL:
+        raise AssertionError(f"fp32 fused slide frame disagrees with attn_impl xla: {fused}")
+    return {"slide": slide, "flash": flash, "fused_slide": fused}
 
 
 def _fp32_training() -> dict:
@@ -4457,20 +4484,27 @@ FP32_ENTRIES = (
     ("flash_attention_bwd_fp32", "attention_bwd_fp32.cu",
      "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and :1146 "
      "(dq, call :1456)", "fp32_training_long"),
+    ("ln_qkv_attention_fp32", "ln_qkv_attention_fp32.cu", "ops/lnqkv_kernel.py:81",
+     "fp32_fused_slide"),
 )
 
 
-def fp32_entries(entry, at_shape, fp32_res: dict) -> list:
-    """The six fp32 kernels' entries: the first case of each (a path's
-    shape) in the entry, the rest by shape."""
+def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict) -> list:
+    """The seven fp32 kernels' entries: the first case of each (a path's
+    shape) in the entry, the rest by shape, and the knob variants' fields."""
     out = []
     for name, source, replaces, path in FP32_ENTRIES:
         first, *rest = fp32_res["kernels"][name]
+        design = ("row statistics pass; SIMT fp32 projection with the LayerNorm as its A "
+                  "prologue (gemm_fp32.cuh); K1's fp32 body on the q/k/v workspace"
+                  if name.startswith("ln_qkv") else
+                  "SIMT fp32 FMA (no TF32), 256 threads on 64 rows, cp.async tiles")
         out.append({**entry(name, source, replaces, first,
                             fp32_res["launches_by_path"][path][name]),
-                    "design": "SIMT fp32 FMA (no TF32), 256 threads on 64 rows, cp.async tiles",
-                    "path": path, "shape": first["shape"], "valid_len": first["valid_len"],
-                    "other_shapes": [at_shape(r) for r in rest]})
+                    "design": design, "path": path, "shape": first["shape"],
+                    "valid_len": first["valid_len"],
+                    "other_shapes": [at_shape(r) for r in rest],
+                    **knob_fields(knobs_res, name)})
     return out
 
 
@@ -4490,6 +4524,8 @@ def phase_fp32_path(bf16_long: dict, selftest_res: dict) -> dict:
             "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
     emit({"phase": "fp32_path", "part": "settings", **tf32})
     res = {"phase": "fp32_path", **tf32, "kernels": _fp32_kernel_checks(), "paths": {}}
+    res["kernels"]["ln_qkv_attention_fp32"] = [lnqkv_mode_case(torch.float32, None, *case)
+                                               for case in FP32_LNQKV_CASES]
     paths = res["paths"]
     paths.update(_fp32_slide_and_flash())
     emit({"phase": "fp32_path", "part": "slide_and_flash", **paths})
@@ -4529,6 +4565,7 @@ def phase_fp32_path(bf16_long: dict, selftest_res: dict) -> dict:
         raise AssertionError(f"profile_attn_bwd in fp32: {paths['profile_attn_bwd']}")
     res["launches_by_path"] = {
         "fp32_slide": paths["slide"]["launches"], "fp32_flash": paths["flash"]["launches"],
+        "fp32_fused_slide": paths["fused_slide"]["launches"],
         "fp32_training": paths["training"]["kernels"]["launches"],
         "fp32_aug_test": paths["aug_test"]["launches"],
         "fp32_training_long": paths["training_long"]["launches"],
@@ -4537,7 +4574,681 @@ def phase_fp32_path(bf16_long: dict, selftest_res: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The softmax knobs (DENSECLIP_FAST_EXP2, DENSECLIP_EXP_BF16) and the fp32
+# K6 / K7
+# ---------------------------------------------------------------------------
+
+KNOB_ENVS = ("DENSECLIP_FAST_EXP2", "DENSECLIP_EXP_BF16")
+# A kernel under a knob against its plain version under the same knob: the
+# fp32 / bf16 limits above, and the check must see the knob: the kernel at
+# most a fifth as far from the plain version in its mode as from the exact
+# one (outputs in fp32 and under EXP_BF16; bf16 outputs under FAST_EXP2, where
+# the polynomial's 8.4e-5 hides under the rounding, through the row sums).
+KNOB_SEES = 5.0
+# EXP_BF16's row sums: one flipped bf16 rounding of s - m (the scores' fp32
+# sums run in another order than the plain version's) moves its p by up to
+# 2^-8 |s - m| ln 2
+KNOB_STATS_L_BF16_TOL = 2e-3
+
+
+@contextlib.contextmanager
+def softmax_knob(name=None):
+    """The softmax knob `name` set to 1 inside the block only, the other to 0."""
+    before = {k: os.environ.get(k) for k in KNOB_ENVS}
+    for k in KNOB_ENVS:
+        os.environ[k] = "1" if k == name else "0"
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def knob_stats(q, k, kv: int, scale: float, mode: int):
+    """The plain row max and sum [B, H, N] of K1's / K3's logits under `mode`,
+    one head at a time."""
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+
+    qs = (q.float() * (scale * LOG2E)).to(q.dtype).float()
+    ms, ls = [], []
+    for h in range(q.shape[2]):
+        s = qs[:, :, h] @ k[:, :kv, h].float().transpose(-1, -2)
+        m = M.row_max(s, mode)
+        ms.append(m[..., 0])
+        ls.append(M.softmax_exp(s - m, mode).sum(-1))
+        del s
+    return torch.stack(ms, 1), torch.stack(ls, 1)
+
+
+def knob_forward_case(kernel: str, dtype, knob: str, b: int, n: int, heads: int, d: int,
+                      valid_len, iters: int) -> dict:
+    """K1 ("qkv") or K3 ("mha") under `knob` against its plain version in the
+    same mode (outputs on the rows below valid_len, row statistics), beside
+    the plain version without the knob and the same launch with the knob off
+    (`default_ms`, timed in this run)."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+
+    hd, scale = heads * d, d**-0.5
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.view(b, n, heads, d) for t in qkv.split(hd, dim=-1))
+    with softmax_knob(knob):
+        mode = M.softmax_modes(kernel, dtype, n, valid_len)[0]
+    name = M.kernel_name(f"{kernel}_attention", dtype, mode)
+    if kernel == "qkv":
+        run = lambda m: M._launch(qkv, heads, scale, kv, with_stats=True, exp_mode=m)
+        plain = lambda m: M.mha_qkv_attention_reference(qkv, heads, valid_len=kv, exp_mode=m)
+    else:
+        def run(m):
+            stats = torch.empty(b, heads, n, 2, device="cuda")
+            return M._launch_mha(q, k, v, scale, kv, stats, m).reshape(b, n, hd), stats
+        plain = lambda m: M.mha_attention_reference(q, k, v, valid_len=kv,
+                                                    exp_mode=m).reshape(b, n, hd)
+    before = M.LAUNCHES[name]
+    out, stats = run(mode)
+    launches = M.LAUNCHES[name] - before
+    again = run(mode)[0]
+    ref, ref_exact = plain(mode)[:, :kv].float(), plain(M.EXP_EXACT)[:, :kv].float()
+    got = out[:, :kv].float()
+    m_plain, l_plain = knob_stats(q, k, kv, scale, mode)
+    m_exact, l_exact = knob_stats(q, k, kv, scale, M.EXP_EXACT)
+    l_exact = l_exact * torch.exp2(m_exact - m_plain)  # the exp2 sums at the same max
+    st = stats[:, :, :kv]
+    res = {
+        "phase": "knobs_path", "part": "kernel", "name": name, "knob": knob, "exp_mode": mode,
+        "dtype": str(dtype), "shape": [b, n, 3 * hd] if kernel == "qkv" else [b, n, heads, d],
+        "valid_len": valid_len, "launches_one_call": launches,
+        "max_abs_err": float((got - ref).abs().max()), "rel_l2_err": rel_l2(got, ref),
+        "rel_l2_vs_exact_plain": rel_l2(got, ref_exact),
+        "stats_m_max_abs_err": float((st[..., 0] - m_plain[:, :, :kv]).abs().max()),
+        "stats_l_max_rel_err": float(((st[..., 1] - l_plain[:, :, :kv])
+                                      / l_plain[:, :, :kv]).abs().max()),
+        "stats_l_max_rel_vs_exact": float(((st[..., 1] - l_exact[:, :, :kv])
+                                           / l_plain[:, :, :kv]).abs().max()),
+        "rerun_bitwise_equal": bitwise_equal(out, again),
+        "finite": bool(torch.isfinite(got).all()),
+    }
+    del ref, ref_exact, got, m_plain, l_plain, m_exact, l_exact
+    flops = 4.0 * b * heads * n * kv * d
+    nbytes = qkv.element_size() * (qkv.numel() + out.numel())
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
+    default_ms = cuda_ms(lambda: run(0), iters)  # first: it also warms the card up
+    res.update({
+        "ms": cuda_ms(lambda: run(mode), iters), "default_ms": default_ms,
+        "plain_ms": cuda_ms(lambda: plain(mode), 1, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
+        "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+        "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+    res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
+    fp32 = dtype == torch.float32
+    out_ok = (res["max_abs_err"] <= (FP32_MAX_TOL if fp32 else KERNEL_TOL)
+              and res["rel_l2_err"] <= (FP32_REL_TOL if fp32 else KERNEL_REL_TOL))
+    stats_ok = (res["stats_m_max_abs_err"] <= STATS_M_TOL and res["stats_l_max_rel_err"]
+                <= (KNOB_STATS_L_BF16_TOL if mode == M.EXP_BF16 else STATS_L_TOL))
+    if fp32 or mode == M.EXP_BF16:
+        sees = res["rel_l2_err"] * KNOB_SEES <= res["rel_l2_vs_exact_plain"]
+    else:
+        sees = res["stats_l_max_rel_err"] * KNOB_SEES <= res["stats_l_max_rel_vs_exact"]
+    res["sees_the_knob"] = bool(sees)
+    emit(res)
+    if not (out_ok and stats_ok and sees and launches == 1 and res["finite"]
+            and res["rerun_bitwise_equal"]):
+        raise AssertionError(f"{name} disagrees with its plain version under {knob}: {res}")
+    return res
+
+
+def knob_backward_case(kernel: str, dtype, b: int, n: int, heads: int, d: int, valid_len,
+                       iters: int) -> dict:
+    """K2 ("qkv") or K3's backward ("mha") under DENSECLIP_FAST_EXP2 on the
+    forward's output and statistics under the knob, against the plain
+    backward in the same mode, per gradient."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+
+    hd, scale = heads * d, d**-0.5
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(dtype)
+    dout = torch.randn(b, n, hd, generator=gen, device="cuda").to(dtype)
+    q, k, v = (t.view(b, n, heads, d) for t in qkv.split(hd, dim=-1))
+    with softmax_knob("DENSECLIP_FAST_EXP2"):
+        mode = M.softmax_modes(kernel, dtype, n, valid_len)[1]
+    name = M.kernel_name(f"{kernel}_attention_bwd", dtype, mode)
+    split = lambda g: tuple(g.split(hd, dim=-1))
+    view = lambda t: t.view(b, n, heads, d)
+    flat = lambda gs: tuple(g.reshape(b, n, hd) for g in gs)
+    if kernel == "qkv":
+        out, stats = M._launch(qkv, heads, scale, kv, with_stats=True, exp_mode=mode)
+        bwd = lambda: split(M._launch_bwd(qkv, out, dout, stats, heads, scale, kv, mode))
+        plain = lambda m: split(M.mha_qkv_attention_bwd_reference(
+            qkv, M.mha_qkv_attention_reference(qkv, heads, valid_len=kv, exp_mode=m), dout, heads,
+            valid_len=kv, exp_mode=m))
+    else:
+        stats = torch.empty(b, heads, n, 2, device="cuda")
+        out = M._launch_mha(q, k, v, scale, kv, stats, mode)
+        bwd = lambda: flat(M._launch_mha_bwd(q, k, v, out, view(dout), stats, scale, kv, mode))
+        plain = lambda m: flat(M.mha_attention_bwd_reference(
+            q, k, v, M.mha_attention_reference(q, k, v, valid_len=kv, exp_mode=m), view(dout),
+            valid_len=kv, exp_mode=m))
+    before = M.LAUNCHES[name]
+    got = bwd()
+    launches = M.LAUNCHES[name] - before
+    ref, ref_exact = plain(mode), plain(M.EXP_EXACT)
+    torch.cuda.synchronize()
+    res = {"phase": "knobs_path", "part": "kernel_bwd", "name": name,
+           "knob": "DENSECLIP_FAST_EXP2", "exp_mode": mode, "dtype": str(dtype),
+           "shape": [b, n, 3 * hd], "valid_len": valid_len, "launches_one_call": launches,
+           "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got),
+           "finite": all(bool(torch.isfinite(g).all()) for g in got)}
+    grad_errors(res, got, ref, n, kv)
+    res["rel_l2_vs_exact_plain"] = {p: rel_l2(g[:, :lim], r[:, :lim]) for p, g, r, lim in zip(
+        ("dq", "dk", "dv"), got, ref_exact, (n, kv, kv))}
+    del ref, ref_exact
+    lib = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+    lib[1], lib[2] = lib[1][:, :, :kv].contiguous(), lib[2][:, :, :kv].contiguous()
+    lib = [t.requires_grad_(True) for t in lib]
+    lib_out = F.scaled_dot_product_attention(*lib)
+    lib_grad = view(dout).transpose(1, 2).contiguous()
+    flops = 10.0 * b * heads * n * kv * d
+    nbytes = qkv.element_size() * 8 * b * n * hd
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    res.update({"ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(lambda: plain(mode), 1, warmup=1),
+                "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib, lib_grad,
+                                                                  retain_graph=True), iters),
+                "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+                "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+    res["tflops_5_products"] = flops / (res["ms"] * 1e-3) / 1e12
+    if kernel == "qkv":
+        res["default_ms"] = cuda_ms(lambda: M._launch_bwd(qkv, out, dout, stats, heads, scale, kv),
+                                    iters)
+    else:
+        res["default_ms"] = cuda_ms(lambda: M._launch_mha_bwd(q, k, v, out, view(dout), stats,
+                                                              scale, kv), iters)
+    fp32 = dtype == torch.float32
+    rel_tol, max_tol = ((FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL) if fp32
+                        else (KERNEL_BWD_REL_TOL, KERNEL_BWD_MAX_TOL))
+    bad = [p for p in ("dq", "dk", "dv") if not (res[p]["rel_l2_err"] <= rel_tol and
+                                                 res[p]["max_abs_err"] <= max_tol * res[p]["max_abs_ref"])]
+    # fp32 gradients see the knob; bf16 ones carry it under their rounding (the
+    # forward's row sums show it)
+    sees = (not fp32) or sum(res[p]["rel_l2_err"] for p in ("dq", "dk", "dv")) * KNOB_SEES <= sum(
+        res["rel_l2_vs_exact_plain"].values())
+    res["sees_the_knob"] = bool(sees)
+    emit(res)
+    if bad or not (sees and launches == 1 and res["finite"] and res["rerun_bitwise_equal"]):
+        raise AssertionError(f"{name} disagrees with its plain backward ({bad}): {res}")
+    return res
+
+
+def _lnqkv_operands(b: int, n: int, dim: int, dtype):
+    """ln_qkv_attention_case's seeded x and ln_1 / qkv parameters, W in `dtype`."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(b, n, dim, generator=gen, device="cuda").to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    beta = 0.1 * torch.randn(dim, generator=gen, device="cuda")
+    limit = (6.0 / (4 * dim)) ** 0.5
+    w = ((torch.rand(3 * dim, dim, generator=gen, device="cuda") * 2 - 1) * limit).to(dtype)
+    bias = 0.02 * torch.randn(3 * dim, generator=gen, device="cuda")
+    return x, gamma, beta, w, bias
+
+
+def lnqkv_mode_case(dtype, knob, b: int, n: int, dim: int, heads: int, valid_len,
+                    iters: int) -> dict:
+    """K6 (bf16 or fp32) with the knob `knob` (or none) against its plain
+    version in the same mode; under the knob, the attention on K6's own
+    first-stage workspace in that mode shows it (bf16 workspace rounding
+    hides the polynomial in the whole kernel's comparison).  Beside it the
+    unfused chain in PyTorch's own calls (LayerNorm, Linear, SDPA; TF32 off)."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import (
+        LAUNCHES,
+        ln_qkv_attention,
+        ln_qkv_attention_reference,
+        ln_qkv_projection,
+    )
+
+    d = dim // heads
+    kv = n if valid_len is None else valid_len
+    x, gamma, beta, w, bias = _lnqkv_operands(b, n, dim, dtype)
+    args = (x, gamma, beta, w.t(), bias, heads)
+    # the knob-off launch first: it also warms the card up
+    default_ms = cuda_ms(lambda: ln_qkv_attention(*args, valid_len=valid_len), iters)
+    with softmax_knob(knob):
+        mode = M.softmax_modes("ln_qkv", dtype, n, valid_len)[0]
+        run = lambda: ln_qkv_attention(*args, valid_len=valid_len)
+        name = M.kernel_name("ln_qkv_attention", dtype, mode)
+        before = LAUNCHES[name]
+        out = run()
+        launches = LAUNCHES[name] - before
+        again = run()
+        ms = cuda_ms(run, iters)
+    ref = ln_qkv_attention_reference(*args, valid_len=valid_len, exp_mode=mode)
+    got, ref = out[:, :kv].float(), ref[:, :kv].float()
+    res = {"phase": "knobs_path" if knob else "fp32_path", "part": "kernel_lnqkv", "name": name,
+           "knob": knob, "exp_mode": mode, "dtype": str(dtype), "shape": [b, n, dim],
+           "heads": heads, "valid_len": valid_len, "launches_one_call": launches,
+           "max_abs_err": float((got - ref).abs().max()), "rel_l2_err": rel_l2(got, ref),
+           "rerun_bitwise_equal": bitwise_equal(out, again),
+           "finite": bool(torch.isfinite(got).all())}
+    if mode != M.EXP_EXACT:
+        ws = ln_qkv_projection(*args)
+        qw, kw, vw = (t.view(b, n, heads, d) for t in ws.split(dim, dim=-1))
+        on_ws = M.attention_prescaled(qw, kw, vw, kv, mode).reshape(b, n, dim)[:, :kv].float()
+        off_ws = M.attention_prescaled(qw, kw, vw, kv).reshape(b, n, dim)[:, :kv].float()
+        res["own_workspace_rel_l2"] = rel_l2(got, on_ws)
+        res["own_workspace_rel_l2_vs_exact"] = rel_l2(got, off_ws)
+        del ws, qw, kw, vw, on_ws, off_ws
+    del got, ref
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def library():  # F.layer_norm + F.linear + SDPA in x's dtype
+        qkv = F.linear(F.layer_norm(x, (dim,), gamma.to(dtype), beta.to(dtype), 1e-5), w,
+                       bias.to(dtype))
+        q, k, v = (t.view(b, n, heads, d).transpose(1, 2) for t in qkv.split(dim, dim=-1))
+        return F.scaled_dot_product_attention(q, k[:, :, :kv], v[:, :, :kv])
+
+    flops = 2.0 * b * n * dim * 3 * dim + 4.0 * b * heads * n * kv * d
+    nbytes = x.element_size() * (x.numel() + w.numel() + out.numel()) + 4.0 * (2 * dim + 3 * dim)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    res.update({"ms": ms, "default_ms": default_ms,
+                "plain_ms": cuda_ms(lambda: ln_qkv_attention_reference(
+                    *args, valid_len=valid_len, exp_mode=mode), 1, warmup=1),
+                "library_ms": cuda_ms(library, iters),
+                "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+                "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    res["tflops"] = flops / (ms * 1e-3) / 1e12
+    fp32 = dtype == torch.float32
+    ok = (res["max_abs_err"] <= (FP32_MAX_TOL if fp32 else KERNEL_TOL)
+          and res["rel_l2_err"] <= (FP32_REL_TOL if fp32 else KERNEL_REL_TOL))
+    sees = mode == M.EXP_EXACT or (
+        res["own_workspace_rel_l2"] * KNOB_SEES <= res["own_workspace_rel_l2_vs_exact"])
+    res["sees_the_knob"] = bool(sees)
+    emit(res)
+    if not (ok and sees and launches == 1 and res["finite"] and res["rerun_bitwise_equal"]):
+        raise AssertionError(f"{name} disagrees with its plain version: {res}")
+    return res
+
+
+def outproj_mode_case(dtype, knob, b: int, n: int, heads: int, d: int, valid_len,
+                      iters: int) -> dict:
+    """K7 (bf16 or fp32) with the knob `knob` (or none) against its plain
+    version in the same mode, outputs in fp32 (the knob shows there); beside
+    it the yardstick K1 + torch.matmul (TF32 off) and the default launch."""
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+    from denseclip_vit_multimodal_tpu_torch.tools import exp_outproj_epilogue as exp
+
+    hd = heads * d
+    kv = n if valid_len is None else valid_len
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda").to(dtype)
+    w = (torch.randn(hd, hd, generator=gen, device="cuda") * 0.02).to(dtype)
+    # the knob-off launch first: it also warms the card up
+    default_ms = cuda_ms(lambda: exp.qkv_out_attention(qkv, w, heads, valid_len=valid_len), iters)
+    with softmax_knob(knob):
+        mode = M.softmax_modes("qkv_out", dtype, n, valid_len)[0]
+        run = lambda: exp.qkv_out_attention(qkv, w, heads, valid_len=valid_len)
+        name = M.kernel_name("qkv_out_attention", dtype, mode)
+        before = exp.LAUNCHES[name]
+        out = run()
+        launches = exp.LAUNCHES[name] - before
+        again = run()
+        ms = cuda_ms(run, iters)
+        yard = lambda: torch.matmul(M.mha_qkv_attention(qkv, heads, valid_len=valid_len),
+                                    w).float()
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yard_ms = cuda_ms(yard, iters)
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    ref = exp.qkv_out_attention_reference(qkv, w, heads, valid_len=valid_len, exp_mode=mode)
+    ref_exact = exp.qkv_out_attention_reference(qkv, w, heads, valid_len=valid_len)
+    torch.cuda.synchronize()
+    got, ref, ref_exact = out[:, :kv], ref[:, :kv], ref_exact[:, :kv]
+    flops = 4.0 * b * heads * n * kv * d + 2.0 * b * n * hd * hd
+    nbytes = qkv.element_size() * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    res = {"phase": "outproj_path", "part": "kernel", "name": name, "knob": knob,
+           "exp_mode": mode, "dtype": str(dtype), "shape": [b, n, 3 * hd], "valid_len": valid_len,
+           "launches_one_call": launches, "max_abs_err": float((got - ref).abs().max()),
+           "rel_l2_err": rel_l2(got, ref), "rel_l2_vs_exact_plain": rel_l2(got, ref_exact),
+           "rerun_bitwise_equal": bitwise_equal(out, again),
+           "finite": bool(torch.isfinite(got).all()), "ms": ms, "default_ms": default_ms,
+           "k1_matmul_ms": yard_ms,
+           "plain_ms": cuda_ms(lambda: exp.qkv_out_attention_reference(
+               qkv, w, heads, valid_len=valid_len, exp_mode=mode), 1, warmup=1),
+           "library_ms": None,  # no one PyTorch call computes attention + out-projection
+           "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
+           "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"}
+    res["tflops"] = flops / (ms * 1e-3) / 1e12
+    fp32 = dtype == torch.float32
+    scale = float(ref.abs().max())
+    ok = ((res["max_abs_err"] <= FP32_MAX_TOL and res["rel_l2_err"] <= FP32_REL_TOL) if fp32 else
+          (res["max_abs_err"] <= KERNEL_TOL * scale and res["rel_l2_err"] <= KERNEL_REL_TOL))
+    sees = mode == M.EXP_EXACT or res["rel_l2_err"] * KNOB_SEES <= res["rel_l2_vs_exact_plain"]
+    res["sees_the_knob"] = bool(sees)
+    emit(res)
+    if not (ok and sees and launches == 1 and res["finite"] and res["rerun_bitwise_equal"]):
+        raise AssertionError(f"{name} disagrees with its plain version: {res}")
+    return res
+
+
+def knob_controls() -> dict:
+    """K4, K4b, K5 and its prologue read neither knob: with both set, their
+    outputs are bitwise those of the same calls with both off."""
+    from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel as M
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qkv = torch.randn(10, 1536, 2304, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (t.view(10, 1536, 12, 64)[:2] for t in qkv.split(768, dim=-1))
+    dout = torch.randn(2, 1536, 12, 64, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def run():
+        out = {"int8": M.mha_qkv_attention_int8(qkv, 12, valid_len=1522),
+               "prologue": M.QUANTIZE_QKV_INT8_OP(qkv, 12, 1522)}
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        k4 = attention.flash_attention(*leaves, causal=True, valid_len=1500)
+        k4.backward(dout)
+        out.update(k4=k4.detach(), k4b=[t.grad for t in leaves])
+        torch.cuda.synchronize()
+        return out
+
+    off = run()
+    reset_launches()
+    with softmax_knob("DENSECLIP_FAST_EXP2"):
+        os.environ["DENSECLIP_EXP_BF16"] = "1"
+        on = run()
+    launches = read_launches()
+    res = {"phase": "knobs_path", "part": "controls", "launches": launches}
+    res["bitwise_equal"] = {
+        "qkv_attention_int8": torch.equal(on["int8"], off["int8"]),
+        # q8's q and k thirds, V's key-major copy, the scales (the kernel
+        # leaves q8's v third unwritten: nothing reads it)
+        "quantize_qkv_int8": all(torch.equal(a, b) for a, b in zip(
+            (on["prologue"][0][..., :1536], *on["prologue"][1:]),
+            (off["prologue"][0][..., :1536], *off["prologue"][1:]))),
+        "flash_attention": torch.equal(on["k4"], off["k4"]),
+        "flash_attention_bwd": all(torch.equal(a, b) for a, b in zip(on["k4b"], off["k4b"]))}
+    emit(res)
+    want = expected_launches(qkv_attention_int8=1, quantize_qkv_int8=2, flash_attention=1,
+                             flash_attention_bwd=1)
+    if launches != want or not all(res["bitwise_equal"].values()):
+        raise AssertionError(f"K4 / K4b / K5 moved under the knobs (or took another route): {res}")
+    return res
+
+
+class PlainQKVAttention(torch.autograd.Function):
+    """K1's and K2's plain versions under the knobs' modes on CUDA tensors
+    (the yardstick of the training step under a knob)."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, valid_len, modes):
+        from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+
+        ctx.save_for_backward(qkv)
+        ctx.attrs = (num_heads, valid_len, modes[1])
+        return M.mha_qkv_attention_reference(qkv, num_heads, valid_len=valid_len,
+                                             exp_mode=modes[0])
+
+    @staticmethod
+    def backward(ctx, dout):
+        from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+
+        (qkv,) = ctx.saved_tensors
+        num_heads, valid_len, mode = ctx.attrs
+        out = M.mha_qkv_attention_reference(qkv, num_heads, valid_len=valid_len, exp_mode=mode)
+        return M.mha_qkv_attention_bwd_reference(qkv, out, dout, num_heads, valid_len=valid_len,
+                                                 exp_mode=mode), None, None, None
+
+
+@contextlib.contextmanager
+def plain_kernels_under_knobs():
+    """The ViT's K1 (with K2 under autograd) and K6 calls run their plain
+    versions on the card, in the modes the knobs give each call."""
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+    from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import ln_qkv_attention_reference
+
+    def k1(qkv, num_heads, *, valid_len=None, sm_scale=None):
+        modes = M.softmax_modes("qkv", qkv.dtype, qkv.shape[1], valid_len)
+        kv = qkv.shape[1] if valid_len is None else valid_len
+        if torch.is_grad_enabled() and qkv.requires_grad:
+            return PlainQKVAttention.apply(qkv, num_heads, kv, modes)
+        return M.mha_qkv_attention_reference(qkv, num_heads, valid_len=kv, exp_mode=modes[0])
+
+    def k6(x, gamma, beta, w, b, num_heads, *, eps=1e-5, valid_len=None, sm_scale=None):
+        mode = M.softmax_modes("ln_qkv", x.dtype, x.shape[1], valid_len)[0]
+        return ln_qkv_attention_reference(x, gamma, beta, w, b, num_heads, eps=eps,
+                                          valid_len=valid_len, exp_mode=mode)
+
+    saved = layers.mha_qkv_attention, layers.ln_qkv_attention
+    layers.mha_qkv_attention, layers.ln_qkv_attention = k1, k6
+    try:
+        yield
+    finally:
+        layers.mha_qkv_attention, layers.ln_qkv_attention = saved
+
+
+def knob_frame(model, texts, frame, knob, fused: bool, want: dict, tol: float,
+               impl: str = "auto") -> dict:
+    """One seeded slide frame of the flagship under `knob` (fused: K6's
+    route): its launches by name (exactly `want`), its logits against the
+    same frame with each kernel's plain version under the same knob, and
+    against the kernels with the knob off."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.models.layers import set_attn_impl
+
+    crop, stride, window_batch = resolve_test_protocol(load_config(CONFIG))
+    set_attn_impl(model, impl)
+    engine = Inferencer(model, texts, num_classes=19)
+    predict = lambda: engine.predict(frame, mode="slide", crop=crop, stride=stride,
+                                     window_batch=window_batch, fetch="device")
+    with fused_lnqkv(fused):
+        off = predict()
+        with softmax_knob(knob):
+            predict()  # warm-up under the knob
+            torch.cuda.synchronize()
+            reset_launches()
+            on = predict()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            ms = cuda_ms(predict, 2, warmup=0)
+            with plain_kernels_under_knobs():
+                reset_launches()
+                plain = predict()
+                plain_launches = read_launches()
+    set_attn_impl(model, "auto")
+    res = {"knob": knob, "fused": fused, "attn_impl": impl, "launches": launches,
+           "plain_run_launches": plain_launches, "ms_per_frame": ms,
+           "seg_rel_l2_vs_plain": rel_l2(on["seg_logits"], plain["seg_logits"]),
+           "depth_rel_l2_vs_plain": rel_l2(on["depth"], plain["depth"]),
+           "seg_rel_l2_vs_knob_off": rel_l2(on["seg_logits"], off["seg_logits"]),
+           "seg_bitwise_equal_to_knob_off": bitwise_equal(on["seg_logits"], off["seg_logits"]),
+           "tol": tol}
+    if launches != expected_launches(**want):
+        raise AssertionError(f"frame under {knob}: expected {want}: {res}")
+    if impl == "int8":
+        if not res["seg_bitwise_equal_to_knob_off"]:
+            raise AssertionError(f"the int8 request moved under {knob}: {res}")
+    elif not max(res["seg_rel_l2_vs_plain"], res["depth_rel_l2_vs_plain"]) <= tol:
+        raise AssertionError(f"frame under {knob} disagrees with the plain versions: {res}")
+    return res
+
+
+def knob_training_step() -> dict:
+    """One crop-640 step of the heritage preset (batch 4) under
+    DENSECLIP_FAST_EXP2 on fixed weights and batch: 12 K1 + 12 K2 under the
+    knob; its loss against the same step with K1's / K2's plain versions
+    under the knob, and its backbone seg-loss gradients beside."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.augment import (
+        augment_batch,
+        augment_config_from_data_cfg,
+    )
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+
+    cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES)
+    tcfg, dcfg = cfg.training, cfg.data
+    seed, batch_size = int(tcfg.get("seed", 42)), int(tcfg.batch_size)
+    loader = DataLoader(build_dataset(dcfg, "train"), batch_size=batch_size, seed=seed,
+                        num_threads=2)
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=seed)
+    aug_cfg = augment_config_from_data_cfg(dcfg)
+    batch = augment_batch(to_device(next(loader.epoch(0)), "cuda"), aug_cfg,
+                          torch.Generator().manual_seed(seed))
+    crop = tuple(aug_cfg.crop_size)
+    with softmax_knob("DENSECLIP_FAST_EXP2"):
+        step_grads(model, batch, texts, crop, seed)  # warm-up
+        reset_launches()
+        loss, grads = step_grads(model, batch, texts, crop, seed)[:2]
+        launches = read_launches()
+        with plain_kernels_under_knobs():
+            reset_launches()
+            plain_loss, plain_grads = step_grads(model, batch, texts, crop, seed)[:2]
+            plain_launches = read_launches()
+    off_loss, off_grads = step_grads(model, batch, texts, crop, seed)[:2]
+    res = {"batch": batch_size, "crop": list(crop), "launches": launches,
+           "plain_run_launches": plain_launches, "loss": loss, "loss_plain": plain_loss,
+           "loss_knob_off": off_loss,
+           "loss_rel_diff_vs_plain": abs(loss - plain_loss) / abs(plain_loss),
+           "backbone_seg_grad_rel_l2_vs_plain": rel_l2(grads, plain_grads),
+           "backbone_seg_grad_rel_l2_vs_knob_off": rel_l2(grads, off_grads), "tol": TRAIN_TOL}
+    del model, grads, plain_grads, off_grads, batch
+    torch.cuda.empty_cache()
+    # step_grads runs the backward twice (the seg loss, then the rest)
+    if launches != expected_launches(qkv_attention_fast_exp2=12, qkv_attention_bwd_fast_exp2=24):
+        raise AssertionError(f"the training step under FAST_EXP2 took another route: {res}")
+    if any(plain_launches.values()) or not res["loss_rel_diff_vs_plain"] <= TRAIN_TOL:
+        raise AssertionError(f"the training step under FAST_EXP2 disagrees: {res}")
+    return res
+
+
+# (kernel, dtype, knob, b, n, heads, head_dim, valid_len, iters): the table's shapes
+KNOB_FWD_CASES = [
+    ("qkv", torch.bfloat16, "DENSECLIP_FAST_EXP2", 10, 1536, 12, 64, 1522, 20),  # slide window
+    ("qkv", torch.bfloat16, "DENSECLIP_EXP_BF16", 10, 1536, 12, 64, 1522, 20),
+    ("qkv", torch.bfloat16, "DENSECLIP_FAST_EXP2", 4, 777, 12, 64, None, 20),  # zero-pad max
+    ("qkv", torch.float32, "DENSECLIP_FAST_EXP2", 10, 1536, 12, 64, 1522, 3),
+    ("mha", torch.bfloat16, "DENSECLIP_FAST_EXP2", 2, 1024, 12, 64, None, 20),  # self-test's
+    ("mha", torch.bfloat16, "DENSECLIP_EXP_BF16", 2, 1024, 12, 64, None, 20),
+    ("mha", torch.float32, "DENSECLIP_FAST_EXP2", 2, 1024, 12, 64, None, 5),
+]
+KNOB_BWD_CASES = [  # (kernel, dtype, b, n, heads, head_dim, valid_len, iters)
+    ("qkv", torch.bfloat16, 4, 1664, 12, 64, 1601, 10),  # crop-640 training
+    ("qkv", torch.float32, 4, 1664, 12, 64, 1601, 2),
+    ("mha", torch.bfloat16, 8, 1601, 12, 64, None, 5),  # profile_attn_bwd's (zero-pad max)
+    ("mha", torch.float32, 8, 1601, 12, 64, None, 1),
+]
+
+
+def phase_knobs_path() -> dict:
+    """The JAX package's softmax knobs through the port: every knob-reading
+    kernel under each knob it reads, against its plain version in the same
+    mode, at the table's shapes; the controls (K4, K4b, K5); then the
+    flagship's full-width paths under each knob."""
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+
+    res = {"phase": "knobs_path", "kernels": collections.defaultdict(list), "paths": {}}
+    for case in KNOB_FWD_CASES:
+        r = knob_forward_case(*case)
+        res["kernels"][r["name"]].append(r)
+        torch.cuda.empty_cache()
+    for case in KNOB_BWD_CASES:
+        r = knob_backward_case(*case)
+        res["kernels"][r["name"]].append(r)
+        torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        r = lnqkv_mode_case(dtype, "DENSECLIP_FAST_EXP2", 10, 1536, 768, 12, 1522,
+                            10 if dtype == torch.bfloat16 else 2)
+        res["kernels"][r["name"]].append(r)
+        r = outproj_mode_case(dtype, "DENSECLIP_FAST_EXP2", 10, 1601, 12, 64, None,
+                              10 if dtype == torch.bfloat16 else 2)
+        res["kernels"][r["name"]].append(r)
+        torch.cuda.empty_cache()
+    res["controls"] = knob_controls()
+    cfg = load_config(CONFIG)
+    frame = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, (1, 1024, 2048, 3), dtype=np.uint8)).cuda()
+    paths = res["paths"]
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device="cuda", seed=SEED)
+    fast = "DENSECLIP_FAST_EXP2"
+    paths["fast_exp2_slide"] = knob_frame(model, texts, frame, fast, False,
+                                          {"qkv_attention_fast_exp2": 12}, PATH_TOL)
+    paths["fast_exp2_fused"] = knob_frame(model, texts, frame, fast, True,
+                                          {"ln_qkv_attention_fast_exp2": 12}, PATH_TOL)
+    paths["exp_bf16_slide"] = knob_frame(model, texts, frame, "DENSECLIP_EXP_BF16", False,
+                                         {"qkv_attention_exp_bf16": 12}, PATH_TOL)
+    paths["fast_exp2_int8"] = knob_frame(model, texts, frame, fast, False,
+                                         {"qkv_attention_int8": 12, "quantize_qkv_int8": 12},
+                                         PATH_TOL, impl="int8")
+    del model
+    torch.cuda.empty_cache()
+    model, texts = build_denseclip(load_config(CONFIG, overrides=[FP32_SET]).model,
+                                   CITYSCAPES_CLASSES, dtype=torch.float32, device="cuda",
+                                   seed=SEED)
+    paths["fast_exp2_fp32_slide"] = knob_frame(model, texts, frame, fast, False,
+                                               {"qkv_attention_fp32_fast_exp2": 12},
+                                               FP32_PATH_TOL)
+    del model
+    torch.cuda.empty_cache()
+    paths["fast_exp2_training"] = knob_training_step()
+    for name, path in paths.items():
+        emit({"phase": "knobs_path", "part": name, **path})
+    res["launches_by_path"] = {f"knobs_{name}": path["launches"] for name, path in paths.items()}
+    res["kernels"] = dict(res["kernels"])
+    return res
+
+
+def knob_fields(knobs_res: dict, name: str) -> dict:
+    """The per-knob fields of kernel `name`'s entry in the kernels line: for
+    each of its variants that knobs_path ran, the launches on each path, the
+    times and the errors against the plain version under the knob."""
+    out = {}
+    for suffix in ("_fast_exp2", "_exp_bf16"):
+        runs = knobs_res["kernels"].get(name + suffix)
+        if not runs:
+            continue
+        first = runs[0]
+        out[suffix.lstrip("_")] = {
+            "name": name + suffix,
+            "launches_by_path": {p: launches.get(name + suffix, 0) for p, launches
+                                 in knobs_res["launches_by_path"].items()},
+            "ms": first["ms"], "default_ms": first.get("default_ms"), "plain_ms": first["plain_ms"],
+            "max_abs_err": first.get("max_abs_err"), "rel_l2_err": first.get("rel_l2_err"),
+            "sees_the_knob": first["sees_the_knob"], "shape": first["shape"],
+            "valid_len": first["valid_len"],
+            "other_shapes": [{k: r.get(k) for k in ("shape", "valid_len", "ms", "default_ms",
+                                                     "max_abs_err", "rel_l2_err")}
+                             for r in runs[1:]]}
+    return out
+
+
 PROFILE_GROUPS = (  # first match wins; matched against the lower-cased kernel name
+    ("attention under a softmax knob (K1 / K3 / K2)", ("_knob_kernel", "bwd_poly_")),
+    ("fp32 projections (K6 / K7 fp32)", ("gemm_fp32_kernel",)),
     ("attention fp32 (K1 / K3 / K4 fp32)", ("attention_fp32_kernel",)),
     ("attention backward fp32 (K2 / K3's / K4b fp32)", ("bwd_fp32_",)),
     ("ln_qkv_attention (K6)", ("ln_qkv_",)),
@@ -4644,6 +5355,7 @@ def main() -> int:
     long_res = timed("train_long", phase_train_long)
     fp32_res = timed("fp32_path", phase_fp32_path, long_res["remat_false"], selftest_res)
     outproj_res = timed("outproj_path", phase_outproj_path)
+    knobs_res = timed("knobs_path", phase_knobs_path)
     pab_res = timed("profile_attn_bwd", phase_profile_attn_bwd)
     bench_res = timed("bench_path", phase_bench_path)
     import tempfile
@@ -4679,6 +5391,9 @@ def main() -> int:
                             "serving_concurrency": export_res["launches"][name],
                             **{path: launches[name] for path, launches
                                in fp32_res["launches_by_path"].items()},
+                            "outproj_fp32": outproj_res["fp32"]["launches"].get(name, 0),
+                            **{path: launches.get(name, 0) for path, launches
+                               in knobs_res["launches_by_path"].items()},
                             **{f"{tag}_{part}": sum(vitl_res[tag][k]["launches"][name] for k in ks)
                                for tag in ("vitl14", "seg_only")
                                for part, ks in (("training", ("training",)),
@@ -4707,11 +5422,12 @@ def main() -> int:
          "ade20k_training_shape": at_shape(k1_ade), "ade20k_eval_shape": at_shape(k1_ade_eval),
          "vitl14_training_shape": at_shape(k1_vitl_train), "vitl14_eval_shape": at_shape(k1_vitl),
          "vitl14_reference_protocol_shape": at_shape(k1_vitl_ref),
-         "flash_below_1024_shape": at_shape(k1_flash)},
+         "flash_below_1024_shape": at_shape(k1_flash), **knob_fields(knobs_res, "qkv_attention")},
         {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
                  train_shape, train_res["launches"]["qkv_attention_bwd"]),
          "cityscapes_training_shape": at_shape(k2_city),
-         "ade20k_training_shape": at_shape(k2_ade), "vitl14_training_shape": at_shape(k2_vitl)},
+         "ade20k_training_shape": at_shape(k2_ade), "vitl14_training_shape": at_shape(k2_vitl),
+         **knob_fields(knobs_res, "qkv_attention_bwd")},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),
          "design": "the forward core attention_fwd.cuh under BundledPolicy: TMA producer "
@@ -4725,13 +5441,14 @@ def main() -> int:
                  serving["prologue"], serve_res["launches"]["quantize_qkv_int8"]),
          "bitwise_equal_to_plain": serving["prologue"]["bitwise_equal"],
          "design_bytes_ms": serving["prologue"]["design_bytes_ms"]},
-        entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
-              selftest_res["launches"]["mha_attention"]),
+        {**entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
+                 selftest_res["launches"]["mha_attention"]),
+         **knob_fields(knobs_res, "mha_attention")},
         {**entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
                  lnqkv_res["launches"]["ln_qkv_attention"]),
          "design": "row statistics pass; TMA + wgmma m64n256k16 projection with the LayerNorm "
                    "as its A prologue; K1's body on the q/k/v workspace",
-         "split": fused["split"]},
+         "split": fused["split"], **knob_fields(knobs_res, "ln_qkv_attention")},
         {**entry("flash_attention_bwd", "flash_attention_bwd.cu",
                  "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (dkv, call :1121) and "
                  ":1146 (dq, call :1456)", flash_bwd,
@@ -4740,14 +5457,22 @@ def main() -> int:
         {**entry("mha_attention_bwd", "qkv_attention_bwd.cu",
                  "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
                  pab_res["launches"]["mha_attention_bwd"]),
-         "head_dim_256": at_shape(oneshot_bwd_256)},
+         "head_dim_256": at_shape(oneshot_bwd_256), **knob_fields(knobs_res, "mha_attention_bwd")},
         {**entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
                  outproj_res, outproj_res["launches"]["qkv_out_attention"]),
          "design": "attention on TMA + wgmma with every head's output kept in shared memory, "
                    "then the out-projection by wgmma m64n128k16 with W_out by TMA",
          **{k: outproj_res[k] for k in ("a_ms", "A_k1_ms", "A_matmul_ms", "A_cast_ms",
-                                        "tflops_b", "verdict")}},
-        *fp32_entries(entry, at_shape, fp32_res),
+                                        "tflops_b", "verdict")},
+         **knob_fields(knobs_res, "qkv_out_attention")},
+        *fp32_entries(entry, at_shape, fp32_res, knobs_res),
+        {**entry("qkv_out_attention_fp32", "qkv_out_attention_fp32.cu",
+                 "tools/exp_outproj_epilogue.py:46", outproj_res["fp32"],
+                 outproj_res["fp32"]["launches"]["qkv_out_attention_fp32"]),
+         "design": "K1's fp32 body into an fp32 workspace, then the SIMT fp32 out-projection "
+                   "(gemm_fp32.cuh)", "shape": outproj_res["fp32"]["shape"],
+         "k1_matmul_ms": outproj_res["fp32"]["k1_matmul_ms"],
+         **knob_fields(knobs_res, "qkv_out_attention_fp32")},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

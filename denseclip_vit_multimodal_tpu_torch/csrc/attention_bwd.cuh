@@ -92,6 +92,7 @@
 
 #include "bundled_logit.cuh"
 #include "mma_bf16.cuh"
+#include "softmax_exp.cuh"
 
 namespace dclip {
 namespace bwd {
@@ -133,6 +134,13 @@ struct TpuPolicy {
   __device__ static float dscore(float p, float dp, float c, float rm, float) {
     return p * (dp - c) * rm;
   }
+};
+
+// TpuPolicy under DENSECLIP_FAST_EXP2 (attention_bwd_knobs.cu): p rebuilt
+// by JAX's polynomial from the forward's final row max, whose row sum the
+// forward under the same knob wrote (softmax_exp.cuh).
+struct TpuPolyPolicy : TpuPolicy {
+  __device__ static float prob(float s, float m, float) { return softmax::exp2_poly(s - m); }
 };
 
 // The bundled flash kernels' arithmetic (K4b).

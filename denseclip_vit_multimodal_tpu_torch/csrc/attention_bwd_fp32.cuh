@@ -107,6 +107,13 @@ struct TpuBwd {
   }
 };
 
+// TpuBwd under DENSECLIP_FAST_EXP2: p rebuilt by JAX's polynomial from the
+// forward's final row max (softmax_exp.cuh), whose row sum the forward
+// under the same knob wrote.
+struct TpuPolyBwd : TpuBwd {
+  __device__ static float prob(float s, float m, float) { return softmax::exp2_poly(s - m); }
+};
+
 // The bundled flash kernels' arithmetic (K4b).
 struct BundledBwd {
   static constexpr bool kPrescaled = false;

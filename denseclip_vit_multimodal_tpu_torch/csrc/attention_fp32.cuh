@@ -38,6 +38,11 @@
 //   equal up to fp32 rounding).  s is formed the same way, operand for
 //   operand and in the same order, by the backward kernels, so that they
 //   rebuild p from the row max bit for bit.
+// Under DENSECLIP_FAST_EXP2 (`forward<P, D, kPoly>`, TpuPolicy; kPolyZeroed
+// with Args::max_floor 0): a first pass streams K alone for each row's
+// final max, then the loop below runs with that max fixed (no rescale) and
+// p = exp2_poly(s - m) (softmax_exp.cuh); the statistics carry that max and
+// the sum of those p.
 // Keys >= kv_len are excluded and never loaded (their tile rows are
 // zero-filled by cp.async, and their scores masked to -inf), so a NaN in a
 // pad row of K or V cannot reach a real row through 0 * NaN.  The TPU
@@ -74,6 +79,7 @@
 
 #include "bundled_logit.cuh"
 #include "mma_bf16.cuh"  // cp_async16, cp_async_commit, cp_async_wait
+#include "softmax_exp.cuh"
 
 namespace dclip {
 namespace f32 {
@@ -230,6 +236,7 @@ struct Args {
   int n, heads, kv_len, causal;
   float q_scale;  // TpuPolicy: scale * log2 e
   float scale;    // BundledPolicy: the softmax scale
+  float max_floor = -3.402823466e38f;  // under a knob: the row max's floor (softmax_exp.cuh)
 };
 
 // The TPU kernels' arithmetic (K1, K3).
@@ -251,8 +258,9 @@ constexpr size_t fwd_smem() {
                                   kRows * C::kLdS);
 }
 
-template <class P, int D>
+template <class P, int D, int kMode = softmax::kExact>
 __device__ __forceinline__ void forward(const Args& a) {
+  constexpr bool kTwoPass = softmax::two_pass(kMode);
   using C = Cfg<D>;
   constexpr int kLd = C::kLd, kStep = C::kStep, TN = C::TN, kLdS = C::kLdS, NC = C::NC;
 
@@ -275,9 +283,16 @@ __device__ __forceinline__ void forward(const Args& a) {
                  tid);
   };
 
+  auto load_k = [&](int stage, int k0) {
+    load_rows<D>(sKV + stage * 2 * kStep * kLd, kb + (long long)k0 * a.kst.n, a.kst.n, kStep,
+                 kv_len - k0, tid);
+  };
   load_rows<D>(sQ, at(a.q, a.qst, b, h) + (long long)q0 * a.qst.n, a.qst.n, kRows, n - q0, tid);
   cp_async_commit();
-  load_kv(0, 0);
+  if constexpr (kTwoPass)
+    load_k(0, 0);
+  else
+    load_kv(0, 0);
   cp_async_commit();
   cp_async_wait<1>();  // Q has landed (each thread's own copies)
   __syncthreads();
@@ -303,13 +318,45 @@ __device__ __forceinline__ void forward(const Args& a) {
     for (int e = 0; e < 4 * NC; ++e) o[i][e] = 0.f;
   }
 
+  if constexpr (kTwoPass) {  // the rows' final max: K alone, then K and V again
+    for (int it = 0; it < n_tiles; ++it) {
+      const int k0 = it * kStep;
+      if (it + 1 < n_tiles)
+        load_k((it + 1) & 1, k0 + kStep);
+      else
+        load_kv(n_tiles & 1, 0);  // the second pass's first tile, in the other stage
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      float s[TM][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
+      mm_nt<TN, D, false>(s, sQ, kLd, sKV + (it & 1) * 2 * kStep * kLd, kLd, ty, tx, 0.f);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int key = k0 + tx + 16 * j;
+          if (key < kv_len && (!a.causal || key <= row_of[i]))
+            m[i] = fmaxf(m[i], P::logit(s[i][j], a.scale));
+        }
+      __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) m[i] = fmaxf(row_max(m[i]), a.max_floor);
+  }
+
+  // the stages run on from the first pass: tile `it` sits in stage (it + st0) & 1
+  const int st0 = kTwoPass ? n_tiles & 1 : 0;
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kStep;
-    if (it + 1 < n_tiles) load_kv((it + 1) & 1, k0 + kStep);  // prefetch the next tile
+    if (it + 1 < n_tiles) load_kv((it + 1 + st0) & 1, k0 + kStep);  // prefetch the next tile
     cp_async_commit();  // (possibly empty: keeps the wait count uniform)
     cp_async_wait<1>();
     __syncthreads();
-    const float* tK = sKV + (it & 1) * 2 * kStep * kLd;
+    const float* tK = sKV + ((it + st0) & 1) * 2 * kStep * kLd;
     const float* tV = tK + kStep * kLd;
 
     float s[TM][TN];
@@ -328,6 +375,15 @@ __device__ __forceinline__ void forward(const Args& a) {
         const bool live = key < kv_len && (!a.causal || key <= row_of[i]);
         s[i][j] = live ? P::logit(s[i][j], a.scale) : neg_inf();
         mx = fmaxf(mx, s[i][j]);
+      }
+      if constexpr (kTwoPass) {  // the max is final: no rescale
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float p = softmax::knob_exp<kMode>(s[i][j], m[i]);  // exactly 0 where masked
+          l[i] += p;
+          sP[(ty + 16 * i) * kLdS + tx + 16 * j] = p;
+        }
+        continue;
       }
       // Tile 0 holds key 0, which every row sees: the max is finite from there on.
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -372,6 +428,18 @@ cudaError_t launch(void (*kernel)(Args), const Args& a, int batch, cudaStream_t 
   const dim3 grid((a.n + kRows - 1) / kRows, a.heads, batch);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Launch kernels[variant(mode)] (kExact's and kPoly's instantiations) with
+// the row max's floor of `mode`, or cudaErrorInvalidValue for a mode the
+// fp32 kernels do not have (kBf16).
+template <int D>
+cudaError_t launch_mode(void (*const (&kernels)[2])(Args), int mode, Args a, int batch,
+                        cudaStream_t stream) {
+  const int v = softmax::variant(mode);
+  if (v < 0 || v > 1) return cudaErrorInvalidValue;
+  a.max_floor = softmax::max_floor(mode);
+  return launch<D>(kernels[v], a, batch, stream);
 }
 
 }  // namespace f32

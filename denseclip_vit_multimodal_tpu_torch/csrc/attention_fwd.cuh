@@ -30,6 +30,12 @@
 //   special-function unit's exp2, with results below 2^-126 flushed to 0;
 //   no such term changes a row whose largest term is 1 (the outputs are
 //   bitwise those of exp2f).
+// Softmax knobs (TpuPolicy, softmax_exp.cuh): `forward<P, D, kMode>` with
+// kMode kPoly (kPolyZeroed: Args::max_floor 0) or kBf16 first runs S = Q K^T
+// over every K tile for each row's final max (the producer streams K twice,
+// the ring's parities running on), then the loop below with the max fixed
+// (no rescale) and p = knob_exp(s, m); the statistics carry that max and
+// the sum of those p.  kExact (the default) is the single streamed pass.
 // Keys >= kv_len are excluded exactly and never loaded: the K / V tensor
 // maps end at kv_len, so TMA fills the box past it with zeros, and those
 // scores are masked to -inf.  A NaN in a pad row cannot reach a real row.
@@ -81,6 +87,7 @@
 #include "bundled_logit.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
+#include "softmax_exp.cuh"
 #include "tensor_map.cuh"
 
 namespace dclip {
@@ -121,6 +128,7 @@ struct Args {
   int causal;     // BundledPolicy: exclude keys after the query (TpuPolicy: 0)
   float q_scale;  // TpuPolicy: q's multiplier before Q K^T
   float scale;    // BundledPolicy: the softmax scale on the fp32 s
+  float max_floor = -3.402823466e38f;  // under a knob: the row max's floor (softmax_exp.cuh)
 };
 
 // The TPU kernels' arithmetic (K1, K3, K6): q prescaled in shared memory,
@@ -187,8 +195,9 @@ __device__ __forceinline__ void tma_load(const Map& m, uint32_t dst, uint32_t ba
   sm90::tma_load_4d(dst, &m.tmap, bar, c[0], c[1], c[2], c[3]);
 }
 
-template <class P, int D>
+template <class P, int D, int kMode = softmax::kExact>
 __device__ __forceinline__ void forward(const Params& p) {
+  constexpr bool kTwoPass = softmax::two_pass(kMode);
   using L = Smem<D>;
   constexpr int kConsumers = consumers<D>();
   constexpr int kBlockQ = block_q<D>();
@@ -238,13 +247,21 @@ __device__ __forceinline__ void forward(const Params& p) {
       sm90::mbar_arrive_expect_tx(bar_q, kQBytes);
       for (int c = 0; c < kBoxes; ++c)
         tma_load(p.q, base + L::kQ + c * L::kQBox, bar_q, c * kBox, h, q0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kStages;
-        const uint32_t free_parity = ((it / kStages) & 1) ^ 1;  // a fresh barrier passes
-        sm90::mbar_wait(k_empty(s), free_parity);
+      int kc = 0;  // K tiles issued (twice as many as V's under a knob)
+      auto load_k = [&](int it) {
+        const int s = kc % kStages;
+        sm90::mbar_wait(k_empty(s), ((kc / kStages) & 1) ^ 1);  // a fresh barrier passes
         sm90::mbar_arrive_expect_tx(k_full(s), kTileBytes);
         for (int c = 0; c < kBoxes; ++c)
           tma_load(p.k, k_tile(s, c), k_full(s), c * kBox, h, it * kN, b);
+        ++kc;
+      };
+      if constexpr (kTwoPass)
+        for (int it = 0; it < n_tiles; ++it) load_k(it);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        const uint32_t free_parity = ((it / kStages) & 1) ^ 1;  // a fresh barrier passes
+        load_k(it);
         sm90::mbar_wait(v_empty(s), free_parity);
         sm90::mbar_arrive_expect_tx(v_full(s), kTileBytes);
         for (int c = 0; c < kBoxes; ++c)
@@ -292,25 +309,21 @@ __device__ __forceinline__ void forward(const Params& p) {
   auto desc_k = [&](int s, int kk) { return desc_sw128(k_tile(s, kk >> 2) + (kk & 3) * 32, 16, 1024); };
   auto desc_v = [&](int s, int kk) { return desc_sw128(v_tile(s, 0) + kk * 16 * 128, L::kKVBox, 1024); };
 
-  float o[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m_run[2] = {neg_inf, neg_inf};  // rows g and g + 8 of this warp
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
   const int first_row = q0 + cw * 64;   // this warpgroup's first query row
   const int row0 = first_row + warp * 16 + g;
   const int row1 = row0 + 8;
+  int kc = 0;  // K tiles consumed
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % kStages;
-    const uint32_t parity = (it / kStages) & 1;
-
-    // S = Q K^T: 64 rows x kN keys, fp32 (accumulator i: key 8 (i / 4) +
-    // 2t + i % 2 of row g, or row g + 8 for i % 4 >= 2).
-    float sc[kN / 2];
+  // S = Q K^T of tile `it` from K ring slot kc: 64 rows x kN keys, fp32
+  // (accumulator i: key 8 (i / 4) + 2t + i % 2 of row g, or row g + 8 for
+  // i % 4 >= 2), as logits, keys the row does not see at -inf.
+  auto scores = [&](float (&sc)[kN / 2], int it) {
+    const int s = kc % kStages;
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
-    sm90::mbar_wait(k_full(s), parity);
+    sm90::mbar_wait(k_full(s), (kc / kStages) & 1);
     sm90::fence_regs<kN / 2>(sc);
     sm90::wgmma_fence();
 #pragma unroll
@@ -319,6 +332,7 @@ __device__ __forceinline__ void forward(const Params& p) {
     sm90::wgmma_wait<0>();
     sm90::fence_regs<kN / 2>(sc);
     if (lane == 0) sm90::mbar_arrive(k_empty(s));
+    ++kc;
 
 #pragma unroll
     for (int i = 0; i < kN / 2; ++i) sc[i] = P::logit(sc[i], a.scale);
@@ -332,47 +346,84 @@ __device__ __forceinline__ void forward(const Params& p) {
         if (key >= kv_len || (causal && key > ((i & 2) ? row1 : row0))) sc[i] = neg_inf;
       }
     }
+  };
+
+  if constexpr (kTwoPass) {  // the rows' final max, before any p
+    for (int it = 0; it < n_tiles; ++it) {
+      float sc[kN / 2];
+      scores(sc, it);
+#pragma unroll
+      for (int i = 0; i < kN / 2; i += 4) {
+        m_run[0] = fmaxf(m_run[0], fmaxf(sc[i], sc[i + 1]));
+        m_run[1] = fmaxf(m_run[1], fmaxf(sc[i + 2], sc[i + 3]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_run[r] = fmaxf(m_run[r], __shfl_xor_sync(0xffffffffu, m_run[r], 1));
+      m_run[r] = fmaxf(m_run[r], __shfl_xor_sync(0xffffffffu, m_run[r], 2));
+      m_run[r] = fmaxf(m_run[r], a.max_floor);
+    }
+  }
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {  // (O, l) over the K / V tiles
+    const int s = it % kStages;
+    const uint32_t parity = (it / kStages) & 1;
+    float sc[kN / 2];
+    scores(sc, it);
 
     // Online softmax.  Tile 0 holds key 0, which every row sees (kv_len >=
     // 1, and a causal row is >= 0), so the running max is finite from the
     // first tile on, and exp2(-inf - m) = 0 needs no special case.  A later
     // tile may hold no key a row sees (causal: all after the row): the row
-    // keeps its max (alpha = 1) and adds 0.
+    // keeps its max (alpha = 1) and adds 0.  Under a knob the max is final.
     float mx[2] = {m_run[0], m_run[1]};
+    if constexpr (!kTwoPass) {
 #pragma unroll
-    for (int i = 0; i < kN / 2; i += 4) {
-      mx[0] = fmaxf(mx[0], fmaxf(sc[i], sc[i + 1]));
-      mx[1] = fmaxf(mx[1], fmaxf(sc[i + 2], sc[i + 3]));
-    }
+      for (int i = 0; i < kN / 2; i += 4) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[i], sc[i + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[i + 2], sc[i + 3]));
+      }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    const float alpha0 = sm90::exp2_ftz(m_run[0] - mx[0]);
-    const float alpha1 = sm90::exp2_ftz(m_run[1] - mx[1]);
-    m_run[0] = mx[0];
-    m_run[1] = mx[1];
-    l_run[0] *= alpha0;
-    l_run[1] *= alpha1;
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      const float alpha0 = sm90::exp2_ftz(m_run[0] - mx[0]);
+      const float alpha1 = sm90::exp2_ftz(m_run[1] - mx[1]);
+      m_run[0] = mx[0];
+      m_run[1] = mx[1];
+      l_run[0] *= alpha0;
+      l_run[1] *= alpha1;
 #pragma unroll
-    for (int i = 0; i < D / 2; i += 4) {
-      o[i] *= alpha0;
-      o[i + 1] *= alpha0;
-      o[i + 2] *= alpha1;
-      o[i + 3] *= alpha1;
+      for (int i = 0; i < D / 2; i += 4) {
+        o[i] *= alpha0;
+        o[i + 1] *= alpha0;
+        o[i + 2] *= alpha1;
+        o[i + 3] *= alpha1;
+      }
     }
 
     // P = exp2(S - m) in fp32 (summed in fp32), rounded to bf16 as the A
     // fragment of P V: keys 16kk .. 16kk + 15 are accumulator entries
     // 8kk .. 8kk + 7.
     uint32_t pf[kN / 16][4];
+    auto prob = [&](float x, float m) {
+      if constexpr (kTwoPass)
+        return softmax::knob_exp<kMode>(x, m);
+      else
+        return sm90::exp2_ftz(x - m);
+    };
 #pragma unroll
     for (int i = 0; i < kN / 2; i += 4) {
-      const float p0 = sm90::exp2_ftz(sc[i] - mx[0]);
-      const float p1 = sm90::exp2_ftz(sc[i + 1] - mx[0]);
-      const float p2 = sm90::exp2_ftz(sc[i + 2] - mx[1]);
-      const float p3 = sm90::exp2_ftz(sc[i + 3] - mx[1]);
+      const float p0 = prob(sc[i], mx[0]);
+      const float p1 = prob(sc[i + 1], mx[0]);
+      const float p2 = prob(sc[i + 2], mx[1]);
+      const float p3 = prob(sc[i + 3], mx[1]);
       l_run[0] += p0 + p1;
       l_run[1] += p2 + p3;
       pf[i >> 3][(i >> 1) & 2] = pack_bf16(p0, p1);
@@ -473,6 +524,18 @@ cudaError_t launch(void (*kernel)(Params), const Args& a, int batch, cudaStream_
   const dim3 grid((a.n + kBlockQ - 1) / kBlockQ, a.heads, batch);
   kernel<<<grid, threads<D>(), smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Launch kernels[variant(mode)] (the source's instantiations for kExact,
+// kPoly and kBf16; null where it has none) with the row max's floor of
+// `mode`, or cudaErrorInvalidValue for a mode it does not have.
+template <int D>
+cudaError_t launch_mode(void (*const (&kernels)[4])(Params), int mode, Args a, int batch,
+                        cudaStream_t stream) {
+  const int v = softmax::variant(mode);
+  if (v < 0 || kernels[v] == nullptr) return cudaErrorInvalidValue;
+  a.max_floor = softmax::max_floor(mode);
+  return launch<D>(kernels[v], a, batch, stream);
 }
 
 }  // namespace attn

@@ -58,7 +58,11 @@
 //       between the two blocks of a cluster (TMA multicast) would cut that
 //       by a third; not done.
 //   (c) ln_qkv_attention_kernel: K1's body on that workspace, q_scale 1,
-//       its TMA tensor maps built over the workspace at launch.
+//       its TMA tensor maps built over the workspace at launch; under
+//       DENSECLIP_FAST_EXP2 (`ln_qkv_attention_bf16_knob`), which JAX's K6
+//       reads through `_softmax_unnormalized` -> `_exp2`, the body under
+//       `kPoly`: a first pass over K for each row's final max, then p =
+//       exp2_poly(s - m) (softmax_exp.cuh).
 // LN(x) never reaches device memory; q/k/v does (71 MB at the slide shape,
 // written once and read by (c)).  Keeping K/V on chip (thread-block clusters
 // sharing K/V through distributed shared memory, or a persistent kernel) is
@@ -311,10 +315,10 @@ ln_qkv_proj_kernel(const __grid_constant__ ProjParams p) {
 
 // ---- (c) attention on the workspace ----
 
-template <int D>
+template <int D, int kMode>  // softmax::kExact, or kPoly under DENSECLIP_FAST_EXP2
 __global__ void __launch_bounds__(attn::threads<D>(), 1)
 ln_qkv_attention_kernel(const __grid_constant__ attn::Params p) {
-  attn::forward<attn::TpuPolicy, D>(p);
+  attn::forward<attn::TpuPolicy, D, kMode>(p);
 }
 
 cudaError_t run_stats(const __nv_bfloat16* x, float2* stats, int rows, int dim, float eps,
@@ -357,20 +361,25 @@ cudaError_t run_projection(const __nv_bfloat16* x, const float* gamma, const flo
 
 template <int D>
 cudaError_t run_attention(const __nv_bfloat16* qkv, __nv_bfloat16* out, int batch, int n,
-                          int heads, int kv_len, cudaStream_t stream) {
+                          int heads, int kv_len, int mode, cudaStream_t stream) {
   const int hd = heads * D;
   const attn::Strides st{(long long)n * 3 * hd, 3LL * hd, D};
   const attn::Args a{qkv, qkv + hd, qkv + 2 * hd, out, nullptr, st, st, st,
                      n, heads, kv_len, 0, 1.f, 0.f};
-  return attn::launch<D>(ln_qkv_attention_kernel<D>, a, batch, stream);
+  void (*const kernels[4])(attn::Params) = {ln_qkv_attention_kernel<D, softmax::kExact>,
+                                            ln_qkv_attention_kernel<D, softmax::kPoly>, nullptr,
+                                            nullptr};
+  return attn::launch_mode<D>(kernels, mode, a, batch, stream);
 }
 
+// (c) under exp mode `mode` (0 exact, 1 the polynomial; K6 masks its pads,
+// so JAX's K6 has no zero-pad max and no bf16 exp).
 cudaError_t run_attention(const void* qkv, void* out, int batch, int n, int heads, int head_dim,
-                          int kv_len, cudaStream_t stream) {
+                          int kv_len, cudaStream_t stream, int mode = softmax::kExact) {
   const auto* ws = static_cast<const __nv_bfloat16*>(qkv);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (head_dim == 64) return run_attention<64>(ws, o, batch, n, heads, kv_len, stream);
-  if (head_dim == 128) return run_attention<128>(ws, o, batch, n, heads, kv_len, stream);
+  if (head_dim == 64) return run_attention<64>(ws, o, batch, n, heads, kv_len, mode, stream);
+  if (head_dim == 128) return run_attention<128>(ws, o, batch, n, heads, kv_len, mode, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -390,13 +399,31 @@ bool projection_shapes_ok(int rows, int dim, int hd) {
 // overwrites, `out` a contiguous [B, N, H*d] bf16 buffer (also the
 // statistics' scratch).  Needs D % 128 == 0, H*d % 128 == 0, head_dim 64 or
 // 128 and 1 <= kv_len <= n.
+extern "C" int ln_qkv_attention_bf16_knob(const void* x, const void* gamma, const void* beta,
+                                          const void* wt, const void* bias, void* qkv, void* out,
+                                          int batch, int n, int dim, int heads, int head_dim,
+                                          int kv_len, float q_scale, float eps, int exp_mode,
+                                          void* stream);
+
 extern "C" int ln_qkv_attention_bf16(const void* x, const void* gamma, const void* beta,
                                      const void* wt, const void* bias, void* qkv, void* out,
                                      int batch, int n, int dim, int heads, int head_dim,
                                      int kv_len, float q_scale, float eps, void* stream) {
+  return ln_qkv_attention_bf16_knob(x, gamma, beta, wt, bias, qkv, out, batch, n, dim, heads,
+                                    head_dim, kv_len, q_scale, eps, softmax::kExact, stream);
+}
+
+// The whole of K6 under exp mode `exp_mode` (0 as ln_qkv_attention_bf16, 1
+// DENSECLIP_FAST_EXP2; others: cudaErrorInvalidValue before any launch).
+extern "C" int ln_qkv_attention_bf16_knob(const void* x, const void* gamma, const void* beta,
+                                          const void* wt, const void* bias, void* qkv, void* out,
+                                          int batch, int n, int dim, int heads, int head_dim,
+                                          int kv_len, float q_scale, float eps, int exp_mode,
+                                          void* stream) {
   const int rows = batch * n, hd = heads * head_dim;
   if (batch < 1 || n < 1 || heads < 1 || kv_len < 1 || kv_len > n ||
-      (head_dim != 64 && head_dim != 128) || !projection_shapes_ok(rows, dim, hd))
+      (head_dim != 64 && head_dim != 128) || !projection_shapes_ok(rows, dim, hd) ||
+      (exp_mode != softmax::kExact && exp_mode != softmax::kPoly))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
@@ -407,7 +434,8 @@ extern "C" int ln_qkv_attention_bf16(const void* x, const void* gamma, const voi
     err = run_projection(xb, static_cast<const float*>(gamma), static_cast<const float*>(beta),
                          static_cast<const __nv_bfloat16*>(wt), static_cast<const float*>(bias),
                          stats, ws, rows, dim, hd, q_scale, s);
-  if (err == cudaSuccess) err = run_attention(ws, out, batch, n, heads, head_dim, kv_len, s);
+  if (err == cudaSuccess)
+    err = run_attention(ws, out, batch, n, heads, head_dim, kv_len, s, exp_mode);
   return (int)err;
 }
 

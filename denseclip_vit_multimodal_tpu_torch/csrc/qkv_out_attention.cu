@@ -22,7 +22,13 @@
 //   * the product with W_out's rows of that head, accumulated in fp32 with
 //     every other head's.
 // The one difference is the softmax's order: streamed with an online max
-// (as K1), where the TPU kernel holds the whole score row.
+// (as K1), where the TPU kernel holds the whole score row.  Under
+// DENSECLIP_FAST_EXP2 (`qkv_out_attention_bf16_knob`), which the TPU kernel
+// reads through `_exp2`, each head first runs S = Q K^T over its K tiles for
+// the rows' final max (floored at 0 where the script pads the keys with
+// zeros: no valid_len, N not a multiple of 128), then p = exp2_poly(s - m)
+// with that max fixed (softmax_exp.cuh): the producer streams K twice, the
+// K ring's parities running on ahead of V's.
 //
 // Design (Hopper, sm_90a).  The TPU kernel keeps an fp32 [bq, H*D] output
 // block resident in VMEM across the heads of a q-tile.  Here a block takes
@@ -129,6 +135,7 @@ struct OutParams {
   float* out;
   int n, heads, kv_len;
   float q_scale;
+  float max_floor;  // under the knob: the row max's floor (softmax_exp.cuh)
 };
 
 // A operand from O (or a head's Q in it), K-major: 16 columns from column
@@ -183,9 +190,10 @@ __device__ __forceinline__ void project(float* out_rows, int hd, int n0, int row
   }
 }
 
-template <int D>
+template <int D, int kMode>  // softmax::kExact, or kPoly under DENSECLIP_FAST_EXP2
 __global__ void __launch_bounds__(threads<D>(), 1)
 qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
+  constexpr bool kTwoPass = softmax::two_pass(kMode);
   constexpr int kConsumers = consumers<D>();
   constexpr int kOOff = o_offset<D>();
   constexpr int kStages = stages<D>();
@@ -243,19 +251,27 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
     sm90::setmaxnreg_dec<24>();
     const int c = threadIdx.x / 32;
     if (c < kConsumers && (threadIdx.x & 31) == 0) {
-      int it = 0;  // K / V tiles issued: the rings' position, across heads
+      int it = 0;   // V tiles issued: the V ring's position, across heads
+      int itk = 0;  // K tiles issued (twice as many under the knob)
       for (int h = c; h < p.heads; h += kConsumers) {
         sm90::mbar_arrive_expect_tx(q_full(h), kRows * D * 2);
         for (int box = 0; box < kHeadBoxes; ++box)
           attn::tma_load(p.q, o_base + (h * kHeadBoxes + box) * kBoxBytes, q_full(h), box * kBox,
                          h, q0, b);
-        for (int j = 0; j < n_tiles; ++j, ++it) {
-          const int s = it % kStages;
-          const uint32_t free_parity = ((it / kStages) & 1) ^ 1;  // a fresh barrier passes
-          sm90::mbar_wait(k_empty(c, s), free_parity);
+        auto load_k = [&](int j) {
+          const int s = itk % kStages;
+          sm90::mbar_wait(k_empty(c, s), ((itk / kStages) & 1) ^ 1);  // a fresh barrier passes
           sm90::mbar_arrive_expect_tx(k_full(c, s), kTile);
           for (int box = 0; box < kHeadBoxes; ++box)
             attn::tma_load(p.k, k_tile(c, s, box), k_full(c, s), box * kBox, h, j * kN, b);
+          ++itk;
+        };
+        if constexpr (kTwoPass)
+          for (int j = 0; j < n_tiles; ++j) load_k(j);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int s = it % kStages;
+          const uint32_t free_parity = ((it / kStages) & 1) ^ 1;  // a fresh barrier passes
+          load_k(j);
           sm90::mbar_wait(v_empty(c, s), free_parity);
           sm90::mbar_arrive_expect_tx(v_full(c, s), kTile);
           for (int box = 0; box < kHeadBoxes; ++box)
@@ -264,11 +280,9 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
       }
       // W_out's slots overlay the K / V tiles: wait until the consumer has
       // released every one (the waits the next kStages loads would make).
-      for (int e = 0; e < kStages; ++e, ++it) {
-        const int s = it % kStages;
-        const uint32_t free_parity = ((it / kStages) & 1) ^ 1;
-        sm90::mbar_wait(k_empty(c, s), free_parity);
-        sm90::mbar_wait(v_empty(c, s), free_parity);
+      for (int e = 0; e < kStages; ++e, ++it, ++itk) {
+        sm90::mbar_wait(k_empty(c, itk % kStages), ((itk / kStages) & 1) ^ 1);
+        sm90::mbar_wait(v_empty(c, it % kStages), ((it / kStages) & 1) ^ 1);
       }
       int wit = 0;  // W slots issued
       for (int chunk = c; chunk < chunks; chunk += kConsumers) {
@@ -306,7 +320,8 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
     return attn::desc_sw128(v_tile(c, s, 0) + kk * 16 * 128, kN * 128, 1024);
   };
 
-  int it = 0;  // K / V tiles consumed, across heads
+  int it = 0;   // V tiles consumed, across heads
+  int itk = 0;  // K tiles consumed
   for (int h = c; h < p.heads; h += kConsumers) {
     sm90::mbar_wait(q_full(h), 0);
     // Q * q_scale in fp32, rounded to bf16, in place over the head's boxes
@@ -324,22 +339,17 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
     sm90::fence_proxy_async();  // the writes above, before wgmma reads them
     sm90::named_barrier_sync(1 + c, 128);
 
-    float o[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m_run[2] = {neg_inf, neg_inf};  // rows g and g + 8 of this warp
     float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
 
-    for (int j = 0; j < n_tiles; ++j, ++it) {
-      const int s = it % kStages;
-      const uint32_t parity = (it / kStages) & 1;
-
-      // S = Q K^T: 64 rows x kN keys, fp32 (accumulator i: key 8 (i / 4) +
-      // 2t + i % 2 of row g, or row g + 8 for i % 4 >= 2).
-      float sc[kN / 2];
+    // S = Q K^T of tile j from K ring slot itk: 64 rows x kN keys, fp32
+    // (accumulator i: key 8 (i / 4) + 2t + i % 2 of row g, or row g + 8 for
+    // i % 4 >= 2), keys >= kv_len at -inf (TMA gave zeros).
+    auto scores = [&](float (&sc)[kN / 2], int j) {
+      const int s = itk % kStages;
 #pragma unroll
       for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
-      sm90::mbar_wait(k_full(c, s), parity);
+      sm90::mbar_wait(k_full(c, s), (itk / kStages) & 1);
       sm90::fence_regs<kN / 2>(sc);
       sm90::wgmma_fence();
 #pragma unroll
@@ -349,51 +359,88 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
       sm90::wgmma_wait<0>();
       sm90::fence_regs<kN / 2>(sc);
       if (lane == 0) sm90::mbar_arrive(k_empty(c, s));
-
+      ++itk;
       const int k0 = j * kN;
-      if (k0 + kN > kv_len) {  // the ragged last tile: keys >= kv_len (TMA gave zeros)
+      if (k0 + kN > kv_len) {  // the ragged last tile
 #pragma unroll
         for (int i = 0; i < kN / 2; ++i)
           if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= kv_len) sc[i] = neg_inf;
       }
+    };
 
-      // Online softmax.  Tile 0 holds key 0 (kv_len >= 1), so the running
-      // max is finite from the first tile on.
-      float mx[2] = {m_run[0], m_run[1]};
+    if constexpr (kTwoPass) {  // the rows' final max, before any p
+      for (int j = 0; j < n_tiles; ++j) {
+        float sc[kN / 2];
+        scores(sc, j);
 #pragma unroll
-      for (int i = 0; i < kN / 2; i += 4) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[i], sc[i + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[i + 2], sc[i + 3]));
+        for (int i = 0; i < kN / 2; i += 4) {
+          m_run[0] = fmaxf(m_run[0], fmaxf(sc[i], sc[i + 1]));
+          m_run[1] = fmaxf(m_run[1], fmaxf(sc[i + 2], sc[i + 3]));
+        }
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_run[r] = fmaxf(m_run[r], __shfl_xor_sync(0xffffffffu, m_run[r], 1));
+        m_run[r] = fmaxf(m_run[r], __shfl_xor_sync(0xffffffffu, m_run[r], 2));
+        m_run[r] = fmaxf(m_run[r], p.max_floor);
       }
-      const float alpha0 = sm90::exp2_ftz(m_run[0] - mx[0]);
-      const float alpha1 = sm90::exp2_ftz(m_run[1] - mx[1]);
-      m_run[0] = mx[0];
-      m_run[1] = mx[1];
-      l_run[0] *= alpha0;
-      l_run[1] *= alpha1;
+    }
+
+    float o[D / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; i += 4) {
-        o[i] *= alpha0;
-        o[i + 1] *= alpha0;
-        o[i + 2] *= alpha1;
-        o[i + 3] *= alpha1;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int s = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      float sc[kN / 2];
+      scores(sc, j);
+
+      // Online softmax.  Tile 0 holds key 0 (kv_len >= 1), so the running
+      // max is finite from the first tile on.  Under the knob it is final.
+      float mx[2] = {m_run[0], m_run[1]};
+      if constexpr (!kTwoPass) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; i += 4) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[i], sc[i + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[i + 2], sc[i + 3]));
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+        const float alpha0 = sm90::exp2_ftz(m_run[0] - mx[0]);
+        const float alpha1 = sm90::exp2_ftz(m_run[1] - mx[1]);
+        m_run[0] = mx[0];
+        m_run[1] = mx[1];
+        l_run[0] *= alpha0;
+        l_run[1] *= alpha1;
+#pragma unroll
+        for (int i = 0; i < D / 2; i += 4) {
+          o[i] *= alpha0;
+          o[i + 1] *= alpha0;
+          o[i + 2] *= alpha1;
+          o[i + 3] *= alpha1;
+        }
       }
 
       // P = exp2(S - m) in fp32 (summed in fp32), rounded to bf16 as the A
       // fragment of P V: keys 16kk .. 16kk + 15 are accumulator entries
       // 8kk .. 8kk + 7.
       uint32_t pf[kN / 16][4];
+      auto prob = [&](float x, float m) {
+        if constexpr (kTwoPass)
+          return softmax::knob_exp<kMode>(x, m);
+        else
+          return sm90::exp2_ftz(x - m);
+      };
 #pragma unroll
       for (int i = 0; i < kN / 2; i += 4) {
-        const float p0 = sm90::exp2_ftz(sc[i] - mx[0]);
-        const float p1 = sm90::exp2_ftz(sc[i + 1] - mx[0]);
-        const float p2 = sm90::exp2_ftz(sc[i + 2] - mx[1]);
-        const float p3 = sm90::exp2_ftz(sc[i + 3] - mx[1]);
+        const float p0 = prob(sc[i], mx[0]);
+        const float p1 = prob(sc[i + 1], mx[0]);
+        const float p2 = prob(sc[i + 2], mx[1]);
+        const float p3 = prob(sc[i + 3], mx[1]);
         l_run[0] += p0 + p1;
         l_run[1] += p2 + p3;
         pf[i >> 3][(i >> 1) & 2] = pack_bf16(p0, p1);
@@ -455,7 +502,7 @@ qkv_out_attention_kernel(const __grid_constant__ OutParams p) {
 
 template <int D>
 cudaError_t launch(const bf16* qkv, const bf16* w, float* out, int batch, int n, int heads,
-                   int kv_len, float q_scale, cudaStream_t stream) {
+                   int kv_len, float q_scale, int mode, cudaStream_t stream) {
   const int hd = heads * D;
   OutParams p;
   const attn::Strides st{(long long)n * 3 * hd, 3LL * hd, D};
@@ -469,8 +516,11 @@ cudaError_t launch(const bf16* qkv, const bf16* w, float* out, int batch, int n,
   p.heads = heads;
   p.kv_len = kv_len;
   p.q_scale = q_scale;
+  p.max_floor = softmax::max_floor(mode);
   const size_t smem = smem_bytes<D>(hd);
-  auto kernel = qkv_out_attention_kernel<D>;
+  auto kernel = softmax::variant(mode) == softmax::kPoly
+                    ? qkv_out_attention_kernel<D, softmax::kPoly>
+                    : qkv_out_attention_kernel<D, softmax::kExact>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kRows - 1) / kRows, batch);
@@ -480,22 +530,34 @@ cudaError_t launch(const bf16* qkv, const bf16* w, float* out, int batch, int n,
 
 }  // namespace
 
-// Plain C entry point for ctypes.  qkv [B, N, 3*H*D] and w_out [H*D, H*D]
+// Plain C entry points for ctypes.  qkv [B, N, 3*H*D] and w_out [H*D, H*D]
 // are contiguous bf16 device tensors (16-byte aligned), out a contiguous
 // fp32 [B, N, H*D] buffer; q_scale is scale * log2 e; `stream` is a
 // cudaStream_t.  Returns the cudaError_t of the launch (0 = cudaSuccess),
 // or cudaErrorInvalidValue before any launch for a shape it does not take
 // (head_dim 64 or 128, H*D a multiple of 64 up to 1024, 1 <= kv_len <= n).
-extern "C" int qkv_out_attention_bf16(const void* qkv, const void* w, void* out, int batch,
-                                      int n, int heads, int head_dim, int kv_len,
-                                      float q_scale, void* stream) {
+// The `_knob` entry takes the exp mode before the stream: 0 as the plain
+// entry, 1 DENSECLIP_FAST_EXP2 against the row max, 2 against it floored
+// at 0 (ops/mha_kernel.py::softmax_modes).
+extern "C" int qkv_out_attention_bf16_knob(const void* qkv, const void* w, void* out, int batch,
+                                           int n, int heads, int head_dim, int kv_len,
+                                           float q_scale, int exp_mode, void* stream) {
   if (batch < 1 || n < 1 || heads < 1 || kv_len < 1 || kv_len > n ||
-      (head_dim != 64 && head_dim != 128) || heads * head_dim > kMaxWidth)
+      (head_dim != 64 && head_dim != 128) || heads * head_dim > kMaxWidth ||
+      exp_mode < softmax::kExact || exp_mode > softmax::kPolyZeroed)
     return (int)cudaErrorInvalidValue;
   const auto* q = static_cast<const bf16*>(qkv);
   const auto* wb = static_cast<const bf16*>(w);
   auto* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return (int)launch<64>(q, wb, o, batch, n, heads, kv_len, q_scale, s);
-  return (int)launch<128>(q, wb, o, batch, n, heads, kv_len, q_scale, s);
+  if (head_dim == 64)
+    return (int)launch<64>(q, wb, o, batch, n, heads, kv_len, q_scale, exp_mode, s);
+  return (int)launch<128>(q, wb, o, batch, n, heads, kv_len, q_scale, exp_mode, s);
+}
+
+extern "C" int qkv_out_attention_bf16(const void* qkv, const void* w, void* out, int batch,
+                                      int n, int heads, int head_dim, int kv_len,
+                                      float q_scale, void* stream) {
+  return qkv_out_attention_bf16_knob(qkv, w, out, batch, n, heads, head_dim, kv_len, q_scale,
+                                     softmax::kExact, stream);
 }

@@ -314,17 +314,14 @@ class MultiHeadAttention(nn.Module):
         (under `int8` and `flash` that is K6 at any N up to 8448, under `int8`
         unquantized: JAX checks the fused branch first), `qkv_supported` and
         `lnqkv_supported` at N.
-        K6 takes bf16 only where it runs, on a CUDA tensor; a CPU tensor (the
-        tests patch `_on_cuda`) runs its plain version, which takes fp32 too.
-        So under `tpu.compute_dtype: float32` on CUDA the fused flag falls
-        back to the unfused route (K1 in fp32), where JAX would run K6 in
-        fp32: K6's fp32 route is ROADMAP §2's next kernel item.
+        No dtype condition, as in JAX: a CUDA tensor takes K6 in bf16 or in
+        fp32 (`tpu.compute_dtype: float32`), and any other dtype raises
+        `TypeError` in the kernel's wrapper; a CPU tensor (the tests patch
+        `_on_cuda`) runs its plain version.
         The JAX package keeps the fusion opt-in: it lost 7% end to end on a
         TPU v5e."""
         if (os.environ.get("DENSECLIP_FUSED_LNQKV", "0") != "1" or self.causal
                 or self.qkv.bias is None):
-            return False
-        if x.is_cuda and self.qkv.compute_dtype != torch.bfloat16:
             return False
         return (self._qkv_kernel_applicable(x, dim)
                 and lnqkv_supported(self.num_heads, dim, n=x.shape[1]))

@@ -357,7 +357,8 @@ def flash_attention(
     n, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     if not causal and n <= _ONESHOT_MAX_SEQ:
-        return mha_attention(q, k, v, sm_scale=scale, valid_len=kv_len)
+        # the caller's valid_len: None keeps JAX's zero-pad softmax under a knob
+        return mha_attention(q, k, v, sm_scale=scale, valid_len=valid_len)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
         return FlashAttentionFunction.apply(q, k, v, causal, scale, kv_len)
     check_device(q, "flash attention")

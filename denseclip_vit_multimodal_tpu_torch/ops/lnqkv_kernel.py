@@ -7,8 +7,13 @@ Port of the JAX package's `ops/lnqkv_kernel.py`: the TPU kernel
 gives the kernel's design and its bound on an H100.
 
 * `ln_qkv_attention` calls the op `denseclip_torch::ln_qkv_attention`
-  (`ops/_library.py`): K6 for a CUDA tensor, or a raise on anything the
-  kernel does not take; the plain version for a CPU tensor.
+  (`ops/_library.py`): K6 for a CUDA tensor (`csrc/ln_qkv_attention.cu` for
+  bf16 x, `csrc/ln_qkv_attention_fp32.cu` for fp32 x: SIMT, every product an
+  fp32 FMA), or a raise on anything the kernels do not take (fp16:
+  `TypeError`); the plain version for a CPU tensor.  It reads
+  `DENSECLIP_FAST_EXP2` on every call, as JAX's K6 reads it through
+  `_softmax_unnormalized` -> `_exp2`: under the knob p is the polynomial
+  `exp2_poly` against the row's final max (`ops/mha_kernel.py::softmax_modes`).
   When autograd records the call it goes through `LNQKVAttentionFunction`,
   whose backward is the VJP of `lnqkv_reference`, as the JAX `_lnqkv_bwd`:
   stray gradients are correct, not fast.
@@ -24,8 +29,9 @@ gives the kernel's design and its bound on an H100.
   for the split timings and the workspace check, not a route of the model.
 * `lnqkv_supported` is the JAX rule, residency limit included.
 * `LAUNCHES["ln_qkv_attention"]` counts K6's launches (its three CUDA
-  kernels count as one), `LAUNCHES["ln_qkv_projection"]` the first stage's
-  alone; never plain calls.  Each launch also hands its FLOPs (the qkv
+  kernels count as one; "ln_qkv_attention_fp32" the fp32 kernel's, each
+  with "_fast_exp2" under the knob), `LAUNCHES["ln_qkv_projection"]` the
+  first stage's alone; never plain calls.  Each launch also hands its FLOPs (the qkv
   projection, and K6's attention) to `utils/flops.py::record_kernel_flops`.
 
 The constants below are the port's own copies of the JAX package's
@@ -43,9 +49,14 @@ import torch
 from denseclip_vit_multimodal_tpu_torch.ops._library import define
 from denseclip_vit_multimodal_tpu_torch.ops.attention import plain_attention
 from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+    EXP_EXACT,
     _kv_len,
     attention_prescaled,
     check_device,
+    check_exp_mode,
+    check_kernel_dtype,
+    kernel_name,
+    softmax_modes,
 )
 from denseclip_vit_multimodal_tpu_torch.utils.flops import (
     attention_flops,
@@ -60,7 +71,9 @@ _LOG2E = 1.4426950408889634
 # reference does.
 _VMEM_SCOPED = 14 * 1024 * 1024
 
-LAUNCHES: Dict[str, int] = {"ln_qkv_attention": 0, "ln_qkv_projection": 0}
+LAUNCHES: Dict[str, int] = {f"ln_qkv_attention{dt}{knob}": 0 for dt in ("", "_fp32")
+                            for knob in ("", "_fast_exp2")}
+LAUNCHES["ln_qkv_projection"] = 0
 
 
 def lnqkv_supported(num_heads: int, model_dim: int, n: int = 0) -> bool:
@@ -157,11 +170,13 @@ def ln_qkv_stats_reference(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
             squares = squares + squares[..., lane ^ off]
         total, squares = total[..., 0], squares[..., 0]
     # divisions by tensors: PyTorch divides by a Python number as a product
-    # with its reciprocal on CUDA, which rounds differently from the kernel's
+    # with its reciprocal on CUDA, which rounds differently from the kernel's;
+    # the square root in fp64, rounded once: the kernel's IEEE fp32 root
+    # (PyTorch's fp32 root on the CPU misses it by an ulp near a midpoint)
     width, one = torch.full_like(total, float(dim)), torch.ones_like(total)
     mean = total / width
     var = torch.fmax(squares / width - mean * mean, torch.zeros_like(mean))
-    return torch.stack([mean, one / torch.sqrt(var + eps)], dim=-1)
+    return torch.stack([mean, one / torch.sqrt((var + eps).double()).float()], dim=-1)
 
 
 def _layer_norm_rounded(x, gamma, beta, eps):
@@ -215,14 +230,15 @@ def ln_qkv_attention_reference(
     sm_scale: Optional[float] = None,
     eps: float = 1e-5,
     valid_len: Optional[int] = None,
+    exp_mode: int = EXP_EXACT,
 ) -> torch.Tensor:
     """Plain PyTorch version of K6; x [B, N, D] (in the compute dtype) ->
     [B, N, H*d] in x's dtype.
 
     `ln_qkv_projection_reference`'s workspace, then keys at or beyond
     `valid_len` masked (the TPU kernel's pad rows carry LN(0) = beta, not
-    zeros, so nothing else is corrected); exp2 softmax in fp32, P rounded,
-    P V in fp32, one division.
+    zeros, so nothing else is corrected); exp2 softmax in fp32 (the
+    polynomial under EXP_POLY), P rounded, P V in fp32, one division.
     """
     hd, d = _shapes(x, gamma, beta, w_qkv, b_qkv, num_heads)
     b, n, _ = x.shape
@@ -230,7 +246,7 @@ def ln_qkv_attention_reference(
     qkv = ln_qkv_projection_reference(x, gamma, beta, w_qkv, b_qkv, num_heads,
                                       sm_scale=sm_scale, eps=eps)
     q, k, v = (t.view(b, n, num_heads, d) for t in qkv.split(hd, dim=-1))
-    return attention_prescaled(q, k, v, kv_len).reshape(b, n, hd)
+    return attention_prescaled(q, k, v, kv_len, exp_mode).reshape(b, n, hd)
 
 
 def lnqkv_reference(x, gamma, beta, w_qkv, b_qkv, num_heads: int, scale: float, eps: float,
@@ -251,7 +267,8 @@ def lnqkv_reference(x, gamma, beta, w_qkv, b_qkv, num_heads: int, scale: float, 
 
 def bind_entry_points(lib: ctypes.CDLL) -> Dict[str, ctypes._CFuncPtr]:
     """K6's C entry points in a library built from `csrc/ln_qkv_attention.cu`,
-    typed: the whole kernel ("attention") and its stages ("stats",
+    typed: the whole kernel ("attention"; "attention_knob" with the exp mode
+    before the stream, where the library has it) and its stages ("stats",
     "projection", "stage2")."""
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fns = {"attention": lib.ln_qkv_attention_bf16, "stats": lib.ln_qkv_stats_bf16,
@@ -260,16 +277,35 @@ def bind_entry_points(lib: ctypes.CDLL) -> Dict[str, ctypes._CFuncPtr]:
     fns["stats"].argtypes = [ptr, ptr, i, i, f, ptr]
     fns["projection"].argtypes = [ptr] * 7 + [i] * 3 + [f, ptr]
     fns["stage2"].argtypes = [ptr, ptr] + [i] * 5 + [ptr]
+    if hasattr(lib, "ln_qkv_attention_bf16_knob"):
+        fns["attention_knob"] = lib.ln_qkv_attention_bf16_knob
+        fns["attention_knob"].argtypes = [ptr] * 7 + [i] * 6 + [f, f, i, ptr]
+    for fn in fns.values():
+        fn.restype = ctypes.c_int
+    return fns
+
+
+def bind_fp32_entry_points(lib: ctypes.CDLL) -> Dict[str, ctypes._CFuncPtr]:
+    """K6's fp32 C entry points (`csrc/ln_qkv_attention_fp32.cu`): the whole
+    kernel ("attention", the exp mode before the stream) and its first stage
+    ("projection": the statistics and the projection into the workspace)."""
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fns = {"attention": lib.ln_qkv_attention_fp32, "projection": lib.ln_qkv_projection_fp32}
+    fns["attention"].argtypes = [ptr] * 7 + [i] * 6 + [f, f, i, ptr]
+    fns["projection"].argtypes = [ptr] * 7 + [i] * 3 + [f, f, ptr]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns
 
 
 @functools.lru_cache(maxsize=None)
-def kernel_fns() -> Dict[str, ctypes._CFuncPtr]:
-    """`bind_entry_points` of this checkout's K6, compiled at first use."""
+def kernel_fns(dtype: torch.dtype = torch.bfloat16) -> Dict[str, ctypes._CFuncPtr]:
+    """The entry points of this checkout's K6 for `dtype` (bf16:
+    `bind_entry_points`, fp32: `bind_fp32_entry_points`), compiled at first use."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import load_library
 
+    if dtype == torch.float32:
+        return bind_fp32_entry_points(load_library("ln_qkv_attention_fp32"))
     return bind_entry_points(load_library("ln_qkv_attention"))
 
 
@@ -283,8 +319,7 @@ def _operands(x, gamma, beta, w_qkv, b_qkv, num_heads):
     [3*H*d, D] bf16 contiguous, gamma, beta, bias fp32 16-byte aligned)."""
     hd, d = _shapes(x, gamma, beta, w_qkv, b_qkv, num_heads)
     dim = x.shape[-1]
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"the fused LN + qkv attention kernel takes bfloat16 x, got {x.dtype}")
+    check_kernel_dtype(x, "x", "fused LN + qkv attention")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("the fused LN + qkv attention kernel takes a contiguous, 16-byte aligned x")
     if d not in (64, 128) or dim % _LANE or hd % _LANE:
@@ -292,31 +327,35 @@ def _operands(x, gamma, beta, w_qkv, b_qkv, num_heads):
                          f"widths that are multiples of 128, got d {d}, D {dim}, H*d {hd}")
     if len({t.device for t in (x, gamma, beta, w_qkv, b_qkv)}) != 1:
         raise ValueError("x and the parameters must be on one device")
-    # W^T [3*H*d, D]: the torch Linear layout, a cast (no transpose) for the
-    # transposed view of a Linear weight
-    wt = w_qkv.t().to(torch.bfloat16).contiguous()
+    # W^T [3*H*d, D] in x's dtype: the torch Linear layout, a cast (no
+    # transpose) for the transposed view of a Linear weight
+    wt = w_qkv.t().to(x.dtype).contiguous()
     return d, wt, *(_fp32_vector(t) for t in (gamma, beta, b_qkv))
 
 
 def _launch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, w_qkv: torch.Tensor,
             b_qkv: torch.Tensor, num_heads: int, scale: float, eps: float,
-            kv_len: int) -> torch.Tensor:
-    """K6 on CUDA tensors; returns [B, N, H*d] bf16."""
+            kv_len: int, exp_mode: int = EXP_EXACT) -> torch.Tensor:
+    """K6 on CUDA tensors (bf16 or fp32) under `exp_mode`; returns [B, N,
+    H*d] in x's dtype."""
     d, wt, gamma, beta, bias = _operands(x, gamma, beta, w_qkv, b_qkv, num_heads)
+    check_exp_mode(x.dtype, exp_mode, "fused LN + qkv attention")
     b, n, dim = x.shape
     hd = num_heads * d
-    fn = kernel_fns()["attention"]
-    workspace = torch.empty(b, n, 3 * hd, dtype=torch.bfloat16, device=x.device)
-    out = torch.empty(b, n, hd, dtype=torch.bfloat16, device=x.device)
+    fns = kernel_fns(x.dtype)
+    fn = fns["attention" if x.dtype == torch.float32 else "attention_knob"]
+    workspace = torch.empty(b, n, 3 * hd, dtype=x.dtype, device=x.device)
+    out = torch.empty(b, n, hd, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(), bias.data_ptr(),
                  workspace.data_ptr(), out.data_ptr(), b, n, dim, num_heads, d, kv_len,
-                 scale * _LOG2E, eps, stream)
+                 scale * _LOG2E, eps, exp_mode, stream)
     if err != 0:
         raise RuntimeError(f"fused LN + qkv attention kernel launch failed: cudaError {err}")
-    LAUNCHES["ln_qkv_attention"] += 1
-    record_kernel_flops("ln_qkv_attention", projection_flops(b, n, dim, 3 * hd)
+    name = kernel_name("ln_qkv_attention", x.dtype, exp_mode)
+    LAUNCHES[name] += 1
+    record_kernel_flops(name, projection_flops(b, n, dim, 3 * hd)
                         + attention_flops(b, n, kv_len, hd))
     return out
 
@@ -346,13 +385,19 @@ def ln_qkv_projection(
     d, wt, gamma, beta, bias = _operands(x, gamma, beta, w_qkv, b_qkv, num_heads)
     b, n, dim = x.shape
     hd = num_heads * d
-    fns = kernel_fns()
+    fns = kernel_fns(x.dtype)
     stats = torch.empty(b * n, 2, device=x.device)
-    workspace = torch.empty(b, n, 3 * hd, dtype=torch.bfloat16, device=x.device)
+    workspace = torch.empty(b, n, 3 * hd, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fns["stats"](x.data_ptr(), stats.data_ptr(), b * n, dim, float(eps), stream)
-        if err == 0:
+        if x.dtype == torch.float32:  # the statistics and the projection in one entry
+            err = fns["projection"](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                                    wt.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+                                    workspace.data_ptr(), b * n, dim, hd, scale * _LOG2E,
+                                    float(eps), stream)
+        else:
+            err = fns["stats"](x.data_ptr(), stats.data_ptr(), b * n, dim, float(eps), stream)
+        if err == 0 and x.dtype != torch.float32:
             err = fns["projection"](x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                                     wt.data_ptr(), bias.data_ptr(), stats.data_ptr(),
                                     workspace.data_ptr(), b * n, dim, hd, scale * _LOG2E,
@@ -364,19 +409,20 @@ def ln_qkv_projection(
     return workspace
 
 
-def _ln_qkv_attention_fake(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len):
+def _ln_qkv_attention_fake(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len,
+                           exp_mode=EXP_EXACT):
     hd, _ = _shapes(x, gamma, beta, w_qkv, b_qkv, num_heads)
     return x.new_empty(x.shape[0], x.shape[1], hd)
 
 
 LN_QKV_ATTENTION_OP = define(
     "ln_qkv_attention(Tensor x, Tensor gamma, Tensor beta, Tensor w_qkv, Tensor b_qkv, "
-    "int num_heads, float scale, float eps, int kv_len) -> Tensor",
-    cpu=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len:
+    "int num_heads, float scale, float eps, int kv_len, int exp_mode=0) -> Tensor",
+    cpu=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len, exp_mode=EXP_EXACT:
         ln_qkv_attention_reference(x, gamma, beta, w_qkv, b_qkv, num_heads, sm_scale=scale,
-                                   eps=eps, valid_len=kv_len),
+                                   eps=eps, valid_len=kv_len, exp_mode=exp_mode),
     cuda=_launch, fake=_ln_qkv_attention_fake,
-    flops=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len: (
+    flops=lambda x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len, exp_mode=0: (
         projection_flops(x.shape[0], x.shape[1], x.shape[2], w_qkv.shape[1])
         + attention_flops(x.shape[0], x.shape[1], kv_len, w_qkv.shape[1] // 3)),
 )
@@ -388,11 +434,12 @@ class LNQKVAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w_qkv, b_qkv, num_heads: int, scale: float, eps: float,
-                kv_len: int):
+                kv_len: int, exp_mode: int = EXP_EXACT):
         ctx.save_for_backward(x, gamma, beta, w_qkv, b_qkv)
         ctx.attrs = (num_heads, scale, eps, kv_len)
         check_device(x, "fused LN + qkv attention")
-        return LN_QKV_ATTENTION_OP(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len)
+        return LN_QKV_ATTENTION_OP(x, gamma, beta, w_qkv, b_qkv, num_heads, scale, eps, kv_len,
+                                   exp_mode)
 
     @staticmethod
     def backward(ctx, g):
@@ -404,7 +451,7 @@ class LNQKVAttentionFunction(torch.autograd.Function):
             out = lnqkv_reference(*leaves, num_heads, scale, eps, kv_len)
             wanted = [t for t in leaves if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, g.float().to(out.dtype)))
-        return tuple(next(grads) if t.requires_grad else None for t in leaves) + (None,) * 4
+        return tuple(next(grads) if t.requires_grad else None for t in leaves) + (None,) * 5
 
 
 def ln_qkv_attention(
@@ -421,12 +468,15 @@ def ln_qkv_attention(
 ) -> torch.Tensor:
     """Fused LN(x) -> QKV -> attention; returns [B, N, H*d] (before the out
     projection) in x's dtype.  Keys at or beyond `valid_len` are masked;
-    output rows past it are left to the caller."""
+    output rows past it are left to the caller.  `DENSECLIP_FAST_EXP2` is
+    read now."""
     _, d = _shapes(x, gamma, beta, w_qkv, b_qkv, num_heads)
     kv_len = _kv_len(valid_len, x.shape[1])
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
+    exp_mode = softmax_modes("ln_qkv", x.dtype, x.shape[1], valid_len)[0]
     args = (x, gamma, beta, w_qkv, b_qkv)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return LNQKVAttentionFunction.apply(*args, num_heads, scale, float(eps), kv_len)
+        return LNQKVAttentionFunction.apply(*args, num_heads, scale, float(eps), kv_len,
+                                            exp_mode)
     check_device(x, "fused LN + qkv attention")
-    return LN_QKV_ATTENTION_OP(*args, num_heads, scale, float(eps), kv_len)
+    return LN_QKV_ATTENTION_OP(*args, num_heads, scale, float(eps), kv_len, exp_mode)

@@ -77,12 +77,20 @@ two launches):
   K1's forward for the row statistics and K2 (the plain versions on the
   CPU).
 
-The JAX package's softmax knobs `DENSECLIP_EXP_BF16` (a bf16 exp2 pass in K1
-and K3) and `DENSECLIP_FAST_EXP2` (a polynomial exp2 in K1, K2, K3 and K7)
-are not honoured: the port's kernels and plain versions keep the fp32 exp2.
-Rather than ignore them, every wrapper whose JAX counterpart reads one
-raises `ValueError` naming the variable when it is set to 1
-(`refuse_softmax_knobs`, read on every call).
+The JAX package's softmax knobs, read on every call as JAX reads its
+import-time constants (`softmax_modes`): `DENSECLIP_FAST_EXP2=1` (the cubic
+polynomial exp2 `exp2_poly` wherever JAX's `_exp2` sees an fp32 argument: K1,
+K2, K3, K3's backward, K6 and K7, bf16 and fp32) and `DENSECLIP_EXP_BF16=1`
+(the bf16 exp2 pass of K1's mask branch and K3, bf16 only).  Each wrapper
+resolves an exp mode (`EXP_EXACT`, `EXP_POLY`, `EXP_POLY_ZEROED`,
+`EXP_BF16`) and hands it to the op and the kernel as a trailing `exp_mode`;
+under a knob the forward kernels form p against the row's final max (a
+first pass over K for it), as JAX's one-shot kernels do.  A launch under a
+knob counts under the kernel's name with "_fast_exp2" or "_exp_bf16"
+(`kernel_name`).  Where the backward's mode differs from the forward's
+(EXP_BF16 in the forward, or K3 with JAX's zero pad keys), the backward
+reruns the forward in its own mode for the output and row statistics it
+reads, as JAX's backward recomputes its own softmax.
 """
 
 from __future__ import annotations
@@ -100,14 +108,24 @@ from denseclip_vit_multimodal_tpu_torch.utils.flops import attention_flops, reco
 _LANE = 128
 _LOG2E = 1.4426950408889634
 
-LAUNCHES: Dict[str, int] = {"qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-                            "quantize_qkv_int8": 0, "mha_attention": 0, "mha_attention_bwd": 0,
-                            "qkv_attention_fp32": 0, "qkv_attention_bwd_fp32": 0,
-                            "mha_attention_fp32": 0, "mha_attention_bwd_fp32": 0}
+LAUNCHES: Dict[str, int] = {
+    f"{name}{dt}{knob}": 0
+    for name in ("qkv_attention", "qkv_attention_bwd", "mha_attention", "mha_attention_bwd")
+    for dt in ("", "_fp32") for knob in ("", "_fast_exp2", "_exp_bf16")
+    if not (knob == "_exp_bf16" and (dt or name.endswith("_bwd")))}
+LAUNCHES.update(qkv_attention_int8=0, quantize_qkv_int8=0)
 # The dtypes the attention kernels (K1-K4b) take: bf16 on the tensor cores, fp32 in SIMT.
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 EXP_BF16_ENV = "DENSECLIP_EXP_BF16"
 FAST_EXP2_ENV = "DENSECLIP_FAST_EXP2"
+# The softmax's exp modes, shared with the kernels (csrc/softmax_exp.cuh):
+# exp2; the polynomial against the row max of the valid keys; the polynomial
+# against the row max floored at 0 (JAX's zero pad keys score 0 and join the
+# max); exp2 of bf16(s - m) rounded to bf16, summed in fp32.
+EXP_EXACT, EXP_POLY, EXP_POLY_ZEROED, EXP_BF16 = 0, 1, 2, 3
+_MODE_SUFFIX = ("", "_fast_exp2", "_fast_exp2", "_exp_bf16")
+# JAX's `_exp2_poly`: a cubic minimax for 2^f on [0, 1), fp32 constants
+_E2C = (0.9999413315491341, 0.6957344083154011, 0.2261244071264617, 0.07808251030411106)
 _REF_CHUNK = 4096  # query rows per step of the one-shot kernels' plain versions
 # K5 accumulates P V in int32: at most this many keys of p8 <= 127 times |v8| <= 128
 INT8_MAX_KEYS = (2**31 - 1) // (127 * 128)
@@ -119,13 +137,56 @@ _V_ALIGN = 16  # V's key-major rows are padded to whole 16-key groups
 _V_KEY_ORDER = (0, 1, 8, 9, 2, 3, 10, 11, 4, 5, 12, 13, 6, 7, 14, 15)
 
 
-def refuse_softmax_knobs(*names: str) -> None:
-    """ValueError if one of the JAX package's softmax knobs `names` (default
-    both) is set to 1: the port keeps the fp32 exp2 softmax."""
-    for name in names or (EXP_BF16_ENV, FAST_EXP2_ENV):
-        if os.environ.get(name, "0") == "1":
-            raise ValueError(f"{name}=1 is not ported: the PyTorch port's attention kernels "
-                             "and plain versions keep the fp32 exp2 softmax; unset it")
+def _knob(name: str) -> bool:
+    return os.environ.get(name, "0") == "1"
+
+
+def softmax_modes(kernel: str, dtype: torch.dtype, n: int,
+                  valid_len: Optional[int]) -> Tuple[int, int]:
+    """(forward, backward) exp modes of a call, from the knobs read now.
+
+    `kernel` is "qkv" (K1 / K2), "mha" (K3 / its backward), "ln_qkv" (K6)
+    or "qkv_out" (K7).  JAX pads N to 128 with zero keys where the caller
+    gave no `valid_len`: its K1 and K7 then take the zeroed-pads branch
+    (FAST_EXP2 only, the zero scores in the row max), its backward too; its
+    K3 and K6 mask the pads in the forward.  EXP_BF16 acts in the mask
+    branch of K1 and in K3, on bf16 only, and wins over FAST_EXP2 there (JAX's
+    `_exp2` keeps `jnp.exp2` for a bf16 argument)."""
+    fast = _knob(FAST_EXP2_ENV)
+    zeroed = valid_len is None and n % _LANE != 0
+    bwd = (EXP_POLY_ZEROED if zeroed else EXP_POLY) if fast else EXP_EXACT
+    if kernel == "qkv_out" or (kernel == "qkv" and zeroed):
+        return bwd, bwd
+    if kernel != "ln_qkv" and _knob(EXP_BF16_ENV) and dtype == torch.bfloat16:
+        return EXP_BF16, bwd
+    return (EXP_POLY if fast else EXP_EXACT), bwd
+
+
+def exp2_poly(x: torch.Tensor) -> torch.Tensor:
+    """JAX's `_exp2_poly`, bit for bit: 2^x in fp32 for x <= 0 by exponent
+    bits and a cubic for the fraction, x clamped at -126; each operation
+    rounded (no FMA), as `csrc/softmax_exp.cuh::exp2_poly`."""
+    x = torch.maximum(x.float(), x.new_tensor(-126.0, dtype=torch.float32))
+    xi = torch.floor(x)
+    xf = x - xi
+    c0, c1, c2, c3 = (x.new_tensor(c, dtype=torch.float32) for c in _E2C)
+    p = c0 + xf * (c1 + xf * (c2 + xf * c3))
+    return (p.view(torch.int32) + (xi.to(torch.int32) << 23)).view(torch.float32)
+
+
+def softmax_exp(x: torch.Tensor, exp_mode: int) -> torch.Tensor:
+    """The softmax's exp2 of fp32 `x` = s - m under `exp_mode`, in fp32."""
+    if exp_mode in (EXP_POLY, EXP_POLY_ZEROED):
+        return exp2_poly(x)
+    if exp_mode == EXP_BF16:
+        return torch.exp2(x.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+    return torch.exp2(x)
+
+
+def row_max(s: torch.Tensor, exp_mode: int) -> torch.Tensor:
+    """The row max the softmax shifts by: floored at 0 under EXP_POLY_ZEROED."""
+    m = s.amax(dim=-1, keepdim=True)
+    return m.clamp_min(0.0) if exp_mode == EXP_POLY_ZEROED else m
 
 
 def qkv_supported(num_heads: int, model_dim: int) -> bool:
@@ -143,10 +204,17 @@ def _split_shape(qkv: torch.Tensor, num_heads: int):
     return b, n, hd, hd // num_heads
 
 
-def kernel_name(name: str, dtype: torch.dtype) -> str:
-    """The launch counter (and C entry) of kernel `name` for `dtype`: the
-    bf16 kernel's own name, or its fp32 kernel's with "_fp32"."""
-    return f"{name}_fp32" if dtype == torch.float32 else name
+def kernel_name(name: str, dtype: torch.dtype, exp_mode: int = EXP_EXACT) -> str:
+    """The launch counter of kernel `name` for `dtype` and `exp_mode`: the
+    bf16 kernel's own name, or its fp32 kernel's with "_fp32", then
+    "_fast_exp2" or "_exp_bf16" under a knob."""
+    return f"{name}{'_fp32' if dtype == torch.float32 else ''}{_MODE_SUFFIX[exp_mode]}"
+
+
+def check_exp_mode(dtype: torch.dtype, exp_mode: int, kernel: str) -> None:
+    """ValueError for an exp mode the kernels do not have: EXP_BF16 is bf16's."""
+    if exp_mode not in range(4) or (exp_mode == EXP_BF16 and dtype != torch.bfloat16):
+        raise ValueError(f"the {kernel} kernels take no exp mode {exp_mode} for {dtype}")
 
 
 def check_kernel_dtype(x: torch.Tensor, what: str, kernel: str) -> None:
@@ -171,15 +239,16 @@ def _kv_len(valid_len: Optional[int], n: int) -> int:
 
 
 def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_len: int) -> torch.Tensor:
+                        kv_len: int, exp_mode: int = EXP_EXACT) -> torch.Tensor:
     """The one-shot kernels' attention in plain PyTorch, on a q already
     multiplied by scale * log2 e and rounded to its dtype.
 
     q, k, v [B, N, H, D] (strided views welcome) -> [B, N, H, D] in q's
     dtype: fp32 scores against the first `kv_len` keys (the kernels mask the
-    rest), exp2 softmax, P rounded to q's dtype for P V with fp32
-    accumulation, one division by the fp32 row sum.  One head and at most
-    `_REF_CHUNK` query rows at a time bound the fp32 scores.
+    rest), exp2 softmax (`softmax_exp` under `exp_mode`, against
+    `row_max`), P rounded to q's dtype for P V with fp32 accumulation, one
+    division by the fp32 row sum.  One head and at most `_REF_CHUNK` query
+    rows at a time bound the fp32 scores.
     """
     b, n, heads, d = q.shape
     dtype = q.dtype
@@ -189,7 +258,7 @@ def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for r0 in range(0, n, _REF_CHUNK):
             r1 = min(r0 + _REF_CHUNK, n)
             s = q[:, r0:r1, h].float() @ kh.transpose(-1, -2)
-            p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+            p = softmax_exp(s - row_max(s, exp_mode), exp_mode)
             denom = p.sum(dim=-1, keepdim=True)
             o = p.to(dtype).float() @ vh
             out[:, r0:r1, h] = (o / denom).to(dtype)
@@ -202,6 +271,7 @@ def mha_qkv_attention_reference(
     *,
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
+    exp_mode: int = EXP_EXACT,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernel; [B, N, 3*H*D] -> [B, N, H*D]."""
     b, n, hd, d = _split_shape(qkv, num_heads)
@@ -209,7 +279,7 @@ def mha_qkv_attention_reference(
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
     q, k, v = (x.view(b, n, num_heads, d) for x in qkv.split(hd, dim=-1))
     q = (q.float() * (scale * _LOG2E)).to(qkv.dtype)
-    return attention_prescaled(q, k, v, kv_len).reshape(b, n, hd)
+    return attention_prescaled(q, k, v, kv_len, exp_mode).reshape(b, n, hd)
 
 
 def mha_qkv_attention_bwd_reference(
@@ -220,6 +290,7 @@ def mha_qkv_attention_bwd_reference(
     *,
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
+    exp_mode: int = EXP_EXACT,
 ) -> torch.Tensor:
     """Plain PyTorch backward of the kernel: dqkv [B, N, 3*H*D] in qkv's dtype.
 
@@ -231,48 +302,58 @@ def mha_qkv_attention_bwd_reference(
     heads = lambda x: x.reshape(b, n, num_heads, d)
     q, k, v = (heads(x) for x in qkv.split(hd, dim=-1))
     grads = mha_attention_bwd_reference(q, k, v, heads(out), heads(dout), sm_scale=sm_scale,
-                                        valid_len=valid_len)
+                                        valid_len=valid_len, exp_mode=exp_mode)
     return torch.cat([g.reshape(b, n, hd) for g in grads], dim=-1)
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(name: str):
-    """A kernel's C entry point, compiled at first use."""
+def _kernel_fn(name: str, knob: bool = False):
+    """A kernel's C entry point, compiled at first use.  With `knob`, the
+    attention kernel's entry under the softmax knobs (`*_knob`: the exp mode,
+    or K2's / K3's backward's fast_exp2 flag, before the stream; the bf16
+    forward and backward ones in sources of their own)."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import load_library
 
-    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    if name == "qkv_attention":
-        fn = load_library("qkv_attention").qkv_attention_bf16
-        fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
-    elif name == "qkv_attention_fp32":
-        fn = load_library("attention_fp32").qkv_attention_fp32
-        fn.argtypes = [ptr, ptr, ptr] + [i] * 5 + [f, ptr]
-    elif name == "mha_attention":
-        fn = load_library("mha_attention").mha_attention_bf16
-        fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
-    elif name == "mha_attention_fp32":
-        fn = load_library("attention_fp32").mha_attention_fp32
-        fn.argtypes = [ptr] * 5 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, ptr]
-    elif name == "mha_attention_bwd":
-        fn = load_library("qkv_attention_bwd").mha_attention_bwd_bf16
-        fn.argtypes = [ptr] * 11 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
-    elif name == "mha_attention_bwd_fp32":
-        fn = load_library("attention_bwd_fp32").mha_attention_bwd_fp32
-        fn.argtypes = [ptr] * 10 + [ctypes.c_longlong] * 9 + [i] * 5 + [f, f, ptr]
-    elif name == "qkv_attention_bwd_fp32":
-        fn = load_library("attention_bwd_fp32").qkv_attention_bwd_fp32
-        fn.argtypes = [ptr] * 6 + [i] * 5 + [f, f, ptr]
-    elif name == "qkv_attention_int8":
-        fn = load_library("qkv_attention_int8").qkv_attention_int8
-        fn.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
-    elif name == "quantize_qkv_int8":
-        fn = load_library("quantize_qkv_int8").quantize_qkv_int8
-        fn.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
-    else:
-        fn = load_library("qkv_attention_bwd").qkv_attention_bwd_bf16
-        fn.argtypes = [ptr] * 7 + [i] * 5 + [f, f, ptr]
+    ptr, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    library, entry, args = {
+        "qkv_attention": ("qkv_attention", "qkv_attention_bf16", [ptr] * 3 + [i] * 5 + [f]),
+        "qkv_attention_fp32": ("attention_fp32", "qkv_attention_fp32",
+                               [ptr] * 3 + [i] * 5 + [f]),
+        "mha_attention": ("mha_attention", "mha_attention_bf16",
+                          [ptr] * 5 + [ll] * 9 + [i] * 5 + [f]),
+        "mha_attention_fp32": ("attention_fp32", "mha_attention_fp32",
+                               [ptr] * 5 + [ll] * 9 + [i] * 5 + [f]),
+        "mha_attention_bwd": ("qkv_attention_bwd", "mha_attention_bwd_bf16",
+                              [ptr] * 11 + [ll] * 9 + [i] * 5 + [f, f]),
+        "mha_attention_bwd_fp32": ("attention_bwd_fp32", "mha_attention_bwd_fp32",
+                                   [ptr] * 10 + [ll] * 9 + [i] * 5 + [f, f]),
+        "qkv_attention_bwd": ("qkv_attention_bwd", "qkv_attention_bwd_bf16",
+                              [ptr] * 7 + [i] * 5 + [f, f]),
+        "qkv_attention_bwd_fp32": ("attention_bwd_fp32", "qkv_attention_bwd_fp32",
+                                   [ptr] * 6 + [i] * 5 + [f, f]),
+        "qkv_attention_int8": ("qkv_attention_int8", "qkv_attention_int8",
+                               [ptr] * 4 + [i] * 7 + [f]),
+        "quantize_qkv_int8": ("quantize_qkv_int8", "quantize_qkv_int8",
+                              [ptr, i] + [ptr] * 4 + [i] * 6),
+    }[name]
+    if knob:
+        library = {"qkv_attention": "qkv_attention_knobs", "mha_attention": "mha_attention_knobs",
+                   "qkv_attention_bwd": "attention_bwd_knobs"}.get(library, library)
+        entry, args = entry + "_knob", args + [i]
+    fn = getattr(load_library(library), entry)
+    fn.argtypes = args + [ptr]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _entry(name: str, exp_mode: int):
+    """Kernel `name`'s entry for `exp_mode`: its own, or its `*_knob` one."""
+    return _kernel_fn(name) if exp_mode == EXP_EXACT else _kernel_fn(name, True)
+
+
+def _mode_args(exp_mode: int) -> list:
+    """The trailing exp-mode argument of a `*_knob` entry (none for EXP_EXACT)."""
+    return [] if exp_mode == EXP_EXACT else [exp_mode]
 
 
 def _check_kernel_input(x: torch.Tensor, what: str) -> None:
@@ -282,15 +363,17 @@ def _check_kernel_input(x: torch.Tensor, what: str) -> None:
 
 
 def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
-            with_stats: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K1 (bf16 or fp32); with `with_stats` it also returns each row's
-    (max, sum) for K2."""
+            with_stats: bool = False,
+            exp_mode: int = EXP_EXACT) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1 (bf16 or fp32) under `exp_mode`; with `with_stats` it also returns
+    each row's (max, sum) for K2."""
     b, n, hd, d = _split_shape(qkv, num_heads)
     _check_kernel_input(qkv, "qkv")
     if d not in (64, 128):
         raise ValueError(f"the qkv attention kernel takes head dim 64 or 128, got {d}")
-    name = kernel_name("qkv_attention", qkv.dtype)
-    fn = _kernel_fn(name)
+    check_exp_mode(qkv.dtype, exp_mode, "qkv attention")
+    name = kernel_name("qkv_attention", qkv.dtype, exp_mode)
+    fn = _entry(kernel_name("qkv_attention", qkv.dtype), exp_mode)
     out = torch.empty(b, n, hd, dtype=qkv.dtype, device=qkv.device)
     stats = (torch.empty(b, num_heads, n, 2, dtype=torch.float32, device=qkv.device)
              if with_stats else None)
@@ -298,7 +381,7 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(
             qkv.data_ptr(), out.data_ptr(), None if stats is None else stats.data_ptr(),
-            b, n, num_heads, d, kv_len, scale * _LOG2E, stream,
+            b, n, num_heads, d, kv_len, scale * _LOG2E, *_mode_args(exp_mode), stream,
         )
     if err != 0:
         raise RuntimeError(f"qkv attention kernel launch failed: cudaError {err}")
@@ -307,18 +390,20 @@ def _launch(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
     return out, stats
 
 
-def _qkv_attention_fake(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int):
+def _qkv_attention_fake(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
+                        exp_mode: int = EXP_EXACT):
     b, n, hd, _ = _split_shape(qkv, num_heads)
     return qkv.new_empty(b, n, hd)
 
 
 QKV_ATTENTION_OP = define(
-    "qkv_attention(Tensor qkv, int num_heads, float scale, int kv_len) -> Tensor",
-    cpu=lambda qkv, num_heads, scale, kv_len: mha_qkv_attention_reference(
-        qkv, num_heads, sm_scale=scale, valid_len=kv_len),
-    cuda=lambda qkv, num_heads, scale, kv_len: _launch(qkv, num_heads, scale, kv_len)[0],
+    "qkv_attention(Tensor qkv, int num_heads, float scale, int kv_len, int exp_mode=0) -> Tensor",
+    cpu=lambda qkv, num_heads, scale, kv_len, exp_mode=EXP_EXACT: mha_qkv_attention_reference(
+        qkv, num_heads, sm_scale=scale, valid_len=kv_len, exp_mode=exp_mode),
+    cuda=lambda qkv, num_heads, scale, kv_len, exp_mode=EXP_EXACT: _launch(
+        qkv, num_heads, scale, kv_len, exp_mode=exp_mode)[0],
     fake=_qkv_attention_fake,
-    flops=lambda qkv, num_heads, scale, kv_len: attention_flops(
+    flops=lambda qkv, num_heads, scale, kv_len, exp_mode=EXP_EXACT: attention_flops(
         qkv.shape[0], qkv.shape[1], kv_len, qkv.shape[2] // 3),
 )
 
@@ -335,9 +420,11 @@ def _bwd_scratch(b: int, heads: int, n: int, d: int, device, dtype: torch.dtype)
 
 
 def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats: torch.Tensor,
-                num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
+                num_heads: int, scale: float, kv_len: int,
+                exp_mode: int = EXP_EXACT) -> torch.Tensor:
     """K2 (bf16 or fp32): dqkv from qkv, the forward output, its gradient and
-    K1's row stats."""
+    K1's row stats, all under `exp_mode` (EXP_POLY / EXP_POLY_ZEROED: p from
+    the polynomial; the zeroed max is in the stats already)."""
     b, n, hd, d = _split_shape(qkv, num_heads)
     for x, what in ((qkv, "qkv"), (out, "output"), (dout, "output gradient")):
         _check_kernel_input(x, what)
@@ -349,8 +436,9 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats:
                          f"{tuple(dout.shape)}")
     if stats is None or stats.shape != (b, num_heads, n, 2) or not stats.is_contiguous():
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
-    name = kernel_name("qkv_attention_bwd", qkv.dtype)
-    fn = _kernel_fn(name)
+    check_exp_mode(qkv.dtype, exp_mode, "qkv attention backward")
+    name = kernel_name("qkv_attention_bwd", qkv.dtype, exp_mode)
+    fn = _entry(kernel_name("qkv_attention_bwd", qkv.dtype), exp_mode)
     dqkv = torch.empty_like(qkv)
     scratch = _bwd_scratch(b, num_heads, n, d, qkv.device, qkv.dtype)
     with torch.cuda.device(qkv.device):
@@ -358,7 +446,7 @@ def _launch_bwd(qkv: torch.Tensor, out: torch.Tensor, dout: torch.Tensor, stats:
         err = fn(
             qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
             *(x.data_ptr() for x in scratch), dqkv.data_ptr(), b, n, num_heads, d, kv_len,
-            scale * _LOG2E, scale, stream,
+            scale * _LOG2E, scale, *_mode_args(int(exp_mode != EXP_EXACT)), stream,
         )
     if err != 0:
         raise RuntimeError(f"qkv attention backward kernel launch failed: cudaError {err}")
@@ -371,32 +459,51 @@ class QKVAttentionFunction(torch.autograd.Function):
 
     On a CPU tensor both directions are the plain versions; on CUDA both are
     the kernels, with no fallback.  Saves qkv, the output and (CUDA) K1's row
-    statistics.
+    statistics.  `modes` is `softmax_modes`' pair: where the backward's
+    differs from the forward's, the backward reruns K1 (or its plain
+    version) in its own mode for the output and statistics K2 reads.
     """
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int):
-        if qkv.device.type == "cpu":
-            out = mha_qkv_attention_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
-            stats = None
-        elif qkv.device.type == "cuda":
-            out, stats = _launch(qkv, num_heads, scale, kv_len, with_stats=True)
-        else:
-            raise ValueError(f"no qkv attention for device {qkv.device}")
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
+                modes: Tuple[int, int] = (EXP_EXACT, EXP_EXACT)):
+        out, stats = _qkv_forward_with_stats(qkv, num_heads, scale, kv_len, modes[0])
         ctx.save_for_backward(qkv, out, stats)
-        ctx.attrs = (num_heads, scale, kv_len)
+        ctx.attrs = (num_heads, scale, kv_len, modes)
         return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         qkv, out, stats = ctx.saved_tensors
-        num_heads, scale, kv_len = ctx.attrs
-        if qkv.device.type == "cpu":
-            dqkv = mha_qkv_attention_bwd_reference(qkv, out, dout, num_heads, sm_scale=scale,
-                                                   valid_len=kv_len)
-        else:
-            dqkv = _launch_bwd(qkv, out, dout.contiguous(), stats, num_heads, scale, kv_len)
-        return dqkv, None, None, None
+        num_heads, scale, kv_len, (fwd_mode, bwd_mode) = ctx.attrs
+        dqkv = _qkv_backward(qkv, out if bwd_mode == fwd_mode else None, stats, dout, num_heads,
+                             scale, kv_len, bwd_mode)
+        return dqkv, None, None, None, None
+
+
+def _qkv_forward_with_stats(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
+                            exp_mode: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1's output and row statistics (CUDA), or the plain output and None (CPU)."""
+    if qkv.device.type == "cpu":
+        return mha_qkv_attention_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len,
+                                           exp_mode=exp_mode), None
+    if qkv.device.type == "cuda":
+        return _launch(qkv, num_heads, scale, kv_len, with_stats=True, exp_mode=exp_mode)
+    raise ValueError(f"no qkv attention for device {qkv.device}")
+
+
+def _qkv_backward(qkv: torch.Tensor, out: Optional[torch.Tensor], stats: Optional[torch.Tensor],
+                  dout: torch.Tensor, num_heads: int, scale: float, kv_len: int,
+                  exp_mode: int) -> torch.Tensor:
+    """dqkv by K2 (CUDA) or its plain version (CPU) under `exp_mode`; with
+    `out` None, K1 first runs in that mode for the output and statistics."""
+    if out is None:
+        out, stats = _qkv_forward_with_stats(qkv, num_heads, scale, kv_len, exp_mode)
+    if qkv.device.type == "cpu":
+        return mha_qkv_attention_bwd_reference(qkv, out, dout, num_heads, sm_scale=scale,
+                                               valid_len=kv_len, exp_mode=exp_mode)
+    return _launch_bwd(qkv, out, dout.to(qkv.dtype).contiguous(), stats, num_heads, scale,
+                       kv_len, exp_mode)
 
 
 def mha_qkv_attention(
@@ -411,15 +518,16 @@ def mha_qkv_attention(
     Keys at or beyond `valid_len` (None: N) are masked; output rows past
     `valid_len` are computed against the valid keys and left to the caller.
     Differentiable through `QKVAttentionFunction` when autograd records it.
+    The softmax knobs are read now (`softmax_modes`).
     """
-    refuse_softmax_knobs()
     _, n, _, d = _split_shape(qkv, num_heads)
     scale = d**-0.5 if sm_scale is None else float(sm_scale)
     kv_len = _kv_len(valid_len, n)
+    modes = softmax_modes("qkv", qkv.dtype, n, valid_len)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        return QKVAttentionFunction.apply(qkv, num_heads, scale, kv_len)
+        return QKVAttentionFunction.apply(qkv, num_heads, scale, kv_len, modes)
     check_device(qkv, "qkv attention")
-    return QKV_ATTENTION_OP(qkv, num_heads, scale, kv_len)
+    return QKV_ATTENTION_OP(qkv, num_heads, scale, kv_len, modes[0])
 
 
 # --------------------------------------------------------------------------
@@ -455,18 +563,20 @@ def mha_attention_reference(
     *,
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
+    exp_mode: int = EXP_EXACT,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3; [B, N, H, D] -> [B, N, H, D] in q's dtype.
 
     K3's rounding points (the JAX `_kernel`): q * (scale * log2 e) rounded to
     the input dtype (the constant kept in fp32, as for K1), fp32 scores,
     keys at or beyond `valid_len` masked, exp2 softmax, P rounded to the
-    input dtype for P V with fp32 accumulation, one division.
+    input dtype for P V with fp32 accumulation, one division; the exp under
+    `exp_mode`.
     """
     _, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
-    return attention_prescaled(qs, k, v, kv_len)
+    return attention_prescaled(qs, k, v, kv_len, exp_mode)
 
 
 def mha_attention_bwd_reference(
@@ -478,6 +588,7 @@ def mha_attention_bwd_reference(
     *,
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
+    exp_mode: int = EXP_EXACT,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of K3: (dq, dk, dv) [B, N, H, D] in q's dtype.
 
@@ -488,7 +599,9 @@ def mha_attention_bwd_reference(
     round(p)^T round(dO * r), with D = rowsum(dO * O) in place of the
     kernel's rowsum(P * dP) * r (equal up to the rounding of O).  Keys at or
     beyond `valid_len` get dk = dv = 0 exactly; every query row (pad rows
-    too) contributes its dO.
+    too) contributes its dO.  Under `exp_mode` (EXP_POLY or EXP_POLY_ZEROED,
+    as JAX's backward reads FAST_EXP2) p = `softmax_exp(s - row_max(s))`;
+    `out` must then be the forward's output under the same mode.
     """
     _, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
@@ -499,7 +612,7 @@ def mha_attention_bwd_reference(
         kh, vh = k[:, :kv_len, h].float(), v[:, :kv_len, h].float()
         doh = dout[:, :, h].to(dtype).float()
         s = qs[:, :, h].float() @ kh.transpose(-1, -2)
-        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        p = softmax_exp(s - row_max(s, exp_mode), exp_mode)
         r = 1.0 / p.sum(dim=-1, keepdim=True)
         dp = doh @ vh.transpose(-1, -2)
         dc = (doh * out[:, :, h].to(dtype).float()).sum(dim=-1, keepdim=True)
@@ -528,23 +641,25 @@ def bnhd_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kernel: str,
 
 
 def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                kv_len: int, stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3 on CUDA tensors (bf16 or fp32); returns a contiguous [B, N, H, D]
-    output in q's dtype.  With `stats` (fp32 [B, H, N, 2]) it also writes
-    each row's max and sum."""
+                kv_len: int, stats: Optional[torch.Tensor] = None,
+                exp_mode: int = EXP_EXACT) -> torch.Tensor:
+    """K3 on CUDA tensors (bf16 or fp32) under `exp_mode`; returns a
+    contiguous [B, N, H, D] output in q's dtype.  With `stats` (fp32 [B, H,
+    N, 2]) it also writes each row's max and sum."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "one-shot attention", (64, 128, 256))
     if stats is not None and (stats.shape != (b, heads, n, 2) or stats.dtype != torch.float32
                               or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be a contiguous fp32 {(b, heads, n, 2)} on q's device")
-    name = kernel_name("mha_attention", q.dtype)
-    fn = _kernel_fn(name)
+    check_exp_mode(q.dtype, exp_mode, "one-shot attention")
+    name = kernel_name("mha_attention", q.dtype, exp_mode)
+    fn = _entry(kernel_name("mha_attention", q.dtype), exp_mode)
     out = torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if stats is None else stats.data_ptr(), *strides,
-                 b, n, heads, d, kv_len, scale * _LOG2E, stream)
+                 b, n, heads, d, kv_len, scale * _LOG2E, *_mode_args(exp_mode), stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -553,21 +668,24 @@ def _launch_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
 
 
 MHA_ATTENTION_OP = define(
-    "mha_attention(Tensor q, Tensor k, Tensor v, float scale, int kv_len) -> Tensor",
-    cpu=lambda q, k, v, scale, kv_len: mha_attention_reference(q, k, v, sm_scale=scale,
-                                                               valid_len=kv_len),
-    cuda=lambda q, k, v, scale, kv_len: _launch_mha(q, k, v, scale, kv_len),
-    fake=lambda q, k, v, scale, kv_len: q.new_empty(q.shape),
-    flops=lambda q, k, v, scale, kv_len: attention_flops(
+    "mha_attention(Tensor q, Tensor k, Tensor v, float scale, int kv_len, int exp_mode=0) "
+    "-> Tensor",
+    cpu=lambda q, k, v, scale, kv_len, exp_mode=EXP_EXACT: mha_attention_reference(
+        q, k, v, sm_scale=scale, valid_len=kv_len, exp_mode=exp_mode),
+    cuda=lambda q, k, v, scale, kv_len, exp_mode=EXP_EXACT: _launch_mha(
+        q, k, v, scale, kv_len, exp_mode=exp_mode),
+    fake=lambda q, k, v, scale, kv_len, exp_mode=EXP_EXACT: q.new_empty(q.shape),
+    flops=lambda q, k, v, scale, kv_len, exp_mode=EXP_EXACT: attention_flops(
         q.shape[0], q.shape[1], kv_len, q.shape[2] * q.shape[3]),
 )
 
 
 def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-                    dout: torch.Tensor, stats: torch.Tensor, scale: float, kv_len: int):
+                    dout: torch.Tensor, stats: torch.Tensor, scale: float, kv_len: int,
+                    exp_mode: int = EXP_EXACT):
     """K3's backward (bf16 or fp32): (dq, dk, dv), contiguous [B, N, H, D] in
     q's dtype, from the strided q / k / v, K3's output, its gradient and
-    K3's row statistics."""
+    K3's row statistics, all under `exp_mode` (as K2's)."""
     b, n, heads, d = q.shape
     strides = bnhd_args(q, k, v, "one-shot attention backward", (64, 128, 256))
     for x, what in ((out, "output"), (dout, "output gradient")):
@@ -578,8 +696,9 @@ def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
             raise TypeError(f"{what} must be {q.dtype} as q, got {x.dtype}")
     if stats is None or stats.shape != (b, heads, n, 2) or not stats.is_contiguous():
         raise ValueError("the backward kernel needs the forward kernel's row statistics")
-    name = kernel_name("mha_attention_bwd", q.dtype)
-    fn = _kernel_fn(name)
+    check_exp_mode(q.dtype, exp_mode, "one-shot attention backward")
+    name = kernel_name("mha_attention_bwd", q.dtype, exp_mode)
+    fn = _entry(kernel_name("mha_attention_bwd", q.dtype), exp_mode)
     dq, dk, dv = (torch.empty(b, n, heads, d, dtype=q.dtype, device=q.device) for _ in range(3))
     scratch = _bwd_scratch(b, heads, n, d, q.device, q.dtype)
     with torch.cuda.device(q.device):
@@ -587,7 +706,7 @@ def _launch_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torc
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
                  stats.data_ptr(), *(x.data_ptr() for x in scratch), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), *strides, b, n, heads, d, kv_len,
-                 scale * _LOG2E, scale, stream)
+                 scale * _LOG2E, scale, *_mode_args(int(exp_mode != EXP_EXACT)), stream)
     if err != 0:
         raise RuntimeError(f"one-shot attention backward kernel launch failed: cudaError {err}")
     LAUNCHES[name] += 1
@@ -599,36 +718,43 @@ class MHAAttentionFunction(torch.autograd.Function):
 
     On CPU tensors both directions are the plain versions; on CUDA both are
     the kernels, with no fallback.  Saves q, k, v, the output and (CUDA)
-    K3's row statistics.
+    K3's row statistics; `modes` as `QKVAttentionFunction`'s.
     """
 
     @staticmethod
     def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                kv_len: int):
-        if q.device.type == "cpu":
-            out = mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len)
-            stats = None
-        elif q.device.type == "cuda":
-            b, n, heads, _ = q.shape
-            stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device=q.device)
-            out = _launch_mha(q, k, v, scale, kv_len, stats)
-        else:
-            raise ValueError(f"no one-shot attention for device {q.device}")
+                kv_len: int, modes: Tuple[int, int] = (EXP_EXACT, EXP_EXACT)):
+        out, stats = _mha_forward_with_stats(q, k, v, scale, kv_len, modes[0])
         ctx.save_for_backward(q, k, v, out, stats)
-        ctx.attrs = (scale, kv_len)
+        ctx.attrs = (scale, kv_len, modes)
         return out
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         q, k, v, out, stats = ctx.saved_tensors
-        scale, kv_len = ctx.attrs
+        scale, kv_len, (fwd_mode, bwd_mode) = ctx.attrs
+        if bwd_mode != fwd_mode:  # JAX's backward recomputes its own softmax
+            out, stats = _mha_forward_with_stats(q, k, v, scale, kv_len, bwd_mode)
         if q.device.type == "cpu":
             grads = mha_attention_bwd_reference(q, k, v, out, dout, sm_scale=scale,
-                                                valid_len=kv_len)
+                                                valid_len=kv_len, exp_mode=bwd_mode)
         else:
             grads = _launch_mha_bwd(q, k, v, out, dout.to(q.dtype).contiguous(), stats, scale,
-                                    kv_len)
-        return (*grads, None, None)
+                                    kv_len, bwd_mode)
+        return (*grads, None, None, None)
+
+
+def _mha_forward_with_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                            kv_len: int, exp_mode: int):
+    """K3's output and row statistics (CUDA), or the plain output and None (CPU)."""
+    if q.device.type == "cpu":
+        return mha_attention_reference(q, k, v, sm_scale=scale, valid_len=kv_len,
+                                       exp_mode=exp_mode), None
+    if q.device.type == "cuda":
+        b, n, heads, _ = q.shape
+        stats = torch.empty(b, heads, n, 2, dtype=torch.float32, device=q.device)
+        return _launch_mha(q, k, v, scale, kv_len, stats, exp_mode), stats
+    raise ValueError(f"no one-shot attention for device {q.device}")
 
 
 def mha_attention(
@@ -644,14 +770,15 @@ def mha_attention(
     Keys at or beyond `valid_len` (None: N) are masked; output rows past it
     are computed against the valid keys and left to the caller.
     Differentiable through `MHAAttentionFunction` when autograd records it.
+    The softmax knobs are read now (`softmax_modes`).
     """
-    refuse_softmax_knobs()
-    _, kv_len = check_bnhd(q, k, v, valid_len)
+    n, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    modes = softmax_modes("mha", q.dtype, n, valid_len)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        return MHAAttentionFunction.apply(q, k, v, scale, kv_len)
+        return MHAAttentionFunction.apply(q, k, v, scale, kv_len, modes)
     check_device(q, "one-shot attention")
-    return MHA_ATTENTION_OP(q, k, v, scale, kv_len)
+    return MHA_ATTENTION_OP(q, k, v, scale, kv_len, modes[0])
 
 
 # --------------------------------------------------------------------------
@@ -871,24 +998,18 @@ class Int8AttentionFunction(torch.autograd.Function):
     the CPU the plain versions.  Saves qkv only, as the JAX VJP does."""
 
     @staticmethod
-    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int):
+    def forward(ctx, qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int,
+                bwd_mode: int = EXP_EXACT):
         ctx.save_for_backward(qkv)
-        ctx.attrs = (num_heads, scale, kv_len)
+        ctx.attrs = (num_heads, scale, kv_len, bwd_mode)
         return _int8_forward(qkv, num_heads, scale, kv_len)
 
     @staticmethod
     def backward(ctx, dout: torch.Tensor):
         (qkv,) = ctx.saved_tensors
-        num_heads, scale, kv_len = ctx.attrs
-        if qkv.device.type == "cpu":
-            out = mha_qkv_attention_reference(qkv, num_heads, sm_scale=scale, valid_len=kv_len)
-            dqkv = mha_qkv_attention_bwd_reference(qkv, out, dout, num_heads, sm_scale=scale,
-                                                   valid_len=kv_len)
-        else:
-            out, stats = _launch(qkv, num_heads, scale, kv_len, with_stats=True)
-            dqkv = _launch_bwd(qkv, out, dout.to(qkv.dtype).contiguous(), stats, num_heads,
-                               scale, kv_len)
-        return dqkv, None, None, None
+        num_heads, scale, kv_len, bwd_mode = ctx.attrs
+        dqkv = _qkv_backward(qkv, None, None, dout, num_heads, scale, kv_len, bwd_mode)
+        return dqkv, None, None, None, None
 
 
 def _int8_forward(qkv: torch.Tensor, num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
@@ -918,6 +1039,7 @@ def mha_qkv_attention_int8(
     if kv_len > INT8_MAX_KEYS:
         raise ValueError(f"int32 sums of P V hold at most {INT8_MAX_KEYS} keys, got {kv_len}")
     if torch.is_grad_enabled() and qkv.requires_grad:
-        refuse_softmax_knobs(FAST_EXP2_ENV)  # the JAX backward's `_bwd_kernel` reads it
-        return Int8AttentionFunction.apply(qkv, num_heads, scale, kv_len)
+        # the JAX backward's `_bwd_kernel` reads FAST_EXP2 (K5 itself neither knob)
+        bwd_mode = softmax_modes("qkv", qkv.dtype, n, valid_len)[1]
+        return Int8AttentionFunction.apply(qkv, num_heads, scale, kv_len, bwd_mode)
     return _int8_forward(qkv, num_heads, scale, kv_len)

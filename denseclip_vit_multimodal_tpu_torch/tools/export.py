@@ -23,7 +23,10 @@ live `Inferencer`'s own `_forward_logits`), and for `--fetch argmax` /
 (int32 seg + fp32 depth, or uint8 seg + fp16 depth).  The program is
 specialised to one input shape, mode, crop and stride, as JAX's is.  What
 is read while tracing is baked into the bundle: `tpu.attn_impl` and
-`DENSECLIP_FUSED_LNQKV` (which kernel each ViT layer calls), and the device.
+`DENSECLIP_FUSED_LNQKV` (which kernel each ViT layer calls), the softmax
+knobs `DENSECLIP_FAST_EXP2` / `DENSECLIP_EXP_BF16` (the exp mode each kernel
+op carries: `meta.json` records the knobs as traced and `exp_modes`, the
+ops' modes by op), and the device, as JAX bakes its import-time constants.
 The parameters are frozen and the trace runs under `torch.no_grad()`, so
 every attention layer calls its kernel's op, not an autograd function.
 Runs on `cuda` unless `--device cpu`.
@@ -88,11 +91,30 @@ class ServingProgram(torch.nn.Module):
 
 def kernel_ops(graph) -> dict:
     """{op name: node count} of the `denseclip_torch` ops in a traced graph."""
+    return dict(collections.Counter(name for name, _ in _kernel_nodes(graph)))
+
+
+def _kernel_nodes(graph):
+    """(op name, node) of every `denseclip_torch` op call in a traced graph."""
     from denseclip_vit_multimodal_tpu_torch.ops._library import NAMESPACE
 
-    names = (getattr(node.target, "name", lambda: "")() for node in graph.nodes
-             if node.op == "call_function")
-    return dict(collections.Counter(n for n in names if n.startswith(f"{NAMESPACE}::")))
+    for node in graph.nodes:
+        name = getattr(node.target, "name", lambda: "")() if node.op == "call_function" else ""
+        if name.startswith(f"{NAMESPACE}::"):
+            yield name, node
+
+
+def exp_modes(graph) -> dict:
+    """{op name: sorted exp modes} of the kernel ops that carry one (the
+    trailing `exp_mode` argument; its default 0 where the trace left it out)."""
+    modes = collections.defaultdict(set)
+    for name, node in _kernel_nodes(graph):
+        schema = node.target._schema
+        if schema.arguments and schema.arguments[-1].name == "exp_mode":
+            index = len(schema.arguments) - 1
+            mode = node.args[index] if len(node.args) > index else node.kwargs.get("exp_mode", 0)
+            modes[name].add(int(mode))
+    return {name: sorted(v) for name, v in modes.items()}
 
 
 def parse_args(argv=None):
@@ -190,6 +212,9 @@ def main(argv=None) -> Optional[dict]:
         "model_name": os.path.basename(str(args.config)),
         "device": device.type,
         "ops": kernel_ops(exported.graph),
+        "env": {k: os.environ.get(k, "0") for k in ("DENSECLIP_FUSED_LNQKV", "DENSECLIP_FAST_EXP2",
+                                                    "DENSECLIP_EXP_BF16")},
+        "exp_modes": exp_modes(exported.graph),
     }
     with open(os.path.join(args.out_dir, "meta.json"), "w") as f:
         json.dump(meta, f, indent=1)

@@ -498,8 +498,11 @@ def test_oneshot_and_lnqkv_wrappers_raise_instead_of_falling_back(cuda):
     assert mha_kernel.mha_attention(q.float(), k.float(), v.float()).dtype == torch.float32
     assert mha_kernel.LAUNCHES["mha_attention_fp32"] == before["mha_attention_fp32"] + 1
     x, gamma, beta, w, bias = _lnqkv_inputs(1, 64, 256, 9)
-    with pytest.raises(TypeError):
-        lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        lnqkv_kernel.ln_qkv_attention(x.half(), gamma, beta, w, bias, 4)
+    before = lnqkv_kernel.LAUNCHES["ln_qkv_attention_fp32"]  # fp32: K6's fp32 kernel
+    assert lnqkv_kernel.ln_qkv_attention(x.float(), gamma, beta, w, bias, 4).dtype == torch.float32
+    assert lnqkv_kernel.LAUNCHES["ln_qkv_attention_fp32"] == before + 1
     with pytest.raises(ValueError):
         lnqkv_kernel.ln_qkv_attention(x, gamma, beta, w, bias, 8)  # head dim 32
 
@@ -593,12 +596,8 @@ def test_long_sequence_attention_trains_through_k4b(cuda):
     mha(x, valid_len=8446).float().sum().backward()
     torch.cuda.synchronize()
     after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
-    assert {k: after[k] - before[k] for k in after} == {
-        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-        "quantize_qkv_int8": 0, "mha_attention": 0,
-        "mha_attention_bwd": 0, "flash_attention": 1, "flash_attention_bwd": 1,
-        **{f"{k}_fp32": 0 for k in ("qkv_attention", "qkv_attention_bwd", "mha_attention",
-                                    "mha_attention_bwd", "flash_attention", "flash_attention_bwd")}}
+    assert {k: after[k] - before[k] for k in after} == {  # every other counter (knobs too) 0
+        **{k: 0 for k in after}, "flash_attention": 1, "flash_attention_bwd": 1}
     assert torch.isfinite(x.grad.float()).all()
 
 
@@ -740,12 +739,8 @@ def test_flash_branch_takes_head_dim_256_through_k4_and_k4b(cuda, n, causal):
         attention.flash_attention(q, k, v, causal=causal, valid_len=n - 3)
     torch.cuda.synchronize()
     after = {**mha_kernel.LAUNCHES, **attention.LAUNCHES}
-    assert {key: after[key] - before[key] for key in after} == {
-        "qkv_attention": 0, "qkv_attention_bwd": 0, "qkv_attention_int8": 0,
-        "quantize_qkv_int8": 0, "mha_attention": 0,
-        "mha_attention_bwd": 0, "flash_attention": 2, "flash_attention_bwd": 1,
-        **{f"{k}_fp32": 0 for k in ("qkv_attention", "qkv_attention_bwd", "mha_attention",
-                                    "mha_attention_bwd", "flash_attention", "flash_attention_bwd")}}
+    assert {key: after[key] - before[key] for key in after} == {  # every other counter 0
+        **{key: 0 for key in after}, "flash_attention": 2, "flash_attention_bwd": 1}
     want = attention.flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
                                                    out.detach(), dout, causal=causal,
                                                    valid_len=n - 3)
@@ -910,3 +905,121 @@ def test_fp32_backward_kernels_match_plain_versions(cuda, kernel, b, n, heads, d
     assert all(torch.isfinite(g[:, :valid_len]).all() for g in got)
     _assert_grads_close(got, want, rows, valid_len, FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL)
     assert not got[1][:, valid_len:].any() and not got[2][:, valid_len:].any()
+
+
+# ---- the softmax knobs and the fp32 K6 / K7 ----
+
+KNOB_CASES = [  # (kernel, dtype, knob, valid_len): None at a ragged N is JAX's zero-pad branch
+    ("qkv", torch.float32, "DENSECLIP_FAST_EXP2", 1201), ("qkv", torch.float32,
+                                                          "DENSECLIP_FAST_EXP2", None),
+    ("qkv", torch.bfloat16, "DENSECLIP_FAST_EXP2", 1201), ("qkv", torch.bfloat16,
+                                                           "DENSECLIP_FAST_EXP2", None),
+    ("qkv", torch.bfloat16, "DENSECLIP_EXP_BF16", 1201),
+    ("mha", torch.float32, "DENSECLIP_FAST_EXP2", 1201),
+    ("mha", torch.bfloat16, "DENSECLIP_FAST_EXP2", None),
+    ("mha", torch.bfloat16, "DENSECLIP_EXP_BF16", 1201),
+]
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("kernel,dtype,knob,valid_len", KNOB_CASES)
+def test_knob_kernels_match_plain_versions(cuda, monkeypatch, kernel, dtype, knob, valid_len):
+    """K1 / K3 (forward) and K2 / K3's backward under a knob, through the
+    wrappers and autograd, against their plain versions in the same mode: the
+    variant's counter moves, the limits hold, and (fp32, and EXP_BF16's bf16
+    outputs) the kernel is at most a fifth as far from the plain version in
+    the mode as from the knob-off one, on the rows the caller keeps (bf16
+    outputs hide FAST_EXP2's polynomial under their rounding: chip_smoke.py
+    holds its row sums)."""
+    n, heads, d = 1236, 4, 64
+    monkeypatch.setenv(knob, "1")
+    qkv = _qkv(1, n, heads, d, seed=41).to(dtype)
+    fwd_mode, bwd_mode = mha_kernel.softmax_modes(kernel, dtype, n, valid_len)
+    rows = valid_len or n
+    x = qkv.clone().requires_grad_(True)
+    before = dict(mha_kernel.LAUNCHES)
+    if kernel == "qkv":
+        out = mha_kernel.mha_qkv_attention(x, heads, valid_len=valid_len)
+        plain = lambda m: mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=valid_len,
+                                                                 exp_mode=m)
+    else:
+        view = lambda t: t.view(1, n, heads, d)
+        out = view(mha_kernel.mha_attention(*(view(t) for t in x.split(heads * d, dim=-1)),
+                                            valid_len=valid_len)).reshape(1, n, -1)
+        plain = lambda m: mha_kernel.mha_attention_reference(
+            *(view(t) for t in qkv.split(heads * d, dim=-1)), valid_len=valid_len,
+            exp_mode=m).reshape(1, n, -1)
+    dout = torch.randn(out.shape, device="cuda").to(dtype)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counter = mha_kernel.kernel_name(f"{kernel}_attention", dtype, fwd_mode)
+    assert mha_kernel.LAUNCHES[counter] >= before[counter] + 1
+    bwd_counter = mha_kernel.kernel_name(f"{kernel}_attention_bwd", dtype, bwd_mode)
+    assert mha_kernel.LAUNCHES[bwd_counter] == before[bwd_counter] + 1
+    want, want_off = plain(fwd_mode)[:, :rows], plain(mha_kernel.EXP_EXACT)[:, :rows]
+    got = out.detach()[:, :rows]
+    rel_lim, max_lim = (FP32_REL_TOL, FP32_MAX_TOL) if dtype == torch.float32 else (5e-3, KERNEL_TOL)
+    assert _rel(got, want) <= rel_lim and float((got - want).float().abs().max()) <= max_lim
+    if dtype == torch.float32 or knob == "DENSECLIP_EXP_BF16":
+        assert 5 * _rel(got, want) <= _rel(got, want_off)
+    ref = qkv.clone().requires_grad_(True)  # the plain backward in the backward's mode
+    if kernel == "qkv":
+        out_b = mha_kernel.mha_qkv_attention_reference(ref.detach(), heads, valid_len=valid_len,
+                                                       exp_mode=bwd_mode)
+        want_g = mha_kernel.mha_qkv_attention_bwd_reference(
+            ref.detach(), out_b, dout, heads, valid_len=valid_len, exp_mode=bwd_mode)
+    else:
+        qs = [view(t) for t in qkv.split(heads * d, dim=-1)]
+        out_b = mha_kernel.mha_attention_reference(*qs, valid_len=valid_len, exp_mode=bwd_mode)
+        want_g = torch.cat([g.reshape(1, n, -1) for g in mha_kernel.mha_attention_bwd_reference(
+            *qs, out_b, view(dout), valid_len=valid_len, exp_mode=bwd_mode)], dim=-1)
+    tol = (FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL) if dtype == torch.float32 else (BWD_REL_TOL,
+                                                                                BWD_MAX_TOL)
+    _assert_grads_close(x.grad.split(heads * d, dim=-1), want_g.split(heads * d, dim=-1), n,
+                        rows, *tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [False, True])
+def test_lnqkv_kernels_in_fp32_and_under_fast_exp2(cuda, monkeypatch, dtype, fast):
+    """K6 in fp32 (and bf16) with and without DENSECLIP_FAST_EXP2 against its
+    plain version in the same mode; its variant's counter moves."""
+    monkeypatch.setenv("DENSECLIP_FAST_EXP2", str(int(fast)))
+    x, gamma, beta, w, bias = _lnqkv_inputs(2, 333, 256, 43)
+    x = x.to(dtype)
+    mode = mha_kernel.EXP_POLY if fast else mha_kernel.EXP_EXACT
+    counter = mha_kernel.kernel_name("ln_qkv_attention", dtype, mode)
+    before = lnqkv_kernel.LAUNCHES[counter]
+    got = lnqkv_kernel.ln_qkv_attention(x, gamma, beta, w, bias, 4, valid_len=320)[:, :320]
+    want = lnqkv_kernel.ln_qkv_attention_reference(x, gamma, beta, w, bias, 4, valid_len=320,
+                                                   exp_mode=mode)[:, :320]
+    assert lnqkv_kernel.LAUNCHES[counter] == before + 1
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= FP32_MAX_TOL and _rel(got, want) <= FP32_REL_TOL
+    else:
+        assert float((got - want).float().abs().max()) <= KERNEL_TOL and _rel(got, want) <= 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast,valid_len", [(False, 300), (True, 300), (True, None)])
+def test_outproj_kernels_in_fp32_and_under_fast_exp2(cuda, monkeypatch, dtype, fast, valid_len):
+    """K7 in fp32 (and bf16) with and without DENSECLIP_FAST_EXP2 (None at N
+    333: the script's zero pads) against its plain version in the same mode."""
+    monkeypatch.setenv("DENSECLIP_FAST_EXP2", str(int(fast)))
+    qkv = _qkv(2, 333, 4, 64, seed=44).to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    w = (torch.randn(256, 256, generator=gen, device="cuda") * 0.05).to(dtype)
+    mode = mha_kernel.softmax_modes("qkv_out", dtype, 333, valid_len)[0]
+    counter = mha_kernel.kernel_name("qkv_out_attention", dtype, mode)
+    before = exp_outproj_epilogue.LAUNCHES[counter]
+    got = exp_outproj_epilogue.qkv_out_attention(qkv, w, 4, valid_len=valid_len)
+    want = exp_outproj_epilogue.qkv_out_attention_reference(qkv, w, 4, valid_len=valid_len,
+                                                            exp_mode=mode)
+    assert exp_outproj_epilogue.LAUNCHES[counter] == before + 1
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= FP32_MAX_TOL and _rel(got, want) <= FP32_REL_TOL
+    else:
+        assert _rel(got, want) <= 5e-3

@@ -238,7 +238,12 @@ def test_exported_graph_holds_the_kernel_ops(bundles, work, monkeypatch, route):
     monkeypatch.setenv("DENSECLIP_FUSED_LNQKV", fused)
     out = bundles("port", "slide", "logits", sets)
     want_ops = {f"denseclip_torch::{op}": 2 * 2 for op in ops}
-    assert json.load(open(os.path.join(out, "meta.json")))["ops"] == want_ops
+    meta = json.load(open(os.path.join(out, "meta.json")))
+    assert meta["ops"] == want_ops
+    assert meta["env"]["DENSECLIP_FUSED_LNQKV"] == fused
+    # the exp mode each op carries, as traced (the knobs unset): K5's ops carry none
+    assert meta["exp_modes"] == {f"denseclip_torch::{op}": [0] for op in ops
+                                 if op in ("qkv_attention", "ln_qkv_attention")}
     assert t_export.kernel_ops(torch.export.load(os.path.join(out, "program.pt2")).graph) == want_ops
 
     cfg = load_config(CONFIG, overrides=TINY + sets)

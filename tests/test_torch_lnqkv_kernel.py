@@ -325,3 +325,32 @@ def test_fused_slide_inference_matches_jax(flagship, fused_here):
     for key in ("seg_logits", "depth"):
         rel = np.linalg.norm(got[key] - want[key]) / np.linalg.norm(want[key])
         assert rel <= SLICE_TOL, (key, rel)
+
+
+def test_fused_slide_inference_fp32_within_the_fp32_limits(flagship, fused_here):
+    """The same fp32 frame through K6 on both sides (the port's K6 plain
+    version, which the fp32 K6 kernel is held to on the card), within the
+    fp32 limits: max abs 1e-4 and relative L2 1e-5 on the seg logits and
+    the depth."""
+    jm, variables, tm, texts, frame = flagship
+    kw = dict(mode="slide", crop=CROP, stride=STRIDE, window_batch=2, fetch="logits")
+    want = JInferencer(jm, variables, texts, num_classes=19, with_depth=True).predict(frame, **kw)
+    got = TInferencer(tm, texts, num_classes=19).predict(frame, **kw)
+    assert fused_here["port"] >= 2 and fused_here["port_k1"] == 0
+    for key in ("seg_logits", "depth"):
+        err = got[key].astype(np.float64) - want[key]
+        assert np.abs(err).max() <= 1e-4, key
+        assert np.linalg.norm(err) / np.linalg.norm(want[key]) <= 1e-5, key
+
+
+def test_fused_rule_takes_fp32_on_cuda(monkeypatch):
+    """No dtype condition, as in JAX: under `tpu.compute_dtype: float32` a
+    CUDA tensor takes K6 (its fp32 kernel) where JAX takes K6."""
+    import types
+
+    monkeypatch.setenv("DENSECLIP_FUSED_LNQKV", "1")
+    monkeypatch.setattr(t_attention, "_on_cuda", lambda x: True)
+    tm = t_layers.MultiHeadAttention(768, 12, dtype=torch.float32)
+    cuda_x = types.SimpleNamespace(is_cuda=True, shape=(10, 1536, 768), dtype=torch.float32)
+    assert tm.qkv.compute_dtype == torch.float32
+    assert tm._lnqkv_applicable(cuda_x, 768)

@@ -91,10 +91,16 @@ def test_wrapper_raises(case, monkeypatch):
     elif case == "device":
         with pytest.raises(ValueError, match="for device"):
             port_exp.qkv_out_attention(qkv.to("meta"), w.to("meta"), 2)
-    else:  # the JAX kernel reads DENSECLIP_FAST_EXP2; the port does not honour it
+    else:  # the JAX kernel reads DENSECLIP_FAST_EXP2, and so does the port
         monkeypatch.setenv("DENSECLIP_FAST_EXP2", "1")
-        with pytest.raises(ValueError, match="DENSECLIP_FAST_EXP2"):
-            port_exp.qkv_out_attention(qkv, w, 2)
+        with pytest.raises(ValueError, match="for device"):  # still no meta route
+            port_exp.qkv_out_attention(qkv.to("meta"), w.to("meta"), 2)
+        qkv, w = (torch.from_numpy(x) for x in _inputs(1, 8, 2, 64, seed=1))
+        got = port_exp.qkv_out_attention(qkv, w, 2)  # N 8, no valid_len: JAX's zero pads
+        assert torch.equal(got, port_exp.qkv_out_attention_reference(
+            qkv, w, 2, exp_mode=mha_kernel.EXP_POLY_ZEROED))
+        monkeypatch.setenv("DENSECLIP_FAST_EXP2", "0")
+        assert not torch.equal(got, port_exp.qkv_out_attention(qkv, w, 2))
 
 
 def test_adaptive_min_time_stops_when_the_two_fastest_agree():

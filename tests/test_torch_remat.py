@@ -1,7 +1,8 @@
 """`tpu.remat` in the port (`models/layers.py::resolve_remat_policy` and the
 `Transformer`'s recompute), threaded from the training loop, against the
 JAX package's remat on one training step; and the port's refusal of the JAX
-package's softmax knobs (`DENSECLIP_EXP_BF16`, `DENSECLIP_FAST_EXP2`)."""
+package's softmax knobs (`DENSECLIP_EXP_BF16`, `DENSECLIP_FAST_EXP2`), which
+the port honours where JAX reads them."""
 
 import json
 import os
@@ -185,26 +186,34 @@ def test_training_step_with_remat_matches_jax_with_remat(remat, tiny_model_cfg):
 @pytest.mark.parametrize("knob", ["DENSECLIP_EXP_BF16", "DENSECLIP_FAST_EXP2"])
 def test_softmax_knobs_are_refused_where_jax_reads_them(knob, monkeypatch):
     """Where the JAX package reads a softmax knob (K1, K2, K3; the int8
-    backward and K7 read DENSECLIP_FAST_EXP2 only), the port raises when it is
-    set to 1 instead of quietly computing something else; the bundled flash
-    kernel (K4) reads neither."""
+    backward and K7 read DENSECLIP_FAST_EXP2 only), the port no longer
+    refuses it: each wrapper reaches the plain version in the knob's mode
+    (`softmax_modes`; the kernels' variants on the card), which moves its
+    output; the bundled flash kernel (K4) and int8 inference (K5) read
+    neither and stay bitwise the same."""
     rs = np.random.RandomState(0)
-    qkv = torch.from_numpy(rs.randn(1, 20, 3 * 128).astype(np.float32))
+    qkv = torch.from_numpy(rs.randn(1, 20, 3 * 128).astype(np.float32)).to(torch.bfloat16)
     q, k, v = (t.view(1, 20, 2, 64) for t in qkv.split(128, dim=-1))
+    mode = {"DENSECLIP_EXP_BF16": mha_kernel.EXP_BF16,
+            "DENSECLIP_FAST_EXP2": mha_kernel.EXP_POLY}[knob]
     monkeypatch.setenv(knob, "0")
-    mha_kernel.mha_qkv_attention(qkv, 2)  # off: no effect
+    off = (mha_kernel.mha_qkv_attention(qkv, 2, valid_len=18), mha_kernel.mha_attention(q, k, v),
+           attention.flash_attention(q, k, v, causal=True),
+           mha_kernel.mha_qkv_attention_int8(qkv, 2))
     monkeypatch.setenv(knob, "1")
-    with pytest.raises(ValueError, match=knob):
-        mha_kernel.mha_qkv_attention(qkv, 2)
-    with pytest.raises(ValueError, match=knob):
-        mha_kernel.mha_attention(q, k, v)
-    with pytest.raises(ValueError, match=knob):
-        attention.flash_attention(q, k, v)  # the K3 branch
-    attention.flash_attention(q, k, v, causal=True)  # the K4 branch
-    mha_kernel.mha_qkv_attention_int8(qkv, 2)  # int8 inference reads neither
-    grad = qkv.clone().requires_grad_(True)
-    if knob == "DENSECLIP_FAST_EXP2":
-        with pytest.raises(ValueError, match=knob):
-            mha_kernel.mha_qkv_attention_int8(grad, 2)
-    else:
-        mha_kernel.mha_qkv_attention_int8(grad, 2).sum().backward()
+    k1 = mha_kernel.mha_qkv_attention(qkv, 2, valid_len=18)
+    assert torch.equal(k1, mha_kernel.mha_qkv_attention_reference(qkv, 2, valid_len=18,
+                                                                  exp_mode=mode))
+    assert not torch.equal(k1, off[0])
+    k3 = mha_kernel.mha_attention_reference(q, k, v, exp_mode=mode)
+    assert torch.equal(mha_kernel.mha_attention(q, k, v), k3)
+    assert torch.equal(attention.flash_attention(q, k, v), k3)  # the K3 branch
+    assert torch.equal(attention.flash_attention(q, k, v, causal=True), off[2])  # K4
+    assert torch.equal(mha_kernel.mha_qkv_attention_int8(qkv, 2), off[3])  # K5 reads neither
+    grad = qkv.float().clone().requires_grad_(True)  # the int8 backward: K1 + K2 in fp32
+    mha_kernel.mha_qkv_attention_int8(grad, 2, valid_len=18).sum().backward()
+    bwd_mode = mha_kernel.EXP_POLY if knob == "DENSECLIP_FAST_EXP2" else mha_kernel.EXP_EXACT
+    out = mha_kernel.mha_qkv_attention_reference(grad.detach(), 2, valid_len=18, exp_mode=bwd_mode)
+    want = mha_kernel.mha_qkv_attention_bwd_reference(grad.detach(), out, torch.ones_like(out), 2,
+                                                      valid_len=18, exp_mode=bwd_mode)
+    assert torch.equal(grad.grad, want)
