@@ -263,13 +263,15 @@ phases that each print one JSON line:
  29. fp32_path  — `tpu.compute_dtype: float32` through the kernels (TF32 off,
                   printed): the six fp32 kernels (K1, K3, K4 in
                   `csrc/attention_fp32.cu`; K2, K3's backward, K4b in
-                  `csrc/attention_bwd_fp32.cu`) against their plain versions
+                  `csrc/attention_bwd_fp32.cu`, 3xTF32 on the tensor
+                  cores) against their plain versions
                   at the fp32 paths' shapes (outputs max abs <= 1e-4, rel. L2
                   <= 1e-5; row statistics as the bf16 kernels'; gradients rel.
                   L2 <= 1e-4 and max abs <= 1e-4 of the largest, masked keys
                   exactly 0, a rerun bitwise; NaN in the pad keys of most
                   cases), with SDPA's fp32 time and the bounds at 66.9 TFLOP/s
-                  and the 3xTF32 ceiling; then the flagship in fp32: a slide
+                  and the 3xTF32 ceiling (the backwards' own bound); then the
+                  flagship in fp32: a slide
                   frame (12 K1 fp32, logits within 1e-4 of `attn_impl: xla`),
                   `flash` at crop 384 (24 K1 fp32), the heritage preset
                   through `train()` (1 warm-up + 2 steps: 12 K1 + 12 K2 fp32 a
@@ -4087,12 +4089,15 @@ FP32_BWD_CASES = [
 ]
 
 
-def fp32_bounds(flops: float, nbytes: float) -> dict:
-    """The least time of an fp32 kernel on an H100 SXM at its fp32 FMA peak,
-    and the 3xTF32 ceiling beside it (the later tensor-core redesign)."""
-    ops_s, bytes_s = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+def fp32_bounds(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:
+    """The least time of an fp32 kernel on an H100 SXM: at the 3xTF32 ceiling
+    for a kernel on the tensor cores (the backward core), else at the fp32
+    FMA peak; both bounds beside it."""
+    peak = PEAK_3XTF32_FLOPS if tensor_cores else PEAK_FP32_FLOPS
+    ops_s, bytes_s = flops / peak, nbytes / PEAK_BYTES
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+            "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS, bytes_s) * 1e3,
             "bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, bytes_s) * 1e3}
 
 
@@ -4164,10 +4169,10 @@ def fp32_forward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_len
 
 def fp32_backward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_len, causal: bool,
                        iters: int, poison: bool) -> dict:
-    """An fp32 backward kernel (K2, K3's backward or K4b) against its plain
-    version on the fp32 forward's output and statistics, per gradient, with
-    the masked keys held to exactly 0, a rerun held bitwise equal, and SDPA's
-    fp32 backward time beside."""
+    """An fp32 backward kernel (K2, K3's backward or K4b; 3xTF32 on the
+    tensor cores) against its plain version on the fp32 forward's output and
+    statistics, per gradient, with the masked keys held to exactly 0, a rerun
+    held bitwise equal, and SDPA's fp32 backward time beside."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
@@ -4213,7 +4218,8 @@ def fp32_backward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_le
     flops = 10.0 * b * heads * rows * kv * d * (0.5 if causal else 1.0)
     nbytes = 4.0 * 8 * b * n * hd + 4.0 * stats.numel()  # q, k, v, O, dO in; dq, dk, dv out
     res.update({"ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(plain, 1, warmup=1),
-                "library_ms": cuda_ms(library, iters), **fp32_bounds(flops, nbytes)})
+                "library_ms": cuda_ms(library, iters),
+                **fp32_bounds(flops, nbytes, tensor_cores=True)})
     res["tflops_5_products"] = flops / (res["ms"] * 1e-3) / 1e12
     res["tflops_7_products"] = res["tflops_5_products"] * 7 / 5
     return res
@@ -4498,6 +4504,9 @@ def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict) -> list:
         design = ("row statistics pass; SIMT fp32 projection with the LayerNorm as its A "
                   "prologue (gemm_fp32.cuh); K1's fp32 body on the q/k/v workspace"
                   if name.startswith("ln_qkv") else
+                  "3xTF32 mma.sync m16n8k8 (operands split in registers), a warp on 16 rows, "
+                  "p and ds in registers, two-stage cp.async ring (one stage at head dim 256)"
+                  if "_bwd" in name else
                   "SIMT fp32 FMA (no TF32), 256 threads on 64 rows, cp.async tiles")
         out.append({**entry(name, source, replaces, first,
                             fp32_res["launches_by_path"][path][name]),
@@ -5409,12 +5418,13 @@ def main() -> int:
         "library_ms": res["library_ms"],
         **{k: res[k] for k in ("tflops_5_products", "tflops_7_products", "rerun_bitwise_equal",
                                "stats_m_max_abs_err", "stats_l_max_rel_err", "rel_l2_err",
-                               "bound_3xtf32_ms", "tflops") if k in res},
+                               "bound_3xtf32_ms", "bound_fp32_fma_ms", "tflops") if k in res},
     }
     at_shape = lambda res: {k: res[k] for k in (
         "shape", "valid_len", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "tflops", "tflops_5_products", "tflops_8_products", "rerun_bitwise_equal",
-        "stats_m_max_abs_err", "stats_l_max_rel_err", "bound_3xtf32_ms") if k in res}
+        "stats_m_max_abs_err", "stats_l_max_rel_err", "bound_3xtf32_ms", "bound_fp32_fma_ms")
+        if k in res}
     emit({"kernels": [
         {**entry("qkv_attention", "qkv_attention.cu", "ops/mha_kernel.py:400", slide,
                  main_res["launches"]["qkv_attention"]),

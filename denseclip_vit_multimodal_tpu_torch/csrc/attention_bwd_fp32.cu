@@ -1,49 +1,49 @@
 // The fp32 attention backwards: K2 (off the fused QKV projection) and K3's
 // backward (on strided q / k / v), both under the TPU `_bwd_kernel`'s
 // numerics, and K4b (the long-sequence flash backward) under the bundled
-// kernels'.  All three instantiate the SIMT core attention_bwd_fp32.cuh,
-// whose header note gives the TPU kernels replaced, the numerics, the design
-// and the bound on an H100.  This file holds the kernels' names and the
-// plain C entry points.
+// kernels'.  All three instantiate the core attention_bwd_fp32.cuh (3xTF32
+// on the tensor cores), whose header note gives the TPU kernels replaced,
+// the numerics, the design and the bound on an H100.  This file holds the
+// kernels' names and the plain C entry points.
 
 #include "attention_bwd_fp32.cuh"
 
 namespace {
 
-using namespace dclip::f32;
+using namespace dclip::f32bwd;
 
 template <class P, int D>  // TpuBwd, or TpuPolyBwd under DENSECLIP_FAST_EXP2
-__global__ void __launch_bounds__(kThreads, BwdCfg<D>::kDqMinBlocks)
+__global__ void __launch_bounds__(BwdCfg<D>::Dq::kThreads, BwdCfg<D>::Dq::kMinBlocks)
 oneshot_bwd_fp32_dq_kernel(const BwdArgs a) {
-  dq<P, D>(a);
+  dq<P, typename BwdCfg<D>::Dq>(a);
 }
 
 template <class P, int D>
-__global__ void __launch_bounds__(kThreads, BwdCfg<D>::kDkdvMinBlocks)
+__global__ void __launch_bounds__(BwdCfg<D>::Dkdv::kThreads, BwdCfg<D>::Dkdv::kMinBlocks)
 oneshot_bwd_fp32_dkdv_kernel(const BwdArgs a) {
-  dkdv<P, D>(a);
+  dkdv<P, typename BwdCfg<D>::Dkdv>(a);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, BwdCfg<D>::kDqMinBlocks)
+__global__ void __launch_bounds__(BwdCfg<D>::Dq::kThreads, BwdCfg<D>::Dq::kMinBlocks)
 bundled_bwd_fp32_dq_kernel(const BwdArgs a) {
-  dq<BundledBwd, D>(a);
+  dq<BundledBwd, typename BwdCfg<D>::Dq>(a);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, BwdCfg<D>::kDkdvMinBlocks)
+__global__ void __launch_bounds__(BwdCfg<D>::Dkdv::kThreads, BwdCfg<D>::Dkdv::kMinBlocks)
 bundled_bwd_fp32_dkdv_kernel(const BwdArgs a) {
-  dkdv<BundledBwd, D>(a);
+  dkdv<BundledBwd, typename BwdCfg<D>::Dkdv>(a);
 }
 
 template <class P, int D>
 cudaError_t go(const BwdArgs& a, int batch, cudaStream_t s) {
   if constexpr (P::kPrescaled)
-    return launch_bwd<P, D>(oneshot_bwd_fp32_dq_kernel<P, D>, oneshot_bwd_fp32_dkdv_kernel<P, D>,
-                            a, batch, s);
+    return launch_bwd<P, BwdCfg<D>>(oneshot_bwd_fp32_dq_kernel<P, D>,
+                                    oneshot_bwd_fp32_dkdv_kernel<P, D>, a, batch, s);
   else
-    return launch_bwd<P, D>(bundled_bwd_fp32_dq_kernel<D>, bundled_bwd_fp32_dkdv_kernel<D>, a,
-                            batch, s);
+    return launch_bwd<P, BwdCfg<D>>(bundled_bwd_fp32_dq_kernel<D>,
+                                    bundled_bwd_fp32_dkdv_kernel<D>, a, batch, s);
 }
 
 // Head dim 64, 128 (and 256 with `d256`); anything else:

@@ -1,7 +1,7 @@
 // The fp32 attention forward shared by three kernels (attention_fp32.cu):
 // K1 off the fused qkv projection and K3 on strided q / k / v, both under
 // `TpuPolicy`, and K4 (long or causal sequences) under `BundledPolicy`; and
-// the SIMT tile products the fp32 backward (attention_bwd_fp32.cuh) reuses.
+// its SIMT tile products, which the fused fp32 kernels (gemm_fp32.cuh) use.
 // The bf16 kernels (attention_fwd.cuh) run their products on the tensor
 // cores; these take the fp32 inputs of `tpu.compute_dtype: float32`, which
 // the TPU kernels take too (JAX's dispatch asks nothing about the dtype).
@@ -35,9 +35,8 @@
 //   k order from 0; the softmax uses exp2f, an online max and sum in fp32;
 //   P stays fp32 for P V; one division by the row sum at the end (the TPU
 //   kernels divide once as well; the bundled one renormalises per block:
-//   equal up to fp32 rounding).  s is formed the same way, operand for
-//   operand and in the same order, by the backward kernels, so that they
-//   rebuild p from the row max bit for bit.
+//   equal up to fp32 rounding).  The backward kernels (attention_bwd_fp32.cuh)
+//   form s from the same operands by 3xTF32, within a few ulp of this s.
 // Under DENSECLIP_FAST_EXP2 (`forward<P, D, kPoly>`, TpuPolicy; kPolyZeroed
 // with Args::max_floor 0): a first pass streams K alone for each row's
 // final max, then the loop below runs with that max fixed (no rescale) and

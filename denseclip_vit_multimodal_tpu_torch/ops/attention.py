@@ -22,7 +22,8 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
   When autograd records it, it goes through `FlashAttentionFunction`: K4
   also writes each row's max and sum (the bundled kernel's residuals m and
   l), and the backward is K4b (`csrc/flash_attention_bwd.cu`, or
-  `csrc/attention_bwd_fp32.cu`'s `flash_attention_bwd_fp32` in fp32) on
+  `csrc/attention_bwd_fp32.cu`'s `flash_attention_bwd_fp32`, 3xTF32 on the
+  tensor cores, in fp32) on
   CUDA, `flash_attention_bwd_reference` on the CPU.  q / k / v may be
   strided views (the split of the fused qkv projection, row stride 3*H*D):
   the kernels read them by stride, with no copy.

@@ -30,9 +30,9 @@ H100.
 The kernels take bf16 and fp32, as the TPU kernels do (JAX's dispatch asks
 nothing about the dtype): a bf16 tensor launches the tensor-core kernels
 (`csrc/qkv_attention.cu`, `csrc/mha_attention.cu`, `csrc/qkv_attention_bwd.cu`),
-an fp32 one the SIMT fp32 kernels (`csrc/attention_fp32.cu`,
-`csrc/attention_bwd_fp32.cu`: every product an fp32 FMA, no TF32), and any
-other dtype raises `TypeError` naming the two.  The plain versions take
+an fp32 one the fp32 kernels (`csrc/attention_fp32.cu`: SIMT, every product
+an fp32 FMA; `csrc/attention_bwd_fp32.cu`: 3xTF32 on the tensor cores, fp32
+accurate), and any other dtype raises `TypeError` naming the two.  The plain versions take
 either; in fp32 their roundings to the input dtype are exact.
 
 The one-shot attention on [B, N, H, D] ports the JAX `mha_attention`, its
@@ -114,7 +114,8 @@ LAUNCHES: Dict[str, int] = {
     for dt in ("", "_fp32") for knob in ("", "_fast_exp2", "_exp_bf16")
     if not (knob == "_exp_bf16" and (dt or name.endswith("_bwd")))}
 LAUNCHES.update(qkv_attention_int8=0, quantize_qkv_int8=0)
-# The dtypes the attention kernels (K1-K4b) take: bf16 on the tensor cores, fp32 in SIMT.
+# The dtypes the attention kernels (K1-K4b) take: bf16 on the tensor cores, fp32 in SIMT
+# (the forwards) or by 3xTF32 on the tensor cores (the backwards).
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
 EXP_BF16_ENV = "DENSECLIP_EXP_BF16"
 FAST_EXP2_ENV = "DENSECLIP_FAST_EXP2"

@@ -44,8 +44,19 @@ signatures every tree must share, and:
     (this checkout's K1 + `torch.matmul` + the cast to fp32, timed in the
     same turns) and the bound.
 
+With `--fp32` it times the fp32 kernels instead: K1, K3 and K4 in fp32
+(`csrc/attention_fp32.cu`) and K2, K3's backward and K4b in fp32
+(`csrc/attention_bwd_fp32.cu`), the three backwards fed by the last tree's
+fp32 forward, each tree's output held against the plain versions (fp32
+limits: outputs max abs 1e-4 and rel. L2 1e-5, gradients rel. L2 1e-4 and
+max abs 1e-4 of the largest, masked keys exactly 0) and against the last
+tree's bit for bit, then timed in turns at the fp32 paths' shapes (FP32_SHAPES)
+beside SDPA in fp32 (its backward for the backwards), the bound at the fp32
+FMA peak and the 3xTF32 ceiling, and the TFLOP/s; then each kernel's device
+time by torch.profiler (a backward entry launches a dq and a dk/dv kernel).
+
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
-        [--tree NAME=CSRC_DIR ...] [--rounds 3]
+        [--tree NAME=CSRC_DIR ...] [--rounds 3] [--fp32]
 
 One JSON line per tree and shape, then a summary line.
 """
@@ -390,6 +401,252 @@ def time_k6_split(fns: dict, operands, heads: int, kv: int, k6_outs: dict, round
     return {"k6_split": summary}
 
 
+# fp32: (batch, tokens, heads, head dim, valid_len, causal); the prefix names the kernel
+FP32_SHAPES = {
+    "k1f32_crop640": (4, 1664, 12, 64, 1601, False),
+    "k3f32_profile": (8, 1601, 12, 64, 1601, False),
+    "k4f32_long_crop": (2, 9344, 12, 64, 9217, False),
+    "k2f32_crop640": (4, 1664, 12, 64, 1601, False),
+    "k3bwdf32_profile": (8, 1601, 12, 64, 1601, False),
+    "k3bwdf32_d128": (2, 1100, 8, 128, 1050, False),
+    "k3bwdf32_d256": (1, 1030, 2, 256, 1025, False),
+    "k4bf32_long_crop": (2, 9344, 12, 64, 9217, False),
+    "k4bf32_causal": (1, 2048, 4, 64, 2000, True),
+    "k4bf32_d256": (1, 1100, 2, 256, 1050, True),
+}
+FP32_ITERS = {"k1f32": 20, "k3f32": 20, "k4f32": 3, "k2f32": 10, "k3bwdf32": 10, "k4bf32": 3}
+PEAK_FP32_FLOPS = 66.9e12  # H100 SXM fp32 FMA rate outside the tensor cores
+PEAK_3XTF32_FLOPS = 495e12 / 3  # three TF32 products per fp32 one
+FP32_MAX_TOL, FP32_REL_TOL = 1e-4, 1e-5
+FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL = 1e-4, 1e-4
+
+
+def build_fp32_tree(name: str, csrc: Path, out_dir: Path) -> dict:
+    """Compile `csrc`'s fp32 forward and backward sources; their six entry
+    points by name."""
+    from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    sources = ["attention_fp32", "attention_bwd_fp32"]
+    procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
+                                    str(csrc / f"{src}.cu")],
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src in sources}
+    for src, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for tree {name}, {src}:\n{log}")
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if any(key in ln for key in ("Compiling entry", "registers", "spill",
+                                              "Performance", "warning"))]
+        print(json.dumps({"tree": name, "build": src, "ptxas": ptxas}), flush=True)
+    fwd = ctypes.CDLL(str(out_dir / "libattention_fp32.so"))
+    bwd = ctypes.CDLL(str(out_dir / "libattention_bwd_fp32.so"))
+    table = {
+        "qkv": (fwd.qkv_attention_fp32, [ptr] * 3 + [i] * 5 + [f, ptr]),
+        "mha": (fwd.mha_attention_fp32, [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]),
+        "flash": (fwd.flash_attention_fp32, [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]),
+        "qkv_bwd": (bwd.qkv_attention_bwd_fp32, [ptr] * 6 + [i] * 5 + [f, f, ptr]),
+        "mha_bwd": (bwd.mha_attention_bwd_fp32, [ptr] * 10 + [i64] * 9 + [i] * 5 + [f, f, ptr]),
+        "flash_bwd": (bwd.flash_attention_bwd_fp32, [ptr] * 9 + [i64] * 9 + [i] * 6 + [f, ptr]),
+    }
+    for fn, argtypes in table.values():
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return {key: fn for key, (fn, _) in table.items()}
+
+
+def _check(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"launch failed: cudaError {err}")
+
+
+def _kernel_ms(fn, iters: int) -> dict:
+    """Device milliseconds per call of each kernel `fn` launches, by
+    torch.profiler over `iters` calls after one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if us > 0:
+            out[ev.key[:80]] = us / iters / 1e3
+    return out
+
+
+def time_fp32(fns: dict, rounds: int) -> dict:
+    """The fp32 kernels of every tree at FP32_SHAPES: checks, then times in
+    turns, then each kernel's device time by torch.profiler (the backwards
+    launch two); a summary entry per shape."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    stream = torch.cuda.current_stream().cuda_stream
+    last = list(fns)[-1]
+    summary = {}
+    for shape, (b, n, heads, d, kv, causal) in FP32_SHAPES.items():
+        kernel = shape.split("_")[0]
+        backward = kernel in ("k2f32", "k3bwdf32", "k4bf32")
+        entry = {"k1f32": "qkv", "k2f32": "qkv", "k3f32": "mha", "k3bwdf32": "mha",
+                 "k4f32": "flash", "k4bf32": "flash"}[kernel]
+        hd, scale = heads * d, d**-0.5
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda")
+        q, k, v = (t.view(b, n, heads, d) for t in qkv.split(hd, dim=-1))
+        dout = torch.randn(b, n, heads, d, generator=gen, device="cuda")
+        strides = [st for t in (q, k, v) for st in t.stride()[:3]]
+        out = torch.empty(b, n, heads, d, device="cuda")
+        stats = torch.empty(b, heads, n, 2, device="cuda")
+        rows = kv if entry == "flash" else n  # the bundled numerics' work: the valid rows
+
+        def forward(fn, st=None):
+            st = None if st is None else st.data_ptr()
+            if entry == "qkv":
+                _check(fn["qkv"](qkv.data_ptr(), out.data_ptr(), st, b, n, heads, d, kv,
+                                 scale * LOG2E, stream))
+            elif entry == "mha":
+                _check(fn["mha"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
+                                 *strides, b, n, heads, d, kv, scale * LOG2E, stream))
+            else:
+                _check(fn["flash"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
+                                   *strides, b, n, heads, d, kv, int(causal), scale, stream))
+
+        results, outs = {}, {}
+        if backward:
+            forward(fns[last], stats)  # the backwards' operands: the last tree's forward
+            fwd_out = out.clone()
+            grads = [torch.empty(b, n, heads, d, device="cuda") for _ in range(3)]
+            dqkv = torch.empty(b, n, 3 * hd, device="cuda")
+            coef = (fwd_out * dout).sum(-1).transpose(1, 2).contiguous() if entry == "flash" \
+                else torch.empty(b, heads, n, device="cuda")
+            dout2 = dout.reshape(b, n, hd)
+
+            def call(fn):
+                if entry == "qkv":
+                    _check(fn["qkv_bwd"](qkv.data_ptr(), fwd_out.data_ptr(), dout2.data_ptr(),
+                                         stats.data_ptr(), coef.data_ptr(), dqkv.data_ptr(), b,
+                                         n, heads, d, kv, scale * LOG2E, scale, stream))
+                elif entry == "mha":
+                    _check(fn["mha_bwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         fwd_out.data_ptr(), dout.data_ptr(), stats.data_ptr(),
+                                         coef.data_ptr(), *(g.data_ptr() for g in grads),
+                                         *strides, b, n, heads, d, kv, scale * LOG2E, scale,
+                                         stream))
+                else:
+                    _check(fn["flash_bwd"](q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                           dout.data_ptr(), stats.data_ptr(), coef.data_ptr(),
+                                           *(g.data_ptr() for g in grads), *strides, b, n, heads,
+                                           d, kv, int(causal), scale, stream))
+
+            def got():
+                if entry == "qkv":
+                    return [t.view(b, n, heads, d) for t in dqkv.split(hd, dim=-1)]
+                return grads
+
+            if entry == "flash":
+                want = attention.flash_attention_bwd_reference(q, k, v, fwd_out, dout,
+                                                               causal=causal, valid_len=kv)
+            elif entry == "mha":
+                want = mha_kernel.mha_attention_bwd_reference(q, k, v, fwd_out, dout,
+                                                              valid_len=kv)
+            else:
+                want = [t.view(b, n, heads, d) for t in mha_kernel.mha_qkv_attention_bwd_reference(
+                    qkv, fwd_out.view(b, n, hd), dout2, heads, valid_len=kv).split(hd, dim=-1)]
+            for name, fn in fns.items():
+                for t in (dqkv, *grads):
+                    t.fill_(float("nan"))
+                call(fn)
+                torch.cuda.synchronize()
+                outs[name] = [g.clone() for g in got()]
+                res = {"tree": name, "shape": shape, "ms": []}
+                ok = True
+                for g_name, g, w, lim in zip(("dq", "dk", "dv"), outs[name], want,
+                                             (rows, kv, kv)):
+                    e, w = g[:, :lim] - w[:, :lim], w[:, :lim]
+                    res[g_name] = {"rel_l2_err": float(e.norm() / w.norm()),
+                                   "max_abs_err": float(e.abs().max()),
+                                   "max_abs_ref": float(w.abs().max())}
+                    ok = ok and bool(torch.isfinite(g[:, :lim]).all()) and (
+                        res[g_name]["rel_l2_err"] <= FP32_BWD_REL_TOL
+                        and res[g_name]["max_abs_err"] <= FP32_BWD_MAX_TOL
+                        * res[g_name]["max_abs_ref"])
+                res["masked_dkdv_exact_zero"] = bool((outs[name][1][:, kv:] == 0).all()
+                                                     and (outs[name][2][:, kv:] == 0).all())
+                res["ok"] = ok and res["masked_dkdv_exact_zero"]
+                results[name] = res
+            del want
+            lib = [t.transpose(1, 2).contiguous() for t in (q, k, v)]
+            lib[1], lib[2] = lib[1][:, :, :kv].contiguous(), lib[2][:, :, :kv].contiguous()
+            lib = [t.requires_grad_(True) for t in lib]
+            lib_out = F.scaled_dot_product_attention(*lib, is_causal=causal)
+            lib_grad = dout.transpose(1, 2).contiguous()
+            library = lambda: torch.autograd.grad(lib_out, lib, lib_grad, retain_graph=True)
+            flops = 10.0 * b * heads * rows * kv * d * (0.5 if causal else 1.0)
+            nbytes = 4.0 * 8 * b * n * hd + 4.0 * stats.numel()
+        else:
+            if entry == "flash":
+                plain_out = attention.flash_attention_reference(q, k, v, causal=causal,
+                                                                valid_len=kv)
+            elif entry == "mha":
+                plain_out = mha_kernel.mha_attention_reference(q, k, v, valid_len=kv)
+            else:
+                plain_out = mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=kv).view(
+                    b, n, heads, d)
+            call = lambda fn: forward(fn)
+            for name, fn in fns.items():
+                out.fill_(float("nan"))
+                forward(fn, stats)
+                torch.cuda.synchronize()
+                outs[name] = [out.clone(), stats.clone()]
+                e = out[:, :kv] - plain_out[:, :kv]
+                res = {"tree": name, "shape": shape, "ms": [],
+                       "max_abs_err": float(e.abs().max()),
+                       "rel_l2_err": float(e.norm() / plain_out[:, :kv].norm())}
+                res["ok"] = bool(torch.isfinite(out[:, :kv]).all()
+                                 and res["max_abs_err"] <= FP32_MAX_TOL
+                                 and res["rel_l2_err"] <= FP32_REL_TOL)
+                results[name] = res
+            qh = q.transpose(1, 2).contiguous()
+            kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
+            library = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+            flops = 4.0 * b * heads * rows * kv * d * (0.5 if causal else 1.0)
+            nbytes = 4.0 * (qkv.numel() + b * n * hd)
+        for r in range(rounds):
+            for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+                results[name]["ms"].append(_cuda_ms(lambda: call(fns[name]), FP32_ITERS[kernel]))
+        for name in fns:
+            results[name]["kernel_ms"] = _kernel_ms(lambda: call(fns[name]), FP32_ITERS[kernel])
+        library_ms = _cuda_ms(library, FP32_ITERS[kernel])
+        bytes_s = nbytes / PEAK_BYTES
+        bounds = {"bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS, bytes_s) * 1e3,
+                  "bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, bytes_s) * 1e3}
+        for name, res in results.items():
+            res.update(bitwise_equal_to_last=all(torch.equal(x, y) for x, y in
+                                                 zip(outs[name], outs[last])),
+                       median_ms=statistics.median(res["ms"]), library_ms=library_ms, **bounds)
+            res["tflops"] = flops / (res["median_ms"] * 1e-3) / 1e12
+            if backward:
+                res["tflops_7_products"] = res["tflops"] * 7 / 5
+            print(json.dumps(res), flush=True)
+        summary[shape] = {name: res["median_ms"] for name, res in results.items()}
+        summary[shape].update(library=library_ms, **bounds,
+                              bitwise_equal=all(r["bitwise_equal_to_last"]
+                                                for r in results.values()),
+                              ok=all(r["ok"] for r in results.values()))
+        del results, outs
+        torch.cuda.empty_cache()
+    return summary
+
+
 def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"stats_m_max_abs_err": float((got[..., 0] - want[..., 0]).abs().max()),
             "stats_l_max_rel_err": float(((got[..., 1] - want[..., 1]) / want[..., 1]).abs().max())}
@@ -407,11 +664,27 @@ def main(argv=None) -> dict:
     p.add_argument("--tree", action="append", default=[],
                    help="NAME=CSRC_DIR (default: this checkout's csrc/ as 'this')")
     p.add_argument("--rounds", type=int, default=3)
+    p.add_argument("--fp32", action="store_true",
+                   help="time the fp32 forward and backward kernels instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_fwd_trees: needs a CUDA device")
     trees = dict(t.split("=", 1) for t in args.tree) or {
         "this": str(root / "denseclip_vit_multimodal_tpu_torch" / "csrc")}
+    if args.fp32:
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(len(trees)) as pool:  # every tree's nvcc at once
+            built = pool.map(lambda t: build_fp32_tree(t[0], Path(t[1]),
+                                                       root / "build" / "fp32_trees" / t[0]),
+                             trees.items())
+            fns = dict(zip(trees, built))
+        summary = time_fp32(fns, args.rounds)
+        print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}),
+              flush=True)
+        if not all(entry["ok"] for entry in summary.values()):
+            raise SystemExit("time_fwd_trees: a tree disagrees with the plain version")
+        return summary
     fns = {name: build_tree(name, Path(csrc), root / "build" / "fwd_trees" / name)
            for name, csrc in trees.items()}
 

@@ -30,14 +30,17 @@ on the host to its losses read back, and `data_s`, the host seconds spent
 waiting for that batch) go to `<work_dir>/train_log.jsonl`, and every
 `log_interval` steps to the log; validation metrics to the log, and, under
 `training.save_visualizations` (default true), the validation panels to
-`<work_dir>/visualizations/` (`validate`).  Orbax checkpoints and the mesh /
-FSDP / pipeline / multi-host branches are not ported.
+`<work_dir>/visualizations/` (`validate`).  The `tpu.mesh` spec is resolved
+as JAX resolves it (`parallel/mesh.py`), before the data and the model are
+built, and a mesh over more than one device raises: the FSDP, tensor,
+pipeline and multi-host branches and Orbax checkpoints are not ported.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import signal
 import time
@@ -49,6 +52,7 @@ import torch
 from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_data_cfg
 from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
 from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES, build_denseclip
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 from denseclip_vit_multimodal_tpu_torch.train import checkpoint as ckpt_lib
 from denseclip_vit_multimodal_tpu_torch.train.clip_import import load_clip_into_model
 from denseclip_vit_multimodal_tpu_torch.train.metrics import (
@@ -266,6 +270,9 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     seed = int(training_cfg.get("seed", 42))
     class_names = class_names_for(data_cfg)
     logger.info("environment:\n%s", collect_env_info())
+    mesh = mesh_lib.mesh_from_config(tpu_cfg, mesh_lib.device_count(device))
+    logger.info("mesh %s over %d devices (%s)", mesh, math.prod(mesh.values()), device.type)
+    mesh_lib.check_single_device(mesh, tpu_cfg)
 
     train_ds = build_dataset(data_cfg, "train")
     loader = DataLoader(train_ds, batch_size=int(training_cfg.get("batch_size", 8)), seed=seed,

@@ -1,11 +1,13 @@
 // A CPU emulation of the CUDA subset the port's kernels use, so that the
 // CPU tests can run `csrc/attention_bwd.cuh` (and the sources on
-// hopper.cuh, the int8 prologue and the fp32 SIMT cores) as written: every CUDA
-// thread of a block is a std::thread, `__syncthreads` a block barrier, and
-// the warp-level operations (shuffles, ldmatrix, mma.sync; mma_bf16.cuh
-// here) exchange their operands through a per-warp slot table between two
-// warp barriers.  cp.async copies are deferred to the issuing thread's
-// `cp.async.wait_group`, the latest moment the hardware may complete them.
+// hopper.cuh, the int8 prologue, the fp32 SIMT cores and the 3xTF32
+// backward core) as written: every CUDA thread of a block is a std::thread,
+// `__syncthreads` a block barrier, and the warp-level operations (shuffles,
+// ldmatrix, mma.sync; mma_bf16.cuh and mma_tf32.cuh here) exchange their
+// operands through a per-warp slot table between two warp barriers
+// (mma_tf32.cuh: one, over two banks of its own table in turns).  cp.async
+// copies are deferred to the issuing thread's `cp.async.wait_group`, the
+// latest moment the hardware may complete them.
 // Blocks run one after another, the last of the grid first, and share one
 // dynamic shared-memory array of 227 KB, filled with 0xff before each
 // block.  tests/test_torch_cuda_emulated.py
@@ -103,6 +105,7 @@ constexpr size_t kSmemBytes = 232448;  // what one block may use on an H100
 struct Warp {
   std::barrier<> bar{32};
   uint64_t slot[32][8];
+  uint32_t tf32[2][32][12];  // mma_tf32.cuh's operands: two banks, used in turns
 };
 
 struct Block {

@@ -2,13 +2,16 @@
 
 `csrc/attention_fp32.cu` (K1, K3 and K4 in fp32 on the SIMT core
 `csrc/attention_fp32.cuh`) and `csrc/attention_bwd_fp32.cu` (K2, K3's
-backward and K4b on `csrc/attention_bwd_fp32.cuh`), compiled by the host
-compiler against `tests/cuda_emu/` (`tests/torch_cuda_emu.py::_build`: a
-std::thread per CUDA thread, shuffles and `__syncwarp` as warp barriers,
-cp.async deferred to its wait, shared memory filled with NaN bytes before
-each block), each entry against its plain version: head dims 64 / 128 /
-256, causal, `valid_len` with NaN in the K / V rows past it, the row
-statistics, and a rerun held bitwise equal.  The plain versions are held
+backward and K4b on the 3xTF32 core `csrc/attention_bwd_fp32.cuh`),
+compiled by the host compiler against `tests/cuda_emu/`
+(`tests/torch_cuda_emu.py::_build`: a std::thread per CUDA thread,
+shuffles, `__syncwarp` and TF32 mma.sync (`tests/cuda_emu/mma_tf32.cuh`) as
+warp exchanges, cp.async deferred to its wait, shared memory filled with
+NaN bytes before each block), each entry against its plain version: head
+dims 64 / 128 / 256, causal, `valid_len` with NaN in the K / V rows past
+it, the row statistics, and a rerun held bitwise equal.  The cases reach
+the backward core's paths: both stages of its ring, tiles no mask reaches
+and n-tiles a mask empties, D = 256's single stage and two passes.  The plain versions are held
 against the JAX package's kernels in `tests/test_torch_fp32_kernels.py`.
 """
 
@@ -36,7 +39,7 @@ def fns(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_fp32")
     fwd = _build("attention_fp32", out, core="attention_fp32")
-    bwd = _build("attention_bwd_fp32", out, core=("attention_fp32", "attention_bwd_fp32"))
+    bwd = _build("attention_bwd_fp32", out, core="attention_bwd_fp32")
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     table = {
         "qkv": (fwd.qkv_attention_fp32, [ptr] * 3 + [i] * 5 + [f, ptr]),

@@ -52,7 +52,7 @@ def fns(tmp_path_factory):
             "k3": _build("mha_attention_knobs", out, "attention_fwd"),
             "bwd": _build("attention_bwd_knobs", out),
             "f32": _build("attention_fp32", out, "attention_fp32"),
-            "f32bwd": _build("attention_bwd_fp32", out, ("attention_fp32", "attention_bwd_fp32")),
+            "f32bwd": _build("attention_bwd_fp32", out, "attention_bwd_fp32"),
             "k6": _build("ln_qkv_attention", out, "attention_fwd"),
             "k6f32": _build("ln_qkv_attention_fp32", out, fp32_cores),
             "k7": _build("qkv_out_attention", out, "attention_fwd"),
