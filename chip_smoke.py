@@ -263,14 +263,16 @@ phases that each print one JSON line:
  29. fp32_path  — `tpu.compute_dtype: float32` through the kernels (TF32 off,
                   printed): the six fp32 kernels (K1, K3, K4 in
                   `csrc/attention_fp32.cu`; K2, K3's backward, K4b in
-                  `csrc/attention_bwd_fp32.cu`, 3xTF32 on the tensor
-                  cores) against their plain versions
+                  `csrc/attention_bwd_fp32.cu`; all 3xTF32 on the tensor
+                  cores, but K3 / K4 at head dim 256 on the SIMT core)
+                  against their plain versions
                   at the fp32 paths' shapes (outputs max abs <= 1e-4, rel. L2
                   <= 1e-5; row statistics as the bf16 kernels'; gradients rel.
                   L2 <= 1e-4 and max abs <= 1e-4 of the largest, masked keys
                   exactly 0, a rerun bitwise; NaN in the pad keys of most
-                  cases), with SDPA's fp32 time and the bounds at 66.9 TFLOP/s
-                  and the 3xTF32 ceiling (the backwards' own bound); then the
+                  cases), with SDPA's fp32 time and the bounds at the 3xTF32
+                  ceiling and at 66.9 TFLOP/s; K6 fp32 (and its stages one at
+                  a time beside layer_norm and F.linear in fp32); then the
                   flagship in fp32: a slide
                   frame (12 K1 fp32, logits within 1e-4 of `attn_impl: xla`),
                   `flash` at crop 384 (24 K1 fp32), the heritage preset
@@ -4089,16 +4091,26 @@ FP32_BWD_CASES = [
 ]
 
 
-def fp32_bounds(flops: float, nbytes: float, tensor_cores: bool = False) -> dict:
-    """The least time of an fp32 kernel on an H100 SXM: at the 3xTF32 ceiling
-    for a kernel on the tensor cores (the backward core), else at the fp32
-    FMA peak; both bounds beside it."""
-    peak = PEAK_3XTF32_FLOPS if tensor_cores else PEAK_FP32_FLOPS
-    ops_s, bytes_s = flops / peak, nbytes / PEAK_BYTES
+def fp32_bounds(flops: float, nbytes: float) -> dict:
+    """The least time of an fp32 kernel on an H100 SXM: the fp32 kernels run
+    their products on the tensor cores by 3xTF32 (the forward at head dim
+    256 excepted), so at the 3xTF32 ceiling; the fp32 FMA peak's bound
+    beside it."""
+    ops_s, bytes_s = flops / PEAK_3XTF32_FLOPS, nbytes / PEAK_BYTES
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
             "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS, bytes_s) * 1e3,
             "bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, bytes_s) * 1e3}
+
+
+def kernel_bounds(dtype, flops: float, nbytes: float) -> dict:
+    """A bf16 kernel's bound at the bf16 tensor-core peak, an fp32 one's by
+    fp32_bounds."""
+    if dtype != torch.bfloat16:
+        return fp32_bounds(flops, nbytes)
+    ops_s, bytes_s = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s >= bytes_s else "bytes"}
 
 
 def _fp32_forward(kernel: str, b: int, n: int, heads: int, d: int, kv: int, causal: bool,
@@ -4219,7 +4231,7 @@ def fp32_backward_case(kernel: str, b: int, n: int, heads: int, d: int, valid_le
     nbytes = 4.0 * 8 * b * n * hd + 4.0 * stats.numel()  # q, k, v, O, dO in; dq, dk, dv out
     res.update({"ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(plain, 1, warmup=1),
                 "library_ms": cuda_ms(library, iters),
-                **fp32_bounds(flops, nbytes, tensor_cores=True)})
+                **fp32_bounds(flops, nbytes)})
     res["tflops_5_products"] = flops / (res["ms"] * 1e-3) / 1e12
     res["tflops_7_products"] = res["tflops_5_products"] * 7 / 5
     return res
@@ -4477,6 +4489,17 @@ def _fp32_aug_test() -> dict:
     return res
 
 
+FP32_FWD_DESIGN = ("3xTF32 mma.sync m16n8k8 (attention_fp32.cuh), a warp on 16 query rows; "
+                   "K / V tiles through a three-stage cp.async ring into split planes, each "
+                   "element split once a tile by the thread that copied it (tf32_frag.cuh), "
+                   "tile t + 1 split after tile t's branch-free work; Q split once (in "
+                   "registers at head dim 64); P V from the C fragments, each tile's sum one "
+                   "fmaf into O; head dim 256 on the SIMT core (attention_fp32_simt.cuh)")
+FP32_LNQKV_DESIGN = ("row statistics pass; 3xTF32 mma.sync projection (gemm_fp32.cuh: 128 x 128 "
+                     "tiles on 8 warps, a four-stage cp.async ring of 16-deep k-tiles into "
+                     "split planes, the LayerNorm applied to each A chunk before its split); "
+                     "K1's fp32 body on the q/k/v workspace")
+
 # The fp32 kernels' entries of the `kernels` line: (name, source, the TPU
 # kernel replaced, the fp32 path whose launches it reports).
 FP32_ENTRIES = (
@@ -4501,18 +4524,16 @@ def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict) -> list:
     out = []
     for name, source, replaces, path in FP32_ENTRIES:
         first, *rest = fp32_res["kernels"][name]
-        design = ("row statistics pass; SIMT fp32 projection with the LayerNorm as its A "
-                  "prologue (gemm_fp32.cuh); K1's fp32 body on the q/k/v workspace"
-                  if name.startswith("ln_qkv") else
+        design = (FP32_LNQKV_DESIGN if name.startswith("ln_qkv") else
                   "3xTF32 mma.sync m16n8k8 (operands split in registers), a warp on 16 rows, "
                   "p and ds in registers, two-stage cp.async ring (one stage at head dim 256)"
-                  if "_bwd" in name else
-                  "SIMT fp32 FMA (no TF32), 256 threads on 64 rows, cp.async tiles")
+                  if "_bwd" in name else FP32_FWD_DESIGN)
         out.append({**entry(name, source, replaces, first,
                             fp32_res["launches_by_path"][path][name]),
                     "design": design, "path": path, "shape": first["shape"],
                     "valid_len": first["valid_len"],
                     "other_shapes": [at_shape(r) for r in rest],
+                    **({"split": first["split"]} if "split" in first else {}),
                     **knob_fields(knobs_res, name)})
     return out
 
@@ -4535,6 +4556,8 @@ def phase_fp32_path(bf16_long: dict, selftest_res: dict) -> dict:
     res = {"phase": "fp32_path", **tf32, "kernels": _fp32_kernel_checks(), "paths": {}}
     res["kernels"]["ln_qkv_attention_fp32"] = [lnqkv_mode_case(torch.float32, None, *case)
                                                for case in FP32_LNQKV_CASES]
+    res["kernels"]["ln_qkv_attention_fp32"][0]["split"] = lnqkv_fp32_split(
+        *FP32_LNQKV_CASES[0])
     paths = res["paths"]
     paths.update(_fp32_slide_and_flash())
     emit({"phase": "fp32_path", "part": "slide_and_flash", **paths})
@@ -4687,7 +4710,6 @@ def knob_forward_case(kernel: str, dtype, knob: str, b: int, n: int, heads: int,
     del ref, ref_exact, got, m_plain, l_plain, m_exact, l_exact
     flops = 4.0 * b * heads * n * kv * d
     nbytes = qkv.element_size() * (qkv.numel() + out.numel())
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     kh, vh = kh[:, :, :kv].contiguous(), vh[:, :, :kv].contiguous()
     default_ms = cuda_ms(lambda: run(0), iters)  # first: it also warms the card up
@@ -4695,8 +4717,7 @@ def knob_forward_case(kernel: str, dtype, knob: str, b: int, n: int, heads: int,
         "ms": cuda_ms(lambda: run(mode), iters), "default_ms": default_ms,
         "plain_ms": cuda_ms(lambda: plain(mode), 1, warmup=1),
         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), iters),
-        "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-        "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+        **kernel_bounds(dtype, flops, nbytes)})
     res["tflops"] = flops / (res["ms"] * 1e-3) / 1e12
     fp32 = dtype == torch.float32
     out_ok = (res["max_abs_err"] <= (FP32_MAX_TOL if fp32 else KERNEL_TOL)
@@ -4770,12 +4791,10 @@ def knob_backward_case(kernel: str, dtype, b: int, n: int, heads: int, d: int, v
     lib_grad = view(dout).transpose(1, 2).contiguous()
     flops = 10.0 * b * heads * n * kv * d
     nbytes = qkv.element_size() * 8 * b * n * hd
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     res.update({"ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(lambda: plain(mode), 1, warmup=1),
                 "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib, lib_grad,
                                                                   retain_graph=True), iters),
-                "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-                "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+                **kernel_bounds(dtype, flops, nbytes)})
     res["tflops_5_products"] = flops / (res["ms"] * 1e-3) / 1e12
     if kernel == "qkv":
         res["default_ms"] = cuda_ms(lambda: M._launch_bwd(qkv, out, dout, stats, heads, scale, kv),
@@ -4871,13 +4890,11 @@ def lnqkv_mode_case(dtype, knob, b: int, n: int, dim: int, heads: int, valid_len
 
     flops = 2.0 * b * n * dim * 3 * dim + 4.0 * b * heads * n * kv * d
     nbytes = x.element_size() * (x.numel() + w.numel() + out.numel()) + 4.0 * (2 * dim + 3 * dim)
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    bounds = kernel_bounds(dtype, flops, nbytes)
     res.update({"ms": ms, "default_ms": default_ms,
                 "plain_ms": cuda_ms(lambda: ln_qkv_attention_reference(
                     *args, valid_len=valid_len, exp_mode=mode), 1, warmup=1),
-                "library_ms": cuda_ms(library, iters),
-                "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-                "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"})
+                "library_ms": cuda_ms(library, iters), **bounds})
     torch.backends.cuda.matmul.allow_tf32 = prev
     res["tflops"] = flops / (ms * 1e-3) / 1e12
     fp32 = dtype == torch.float32
@@ -4890,6 +4907,78 @@ def lnqkv_mode_case(dtype, knob, b: int, n: int, dim: int, heads: int, valid_len
     if not (ok and sees and launches == 1 and res["finite"] and res["rerun_bitwise_equal"]):
         raise AssertionError(f"{name} disagrees with its plain version: {res}")
     return res
+
+
+def lnqkv_fp32_split(b: int, n: int, dim: int, heads: int, valid_len, iters: int) -> dict:
+    """K6 in fp32 one stage at a time (its stage entry points, which count no
+    launch), on lnqkv_mode_case's operands: the statistics bitwise
+    `ln_qkv_stats_reference`'s, the projection's workspace against
+    `ln_qkv_projection_reference` (the fp32 output limits), the second stage
+    bitwise the whole kernel's output; each stage's time beside
+    `F.layer_norm` and `F.linear` in fp32 (TF32 off) and the projection's
+    bounds."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import (
+        kernel_fns,
+        ln_qkv_attention,
+        ln_qkv_projection_reference,
+        ln_qkv_stats_reference,
+    )
+
+    d, rows = dim // heads, b * n
+    kv = n if valid_len is None else valid_len
+    x, gamma, beta, w, bias = _lnqkv_operands(b, n, dim, torch.float32)
+    fns = kernel_fns(torch.float32)
+    stats = torch.empty(rows, 2, device="cuda")
+    work = torch.empty(b, n, 3 * dim, device="cuda")
+    out = torch.empty(b, n, dim, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err_code):
+        if err_code != 0:
+            raise RuntimeError(f"K6 fp32 stage launch failed: cudaError {err_code}")
+
+    params = [t.data_ptr() for t in (x, gamma, beta, w, bias)]
+    stats_run = lambda: check(fns["stats"](x.data_ptr(), stats.data_ptr(), rows, dim, 1e-5,
+                                           stream))
+    gemm_run = lambda: check(fns["gemm"](*params, stats.data_ptr(), work.data_ptr(), rows, dim,
+                                         dim, d**-0.5 * LOG2E, stream))
+    stage2_run = lambda: check(fns["stage2"](work.data_ptr(), out.data_ptr(), b, n, heads, d, kv,
+                                             stream))
+    stats_run()
+    gemm_run()
+    stage2_run()
+    whole = ln_qkv_attention(x, gamma, beta, w.t(), bias, heads, valid_len=valid_len)
+    torch.cuda.synchronize()
+    ws_ref = ln_qkv_projection_reference(x, gamma, beta, w.t(), bias, heads)
+    ws_err = work[:, :kv].double() - ws_ref[:, :kv].double()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ln = lambda: F.layer_norm(x, (dim,), gamma, beta, 1e-5)
+    lnx = ln()
+    proj_flops = 2.0 * rows * dim * 3 * dim
+    split = {
+        "stats_bitwise_equal": torch.equal(stats.view(b, n, 2)[:, :kv],
+                                           ln_qkv_stats_reference(x[:, :kv])),
+        "workspace_max_abs_err": float(ws_err.abs().max()),
+        "workspace_rel_l2_err": float(ws_err.norm() / ws_ref[:, :kv].double().norm()),
+        "stage2_bitwise_equal": bitwise_equal(out, whole),
+        "stats_ms": cuda_ms(stats_run, iters), "projection_ms": cuda_ms(gemm_run, iters),
+        "stage2_ms": cuda_ms(stage2_run, iters),
+        "layer_norm_ms": cuda_ms(ln, iters),
+        "linear_ms": cuda_ms(lambda: F.linear(lnx, w, bias), iters),
+        **{f"projection_{k}": v for k, v in fp32_bounds(
+            proj_flops, 4.0 * (2 * x.numel() + w.numel())).items()},
+    }
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    split["projection_tflops"] = proj_flops / (split["projection_ms"] * 1e-3) / 1e12
+    emit({"phase": "fp32_path", "part": "kernel_lnqkv_split", "shape": [b, n, dim], **split})
+    if not (split["stats_bitwise_equal"] and split["stage2_bitwise_equal"]
+            and split["workspace_max_abs_err"] <= FP32_MAX_TOL
+            and split["workspace_rel_l2_err"] <= FP32_REL_TOL):
+        raise AssertionError(f"K6 fp32's stages disagree: {split}")
+    return split
 
 
 def outproj_mode_case(dtype, knob, b: int, n: int, heads: int, d: int, valid_len,
@@ -4928,7 +5017,7 @@ def outproj_mode_case(dtype, knob, b: int, n: int, heads: int, d: int, valid_len
     got, ref, ref_exact = out[:, :kv], ref[:, :kv], ref_exact[:, :kv]
     flops = 4.0 * b * heads * n * kv * d + 2.0 * b * n * hd * hd
     nbytes = qkv.element_size() * (qkv.numel() + w.numel()) + 4.0 * b * n * hd
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    bounds = kernel_bounds(dtype, flops, nbytes)
     res = {"phase": "outproj_path", "part": "kernel", "name": name, "knob": knob,
            "exp_mode": mode, "dtype": str(dtype), "shape": [b, n, 3 * hd], "valid_len": valid_len,
            "launches_one_call": launches, "max_abs_err": float((got - ref).abs().max()),
@@ -4939,8 +5028,7 @@ def outproj_mode_case(dtype, knob, b: int, n: int, heads: int, d: int, valid_len
            "plain_ms": cuda_ms(lambda: exp.qkv_out_attention_reference(
                qkv, w, heads, valid_len=valid_len, exp_mode=mode), 1, warmup=1),
            "library_ms": None,  # no one PyTorch call computes attention + out-projection
-           "bound_ms": max(flops / peak, nbytes / PEAK_BYTES) * 1e3,
-           "bound_by": "operations" if flops / peak >= nbytes / PEAK_BYTES else "bytes"}
+           **bounds}
     res["tflops"] = flops / (ms * 1e-3) / 1e12
     fp32 = dtype == torch.float32
     scale = float(ref.abs().max())
@@ -5479,8 +5567,9 @@ def main() -> int:
         {**entry("qkv_out_attention_fp32", "qkv_out_attention_fp32.cu",
                  "tools/exp_outproj_epilogue.py:46", outproj_res["fp32"],
                  outproj_res["fp32"]["launches"]["qkv_out_attention_fp32"]),
-         "design": "K1's fp32 body into an fp32 workspace, then the SIMT fp32 out-projection "
-                   "(gemm_fp32.cuh)", "shape": outproj_res["fp32"]["shape"],
+         "design": "K1's fp32 body (3xTF32, attention_fp32.cuh) into an fp32 workspace, then "
+                   "the 3xTF32 out-projection (gemm_fp32.cuh, W_out in a KN split plane)",
+         "shape": outproj_res["fp32"]["shape"],
          "k1_matmul_ms": outproj_res["fp32"]["k1_matmul_ms"],
          **knob_fields(knobs_res, "qkv_out_attention_fp32")},
     ]})

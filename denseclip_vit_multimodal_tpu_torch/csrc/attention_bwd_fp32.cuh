@@ -42,9 +42,9 @@
 //     ds = (dp - di) * p * scale; dk += ds^T q; dq = ds k.  di = rowsum(O *
 //     dO) comes from the caller in `coef`.  Pad rows contribute nothing and
 //     get dq = 0; keys after the query are masked when `causal`.
-//   Both: s is formed from the same operands as the SIMT forward's
-//   (attention_fp32.cuh), but by 3xTF32 and in another order, so it differs
-//   from the forward's in its last bits and p = exp2(s - m) from the
+//   Both: s is formed from the same operands as the forward's
+//   (attention_fp32.cuh), also by 3xTF32 but summed in another order, so it
+//   may differ from the forward's in its last bits and p = exp2(s - m) from the
 //   forward's max by about as much (a few 1e-7 relative): the gradients stay
 //   within the fp32 limits (rel. L2 1e-4).  Keys >= kv_len are never
 //   loaded, get p = 0 and are written dk = dv = 0 exactly; no atomics, so
@@ -119,8 +119,8 @@
 
 #include "bundled_logit.cuh"
 #include "mma_bf16.cuh"  // cp_async16, cp_async_commit, cp_async_wait
-#include "mma_tf32.cuh"
 #include "softmax_exp.cuh"
+#include "tf32_frag.cuh"  // mma_tf32.cuh and the fragment helpers
 
 namespace dclip {
 namespace f32bwd {
@@ -249,52 +249,7 @@ __device__ __forceinline__ void zero_rows(float* base, long long row_stride, int
   }
 }
 
-// ---- fragments -----------------------------------------------------------
-
-// The A fragment of rows [r0, r0 + 16) x cols [c0, c0 + 8) of a row-major
-// tile (k along the row), split.
-template <int kLd>
-__device__ __forceinline__ FragA frag_a(const float* s, int r0, int c0, int g, int t) {
-  const float* p = s + (r0 + g) * kLd + c0 + t;
-  return split_a(p[0], p[8 * kLd], p[4], p[8 * kLd + 4]);
-}
-
-// The B fragment of n-rows [n0, n0 + 8) x k-cols [k0, k0 + 8) of an operand
-// stored [n][k] (k along the row; K-major), times `scale` (rounded) with
-// kScale, split.
-template <int kLd, bool kScale = false>
-__device__ __forceinline__ FragB frag_b_nk(const float* s, int n0, int k0, int g, int t,
-                                           float scale = 1.f) {
-  const float* p = s + (n0 + g) * kLd + k0 + t;
-  float b0 = p[0], b1 = p[4];
-  if constexpr (kScale) {
-    b0 = __fmul_rn(b0, scale);
-    b1 = __fmul_rn(b1, scale);
-  }
-  return split_b(b0, b1);
-}
-
-// The B fragment of k-rows [k0, k0 + 8) x n-cols [n0, n0 + 8) of an operand
-// stored [k][n] (n along the row; MN-major) in the permuted k order (b0 from
-// row k0 + 2t, b1 from row k0 + 2t + 1), rows times s0 / s1 (rounded) with
-// kScale, split.
-template <int kLd, bool kScale = false>
-__device__ __forceinline__ FragB frag_b_kn(const float* s, int k0, int n0, int g, int t,
-                                           float s0 = 1.f, float s1 = 1.f) {
-  const float* p = s + (k0 + 2 * t) * kLd + n0 + g;
-  float b0 = p[0], b1 = p[kLd];
-  if constexpr (kScale) {
-    b0 = __fmul_rn(b0, s0);
-    b1 = __fmul_rn(b1, s1);
-  }
-  return split_b(b0, b1);
-}
-
-// The C fragment of an 8-wide n-tile as the A fragment of an 8-deep k-step
-// in frag_b_kn's k order (c0 / c1: row g, columns 2t / 2t + 1), split.
-__device__ __forceinline__ FragA c_as_a(const float c[4]) {
-  return split_a(c[0], c[2], c[1], c[3]);
-}
+// ---- fragments: frag_a, frag_b_nk, frag_b_kn, c_as_a (tf32_frag.cuh) ----
 
 // Rows (r0 + g, r0 + g + 8) of a 16 x D accumulator (c0, c1 of row g at
 // columns 8 dt + 2t, + 1) to a strided [B, N, H, D] fp32 operand; rows >= n

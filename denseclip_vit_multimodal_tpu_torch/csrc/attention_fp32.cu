@@ -1,9 +1,9 @@
 // The fp32 attention forwards: K1 off the fused QKV projection, K3 on
 // strided q / k / v (both under the TPU kernels' numerics) and K4, long or
 // causal sequences (under the bundled kernel's).  All three instantiate the
-// SIMT core attention_fp32.cuh, whose header note gives the TPU kernels
-// replaced, the numerics, the design and the bound on an H100; they differ
-// in addressing and policy only.  This file holds the kernels' names and the
+// 3xTF32 tensor-core core attention_fp32.cuh, whose header note gives the
+// TPU kernels replaced, the numerics, the design and the bound on an H100;
+// they differ in addressing and policy only.  This file holds the kernels' names and the
 // plain C entry points, with the bf16 entries' signatures.
 
 #include "attention_fp32.cuh"
@@ -15,13 +15,13 @@ namespace softmax = dclip::softmax;
 
 // kMode: softmax::kExact, or kPoly under DENSECLIP_FAST_EXP2 (softmax_exp.cuh)
 template <int D, int kMode>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kFwdMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
 qkv_attention_fp32_kernel(const Args a) {
   forward<TpuPolicy, D, kMode>(a);
 }
 
 template <int D, int kMode>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kFwdMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
 mha_attention_fp32_kernel(const Args a) {
   forward<TpuPolicy, D, kMode>(a);
 }
@@ -41,7 +41,7 @@ cudaError_t run_mha(const Args& a, int batch, int mode, cudaStream_t s) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kFwdMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
 flash_attention_fp32_kernel(const Args a) {
   forward<BundledPolicy, D>(a);
 }

@@ -1,10 +1,12 @@
-// The fp32 attention forward shared by three kernels (attention_fp32.cu):
-// K1 off the fused qkv projection and K3 on strided q / k / v, both under
-// `TpuPolicy`, and K4 (long or causal sequences) under `BundledPolicy`; and
-// its SIMT tile products, which the fused fp32 kernels (gemm_fp32.cuh) use.
-// The bf16 kernels (attention_fwd.cuh) run their products on the tensor
-// cores; these take the fp32 inputs of `tpu.compute_dtype: float32`, which
-// the TPU kernels take too (JAX's dispatch asks nothing about the dtype).
+// The fp32 attention forward shared by five kernels: K1 off the fused qkv
+// projection and K3 on strided q / k / v (attention_fp32.cu), the second
+// stages of the fused fp32 K6 and K7 (ln_qkv_attention_fp32.cu,
+// qkv_out_attention_fp32.cu), all under `TpuPolicy`, and K4 (long or causal
+// sequences, attention_fp32.cu) under `BundledPolicy`.  The bf16 kernels
+// (attention_fwd.cuh) run their products on the tensor cores in bf16; these
+// take the fp32 inputs of `tpu.compute_dtype: float32`, which the TPU
+// kernels take too (JAX's dispatch asks nothing about the dtype), and run
+// their products on the tensor cores by 3xTF32 (mma_tf32.cuh).
 // ops/_build.py hashes this header into the name of every library built
 // from csrc/.
 //
@@ -25,23 +27,31 @@
 // Numerics, per caller (the policy):
 //   TpuPolicy (the TPU kernels' rounding points in fp32): qs = q * q_scale
 //     rounded once to fp32 (q_scale = scale * log2 e, the constant in fp32
-//     and not rounded further: fp32 is the input dtype); s = qs k^T in fp32
-//     is the logit.
-//   BundledPolicy (the bundled kernel's): s = q k^T in fp32 from the
-//     unscaled q, then bundled_logit(s, scale) = (s * scale) * log2 e
-//     (bundled_logit.cuh, which the backward shares); with `causal`, keys
-//     after the query are excluded.
-//   Both: every product is an fp32 FMA (no TF32, no tensor core), summed in
-//   k order from 0; the softmax uses exp2f, an online max and sum in fp32;
-//   P stays fp32 for P V; one division by the row sum at the end (the TPU
-//   kernels divide once as well; the bundled one renormalises per block:
-//   equal up to fp32 rounding).  The backward kernels (attention_bwd_fp32.cuh)
-//   form s from the same operands by 3xTF32, within a few ulp of this s.
+//     and not rounded further: fp32 is the input dtype); s = qs k^T is the
+//     logit.
+//   BundledPolicy (the bundled kernel's): s = q k^T from the unscaled q,
+//     then bundled_logit(s, scale) = (s * scale) * log2 e (bundled_logit.cuh,
+//     which the backward shares); with `causal`, keys after the query are
+//     excluded.
+//   Both: every product is 3xTF32 (each operand split into a TF32 high part
+//   and its remainder, three TF32 products: about 2^-21 of each term lost,
+//   fp32's accuracy where one TF32 product keeps three digits).  The tensor
+//   cores truncate where they accumulate, so no sum runs long in them: s
+//   sums its k-steps round-robin into kSets accumulators from zero (at most
+//   12 HMMAs each) and adds them with one rounding each; P V sums one
+//   streamed tile's keys from zero, and O = O * alpha + that sum is one fmaf
+//   (rounded to nearest) a tile.  The softmax uses exp2f, an online max and
+//   sum in fp32; P stays fp32 (split for the tensor cores); one division by
+//   the row sum at the end (the TPU kernels divide once as well; the bundled
+//   one renormalises per block: equal up to fp32 rounding).  The backward
+//   kernels (attention_bwd_fp32.cuh) form s the same way up to the order of
+//   the k-steps' sums, within a few ulp of this s.  Head dim 256 runs the
+//   SIMT core (attention_fp32_simt.cuh: every product an fp32 FMA).
 // Under DENSECLIP_FAST_EXP2 (`forward<P, D, kPoly>`, TpuPolicy; kPolyZeroed
 // with Args::max_floor 0): a first pass streams K alone for each row's
-// final max, then the loop below runs with that max fixed (no rescale) and
-// p = exp2_poly(s - m) (softmax_exp.cuh); the statistics carry that max and
-// the sum of those p.
+// final max, then the loop runs with that max fixed (no rescale) and p =
+// exp2_poly(s - m) (softmax_exp.cuh); the statistics carry that max and the
+// sum of those p.
 // Keys >= kv_len are excluded and never loaded (their tile rows are
 // zero-filled by cp.async, and their scores masked to -inf), so a NaN in a
 // pad row of K or V cannot reach a real row through 0 * NaN.  The TPU
@@ -49,175 +59,118 @@
 // row sum (with a floor against cancellation); a key that is never loaded
 // adds nothing that needs subtracting.
 //
-// Design (SIMT; the products are fp32-accurate: 1xTF32 keeps about three
-// digits and would miss the fp32 limits; 3xTF32 on the tensor cores is the
-// later redesign, ROADMAP §2).  One block of 256 threads per (64 query
-// rows, head, batch).  Q stays in shared memory (pre-scaled under
-// TpuPolicy); K and V stream through shared memory in tiles of kStep keys
-// (64 at D = 64, 32 at D = 128 and 256, so that Q, a two-stage K / V ring
-// and the P tile fit 227 KB at D = 256) by 16-byte cp.async, tile t + 1
-// in flight while tile t is used.  The threads form a 16 x 16 grid (ty =
-// tid / 16, tx = tid % 16): a thread owns query rows ty + 16 i (i < 4) and,
-// of each tile, keys tx + 16 j (j < kStep / 16), so the sixteen lanes of a
-// half-warp own whole rows: the row max and sum are four xor-shuffles, and
-// P goes through shared memory rows that only that half-warp writes and
-// reads (__syncwarp, no block barrier).  Its O columns are tx * 4 + 64 c.
-// Each S step reads a float4 of Q (broadcast in the half-warp) and of K
-// (padded rows: conflict-free) per four FMAs a row; P V reads a float4 of
-// P per four keys and a float4 of V per key.
+// Design (mma.sync m16n8k8 .tf32, three products per fragment pair): one
+// block of kWarps warps per (16 kWarps query rows, head, batch); a warp owns
+// 16 rows (the mma's M).
+//   * Q lands once, is pre-scaled (TpuPolicy) and split into an NK plane
+//     (tf32_frag.cuh); at D = 64 each warp reads its A fragments into
+//     registers (64 of them) and the plane, in the ring's stages 1.. until
+//     then, is freed; at D = 128 a warp reads them from the plane (two
+//     16-byte loads a k-step, shared by every n-tile).
+//   * K and V stream in kStep-key tiles through a kStages ring of 16-byte
+//     cp.async copies that land in split planes (K: NK, V: KN), and each
+//     thread splits the chunks it copied in place after its own wait: each
+//     element is split once a tile, by one thread, where the backward core
+//     (attention_bwd_fp32.cuh) splits each streamed fragment again in every
+//     warp (PERF.md §6 gives the A/B rounds of the two).  Tile t + 1 is
+//     split after tile t is used while tile t + 2 lands, each tile's work
+//     straight-line code; one block barrier a tile publishes tile t + 1's
+//     planes and frees tile t's stage.
+//   * S = Q K^T: k-step outer, every 8-key n-tile inner, each B fragment
+//     one 16-byte load, kSets x NT independent HMMA chains.  The
+//     row max and sum over the quad that shares a row are two xor-shuffles.
+//     P is born in the C fragments and becomes P V's A fragment in
+//     registers (c_as_a); P V runs key k-step outer, every output n-tile
+//     inner (D / 8 independent chains), each V B fragment one 16-byte load.
+//   * No branch inside a tile's work (the S and P V loops run every n-tile,
+//     the masked ones too; a tile no mask reaches takes a softmax step
+//     without per-score mask tests): skipping the n-tiles a mask empties
+//     split the HMMAs into branches the compiler could not schedule across,
+//     and cost more than the few masked tiles it saved (PERF.md §6).
+// Tiling (Cfg): D = 64: 8 warps on 128 rows, 64-key tiles, three stages,
+// 212 KB of shared memory (Q's plane in stages 1-2 at the start), Q in
+// registers; D = 128: 4 warps on 64 rows, 16-key tiles, three stages, 172
+// KB.  One block an SM (255 registers a thread, a few dozen bytes spilled).
 //
-// Bound on an H100 SXM: 4 B H N kv_len D FLOP of fp32 FMA work, at 66.9
-// TFLOP/s (the card's fp32 peak) against a few bytes per element of q, k,
-// v and out: operation-bound at every shape of the paths (the slide
-// window [10, 1536, 2304] valid 1522: 71.8 GFLOP, 1.07 ms; the aug-test
-// view [2, 25216, 12, 64] valid 25089: 3.87 TFLOP, 57.8 ms).  The softmax
-// adds one exp2 per score on the special-function units, an eighth of the
-// FMA rate (PERF.md gives the measured times).
+// Bound on an H100 SXM: 4 B H N kv_len D FLOP (halved when causal) against
+// a few bytes per element of q, k, v and out: operation-bound at every
+// shape of the paths.  Under 3xTF32 the ceiling is a third of the 495
+// TFLOP/s TF32 rate, 165 TFLOP/s (the slide window [10, 1536, 2304] valid
+// 1522: 71.8 GFLOP, 0.435 ms; the aug-test view [2, 25216, 12, 64] valid
+// 25089: 3.87 TFLOP, 23.4 ms); at the fp32 FMA peak of 66.9 TFLOP/s it
+// would be 1.07 and 57.8 ms.  mma.sync's own TF32 rate on the card is
+// about 320 TFLOP/s (tools/mma_tf32_peak.py), a third of it 107.  The
+// softmax adds one exp2 per score on the special-function units (PERF.md
+// gives the measured times).
 
 #pragma once
 
 #include "bundled_logit.cuh"
-#include "mma_bf16.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 #include "softmax_exp.cuh"
+#include "tf32_frag.cuh"
 
 namespace dclip {
 namespace f32 {
-
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kRows = 64;      // rows a block owns: ty + 16 i
-constexpr int TM = kRows / 16;
 
 struct Strides {  // in elements
   long long b, n, h;
 };
 
-// Tiling per head dim.
-template <int D_>
-struct Cfg {
-  static constexpr int kLd = D_ + 4;                // padded fp32 row of an operand tile
-  static constexpr int kStep = D_ == 64 ? 64 : 32;  // rows of a streamed tile
-  static constexpr int TN = kStep / 16;             // streamed rows a thread owns
-  static constexpr int kLdS = kStep + 16;           // a score tile's row: half-warps on other banks
-  static constexpr int NC = D_ / 64;                // float4 column groups of an output row
-  static constexpr int kFwdStages = 2;
-  // blocks an SM holds: 2 where two blocks' shared memory fits
-  static constexpr int kFwdMinBlocks = D_ <= 128 ? 2 : 1;
+// A forward tiling: kWarps warps on 16 rows each, kStep-key streamed tiles
+// in a ring of kStages.
+template <int D_, int kWarps_, int kStep_, int kStages_>
+struct Tiles {
+  static constexpr bool kSimt = false;
+  static constexpr int D = D_, kWarps = kWarps_, kStep = kStep_, kStages = kStages_;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kMinBlocks = 1;
+  static constexpr int NT = kStep / 8;  // 8-key n-tiles of a streamed tile
+  static constexpr int kOut = D / 8;    // 8-column n-tiles of an output row
+  static constexpr int kLdNk = 2 * D + 16;  // Q and K planes: 16 mod 32 words
+  static constexpr int kLdKn = 4 * D + 8;   // the V plane's pair rows: 8 mod 32 words
+  // Q's A fragments in registers (read once; its plane lives in the ring's
+  // stages 1.. until then), or read from its own plane at every tile
+  static constexpr bool kQRegs = D == 64;
+  // S's k-steps run round-robin over kSets accumulator sets: kSets * NT
+  // independent HMMA chains a warp
+  static constexpr int kSets = NT >= 8 ? 1 : 8 / NT;
+  static constexpr int kStageWords = kStep * kLdNk + kStep / 2 * kLdKn;
+  static constexpr int kQPlaneWords = kRows * kLdNk;
+  static constexpr int kQWords = kQRegs ? 0 : kQPlaneWords;  // Q's own words
+  static_assert(kStages >= 3, "tile t + 1 splits while tile t is used and t + 2 lands");
+  static_assert((D / 8) % kSets == 0, "whole k-steps per accumulator set");
+  static_assert(!kQRegs || kQPlaneWords <= (kStages - 1) * kStageWords, "Q's plane in the ring");
+  static_assert(kStep % 8 == 0 && D % 64 == 0 && D <= 128,
+                "whole k-steps, 8-step chunks of D, O and its tile sums in registers");
+};
+
+// The tilings per head dim (the header note says why); head dim 256 runs
+// the SIMT core (attention_fp32_simt.cuh), chosen here at compile time.
+template <int D>
+struct Cfg;
+template <>
+struct Cfg<64> : Tiles<64, 8, 64, 3> {};
+template <>
+struct Cfg<128> : Tiles<128, 4, 16, 3> {};
+template <>
+struct Cfg<256> {
+  static constexpr bool kSimt = true;
+  static constexpr int kThreads = 256, kRows = 64, kMinBlocks = 1;
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-__device__ __forceinline__ float lane_of(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+// Max / sum over the four lanes of a quad (the lanes that share a row of a
+// C fragment), in a fixed order.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 mul4(float4 v, float s) {
-  return make_float4(__fmul_rn(v.x, s), __fmul_rn(v.y, s), __fmul_rn(v.z, s), __fmul_rn(v.w, s));
-}
-
-// Max / sum over the sixteen lanes of a half-warp (the lanes of one row).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i][j] += sum over k < K of A[(ty + 16 i) * lda + k] * B'[(tx + 16 j) * ldb + k],
-// one FMA per term in k order; B' = B * b_scale (rounded) with kScaleB.
-template <int TN, int K, bool kScaleB>
-__device__ __forceinline__ void mm_nt(float (&acc)[TM][TN], const float* A, int lda,
-                                      const float* B, int ldb, int ty, int tx, float b_scale) {
-#pragma unroll 4
-  for (int k = 0; k < K; k += 4) {
-    float4 a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = ld4(A + (ty + 16 * i) * lda + k);
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      b[j] = ld4(B + (tx + 16 * j) * ldb + k);
-      if constexpr (kScaleB) b[j] = mul4(b[j], b_scale);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
-        acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
-        acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
-        acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
-      }
-  }
-}
-
-// acc[i][4 c + e] += sum over r < R of A[(ty + 16 i) * lda + r] *
-// B'[r * ldb + tx * 4 + 64 c + e], in r order; B' row r = B row r times
-// row_scale[r] (rounded) with kRowScale.
-template <int NC, int R, bool kRowScale>
-__device__ __forceinline__ void mm_nn(float (&acc)[TM][4 * NC], const float* A, int lda,
-                                      const float* B, int ldb, int ty, int tx,
-                                      const float* row_scale) {
-#pragma unroll 2
-  for (int r = 0; r < R; r += 4) {
-    float4 a[TM];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) a[i] = ld4(A + (ty + 16 * i) * lda + r);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float4 b[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        b[c] = ld4(B + (r + kk) * ldb + tx * 4 + 64 * c);
-        if constexpr (kRowScale) b[c] = mul4(b[c], row_scale[r + kk]);
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float av = lane_of(a[i], kk);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc[i][4 * c + 0] = fmaf(av, b[c].x, acc[i][4 * c + 0]);
-          acc[i][4 * c + 1] = fmaf(av, b[c].y, acc[i][4 * c + 1]);
-          acc[i][4 * c + 2] = fmaf(av, b[c].z, acc[i][4 * c + 2]);
-          acc[i][4 * c + 3] = fmaf(av, b[c].w, acc[i][4 * c + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Rows [0, rows) of a [B, N, H, D] operand at `base` (its first row) into a
-// padded shared tile by 16-byte cp.async; rows >= lim are zero-filled and
-// never read.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* base, long long row_stride,
-                                          int rows, int lim, int tid) {
-  constexpr int kVecPerRow = D / 4;
-  for (int i = tid; i < rows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 4;
-    const bool ok = r < lim;
-    cp_async16(dst + r * (D + 4) + c, base + (long long)(ok ? r : 0) * row_stride + c,
-               ok ? 16 : 0);
-  }
-}
-
-// This thread's output columns (tx * 4 + 64 c) of row `row` from `acc` to
-// an fp32 [B, N, H, D] operand at `base` (its (batch, head) origin).
-template <int NC>
-__device__ __forceinline__ void store_row(float* base, long long row_stride, int row,
-                                          const float* acc, int tx) {
-#pragma unroll
-  for (int c = 0; c < NC; ++c)
-    *reinterpret_cast<float4*>(base + (long long)row * row_stride + tx * 4 + 64 * c) =
-        make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 template <class T>
@@ -250,182 +203,285 @@ struct BundledPolicy {
   __device__ static float logit(float s, float scale) { return bundled_logit(s, scale); }
 };
 
+}  // namespace f32
+}  // namespace dclip
+
+#include "attention_fp32_simt.cuh"
+
+namespace dclip {
+namespace f32 {
+
 template <int D>
 constexpr size_t fwd_smem() {
   using C = Cfg<D>;
-  return sizeof(float) * (size_t)((kRows + C::kFwdStages * 2 * C::kStep) * C::kLd +
-                                  kRows * C::kLdS);
+  if constexpr (C::kSimt)
+    return simt::fwd_smem<D>();
+  else
+    return sizeof(float) * (size_t)(C::kQWords + C::kStages * C::kStageWords);
 }
 
-template <class P, int D, int kMode = softmax::kExact>
-__device__ __forceinline__ void forward(const Args& a) {
-  constexpr bool kTwoPass = softmax::two_pass(kMode);
+// Q's chunks pre-scaled by q_scale (rounded once) before their split.
+struct ScaleChunk {
+  float s;
+  __device__ __forceinline__ void operator()(int, int, float4& x) const {
+    x = make_float4(__fmul_rn(x.x, s), __fmul_rn(x.y, s), __fmul_rn(x.z, s), __fmul_rn(x.w, s));
+  }
+};
+
+// A stage's split: this thread's chunks of its K plane (and V plane),
+// after its own cp.async wait.
+template <class C>
+__device__ __forceinline__ void split_stage(float* st, bool with_v, int tid) {
+  tf32::split_nk<C::kStep, C::D, C::kThreads>(st, C::kLdNk, tid);
+  if (with_v) tf32::split_kn<C::kStep, C::D, C::kThreads>(st + C::kStep * C::kLdNk, C::kLdKn, tid);
+}
+
+// K's B fragment of n-tile j (keys 8j..8j + 7 of the tile), k-step kk.
+template <class C>
+__device__ __forceinline__ FragB k_frag(const float* tK, int j, int kk, int g, int t) {
+  return tf32::frag_b_nk_split(tK + 8 * j * C::kLdNk, C::kLdNk, kk, g, t);
+}
+
+// V's B fragment of k-step j (keys 8j..8j + 7 of the tile), output n-tile dt.
+template <class C>
+__device__ __forceinline__ FragB v_frag(const float* tV, int j, int dt, int g, int t) {
+  return tf32::frag_b_kn_split(tV, C::kLdKn, j, 8 * dt, g, t);
+}
+
+// The tensor-core forward (D = 64, 128).
+template <class P, int D, int kMode>
+__device__ __forceinline__ void forward_tc(const Args& a) {
   using C = Cfg<D>;
-  constexpr int kLd = C::kLd, kStep = C::kStep, TN = C::TN, kLdS = C::kLdS, NC = C::NC;
+  constexpr bool kTwoPass = softmax::two_pass(kMode);
+  constexpr int kLdNk = C::kLdNk, kLdKn = C::kLdKn, kStep = C::kStep, NT = C::NT;
+  constexpr int kOut = C::kOut, kRows = C::kRows, kStages = C::kStages, kThreads = C::kThreads;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);      // [kRows][kLd]
-  float* sKV = sQ + kRows * kLd;                       // [stage][K, V][kStep][kLd]
-  float* sP = sKV + C::kFwdStages * 2 * kStep * kLd;   // [kRows][kLdS]
+  float* sKV = reinterpret_cast<float*>(smem_raw) + C::kQWords;  // [stage][K NK, V KN plane]
+  // [kRows] rows of an NK plane: before the ring, or in its stages 1..
+  float* sQ = C::kQRegs ? sKV + C::kStageWords : reinterpret_cast<float*>(smem_raw);
 
   const int n = a.n, kv_len = a.kv_len;
   const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* kb = at(a.k, a.kst, b, h);
   const float* vb = at(a.v, a.vst, b, h);
   const int k_end = a.causal ? min(kv_len, q0 + kRows) : kv_len;
   const int n_tiles = (k_end + kStep - 1) / kStep;
-  auto load_kv = [&](int stage, int k0) {
-    float* dst = sKV + stage * 2 * kStep * kLd;
-    load_rows<D>(dst, kb + (long long)k0 * a.kst.n, a.kst.n, kStep, kv_len - k0, tid);
-    load_rows<D>(dst + kStep * kLd, vb + (long long)k0 * a.vst.n, a.vst.n, kStep, kv_len - k0,
-                 tid);
+  // The ring's loads: under two passes the K-only tiles of the first pass,
+  // then the K and V tiles of the second.
+  const int n_loads = kTwoPass ? 2 * n_tiles : n_tiles;
+  auto tile_of = [&](int i) { return kTwoPass && i >= n_tiles ? i - n_tiles : i; };
+  auto with_v = [&](int i) { return !kTwoPass || i >= n_tiles; };
+  auto stage = [&](int i) { return sKV + (i % kStages) * C::kStageWords; };
+  // Load i into its stage (one group); a load past the last is zero-filled
+  // without a read, so the loop below runs the same straight-line code to
+  // its end.
+  auto issue = [&](int i) {
+    const bool on = i < n_loads;
+    const int k0 = tile_of(min(i, n_loads - 1)) * kStep;
+    float* st = stage(i);
+    tf32::land_nk<kStep, D, kThreads>(st, kLdNk, kb + (long long)k0 * a.kst.n, a.kst.n,
+                                      kv_len - k0, D, tid, on);
+    if (with_v(i))
+      tf32::land_kn<kStep, D, kThreads>(st + kStep * kLdNk, kLdKn, vb + (long long)k0 * a.vst.n,
+                                        a.vst.n, kv_len - k0, D, tid, on);
+    cp_async_commit();
   };
 
-  auto load_k = [&](int stage, int k0) {
-    load_rows<D>(sKV + stage * 2 * kStep * kLd, kb + (long long)k0 * a.kst.n, a.kst.n, kStep,
-                 kv_len - k0, tid);
-  };
-  load_rows<D>(sQ, at(a.q, a.qst, b, h) + (long long)q0 * a.qst.n, a.qst.n, kRows, n - q0, tid);
+  // Q (one group), then the ring's first tiles (kQRegs: load 0 only, until
+  // Q's plane in the stages after it is read); Q and load 0 split and
+  // published before the loop.
+  tf32::land_nk<kRows, D, kThreads>(sQ, kLdNk, at(a.q, a.qst, b, h) + (long long)q0 * a.qst.n,
+                                    a.qst.n, n - q0, D, tid);
   cp_async_commit();
-  if constexpr (kTwoPass)
-    load_k(0, 0);
+  constexpr int kFirst = C::kQRegs ? 1 : kStages - 1;  // loads issued before Q is split
+  for (int s = 0; s < kFirst; ++s) issue(s);
+  cp_async_wait<kFirst>();  // Q has landed (this thread's copies)
+  if constexpr (P::kPrescaled)
+    tf32::split_nk<kRows, D, kThreads>(sQ, kLdNk, tid, ScaleChunk{a.q_scale});
   else
-    load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q has landed (each thread's own copies)
+    tf32::split_nk<kRows, D, kThreads>(sQ, kLdNk, tid);
+  const int wr = warp * 16;  // the warp's first row in the block
+  const float* wq = sQ + wr * kLdNk;
+  FragA qreg[C::kQRegs ? D / 8 : 1];
+  if constexpr (C::kQRegs) {
+    __syncthreads();  // Q's plane published
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) qreg[kk] = tf32::frag_a_nk(wq, kLdNk, kk, g, t);
+    __syncthreads();  // every warp holds its Q: the ring's stages 1.. are free
+    for (int s = 1; s + 1 < kStages; ++s) issue(s);
+  }
+  cp_async_wait<kStages - 2>();  // load 0 has landed
+  split_stage<C>(stage(0), with_v(0), tid);
   __syncthreads();
-  if constexpr (P::kPrescaled) {  // this half-warp's rows, in place
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        float* p = sQ + (ty + 16 * i) * kLd + tx * 4 + 64 * c;
-        *reinterpret_cast<float4*>(p) = mul4(ld4(p), a.q_scale);
-      }
-    __syncwarp();
-  }
+  const int row_r[2] = {q0 + wr + g, q0 + wr + g + 8};
 
-  int row_of[TM];
-  float m[TM], l[TM], o[TM][4 * NC];
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};  // l: this thread's share
+  float o[kOut][4];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    row_of[i] = q0 + ty + 16 * i;
-    m[i] = neg_inf();
-    l[i] = 0.f;  // this thread's share of the row sum
-#pragma unroll
-    for (int e = 0; e < 4 * NC; ++e) o[i][e] = 0.f;
-  }
+  for (int dt = 0; dt < kOut; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
 
-  if constexpr (kTwoPass) {  // the rows' final max: K alone, then K and V again
-    for (int it = 0; it < n_tiles; ++it) {
-      const int k0 = it * kStep;
-      if (it + 1 < n_tiles)
-        load_k((it + 1) & 1, k0 + kStep);
+  // Load i's part for this warp (its stage is published).
+  auto compute = [&](int i) {
+    if (kTwoPass && i == n_tiles) {  // the first pass is over: the rows' final max
+#pragma unroll
+      for (int r = 0; r < 2; ++r) m[r] = fmaxf(quad_max(m[r]), a.max_floor);
+    }
+    const float* tK = stage(i);
+    const float* tV = tK + kStep * kLdNk;
+    const bool first_pass = kTwoPass && i < n_tiles;
+    const int k0 = tile_of(i) * kStep;
+
+    // s = qs K^T: k-step outer, every n-tile inner, k-step kk into
+    // accumulator set kk % kSets (each summed from zero), the sets then
+    // added in order, one rounding each
+    constexpr int kSets = C::kSets;
+    float c[kSets][NT][4];
+#pragma unroll
+    for (int q = 0; q < kSets; ++q)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) c[q][j][0] = c[q][j][1] = c[q][j][2] = c[q][j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      FragA qa;
+      if constexpr (C::kQRegs)
+        qa = qreg[kk];
       else
-        load_kv(n_tiles & 1, 0);  // the second pass's first tile, in the other stage
-      cp_async_commit();
-      cp_async_wait<1>();
-      __syncthreads();
-      float s[TM][TN];
+        qa = tf32::frag_a_nk(wq, kLdNk, kk, g, t);
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int j = 0; j < NT; ++j) mma_3xtf32(c[kk % kSets][j], qa, k_frag<C>(tK, j, kk, g, t));
+    }
+    float (&s)[NT][4] = c[0];
 #pragma unroll
-        for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-      mm_nt<TN, D, false>(s, sQ, kLd, sKV + (it & 1) * 2 * kStep * kLd, kLd, ty, tx, 0.f);
+    for (int q = 1; q < kSets; ++q)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int key = k0 + tx + 16 * j;
-          if (key < kv_len && (!a.causal || key <= row_of[i]))
-            m[i] = fmaxf(m[i], P::logit(s[i][j], a.scale));
+        for (int e = 0; e < 4; ++e) s[j][e] = __fadd_rn(s[j][e], c[q][j][e]);
+
+    // the logits; masked scores -inf (every score of a tile that the mask
+    // empties for the warp's rows, whose max then stays).  `masked` false
+    // where no mask reaches the tile.
+    auto logits = [&](bool masked) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          const bool ok = !masked || (key < kv_len && (!a.causal || key <= row_r[e >> 1]));
+          s[j][e] = ok ? P::logit(s[j][e], a.scale) : neg_inf();
         }
-      __syncthreads();  // every warp is done with this stage before it is refilled
+    };
+    if (k0 + kStep <= kv_len && (!a.causal || k0 + kStep - 1 <= q0 + wr))
+      logits(false);
+    else
+      logits(true);
+
+    if (first_pass) {  // this thread's share of the rows' max
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[j][e]);
+      return;
+    }
+    float alpha[2] = {1.f, 1.f};
+    if constexpr (kTwoPass) {  // the max is final: no rescale
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = softmax::knob_exp<kMode>(s[j][e], m[e >> 1]);  // 0 where masked
+          l[e >> 1] += p;
+          s[j][e] = p;
+        }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = neg_inf();
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        // Tile 0 holds key 0, which every row sees: the max is finite from there on.
+        const float m_new = fmaxf(m[r], quad_max(mx));
+        alpha[r] = exp2f(m[r] - m_new);  // 0 on the first tile
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[j][e] - m[e >> 1]);  // exactly 0 where masked
+          l[e >> 1] += p;
+          s[j][e] = p;
+        }
+    }
+
+    // P V into the tile's sums from zero (P's n-tile j is the k-step over
+    // keys k0 + 8j..; one independent chain per output n-tile), then O = O *
+    // alpha + the sums, one fmaf each
+    float pv[kOut][4];
+#pragma unroll
+    for (int dt = 0; dt < kOut; ++dt) pv[dt][0] = pv[dt][1] = pv[dt][2] = pv[dt][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const FragA pa = c_as_a(s[j]);
+#pragma unroll
+      for (int dt = 0; dt < kOut; ++dt) mma_3xtf32(pv[dt], pa, v_frag<C>(tV, j, dt, g, t));
     }
 #pragma unroll
-    for (int i = 0; i < TM; ++i) m[i] = fmaxf(row_max(m[i]), a.max_floor);
-  }
+    for (int dt = 0; dt < kOut; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dt][e] = fmaf(o[dt][e], alpha[e >> 1], pv[dt][e]);
+  };
 
-  // the stages run on from the first pass: tile `it` sits in stage (it + st0) & 1
-  const int st0 = kTwoPass ? n_tiles & 1 : 0;
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kStep;
-    if (it + 1 < n_tiles) load_kv((it + 1 + st0) & 1, k0 + kStep);  // prefetch the next tile
-    cp_async_commit();  // (possibly empty: keeps the wait count uniform)
-    cp_async_wait<1>();
+  // Load i + kStages - 1 lands while load i is used and load i + 1 is split
+  // (after the use: split first, the compiler interleaves the two and runs
+  // out of registers); one barrier a load publishes load i + 1 and frees
+  // load i's stage.
+  for (int i = 0; i < n_loads; ++i) {
+    issue(i + kStages - 1);  // into load i - 1's stage, freed by the last barrier
+    compute(i);
+    cp_async_wait<kStages - 2>();  // load i + 1 has landed (this thread's copies)
+    split_stage<C>(stage(i + 1), with_v(i + 1), tid);  // past the last load: unused
     __syncthreads();
-    const float* tK = sKV + ((it + st0) & 1) * 2 * kStep * kLd;
-    const float* tV = tK + kStep * kLd;
-
-    float s[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
-    mm_nt<TN, D, false>(s, sQ, kLd, tK, kLd, ty, tx, 0.f);
-
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      float mx = neg_inf();
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const bool live = key < kv_len && (!a.causal || key <= row_of[i]);
-        s[i][j] = live ? P::logit(s[i][j], a.scale) : neg_inf();
-        mx = fmaxf(mx, s[i][j]);
-      }
-      if constexpr (kTwoPass) {  // the max is final: no rescale
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const float p = softmax::knob_exp<kMode>(s[i][j], m[i]);  // exactly 0 where masked
-          l[i] += p;
-          sP[(ty + 16 * i) * kLdS + tx + 16 * j] = p;
-        }
-        continue;
-      }
-      // Tile 0 holds key 0, which every row sees: the max is finite from there on.
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = exp2f(m[i] - m_new);  // 0 on the first tile
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int e = 0; e < 4 * NC; ++e) o[i][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const float p = exp2f(s[i][j] - m_new);  // exactly 0 where masked
-        l[i] += p;
-        sP[(ty + 16 * i) * kLdS + tx + 16 * j] = p;
-      }
-    }
-    __syncwarp();  // a half-warp reads back only the P rows it wrote
-    mm_nn<NC, kStep, false>(o, sP, kLdS, tV, kLd, ty, tx, nullptr);
-    __syncthreads();  // every warp is done with this stage before it is refilled
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const float sum = row_sum(l[i]);
-    if (row_of[i] >= n) continue;
+  for (int r = 0; r < 2; ++r) {
+    const float sum = quad_sum(l[r]);
+    const int row = row_r[r];
+    if (row >= n) continue;
+    float* dst = a.out + (((long long)b * n + row) * a.heads + h) * D + 2 * t;
 #pragma unroll
-    for (int e = 0; e < 4 * NC; ++e) o[i][e] = o[i][e] / sum;
-    store_row<NC>(a.out + ((long long)b * n * a.heads + h) * D, (long long)a.heads * D,
-                  row_of[i], o[i], tx);
-    if (a.stats != nullptr && tx == 0)
-      a.stats[((long long)b * a.heads + h) * n + row_of[i]] = make_float2(m[i], sum);
+    for (int dt = 0; dt < kOut; ++dt)
+      *reinterpret_cast<float2*>(dst + 8 * dt) =
+          make_float2(o[dt][2 * r] / sum, o[dt][2 * r + 1] / sum);
+    if (a.stats != nullptr && t == 0)
+      a.stats[((long long)b * a.heads + h) * n + row] = make_float2(m[r], sum);
   }
+}
+
+template <class P, int D, int kMode = softmax::kExact>
+__device__ __forceinline__ void forward(const Args& a) {
+  if constexpr (Cfg<D>::kSimt)
+    simt::forward<P, D, kMode>(a);
+  else
+    forward_tc<P, D, kMode>(a);
 }
 
 // Launch `kernel` (a __global__ wrapping forward<P, D>) over (q-tiles, heads,
 // batch) with its dynamic shared memory.
 template <int D>
 cudaError_t launch(void (*kernel)(Args), const Args& a, int batch, cudaStream_t stream) {
+  using C = Cfg<D>;
   constexpr size_t smem = fwd_smem<D>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + kRows - 1) / kRows, a.heads, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const dim3 grid((a.n + C::kRows - 1) / C::kRows, a.heads, batch);
+  kernel<<<grid, C::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

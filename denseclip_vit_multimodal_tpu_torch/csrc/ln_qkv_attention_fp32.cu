@@ -18,9 +18,10 @@
 //     repeats it bit for bit); ln = ((x - mean) * rstd) * gamma + beta,
 //     kept in fp32, each step rounded on its own;
 //   * k, v = ln W + b and q = (ln Wq + bq) * (scale * log2 e), fp32 sums of
-//     fp32 FMAs (no TF32), the bias then the scale each rounded once;
+//     3xTF32 products (gemm_fp32.cuh: each k-tile summed from zero and added
+//     with one rounding), the bias then the scale each rounded once;
 //   * attention as K1's fp32 kernel (attention_fp32.cuh) on the pre-scaled
-//     q: fp32 scores, exp2 softmax, fp32 P V, one division.  Keys >=
+//     q: 3xTF32 scores, exp2 softmax, 3xTF32 P V, one division.  Keys >=
 //     valid_len are excluded (the TPU kernel's finfo.min mask); pad rows of
 //     the residual stream carry LN(0) = beta, not zeros.
 //   * Under DENSECLIP_FAST_EXP2 (exp mode 1), which the TPU kernel reads
@@ -31,8 +32,9 @@
 // (ln_qkv_attention.cu):
 //   (a) ln_qkv_stats_fp32_kernel: one warp per row, its (mean, rstd) into a
 //       [B*N] float2 scratch (the `out` buffer, which only (c) writes);
-//   (b) the SIMT fp32 product gemm_fp32.cuh with the LayerNorm as its A
-//       prologue, into an fp32 q/k/v workspace [B, N, 3*H*d];
+//   (b) the 3xTF32 tensor-core product gemm_fp32.cuh with the LayerNorm
+//       applied to each A chunk before its split, into an fp32 q/k/v
+//       workspace [B, N, 3*H*d];
 //   (c) ln_qkv_attention_fp32_kernel: K1's fp32 body on that workspace,
 //       q_scale 1.
 // LN(x) never reaches device memory; the workspace does (written once, read
@@ -40,9 +42,11 @@
 //
 // Bound on an H100 SXM at the slide shape (x [10, 1536, 768], 12 heads of
 // 64, valid_len 1522): projection 2*B*N*D*3*H*d = 54.4 GFLOP plus attention
-// 4*B*H*N*valid_len*d = 71.8 GFLOP of fp32 FMA work at 66.9 TFLOP/s: 1.89
-// ms, operation-bound (PERF.md gives the measured time).
+// 4*B*H*N*valid_len*d = 71.8 GFLOP, at the 3xTF32 ceiling of 165 TFLOP/s:
+// 0.765 ms, operation-bound (1.89 ms at the fp32 FMA peak of 66.9 TFLOP/s;
+// PERF.md gives the measured time).
 
+#include "attention_fp32.cuh"
 #include "gemm_fp32.cuh"
 
 namespace {
@@ -92,24 +96,41 @@ __global__ void __launch_bounds__(kStatsThreads) ln_qkv_stats_fp32_kernel(const 
 
 // (c) attention on the workspace
 template <int D, int kMode>  // softmax::kExact, or kPoly under DENSECLIP_FAST_EXP2
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kFwdMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
 ln_qkv_attention_fp32_kernel(const Args a) {
   forward<TpuPolicy, D, kMode>(a);
 }
 
-// (a) + (b): the statistics into `stats`, then the projection into `qkv`.
+bool bad_projection(int rows, int dim, int hd) {
+  return rows < 1 || dim < 32 || dim % 32 || hd < 64 || hd % 64;
+}
+
+// (a): the statistics into `stats`.
+cudaError_t run_stats(const float* x, float2* stats, int rows, int dim, float eps,
+                      cudaStream_t stream) {
+  const dim3 grid((rows + kStatsThreads / 32 - 1) / (kStatsThreads / 32));
+  const StatsArgs sp{x, stats, rows, dim, eps};
+  ln_qkv_stats_fp32_kernel<<<grid, kStatsThreads, 0, stream>>>(sp);
+  return cudaGetLastError();
+}
+
+// (b): the projection on `stats` into `qkv`.
+cudaError_t run_gemm(const float* x, const float* gamma, const float* beta, const float* wt,
+                     const float* bias, const float2* stats, float* qkv, int rows, int dim,
+                     int hd, float q_scale, cudaStream_t stream) {
+  const GemmArgs g{x, wt, qkv, bias, stats, gamma, beta, rows, 3 * hd, dim, hd, q_scale};
+  return launch_gemm<true, true>(g, stream);
+}
+
+// (a) + (b).
 cudaError_t run_projection(const float* x, const float* gamma, const float* beta,
                            const float* wt, const float* bias, float2* stats, float* qkv,
                            int rows, int dim, int hd, float q_scale, float eps,
                            cudaStream_t stream) {
-  if (rows < 1 || dim < kBK || dim % kBK || hd < 64 || hd % 64) return cudaErrorInvalidValue;
-  const dim3 grid((rows + kStatsThreads / 32 - 1) / (kStatsThreads / 32));
-  const StatsArgs sp{x, stats, rows, dim, eps};
-  ln_qkv_stats_fp32_kernel<<<grid, kStatsThreads, 0, stream>>>(sp);
-  cudaError_t err = cudaGetLastError();
+  if (bad_projection(rows, dim, hd)) return cudaErrorInvalidValue;
+  const cudaError_t err = run_stats(x, stats, rows, dim, eps, stream);
   if (err != cudaSuccess) return err;
-  const GemmArgs g{x, wt, qkv, bias, stats, gamma, beta, rows, 3 * hd, dim, hd, q_scale};
-  return launch_gemm<true, true>(g, stream);
+  return run_gemm(x, gamma, beta, wt, bias, stats, qkv, rows, dim, hd, q_scale, stream);
 }
 
 template <int D>
@@ -169,4 +190,38 @@ extern "C" int ln_qkv_projection_fp32(const void* x, const void* gamma, const vo
                              static_cast<const float*>(bias), static_cast<float2*>(stats),
                              static_cast<float*>(qkv), rows, dim, hd, q_scale, eps,
                              static_cast<cudaStream_t>(stream));
+}
+
+// K6's stages one at a time, for the split of its time (the bf16 kernel's
+// `ln_qkv_stats_bf16` / `ln_qkv_projection_bf16` / `ln_qkv_attention_stage2_bf16`
+// in fp32): (a) into `stats` [rows] float2; (b) on those statistics into the
+// workspace qkv [rows, 3*hd]; (c) on that workspace into `out` [B, N, H*d].
+extern "C" int ln_qkv_stats_fp32(const void* x, void* stats, int rows, int dim, float eps,
+                                 void* stream) {
+  if (bad_projection(rows, dim, 64)) return (int)cudaErrorInvalidValue;
+  return (int)run_stats(static_cast<const float*>(x), static_cast<float2*>(stats), rows, dim,
+                        eps, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ln_qkv_gemm_fp32(const void* x, const void* gamma, const void* beta,
+                                const void* wt, const void* bias, const void* stats, void* qkv,
+                                int rows, int dim, int hd, float q_scale, void* stream) {
+  if (bad_projection(rows, dim, hd)) return (int)cudaErrorInvalidValue;
+  return (int)run_gemm(static_cast<const float*>(x), static_cast<const float*>(gamma),
+                       static_cast<const float*>(beta), static_cast<const float*>(wt),
+                       static_cast<const float*>(bias), static_cast<const float2*>(stats),
+                       static_cast<float*>(qkv), rows, dim, hd, q_scale,
+                       static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ln_qkv_attention_stage2_fp32(const void* qkv, void* out, int batch, int n,
+                                            int heads, int head_dim, int kv_len, void* stream) {
+  if (batch < 1 || n < 1 || heads < 1 || kv_len < 1 || kv_len > n ||
+      (head_dim != 64 && head_dim != 128))
+    return (int)cudaErrorInvalidValue;
+  const auto* ws = static_cast<const float*>(qkv);
+  auto* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) return (int)run_attention<64>(ws, o, batch, n, heads, kv_len, 0, s);
+  return (int)run_attention<128>(ws, o, batch, n, heads, kv_len, 0, s);
 }

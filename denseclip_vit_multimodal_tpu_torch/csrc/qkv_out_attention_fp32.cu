@@ -12,32 +12,36 @@
 //
 // Numerics follow the TPU kernel's fp32 rounding points, per head:
 //   * K1's fp32 attention (attention_fp32.cuh): q * (scale * log2 e) in
-//     fp32, fp32 scores, exp2 softmax, fp32 P V, one division; keys >=
+//     fp32, 3xTF32 scores, exp2 softmax, 3xTF32 P V, one division; keys >=
 //     valid_len excluded exactly and never loaded (the script's iota mask;
 //     its zero-pad denominator correction is the same number);
 //   * under DENSECLIP_FAST_EXP2, which the TPU kernel reads through `_exp2`:
 //     p = exp2_poly(s - m) against the row's final max, floored at 0 where
 //     the script pads the keys with zeros (exp mode 2: no valid_len, N not a
 //     multiple of 128; softmax_exp.cuh);
-//   * the product of the heads' fp32 outputs with W_out, fp32 FMAs summed
-//     over all H*D inputs in order (the TPU kernel sums per lane block of
-//     heads, then over the blocks: equal up to fp32 rounding).
+//   * the product of the heads' fp32 outputs with W_out, 3xTF32 products
+//     summed over all H*D inputs, a k-tile at a time from zero, each added
+//     with one rounding (the TPU kernel sums per lane block of heads, then
+//     over the blocks: equal up to fp32 rounding).
 //
 // Design: two launches, counted as one K7 launch.  The TPU kernel keeps an
 // fp32 [bq, H*D] block in VMEM across the heads; the bf16 kernel keeps the
 // bf16 heads in shared memory (qkv_out_attention.cu), but an fp32 [64, H*D]
-// block is 192 KB at H*D = 768 beside the K / V tiles of the SIMT core.  So
+// block is 192 KB at H*D = 768 beside the K / V planes of the fp32 core.  So
 // (a) K1's fp32 body writes every head's output into an fp32 [B, N, H*D]
-// workspace (the caller's), and (b) the SIMT product gemm_fp32.cuh
-// multiplies it by W_out.  The workspace makes one round trip through device
+// workspace (the caller's), and (b) the 3xTF32 product gemm_fp32.cuh
+// multiplies it by W_out (an MN-major B in a KN plane, which mma.sync reads
+// and TF32 wgmma could not).  The workspace makes one round trip through device
 // memory (49 MB at the experiment's shape, about 30 us at 3.35 TB/s: noise
 // beside the products).
 //
 // Bound on an H100 SXM at the experiment's shape [10, 1601, 2304], H 12,
 // D 64: attention 4*B*H*N^2*D = 78.7 GFLOP plus the projection 2*B*N*(H*D)^2
-// = 18.9 GFLOP of fp32 FMA work at 66.9 TFLOP/s: 1.46 ms, operation-bound
-// (PERF.md gives the measured time).
+// = 18.9 GFLOP at the 3xTF32 ceiling of 165 TFLOP/s: 0.592 ms,
+// operation-bound (1.46 ms at the fp32 FMA peak; PERF.md gives the measured
+// time).
 
+#include "attention_fp32.cuh"
 #include "gemm_fp32.cuh"
 
 namespace {
@@ -46,7 +50,7 @@ using namespace dclip::f32;
 namespace softmax = dclip::softmax;
 
 template <int D, int kMode>  // softmax::kExact, or kPoly under DENSECLIP_FAST_EXP2
-__global__ void __launch_bounds__(kThreads, Cfg<D>::kFwdMinBlocks)
+__global__ void __launch_bounds__(Cfg<D>::kThreads, Cfg<D>::kMinBlocks)
 qkv_out_attention_fp32_kernel(const Args a) {
   forward<TpuPolicy, D, kMode>(a);
 }

@@ -15,7 +15,8 @@ whose custom VJP runs the bundled backward kernels (K4b).  Here:
   which launches `csrc/flash_attention.cu` (the forward core
   `csrc/attention_fwd.cuh` under the bundled kernel's numerics, head dim 64,
   128 or 256) for a bf16 CUDA tensor and `csrc/attention_fp32.cu`'s
-  `flash_attention_fp32` (the SIMT fp32 core under the same numerics) for
+  `flash_attention_fp32` (the fp32 core, 3xTF32 on the tensor cores, under
+  the same numerics) for
   an fp32 one, or raises on anything the kernels do not take (another
   dtype: `TypeError`, as in the K3 branch); for a tensor on the CPU it runs
   the plain version.

@@ -8,9 +8,9 @@ gives the kernel's design and its bound on an H100.
 
 * `ln_qkv_attention` calls the op `denseclip_torch::ln_qkv_attention`
   (`ops/_library.py`): K6 for a CUDA tensor (`csrc/ln_qkv_attention.cu` for
-  bf16 x, `csrc/ln_qkv_attention_fp32.cu` for fp32 x: SIMT, every product an
-  fp32 FMA), or a raise on anything the kernels do not take (fp16:
-  `TypeError`); the plain version for a CPU tensor.  It reads
+  bf16 x, `csrc/ln_qkv_attention_fp32.cu` for fp32 x: every product 3xTF32
+  on the tensor cores, fp32 accurate), or a raise on anything the kernels
+  do not take (fp16: `TypeError`); the plain version for a CPU tensor.  It reads
   `DENSECLIP_FAST_EXP2` on every call, as JAX's K6 reads it through
   `_softmax_unnormalized` -> `_exp2`: under the knob p is the polynomial
   `exp2_poly` against the row's final max (`ops/mha_kernel.py::softmax_modes`).
@@ -287,12 +287,21 @@ def bind_entry_points(lib: ctypes.CDLL) -> Dict[str, ctypes._CFuncPtr]:
 
 def bind_fp32_entry_points(lib: ctypes.CDLL) -> Dict[str, ctypes._CFuncPtr]:
     """K6's fp32 C entry points (`csrc/ln_qkv_attention_fp32.cu`): the whole
-    kernel ("attention", the exp mode before the stream) and its first stage
-    ("projection": the statistics and the projection into the workspace)."""
+    kernel ("attention", the exp mode before the stream), its first stage
+    ("projection": the statistics and the projection into the workspace)
+    and, where the library has them, its stages one at a time ("stats",
+    "gemm": the projection on given statistics, "stage2": the attention on
+    the workspace), the signatures of `bind_entry_points`' bf16 stages."""
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fns = {"attention": lib.ln_qkv_attention_fp32, "projection": lib.ln_qkv_projection_fp32}
     fns["attention"].argtypes = [ptr] * 7 + [i] * 6 + [f, f, i, ptr]
     fns["projection"].argtypes = [ptr] * 7 + [i] * 3 + [f, f, ptr]
+    if hasattr(lib, "ln_qkv_gemm_fp32"):
+        fns["stats"], fns["gemm"] = lib.ln_qkv_stats_fp32, lib.ln_qkv_gemm_fp32
+        fns["stage2"] = lib.ln_qkv_attention_stage2_fp32
+        fns["stats"].argtypes = [ptr, ptr, i, i, f, ptr]
+        fns["gemm"].argtypes = [ptr] * 7 + [i] * 3 + [f, ptr]
+        fns["stage2"].argtypes = [ptr, ptr] + [i] * 5 + [ptr]
     for fn in fns.values():
         fn.restype = ctypes.c_int
     return fns

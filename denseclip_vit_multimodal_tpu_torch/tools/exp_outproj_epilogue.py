@@ -8,8 +8,8 @@ separate matmul?
 
   * `qkv_out_attention` launches K7 for CUDA tensors (`csrc/qkv_out_attention.cu`
     for bf16 qkv and W_out, `csrc/qkv_out_attention_fp32.cu` for fp32: the
-    fp32 attention core, then an fp32 SIMT out-projection; two launches
-    counted as one), or raises on anything it does not take (`TypeError`
+    fp32 attention core, then the fp32 out-projection, both 3xTF32; two
+    launches counted as one), or raises on anything it does not take (`TypeError`
     for other dtypes, `ValueError` for head dims other than 64 / 128 and
     widths past `MAX_WIDTH`); for CPU tensors it runs
     `qkv_out_attention_reference`.  It reads `DENSECLIP_FAST_EXP2` on every

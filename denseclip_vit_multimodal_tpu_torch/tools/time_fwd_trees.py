@@ -45,15 +45,26 @@ signatures every tree must share, and:
     same turns) and the bound.
 
 With `--fp32` it times the fp32 kernels instead: K1, K3 and K4 in fp32
-(`csrc/attention_fp32.cu`) and K2, K3's backward and K4b in fp32
+(`csrc/attention_fp32.cu`), K2, K3's backward and K4b in fp32
 (`csrc/attention_bwd_fp32.cu`), the three backwards fed by the last tree's
-fp32 forward, each tree's output held against the plain versions (fp32
-limits: outputs max abs 1e-4 and rel. L2 1e-5, gradients rel. L2 1e-4 and
-max abs 1e-4 of the largest, masked keys exactly 0) and against the last
-tree's bit for bit, then timed in turns at the fp32 paths' shapes (FP32_SHAPES)
-beside SDPA in fp32 (its backward for the backwards), the bound at the fp32
-FMA peak and the 3xTF32 ceiling, and the TFLOP/s; then each kernel's device
-time by torch.profiler (a backward entry launches a dq and a dk/dv kernel).
+fp32 forward, K6 in fp32 (`csrc/ln_qkv_attention_fp32.cu`) and K7 in fp32
+(`csrc/qkv_out_attention_fp32.cu`), each tree's output held against the
+plain versions (fp32 limits: outputs max abs 1e-4 and rel. L2 1e-5, row
+statistics row max 5e-5 abs and row sum 3e-5 relative, gradients rel. L2
+1e-4 and max abs 1e-4 of the largest, masked keys exactly 0) and against the
+last tree's bit for bit, then timed in turns at the fp32 paths' shapes
+(FP32_SHAPES, FP32_K6_SHAPES, K7_SHAPE) beside one PyTorch call in fp32
+with TF32 off (SDPA, its backward for the backwards; layer_norm + linear +
+SDPA for K6; this checkout's K1 fp32 + matmul for K7), the bound at the
+fp32 FMA peak and the 3xTF32 ceiling, and the TFLOP/s; then each kernel's
+device time by torch.profiler (a backward entry launches a dq and a dk/dv
+kernel).  Where a tree has K6's stage entry points (`ln_qkv_stats_fp32`,
+`ln_qkv_gemm_fp32`, `ln_qkv_attention_stage2_fp32`) it also holds their
+statistics bitwise against `ln_qkv_stats_reference`, the projection's
+workspace against `ln_qkv_projection_reference` (fp32 output limits) and the
+second stage bitwise against the whole kernel, and times the three in turns
+beside `F.layer_norm` and `F.linear` in fp32.  `tools/fp32_variants.py`
+writes variant trees of the fp32 cores for such rounds.
 
     python -m denseclip_vit_multimodal_tpu_torch.tools.time_fwd_trees \\
         [--tree NAME=CSRC_DIR ...] [--rounds 3] [--fp32]
@@ -403,9 +414,15 @@ def time_k6_split(fns: dict, operands, heads: int, kv: int, k6_outs: dict, round
 
 # fp32: (batch, tokens, heads, head dim, valid_len, causal); the prefix names the kernel
 FP32_SHAPES = {
+    "k1f32_slide": (10, 1536, 12, 64, 1522, False),
     "k1f32_crop640": (4, 1664, 12, 64, 1601, False),
     "k3f32_profile": (8, 1601, 12, 64, 1601, False),
+    "k3f32_d128": (2, 1100, 8, 128, 1050, False),
+    "k3f32_d256": (1, 1030, 2, 256, 1025, False),
+    "k4f32_aug_test_1.75": (2, 25216, 12, 64, 25089, False),
     "k4f32_long_crop": (2, 9344, 12, 64, 9217, False),
+    "k4f32_causal": (2, 2100, 12, 64, 2000, True),
+    "k4f32_d256": (2, 8704, 4, 256, 8600, False),
     "k2f32_crop640": (4, 1664, 12, 64, 1601, False),
     "k3bwdf32_profile": (8, 1601, 12, 64, 1601, False),
     "k3bwdf32_d128": (2, 1100, 8, 128, 1050, False),
@@ -414,21 +431,28 @@ FP32_SHAPES = {
     "k4bf32_causal": (1, 2048, 4, 64, 2000, True),
     "k4bf32_d256": (1, 1100, 2, 256, 1050, True),
 }
-FP32_ITERS = {"k1f32": 20, "k3f32": 20, "k4f32": 3, "k2f32": 10, "k3bwdf32": 10, "k4bf32": 3}
+FP32_ITERS = {"k1f32": 20, "k3f32": 20, "k4f32": 3, "k2f32": 10, "k3bwdf32": 10, "k4bf32": 3,
+              "k6f32": 10, "k7f32": 10}
+# K6 in fp32: (batch, tokens, model width, heads, valid_len)
+FP32_K6_SHAPES = {"k6f32_slide": (10, 1536, 768, 12, 1522), "k6f32_d128": (2, 1100, 768, 6, 1050)}
 PEAK_FP32_FLOPS = 66.9e12  # H100 SXM fp32 FMA rate outside the tensor cores
 PEAK_3XTF32_FLOPS = 495e12 / 3  # three TF32 products per fp32 one
 FP32_MAX_TOL, FP32_REL_TOL = 1e-4, 1e-5
 FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL = 1e-4, 1e-4
 
 
-def build_fp32_tree(name: str, csrc: Path, out_dir: Path) -> dict:
-    """Compile `csrc`'s fp32 forward and backward sources; their six entry
-    points by name."""
+def build_fp32_tree(name: str, csrc: Path, out_dir: Path, backward: bool = True) -> dict:
+    """Compile `csrc`'s fp32 sources (the backward's only with `backward`);
+    the entry points by name ("k6": K6's `bind_fp32_entry_points`, "k7":
+    K7's entry)."""
     from denseclip_vit_multimodal_tpu_torch.ops._build import NVCC_FLAGS, _nvcc
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import bind_fp32_entry_points
 
     out_dir.mkdir(parents=True, exist_ok=True)
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    sources = ["attention_fp32", "attention_bwd_fp32"]
+    sources = ["attention_fp32", "ln_qkv_attention_fp32", "qkv_out_attention_fp32"]
+    if backward:
+        sources.append("attention_bwd_fp32")
     procs = {src: subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out_dir / f"lib{src}.so"),
                                     str(csrc / f"{src}.cu")],
                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -442,18 +466,27 @@ def build_fp32_tree(name: str, csrc: Path, out_dir: Path) -> dict:
                                               "Performance", "warning"))]
         print(json.dumps({"tree": name, "build": src, "ptxas": ptxas}), flush=True)
     fwd = ctypes.CDLL(str(out_dir / "libattention_fp32.so"))
-    bwd = ctypes.CDLL(str(out_dir / "libattention_bwd_fp32.so"))
     table = {
         "qkv": (fwd.qkv_attention_fp32, [ptr] * 3 + [i] * 5 + [f, ptr]),
         "mha": (fwd.mha_attention_fp32, [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]),
         "flash": (fwd.flash_attention_fp32, [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]),
-        "qkv_bwd": (bwd.qkv_attention_bwd_fp32, [ptr] * 6 + [i] * 5 + [f, f, ptr]),
-        "mha_bwd": (bwd.mha_attention_bwd_fp32, [ptr] * 10 + [i64] * 9 + [i] * 5 + [f, f, ptr]),
-        "flash_bwd": (bwd.flash_attention_bwd_fp32, [ptr] * 9 + [i64] * 9 + [i] * 6 + [f, ptr]),
     }
+    if backward:
+        bwd = ctypes.CDLL(str(out_dir / "libattention_bwd_fp32.so"))
+        table.update({
+            "qkv_bwd": (bwd.qkv_attention_bwd_fp32, [ptr] * 6 + [i] * 5 + [f, f, ptr]),
+            "mha_bwd": (bwd.mha_attention_bwd_fp32,
+                        [ptr] * 10 + [i64] * 9 + [i] * 5 + [f, f, ptr]),
+            "flash_bwd": (bwd.flash_attention_bwd_fp32,
+                          [ptr] * 9 + [i64] * 9 + [i] * 6 + [f, ptr]),
+        })
+    k7 = ctypes.CDLL(str(out_dir / "libqkv_out_attention_fp32.so")).qkv_out_attention_fp32
+    table["k7"] = (k7, [ptr] * 4 + [i] * 5 + [f, i, ptr])
     for fn, argtypes in table.values():
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return {key: fn for key, (fn, _) in table.items()}
+    fns = {key: fn for key, (fn, _) in table.items()}
+    fns["k6"] = bind_fp32_entry_points(ctypes.CDLL(str(out_dir / "libln_qkv_attention_fp32.so")))
+    return fns
 
 
 def _check(err: int) -> None:
@@ -480,10 +513,11 @@ def _kernel_ms(fn, iters: int) -> dict:
     return out
 
 
-def time_fp32(fns: dict, rounds: int) -> dict:
-    """The fp32 kernels of every tree at FP32_SHAPES: checks, then times in
-    turns, then each kernel's device time by torch.profiler (the backwards
-    launch two); a summary entry per shape."""
+def time_fp32(fns: dict, rounds: int, only=None) -> dict:
+    """The fp32 kernels of every tree at FP32_SHAPES (those whose kernel
+    prefix is in `only`, if given): checks, then times in turns, then each
+    kernel's device time by torch.profiler (the backwards launch two); a
+    summary entry per shape."""
     import torch.nn.functional as F
 
     from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
@@ -495,6 +529,8 @@ def time_fp32(fns: dict, rounds: int) -> dict:
     summary = {}
     for shape, (b, n, heads, d, kv, causal) in FP32_SHAPES.items():
         kernel = shape.split("_")[0]
+        if only is not None and kernel not in only:
+            continue
         backward = kernel in ("k2f32", "k3bwdf32", "k4bf32")
         entry = {"k1f32": "qkv", "k2f32": "qkv", "k3f32": "mha", "k3bwdf32": "mha",
                  "k4f32": "flash", "k4bf32": "flash"}[kernel]
@@ -602,6 +638,10 @@ def time_fp32(fns: dict, rounds: int) -> dict:
                 plain_out = mha_kernel.mha_qkv_attention_reference(qkv, heads, valid_len=kv).view(
                     b, n, heads, d)
             call = lambda fn: forward(fn)
+            want_stats = plain_stats(q[:, :kv], k, kv, scale, prescaled=entry != "flash",
+                                     causal=causal)
+            k[:, kv:] = float("nan")  # pad keys: must never reach a real row
+            v[:, kv:] = float("nan")
             for name, fn in fns.items():
                 out.fill_(float("nan"))
                 forward(fn, stats)
@@ -610,11 +650,15 @@ def time_fp32(fns: dict, rounds: int) -> dict:
                 e = out[:, :kv] - plain_out[:, :kv]
                 res = {"tree": name, "shape": shape, "ms": [],
                        "max_abs_err": float(e.abs().max()),
-                       "rel_l2_err": float(e.norm() / plain_out[:, :kv].norm())}
+                       "rel_l2_err": float(e.norm() / plain_out[:, :kv].norm()),
+                       **stats_errors(stats[:, :, :kv], want_stats)}
                 res["ok"] = bool(torch.isfinite(out[:, :kv]).all()
                                  and res["max_abs_err"] <= FP32_MAX_TOL
-                                 and res["rel_l2_err"] <= FP32_REL_TOL)
+                                 and res["rel_l2_err"] <= FP32_REL_TOL
+                                 and res["stats_m_max_abs_err"] <= STATS_M_TOL
+                                 and res["stats_l_max_rel_err"] <= STATS_L_TOL)
                 results[name] = res
+            del want_stats
             qh = q.transpose(1, 2).contiguous()
             kh, vh = (t[:, :kv].transpose(1, 2).contiguous() for t in (k, v))
             library = lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
@@ -647,6 +691,203 @@ def time_fp32(fns: dict, rounds: int) -> dict:
     return summary
 
 
+def _fp32_bounds(flops: float, nbytes: float) -> dict:
+    bytes_s = nbytes / PEAK_BYTES
+    return {"bound_3xtf32_ms": max(flops / PEAK_3XTF32_FLOPS, bytes_s) * 1e3,
+            "bound_fp32_fma_ms": max(flops / PEAK_FP32_FLOPS, bytes_s) * 1e3}
+
+
+def _fp32_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    e = got.double() - want.double()
+    res = {"max_abs_err": float(e.abs().max()),
+           "rel_l2_err": float(e.norm() / want.double().norm())}
+    res["in_limits"] = bool(torch.isfinite(got).all() and res["max_abs_err"] <= FP32_MAX_TOL
+                            and res["rel_l2_err"] <= FP32_REL_TOL)
+    return res
+
+
+def _in_turns(results: dict, parts: dict, rounds: int, iters: int) -> None:
+    """Time every tree's parts in turns (the trees in order, then reversed),
+    appending to results[tree][part]; each median to "<part>_median"."""
+    for r in range(rounds):
+        for name in (list(results) if r % 2 == 0 else list(results)[::-1]):
+            for part, fn in parts.items():
+                results[name][part].append(_cuda_ms(lambda: fn(name), iters))
+    for res in results.values():
+        for part in parts:
+            res[f"{part}_median"] = statistics.median(res[part])
+
+
+def time_fp32_k6(fns: dict, rounds: int) -> dict:
+    """K6 in fp32 of every tree at FP32_K6_SHAPES (x and the ln_1 / qkv
+    parameters at the scale of the model's init, NaN in x's pad rows): the
+    whole kernel against `ln_qkv_attention_reference` and the last tree bit
+    for bit, then timed in turns beside layer_norm + linear + SDPA (TF32
+    off); where a tree has the stage entries, its split as the module note
+    says.  A summary entry per shape (and "<shape>_split")."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.lnqkv_kernel import (
+        ln_qkv_attention_reference,
+        ln_qkv_projection_reference,
+        ln_qkv_stats_reference,
+    )
+
+    stream = torch.cuda.current_stream().cuda_stream
+    last = list(fns)[-1]
+    summary = {}
+    for shape, (b, n, dim, heads, kv) in FP32_K6_SHAPES.items():
+        d, rows = dim // heads, b * n
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(b, n, dim, generator=gen, device="cuda")
+        gamma = 1.0 + 0.1 * torch.randn(dim, generator=gen, device="cuda")
+        beta = 0.1 * torch.randn(dim, generator=gen, device="cuda")
+        limit = (6.0 / (4 * dim)) ** 0.5
+        wt = (torch.rand(3 * dim, dim, generator=gen, device="cuda") * 2 - 1) * limit
+        bias = 0.02 * torch.randn(3 * dim, generator=gen, device="cuda")
+        want = ln_qkv_attention_reference(x, gamma, beta, wt.t(), bias, heads, valid_len=kv)
+        want_ws = ln_qkv_projection_reference(x, gamma, beta, wt.t(), bias, heads)
+        want_stats = ln_qkv_stats_reference(x).view(rows, 2)
+        x[:, kv:] = float("nan")  # pad rows: their keys are never read
+        ws = torch.empty(b, n, 3 * dim, device="cuda")
+        out = torch.empty(b, n, dim, device="cuda")
+        stats = torch.empty(rows, 2, device="cuda")
+        q_scale = d**-0.5 * LOG2E
+        ptrs = (x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wt.data_ptr(), bias.data_ptr())
+        whole = lambda name: _check(fns[name]["k6"]["attention"](
+            *ptrs, ws.data_ptr(), out.data_ptr(), b, n, dim, heads, d, kv, q_scale, LN_EPS, 0,
+            stream))
+        results, outs = {}, {}
+        for name in fns:
+            out.fill_(float("nan"))
+            whole(name)
+            torch.cuda.synchronize()
+            outs[name] = out.clone()
+            results[name] = {"tree": name, "shape": shape, "ms": [],
+                             **_fp32_errors(out[:, :kv], want[:, :kv])}
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        xc = x.clone()
+        xc[:, kv:] = 0.0
+
+        def library(_=None):  # F.layer_norm + F.linear + SDPA, fp32
+            proj = F.linear(F.layer_norm(xc, (dim,), gamma, beta, LN_EPS), wt, bias)
+            qh, kh, vh = (t.view(b, n, heads, d).transpose(1, 2) for t in proj.split(dim, dim=-1))
+            return F.scaled_dot_product_attention(qh, kh[:, :, :kv], vh[:, :, :kv])
+
+        _in_turns(results, {"ms": whole}, rounds, FP32_ITERS["k6f32"])
+        library_ms = _cuda_ms(library, FP32_ITERS["k6f32"])
+        proj_flops = 2.0 * rows * dim * 3 * dim
+        flops = proj_flops + 4.0 * b * heads * n * kv * d
+        bounds = _fp32_bounds(flops, 4.0 * (2 * x.numel() + wt.numel()))
+        for name, res in results.items():
+            res.update(bitwise_equal_to_last=torch.equal(outs[name], outs[last]),
+                       median_ms=res["ms_median"], library_ms=library_ms, **bounds,
+                       tflops=flops / (res["ms_median"] * 1e-3) / 1e12)
+            print(json.dumps(res), flush=True)
+        summary[shape] = {name: res["median_ms"] for name, res in results.items()}
+        summary[shape].update(library=library_ms, **bounds,
+                              bitwise_equal=all(r["bitwise_equal_to_last"]
+                                                for r in results.values()),
+                              ok=all(r["in_limits"] for r in results.values()))
+
+        staged = [name for name in fns if "gemm" in fns[name]["k6"]]
+        if staged:
+            st = lambda name: _check(fns[name]["k6"]["stats"](x.data_ptr(), stats.data_ptr(),
+                                                              rows, dim, LN_EPS, stream))
+            gemm = lambda name: _check(fns[name]["k6"]["gemm"](
+                *ptrs, stats.data_ptr(), ws.data_ptr(), rows, dim, dim, q_scale, stream))
+            stage2 = lambda name: _check(fns[name]["k6"]["stage2"](
+                ws.data_ptr(), out.data_ptr(), b, n, heads, d, kv, stream))
+            split = {}
+            for name in staged:
+                ws.fill_(float("nan"))
+                st(name)
+                gemm(name)
+                stage2(name)
+                torch.cuda.synchronize()
+                ws_err = _fp32_errors(ws[:, :kv], want_ws[:, :kv])
+                split[name] = {
+                    "tree": name, "shape": f"{shape}_split",
+                    "stats_bitwise_equal": torch.equal(stats.view(b, n, 2)[:, :kv],
+                                                       want_stats.view(b, n, 2)[:, :kv]),
+                    "workspace": ws_err,
+                    "stage2_bitwise_equal_to_k6": torch.equal(out[:, :kv], outs[name][:, :kv]),
+                    "stats": [], "gemm": [], "stage2": []}
+                split[name]["ok"] = bool(ws_err["in_limits"] and split[name]["stats_bitwise_equal"]
+                                         and split[name]["stage2_bitwise_equal_to_k6"])
+            _in_turns(split, {"stats": st, "gemm": gemm, "stage2": stage2}, rounds,
+                      FP32_ITERS["k6f32"])
+            ln = lambda: F.layer_norm(xc, (dim,), gamma, beta, LN_EPS)
+            lnx = ln()
+            yard = {"layer_norm_ms": _cuda_ms(ln, FP32_ITERS["k6f32"]),
+                    "linear_ms": _cuda_ms(lambda: F.linear(lnx, wt, bias), FP32_ITERS["k6f32"]),
+                    **{f"projection_{k}": v for k, v in
+                       _fp32_bounds(proj_flops, 4.0 * (2 * x.numel() + wt.numel())).items()}}
+            for name, res in split.items():
+                res.update(yard, gemm_tflops=proj_flops / (res["gemm_median"] * 1e-3) / 1e12)
+                print(json.dumps(res), flush=True)
+            summary[f"{shape}_split"] = {
+                **{name: {part: res[f"{part}_median"] for part in ("stats", "gemm", "stage2")}
+                   for name, res in split.items()}, **yard,
+                "ok": all(res["ok"] for res in split.values())}
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        del results, outs, want, want_ws
+        torch.cuda.empty_cache()
+    return summary
+
+
+def time_fp32_k7(fns: dict, rounds: int) -> dict:
+    """K7 in fp32 of every tree at K7_SHAPE: against
+    `qkv_out_attention_reference` and the last tree bit for bit, then timed
+    in turns beside this checkout's K1 fp32 + `torch.matmul` (TF32 off);
+    the summary entry "k7f32_experiment"."""
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import mha_qkv_attention
+    from denseclip_vit_multimodal_tpu_torch.tools.exp_outproj_epilogue import (
+        qkv_out_attention_reference,
+    )
+
+    b, n, heads, d = K7_SHAPE
+    hd = heads * d
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(b, n, 3 * hd, generator=gen, device="cuda")
+    w = torch.randn(hd, hd, generator=gen, device="cuda") * 0.02
+    ws = torch.empty(b, n, hd, device="cuda")
+    out = torch.empty(b, n, hd, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    k7 = lambda name: _check(fns[name]["k7"](qkv.data_ptr(), w.data_ptr(), ws.data_ptr(),
+                                             out.data_ptr(), b, n, heads, d, n, d**-0.5 * LOG2E,
+                                             0, stream))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = qkv_out_attention_reference(qkv, w, heads)
+    last = list(fns)[-1]
+    results, outs = {}, {}
+    for name in fns:
+        out.fill_(float("nan"))
+        k7(name)
+        torch.cuda.synchronize()
+        outs[name] = out.clone()
+        results[name] = {"tree": name, "shape": "k7f32_experiment", "ms": [],
+                         **_fp32_errors(out, want)}
+    _in_turns(results, {"ms": k7}, rounds, FP32_ITERS["k7f32"])
+    yard_ms = _cuda_ms(lambda: torch.matmul(mha_qkv_attention(qkv, heads), w),
+                       FP32_ITERS["k7f32"])
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    flops = 4.0 * b * heads * n * n * d + 2.0 * b * n * hd * hd
+    bounds = _fp32_bounds(flops, 4.0 * (qkv.numel() + w.numel() + b * n * hd))
+    for name, res in results.items():
+        res.update(bitwise_equal_to_last=torch.equal(outs[name], outs[last]),
+                   median_ms=res["ms_median"], k1_fp32_plus_matmul_ms=yard_ms, **bounds,
+                   tflops=flops / (res["ms_median"] * 1e-3) / 1e12)
+        print(json.dumps(res), flush=True)
+    return {"k7f32_experiment": {
+        **{name: res["median_ms"] for name, res in results.items()},
+        "k1_fp32_plus_matmul": yard_ms, **bounds,
+        "bitwise_equal": all(r["bitwise_equal_to_last"] for r in results.values()),
+        "ok": all(r["in_limits"] for r in results.values())}}
+
+
 def stats_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
     return {"stats_m_max_abs_err": float((got[..., 0] - want[..., 0]).abs().max()),
             "stats_l_max_rel_err": float(((got[..., 1] - want[..., 1]) / want[..., 1]).abs().max())}
@@ -666,6 +907,9 @@ def main(argv=None) -> dict:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--fp32", action="store_true",
                    help="time the fp32 forward and backward kernels instead")
+    p.add_argument("--only", default=None,
+                   help="with --fp32: comma-separated kernels (k1f32, k3f32, k4f32, k2f32, "
+                        "k3bwdf32, k4bf32, k6f32, k7f32; default all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_fwd_trees: needs a CUDA device")
@@ -674,12 +918,19 @@ def main(argv=None) -> dict:
     if args.fp32:
         from concurrent.futures import ThreadPoolExecutor
 
+        only = None if args.only is None else set(args.only.split(","))
+        backward = only is None or bool(only & {"k2f32", "k3bwdf32", "k4bf32"})
         with ThreadPoolExecutor(len(trees)) as pool:  # every tree's nvcc at once
             built = pool.map(lambda t: build_fp32_tree(t[0], Path(t[1]),
-                                                       root / "build" / "fp32_trees" / t[0]),
+                                                       root / "build" / "fp32_trees" / t[0],
+                                                       backward),
                              trees.items())
             fns = dict(zip(trees, built))
-        summary = time_fp32(fns, args.rounds)
+        summary = time_fp32(fns, args.rounds, only)
+        if only is None or "k6f32" in only:
+            summary.update(time_fp32_k6(fns, args.rounds))
+        if only is None or "k7f32" in only:
+            summary.update(time_fp32_k7(fns, args.rounds))
         print(json.dumps({"summary": summary, "device": torch.cuda.get_device_name(0)}),
               flush=True)
         if not all(entry["ok"] for entry in summary.values()):

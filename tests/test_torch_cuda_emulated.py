@@ -67,9 +67,9 @@ def fwd_libs(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_fwd")
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    qkv = _build("qkv_attention", out, "attention_fwd").qkv_attention_bf16
-    mha = _build("mha_attention", out, "attention_fwd").mha_attention_bf16
-    flash = _build("flash_attention", out, "attention_fwd").flash_attention_bf16
+    qkv = _build("qkv_attention", out).qkv_attention_bf16
+    mha = _build("mha_attention", out).mha_attention_bf16
+    flash = _build("flash_attention", out).flash_attention_bf16
     qkv.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
     mha.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 5 + [f, ptr]
     flash.argtypes = [ptr] * 5 + [i64] * 9 + [i] * 6 + [f, ptr]
@@ -257,8 +257,8 @@ def int8_libs(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_int8")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    k5 = _build("qkv_attention_int8", out, None).qkv_attention_int8
-    pro = _build("quantize_qkv_int8", out, None).quantize_qkv_int8
+    k5 = _build("qkv_attention_int8", out).qkv_attention_int8
+    pro = _build("quantize_qkv_int8", out).quantize_qkv_int8
     k5.argtypes = [ptr] * 4 + [i] * 7 + [f, ptr]
     pro.argtypes = [ptr, i] + [ptr] * 4 + [i] * 6 + [ptr]
     k5.restype = pro.restype = ctypes.c_int
@@ -415,7 +415,7 @@ def lnqkv_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs a C++20 host compiler (g++)")
     return lnqkv_kernel.bind_entry_points(
-        _build("ln_qkv_attention", tmp_path_factory.mktemp("cuda_emu_lnqkv"), "attention_fwd"))
+        _build("ln_qkv_attention", tmp_path_factory.mktemp("cuda_emu_lnqkv")))
 
 
 def _lnqkv_inputs(b, n, dim, hd, seed, poison_from=None):
@@ -550,8 +550,8 @@ def outproj_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs a C++20 host compiler (g++)")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _build("qkv_out_attention", tmp_path_factory.mktemp("cuda_emu_outproj"),
-                "attention_fwd").qkv_out_attention_bf16
+    fn = _build("qkv_out_attention",
+                tmp_path_factory.mktemp("cuda_emu_outproj")).qkv_out_attention_bf16
     fn.argtypes = [ptr] * 3 + [i] * 5 + [f, ptr]
     fn.restype = ctypes.c_int
     return fn

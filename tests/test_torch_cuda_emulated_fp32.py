@@ -1,6 +1,6 @@
 """The fp32 attention kernels' CUDA sources on the CPU emulation.
 
-`csrc/attention_fp32.cu` (K1, K3 and K4 in fp32 on the SIMT core
+`csrc/attention_fp32.cu` (K1, K3 and K4 in fp32 on the 3xTF32 forward core
 `csrc/attention_fp32.cuh`) and `csrc/attention_bwd_fp32.cu` (K2, K3's
 backward and K4b on the 3xTF32 core `csrc/attention_bwd_fp32.cuh`),
 compiled by the host compiler against `tests/cuda_emu/`
@@ -11,17 +11,20 @@ NaN bytes before each block), each entry against its plain version: head
 dims 64 / 128 / 256, causal, `valid_len` with NaN in the K / V rows past
 it, the row statistics, and a rerun held bitwise equal.  The cases reach
 the backward core's paths: both stages of its ring, tiles no mask reaches
-and n-tiles a mask empties, D = 256's single stage and two passes.  The plain versions are held
+and n-tiles a mask empties, D = 256's single stage and two passes; and the
+forward core's: its ring wrapped at each head dim's tiling, tiles a mask
+empties for a warp, its masked and unmasked softmax steps.  The plain versions are held
 against the JAX package's kernels in `tests/test_torch_fp32_kernels.py`.
 """
 
 import ctypes
+import re
 
 import pytest
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.ops import attention, mha_kernel
-from torch_cuda_emu import LOG2E, _build, _row_stats
+from torch_cuda_emu import CSRC, LOG2E, _build_all, _row_stats
 
 # Outputs against the plain versions: max abs and relative L2 (ROADMAP's
 # fp32 limits); gradients: relative L2 and max abs as a share of the
@@ -38,8 +41,7 @@ def fns(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_fp32")
-    fwd = _build("attention_fp32", out, core="attention_fp32")
-    bwd = _build("attention_bwd_fp32", out, core="attention_bwd_fp32")
+    fwd, bwd = _build_all(("attention_fp32", "attention_bwd_fp32"), out)
     ptr, i64, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     table = {
         "qkv": (fwd.qkv_attention_fp32, [ptr] * 3 + [i] * 5 + [f, ptr]),
@@ -177,6 +179,51 @@ def test_k4_and_k4b_fp32(fns, b, n, heads, d, kv, causal):
                                                    valid_len=kv)
     _assert_grads((dq, dk, dv), want, kv, kv)
     assert not dq[:, kv:].any()  # pad rows contribute nothing under the bundled numerics
+
+
+def _fwd_tiling(d):
+    """(16-row groups, key tile, stages) of the forward core's `Cfg<d>`: a
+    tensor-core tiling's warps, or the SIMT core's 64 rows, 32-key tiles
+    and two stages (`csrc/attention_fp32_simt.cuh`, which takes D = 256)."""
+    text = (CSRC / "attention_fp32.cuh").read_text()
+    m = re.search(rf"struct Cfg<{d}> : Tiles<{d}, (\d+), (\d+), (\d+)>", text)
+    return tuple(int(x) for x in m.groups()) if m else (4, 32, 2)
+
+
+def _causal_coverage(n, d, kv):
+    """The most tiles a block of the causal forward streams, and whether some
+    warp meets a tile that the mask empties for all its rows."""
+    warps, step, _ = _fwd_tiling(d)
+    rows = 16 * warps
+    most, emptied = 0, False
+    for q0 in range(0, n, rows):
+        tiles = -(-min(kv, q0 + rows) // step)
+        most = max(most, tiles)
+        emptied |= any(min(kv, q0 + 16 * w + 16) <= step * t
+                       for w in range(warps) for t in range(tiles))
+    return most, emptied
+
+
+@pytest.mark.parametrize("b,n,heads,d,kv", [(1, 260, 1, 64, 250), (1, 100, 2, 128, 96),
+                                            (1, 90, 2, 256, 80)])
+def test_k4_fp32_wraps_its_ring_and_skips_emptied_tiles(fns, b, n, heads, d, kv):
+    """K4 causal at each head dim's tiling: some block streams more tiles
+    than its ring has stages, and some warp meets a tile that the mask
+    empties for all its rows; NaN in the K / V rows past valid_len; the
+    output, the row statistics and a rerun."""
+    most, emptied = _causal_coverage(n, d, kv)
+    assert most > _fwd_tiling(d)[2] and emptied
+    _, q, k, v, _ = _inputs(b, n, heads, d, kv, seed=3 * n + d)
+    scale = d**-0.5
+    out, stats = torch.empty(b, n, heads, d), torch.empty(b, heads, n, 2)
+    _run_twice(lambda: fns["flash"](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                    stats.data_ptr(), *_strides(q, k, v), b, n, heads, d, kv, 1,
+                                    scale, None), [out, stats])
+    kc, vc = k.clone(), v.clone()
+    kc[:, kv:] = vc[:, kv:] = 0.0
+    _assert_out(out, attention.flash_attention_reference(q, kc, vc, causal=True, valid_len=kv),
+                n)
+    _assert_stats(stats, q, kc, kv, scale, False, causal=True)
 
 
 def test_masked_keys_get_exact_zeros_whatever_the_query_side_holds(fns):

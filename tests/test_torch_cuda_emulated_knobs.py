@@ -27,7 +27,7 @@ import torch
 from denseclip_vit_multimodal_tpu_torch.ops import lnqkv_kernel
 from denseclip_vit_multimodal_tpu_torch.ops import mha_kernel as M
 from denseclip_vit_multimodal_tpu_torch.tools import exp_outproj_epilogue
-from torch_cuda_emu import LOG2E, _build
+from torch_cuda_emu import LOG2E, _build_all
 
 EXACT, POLY, ZEROED, EBF16 = M.EXP_EXACT, M.EXP_POLY, M.EXP_POLY_ZEROED, M.EXP_BF16
 FP32_MAX, FP32_REL = 1e-4, 1e-5
@@ -47,16 +47,12 @@ def fns(tmp_path_factory):
         pytest.skip("needs a C++20 host compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu_knobs")
     ptr, ll, i, f = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
-    fp32_cores = ("attention_fp32", "gemm_fp32")
-    libs = {"k1": _build("qkv_attention_knobs", out, "attention_fwd"),
-            "k3": _build("mha_attention_knobs", out, "attention_fwd"),
-            "bwd": _build("attention_bwd_knobs", out),
-            "f32": _build("attention_fp32", out, "attention_fp32"),
-            "f32bwd": _build("attention_bwd_fp32", out, "attention_bwd_fp32"),
-            "k6": _build("ln_qkv_attention", out, "attention_fwd"),
-            "k6f32": _build("ln_qkv_attention_fp32", out, fp32_cores),
-            "k7": _build("qkv_out_attention", out, "attention_fwd"),
-            "k7f32": _build("qkv_out_attention_fp32", out, fp32_cores)}
+    sources = {"k1": "qkv_attention_knobs", "k3": "mha_attention_knobs",
+               "bwd": "attention_bwd_knobs", "f32": "attention_fp32",
+               "f32bwd": "attention_bwd_fp32", "k6": "ln_qkv_attention",
+               "k6f32": "ln_qkv_attention_fp32", "k7": "qkv_out_attention",
+               "k7f32": "qkv_out_attention_fp32"}
+    libs = dict(zip(sources, _build_all(sources.values(), out)))
     table = {
         "k1": (libs["k1"].qkv_attention_bf16_knob, [ptr] * 3 + [i] * 5 + [f, i, ptr]),
         "k3": (libs["k3"].mha_attention_bf16_knob, [ptr] * 5 + [ll] * 9 + [i] * 5 + [f, i, ptr]),

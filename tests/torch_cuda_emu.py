@@ -28,19 +28,20 @@ _LAUNCH = re.compile(r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]*>>>\((\w+)\)")
 _SHARED = re.compile(r"extern __shared__ __align__\(\d+\) unsigned char smem_raw\[\];")
 
 
-def _build(src: str, out: Path, core="attention_bwd") -> ctypes.CDLL:
-    """`csrc/<src>.cu` on its core `csrc/<core>.cuh` (a tuple: several
-    cores; None: the source alone), compiled against the emulation: every
-    `<<<...>>>` launch made an `emu_launch`, every block's dynamic shared
-    memory the emulation's one array."""
+def _build(src: str, out: Path) -> ctypes.CDLL:
+    """`csrc/<src>.cu` compiled against the emulation: every `csrc/` header
+    copied beside it with each `<<<...>>>` launch made an `emu_launch` and
+    each block's dynamic shared memory the emulation's one array, then the
+    emulation's headers over their `csrc/` namesakes, so that an `#include
+    "..."` from any header finds the emulated ones."""
     work = out / src
     work.mkdir()
-    for header in EMU.glob("*.cuh"):  # found before csrc's by `#include "..."`
-        shutil.copy(header, work)
     emulated = lambda text: _SHARED.sub("unsigned char* const smem_raw = emu::smem_base;",
                                         _LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, \5)", text))
-    for name in (core,) if isinstance(core, str) else core or ():
-        (work / f"{name}.cuh").write_text(emulated((CSRC / f"{name}.cuh").read_text()))
+    for header in CSRC.glob("*.cuh"):
+        (work / header.name).write_text(emulated(header.read_text()))
+    for header in EMU.glob("*.cuh"):
+        shutil.copy(header, work)
     (work / f"{src}.cpp").write_text(
         '#include "cuda_runtime.h"\n' + emulated((CSRC / f"{src}.cu").read_text()))
     lib = out / f"lib{src}.so"
@@ -51,6 +52,14 @@ def _build(src: str, out: Path, core="attention_bwd") -> ctypes.CDLL:
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
     return ctypes.CDLL(str(lib))
+
+
+def _build_all(srcs, out: Path, workers: int = 4) -> list:
+    """`_build` of each source, `workers` host compilers at a time."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(lambda src: _build(src, out), srcs))
 
 
 @pytest.fixture(scope="module")
