@@ -287,12 +287,43 @@ phases that each print one JSON line:
                   of train_long's bf16 run), the self-test's fp32 lines, and
                   `tools/profile_attn_bwd.py --dtype float32`; each path's
                   launches by name, times and peak memory.
+ 30. ddp_path   — data parallelism over a torch.distributed process group
+                  at full width: (1) the heritage preset through
+                  `tools/dist_train.sh` (torchrun, NCCL, world 1) and through
+                  `tools/train.py` without a group (each a fresh process),
+                  1 warm-up + 3 steps each: the step-1 loss bitwise equal,
+                  ms/step side by side (DDP's cost on one card); (2) two
+                  Gloo ranks joined through torchrun's environment (both on
+                  card 0 of a one-card machine) against this process on the
+                  same global batch: the heritage step in fp32 (seg loss, deterministic algorithms:
+                  loss <= 1e-5, backbone gradients <= 1e-3 rel. L2, against
+                  the process running its backbone over the ranks' halves of
+                  the batch, as cuBLAS's fp32 products of a part depend on
+                  its rows; the whole-batch reference printed beside, with
+                  the gradients reaching the neck's output and its fusion
+                  layer's input, and the one process's own halves against
+                  its whole batch) and in bf16 (loss <= 5e-2; 12 K1 + 12 K2 a
+                  rank), the RN50 preset at batch 16 (BatchNorm statistics
+                  <= 1e-5), a 1024x2048 flagship slide frame with its windows
+                  spread over the ranks (logits <= 2e-2 and packed seg >=
+                  99.99% equal against the process running the windows in
+                  the ranks' chunks; against the protocol's one chunk
+                  printed; 12 K1 a rank) and `tools/test.py` on 4 frames
+                  (the confusion matrix exactly equal), every rank holding
+                  the same numbers; (3) where two cards are visible, (2)'s
+                  fp32 step under NCCL over them, with ms per step per rank
+                  and the all-reduce's share of the device time
+                  (torch.profiler); else one line says why it was not run.
 
 rn50_path and cityscapes_path's `tools/train.py` run 2 steps each (1
 warm-up + 1 timed; 3 before the ViT-L/14 phase came), cityscapes_path's
 profiled step warms up on a batch it already decoded and its `--load` run
-decodes on one thread, to keep the script near 700 s; the seconds of every
-phase are printed before the `kernels` line.
+decodes on one thread, to keep the script near 700 s; since ddp_path came,
+cityscapes_path times its loader over one batch a thread count (not the
+epoch), and the paths after it (rn50_path, vitl14_seg_path) read the tree's
+arrays from filter-0 PNGs (Paeth's unfilter, which cityscapes_path measures,
+took most of their time); the seconds of every phase are printed before the
+`kernels` line.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -2326,10 +2357,25 @@ CITY_TEXT = (512, 12, 49408, 77, 512)  # width, layers, vocab, positions, projec
 CITY_CONTEXT = 22  # the text tower's capacity: the pos-embed keeps archive[:22]
 
 
-def write_cityscapes_tree(root: str, seed: int) -> None:
+class _FirstSamples:
+    """The first `n` samples of a dataset, as a dataset."""
+
+    def __init__(self, dataset, n: int):
+        self.dataset, self.n = dataset, n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+def write_cityscapes_tree(root: str, seed: int, encode=None) -> None:
     """A seeded Cityscapes tree written by the port's own encoder, every row
-    Paeth-filtered: `leftImg8bit` RGB, `gtFine_labelIds` 8-bit gray over ids
-    0..33, `disparity` uint16 with zeros (a fifth of the pixels)."""
+    Paeth-filtered (`encode` another encoder of the same arrays):
+    `leftImg8bit` RGB, `gtFine_labelIds` 8-bit gray over ids 0..33,
+    `disparity` uint16 with zeros (a fifth of the pixels)."""
+    encode = encode or _paeth_png
     rs = np.random.RandomState(seed)
     h, w = CITY_HW
     for split, n, cities in (("train", CITY_TRAIN, ("aachen", "bochum")),
@@ -2345,7 +2391,7 @@ def write_cityscapes_tree(root: str, seed: int) -> None:
                 folder = os.path.join(root, top, split, city)
                 os.makedirs(folder, exist_ok=True)
                 with open(os.path.join(folder, f"{city}_{i:06d}_000019_{suffix}.png"), "wb") as f:
-                    f.write(_paeth_png(arr))
+                    f.write(encode(arr))
 
 
 def _stub_draws(seed: int):
@@ -2559,9 +2605,10 @@ def _cityscapes_path(tmp: str) -> dict:
             decode_ms[name] += (time.perf_counter() - tick) * 1e3 / CITY_DECODE_SAMPLES
     res["decode_ms_per_sample"] = {**decode_ms, "total": sum(decode_ms.values())}
     workers = int(cfg.training.get("workers", 8))
-    res["loader"] = {"samples": CITY_TRAIN, "samples_per_s_by_threads": {}}
+    res["loader"] = {"samples": batch_size, "samples_per_s_by_threads": {}}
+    first_batch = _FirstSamples(train_ds, batch_size)  # one batch, not the epoch: a cut of time
     for threads in (1, workers):
-        loader = DataLoader(train_ds, batch_size=batch_size, seed=seed, num_threads=threads)
+        loader = DataLoader(first_batch, batch_size=batch_size, seed=seed, num_threads=threads)
         tick = time.perf_counter()
         n = sum(b["image"].shape[0] for b in loader.epoch(0))
         res["loader"]["samples_per_s_by_threads"][threads] = n / (time.perf_counter() - tick)
@@ -5373,6 +5420,497 @@ def kernel_group(name: str) -> str:
     return "elementwise / copy / other"
 
 
+DDP_WORK_DIR = "build/ddp_smoke"  # gitignored; removed at the end of the phase
+DDP_TORCHRUN_STEPS = 4  # tools/dist_train.sh at world 1: 1 warm-up + 3 timed
+DDP_BN_TOL = 1e-5  # relative L2 of every BatchNorm running statistic, 2 ranks vs 1 process
+DDP_SEG_AGREE = 0.9999  # share of the sharded frame's pixels whose seg equals the unsharded
+DDP_TIMEOUT_S = 300  # the ranks' whole run, the Gloo / NCCL rendezvous included
+DDP_RN50_SETS = ["data.synthetic=true", "data.synthetic_options.image_size=[512,1024]",
+                 "data.synthetic_options.length=16", FP32_SET]
+DDP_EVAL_SETS = TRAIN_OVERRIDES[:2] + ["data.synthetic_options.length=4"]
+# The fp32 step holds the backbone gradients of the segmentation loss, as
+# fp32_path does: at a random init a fifth of the depth predictions sit at
+# SILog's eps clamp, where fp32 rounding decides the gradient (PERF.md §6).
+DDP_FP32_SETS = [FP32_SET, "training.loss_weights.silog=0.0"]
+
+
+def _ddp_free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _ddp_train_case(cfg, dtype, batch: dict, deterministic: bool, device: str,
+                    built=None, backbone_parts: int = 1, probe: bool = False) -> dict:
+    """One step of the port's train step on this rank's rows of the global
+    `batch` (all of it without a group): the metrics, the flat backbone
+    gradients the optimizer applies (after the all-reduce), every BatchNorm
+    running statistic after the step, and the kernels' launches.  `built`:
+    the (model, texts) of `cfg` at its seed, where the caller holds them.
+    `backbone_parts` runs the backbone (no op of which mixes samples) over
+    that many equal parts of the batch, as the ranks run it over theirs.
+    `probe` keeps the gradients that reach the neck's output and the input
+    of its fusion layer.  The optimizer's update is not applied: `built`
+    weights stay the seeded ones (BatchNorm's running statistics move)."""
+    from denseclip_vit_multimodal_tpu_torch.data.loader import to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.step import microbatch_rows
+
+    seed = int(cfg.training.get("seed", 42))
+    model, texts = built or build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=dtype,
+                                            device=device, seed=seed)
+    state = create_train_state(model, cfg.training, 1)
+    captured = {}
+
+    def capture():  # the gradients the update would apply; no check needs the update
+        captured["backbone"] = torch.cat([q.grad.float().flatten()
+                                          for n, q in model.named_parameters()
+                                          if n.startswith("backbone.") and q.grad is not None])
+
+    state.optimizer.step = capture
+    whole = model.backbone.forward
+    if backbone_parts > 1:
+        model.backbone.forward = lambda x, *a, **k: tuple(
+            torch.cat(taps) for taps in zip(*(whole(c, *a, **k) for c in x.chunk(backbone_parts))))
+    probes, hooks = {}, []
+    if probe:
+        def grad_of(name, t):
+            t.register_hook(lambda g: probes.__setitem__(name, g.detach().float().cpu()))
+
+        hooks = [model.neck.register_forward_hook(lambda m, a, out: grad_of("neck_out", out)),
+                 model.neck.fuse.register_forward_pre_hook(lambda m, a: grad_of("fuse_in", a[0]))]
+    step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+    world, rank = mesh.world_size(), mesh.rank()
+    rows = microbatch_rows(batch["image"].shape[0] // world, 1, world, rank)[0]
+    local = to_device({k: v[rows] for k, v in batch.items()}, device)
+    guard = deterministic_algorithms() if deterministic else contextlib.nullcontext()
+    with guard:
+        reset_launches()
+        metrics = step(state, local)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = read_launches()
+    for hook in hooks:
+        hook.remove()
+    model.backbone.forward = whole
+    out = {"metrics": metrics, "launches": launches, "grads": captured["backbone"],
+           "probes": {k: v / world for k, v in probes.items()},  # a rank's are world x its rows'
+           "buffers": {n: b.clone() for n, b in model.named_buffers()
+                       if n.endswith(("running_mean", "running_var"))}}
+    del model, state, step, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ddp_work(inputs: dict) -> dict:
+    """(2)'s work on this process: the heritage step in fp32 and in bf16,
+    the RN50 step, a flagship slide frame (its windows spread over the group
+    where there is one) and `tools/test.py` on 4 frames.  `inputs["sets"]` /
+    `["rn50_sets"]` are extra config overrides (none on the card: full
+    width) and `inputs["device"]` the device ("cuda" on the card)."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config, resolve_test_protocol
+    from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
+    from denseclip_vit_multimodal_tpu_torch.infer.slide import slide_grid
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.tools import test as test_tool
+    from denseclip_vit_multimodal_tpu_torch.train import loop, metrics  # noqa: F401  (before the spy)
+
+    res, sets, device = {}, list(inputs["sets"]), inputs["device"]
+    fp32_cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS + sets)
+    built = build_denseclip(fp32_cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                            device=device, seed=int(fp32_cfg.training.get("seed", 42)))
+    res["fp32"] = _ddp_train_case(fp32_cfg, torch.float32, inputs["heritage"], True, device,
+                                  built=built, probe=True)
+    if mesh.world_size() == 1:
+        # the reference whose backbone runs over the ranks' halves: the cuBLAS
+        # products of a part depend on its rows, and through the ReLU gates
+        # of the neck a 1e-6 change in the forward moves the gradients 1e-3
+        res["fp32_ranks_parts"] = _ddp_train_case(fp32_cfg, torch.float32, inputs["heritage"],
+                                                  True, device, built=built,
+                                                  backbone_parts=inputs["ranks"])
+    del built
+    res["rn50"] = _ddp_train_case(
+        load_config(RN50_CONFIG, overrides=DDP_RN50_SETS + inputs["rn50_sets"]), torch.float32,
+        inputs["rn50"], True, device)
+    res["rn50"].pop("grads")
+
+    # the heritage model is the flagship's (the presets' `model:` sections are
+    # the same): its seeded weights slide the frame, then take the bf16 step
+    heritage = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + sets)
+    crop, stride, window_batch = resolve_test_protocol(load_config(CONFIG, overrides=sets))
+    model, texts = build_denseclip(heritage.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                                   device=device, seed=int(heritage.training.get("seed", 42)))
+    engine = Inferencer(model, texts, num_classes=19)
+    frame = lambda chunk: engine.predict(inputs["frame"], mode="slide", crop=crop, stride=stride,
+                                         window_batch=chunk, fetch="device",
+                                         shard_windows=mesh.world_size() > 1)
+    keep = lambda out: {"seg_logits": out["seg_logits"].float().cpu(),
+                        "depth": out["depth"].float().cpu(), "seg": out["seg"].cpu()}
+    reset_launches()
+    res["slide"] = {**keep(frame(window_batch)), "launches": read_launches()}
+    if mesh.world_size() == 1:
+        # the windows in the chunks the ranks run (the cuBLAS products of a
+        # chunk depend on its size; sharding must not change anything else)
+        n_win = len(slide_grid(tuple(inputs["frame"].shape[1:3]), crop, stride))
+        res["slide_ranks_chunks"] = keep(frame(-(-n_win // inputs["ranks"])))
+    del engine
+    res["bf16"] = _ddp_train_case(heritage, torch.bfloat16, inputs["heritage"], False, device,
+                                  built=(model, texts))
+    res["bf16"].pop("grads")
+    del model
+    torch.cuda.empty_cache()
+
+    seen = []
+    inner = metrics.miou_from_confusion
+    metrics.miou_from_confusion = lambda cm, *a, **k: (seen.append(cm.cpu()), inner(cm, *a, **k))[1]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            results = test_tool.main([TRAIN_CONFIG, inputs["checkpoint"], "--device", device,
+                                      "--set", *DDP_EVAL_SETS, *sets])
+    finally:
+        metrics.miou_from_confusion = inner
+    res["eval"] = {"confusion": seen, "mIoU": results["mIoU"]}
+    return res
+
+
+def _ddp_rank(rank: int, world: int, port: int, backend: str, inputs_path: str,
+              out_dir: str) -> None:
+    """One rank of (2) (Gloo; the ranks go round the visible cards, so both
+    share card 0 on a one-card machine) or (3) (NCCL, rank r on card r):
+    joins the group as `torchrun`'s workers do (its environment, then
+    `parallel/mesh.py::maybe_initialize_distributed`), runs `_ddp_work` (or,
+    under NCCL, the fp32 step timed), and saves what rank 0 keeps and every
+    rank's numbers."""
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+
+    out = os.path.join(out_dir, f"rank{rank}.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets the parent
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        inputs = torch.load(inputs_path, weights_only=False)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if not mesh.maybe_initialize_distributed(backend, inputs["device"], DDP_TIMEOUT_S):
+            raise AssertionError("the rank did not join its group")
+        res = _ddp_work(inputs) if backend == "gloo" else _ddp_nccl_work(inputs)
+        if rank:  # the other ranks keep their numbers; rank 0's tensors are compared
+            for case in res.values():
+                case.pop("probes", None)
+                for key in ("grads", "buffers", "seg_logits", "depth", "seg"):
+                    if key in case:
+                        case[key] = _digest(case[key])
+        torch.save(res, out)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _digest(x):
+    """A rank's tensor (or dict of them) reduced to float64 sums, to show that
+    every rank holds the same values without copying them all."""
+    if isinstance(x, dict):
+        return {k: _digest(v) for k, v in x.items()}
+    return float(x.double().sum()), float(x.double().abs().sum())
+
+
+def _ddp_spawn(world: int, backend: str, inputs_path: str, out_dir: str):
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    port = _ddp_free_port()
+    procs = [ctx.Process(target=_ddp_rank, args=(r, world, port, backend, inputs_path, out_dir),
+                         daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+
+    def join():
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.1))
+        hung = [i for i, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        errors = [open(os.path.join(out_dir, f"rank{i}.pt.err")).read() for i in range(world)
+                  if os.path.exists(os.path.join(out_dir, f"rank{i}.pt.err"))]
+        if errors or hung or any(p.exitcode for p in procs):
+            raise AssertionError(f"{backend} ranks failed (hung: {hung}, exit codes "
+                                 f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+        return [torch.load(os.path.join(out_dir, f"rank{i}.pt"), weights_only=False)
+                for i in range(world)]
+
+    return join
+
+
+def _ddp_nccl_work(inputs: dict) -> dict:
+    """(3): the fp32 heritage step under NCCL, one card a rank: the step's
+    numbers as in (2), 3 timed steps after it (CUDA events), and one more
+    under torch.profiler for the all-reduce's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.loader import to_device
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.step import microbatch_rows
+
+    cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS)
+    res = {"fp32": _ddp_train_case(cfg, torch.float32, inputs["heritage"], True, "cuda")}
+    seed = int(cfg.training.get("seed", 42))
+    model, texts = build_denseclip(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                                   device="cuda", seed=seed)
+    state = create_train_state(model, cfg.training, 1)
+    step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+    rows = microbatch_rows(inputs["heritage"]["image"].shape[0] // mesh.world_size(), 1,
+                           mesh.world_size(), mesh.rank())[0]
+    local = to_device({k: v[rows] for k, v in inputs["heritage"].items()}, "cuda")
+    step(state, local)  # warm-up
+    torch.cuda.synchronize()
+    begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    begin.record()
+    for _ in range(3):
+        step(state, local)
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, local)
+        torch.cuda.synchronize()
+    total = comm = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            us = evt.device_time if hasattr(evt, "device_time") else evt.cuda_time
+            total += us
+            if "nccl" in evt.name.lower():
+                comm += us
+    res["timing"] = {"ms_per_step": begin.elapsed_time(end) / 3, "device_ms_profiled": total / 1e3,
+                     "all_reduce_ms": comm / 1e3, "all_reduce_share": comm / max(total, 1e-9),
+                     "card": torch.cuda.get_device_name()}
+    return res
+
+
+def phase_ddp_path(device: str = "cuda", sets=(), rn50_sets=()) -> dict:
+    """Data parallelism over a torch.distributed process group at full width:
+    (1) NCCL at world 1 through `tools/dist_train.sh` (torchrun) beside the
+    same run without a group, (2) two Gloo ranks (sharing this card on a
+    one-card machine) against one process on the same global batch, (3) NCCL over two cards where two are
+    visible.  `device="cpu"` with `sets` / `rn50_sets` that cut the widths
+    rehearses the phase's control flow on a machine with no card (Gloo for
+    (1) too; no kernel launches, so its checks are not met)."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+
+    shutil.rmtree(DDP_WORK_DIR, ignore_errors=True)
+    os.makedirs(DDP_WORK_DIR)
+    torch.cuda.empty_cache()
+    res = {"phase": "ddp_path", "config": TRAIN_CONFIG, "rn50_config": RN50_CONFIG,
+           "slide_config": CONFIG}
+
+    # (1) tools/dist_train.sh at world 1 (NCCL) and tools/train.py without a
+    # group, each a fresh process on the same command line
+    sets = list(sets)
+
+    def run(tag, launcher, env):
+        tick, wd = time.perf_counter(), os.path.join(DDP_WORK_DIR, tag)
+        proc = subprocess.run(
+            launcher + [TRAIN_CONFIG, "--work-dir", wd, "--no-validate", "--max-steps",
+                        str(DDP_TORCHRUN_STEPS), "--device", device, "--set", *TRAIN_OVERRIDES,
+                        *sets], env=env, capture_output=True, text=True, timeout=DDP_TIMEOUT_S)
+        if proc.returncode:
+            raise AssertionError(f"{tag} failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        with open(os.path.join(wd, "train_log.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        return {"wall_s": time.perf_counter() - tick, "loss_step1": rows[0]["loss_total"],
+                "step_ms": [r["step_s"] * 1e3 for r in rows],
+                "ms_per_step": float(np.median([r["step_s"] for r in rows[1:]])) * 1e3,
+                "logs": sorted(f for f in os.listdir(wd) if f.endswith(".log"))}
+
+    phase_tick = time.perf_counter()
+    torchrun = run("torchrun", ["bash", "denseclip_vit_multimodal_tpu_torch/tools/dist_train.sh"],
+                   {**os.environ, "NPROC": "1"})
+    plain = run("no_group", [sys.executable, "-m", "denseclip_vit_multimodal_tpu_torch.tools.train"],
+                {k: v for k, v in os.environ.items()
+                 if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")})
+    res["torchrun_world1"] = {"nccl": torchrun, "no_group": plain,
+                              "step1_loss_bitwise_equal": torchrun["loss_step1"]
+                              == plain["loss_step1"],
+                              "ms_per_step_vs_no_group": torchrun["ms_per_step"]
+                              / plain["ms_per_step"]}
+
+    # (2) inputs of both sides: the global batches, a frame and a checkpoint
+    def global_batch(cfg, n):
+        loader = DataLoader(build_dataset(cfg.data, "train"), batch_size=n,
+                            seed=int(cfg.training.get("seed", 42)), num_threads=4,
+                            process_index=0, process_count=1)
+        return next(loader.epoch(0))
+
+    heritage = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + sets)
+    eval_cfg = load_config(TRAIN_CONFIG, overrides=DDP_EVAL_SETS + sets)
+    model, _ = build_denseclip(eval_cfg.model, CITYSCAPES_CLASSES, dtype=torch.bfloat16,
+                               device=device, seed=SEED)
+    ckpt = os.path.join(DDP_WORK_DIR, "eval")
+    save_checkpoint(ckpt, create_train_state(model, eval_cfg.training, 1), 0)
+    del model
+    inputs = {"heritage": global_batch(heritage, 4),
+              "rn50": global_batch(load_config(RN50_CONFIG,
+                                               overrides=DDP_RN50_SETS + list(rn50_sets)), 16),
+              "frame": np.random.RandomState(SEED).randint(0, 256, (1, 1024, 2048, 3),
+                                                           dtype=np.uint8),
+              "checkpoint": ckpt, "device": device, "sets": sets, "rn50_sets": list(rn50_sets),
+              "ranks": 2}
+    inputs_path = os.path.join(DDP_WORK_DIR, "inputs.pt")
+    torch.save(inputs, inputs_path)
+    tick = time.perf_counter()
+    join = _ddp_spawn(2, "gloo", inputs_path, DDP_WORK_DIR)
+    one = _ddp_work(inputs)  # the one-process reference, while the ranks run
+    ranks = join()
+    two, other = ranks
+    gloo = {"wall_s": time.perf_counter() - tick,  # the ranks go round the visible cards
+            "cards": min(2, torch.cuda.device_count()) if device != "cpu" else 0}
+    for case in ("fp32", "bf16", "rn50"):
+        loss_1, loss_2 = one[case]["metrics"]["loss_total"], two[case]["metrics"]["loss_total"]
+        gloo[case] = {"loss_one_process": loss_1, "loss_two_ranks": loss_2,
+                      "loss_rel_diff": abs(loss_2 - loss_1) / abs(loss_1),
+                      "ranks_agree": two[case]["metrics"] == other[case]["metrics"],
+                      "launches_per_rank": two[case]["launches"]}
+    gloo["fp32"]["loss_one_process_ranks_parts"] = one["fp32_ranks_parts"]["metrics"]["loss_total"]
+    gloo["fp32"]["backbone_grad_rel_l2"] = rel_l2(two["fp32"]["grads"],
+                                                  one["fp32_ranks_parts"]["grads"])
+    gloo["fp32"]["loss_rel_diff"] = abs(
+        two["fp32"]["metrics"]["loss_total"] - one["fp32_ranks_parts"]["metrics"]["loss_total"]) \
+        / abs(one["fp32_ranks_parts"]["metrics"]["loss_total"])
+    rows = two["fp32"]["probes"]["neck_out"].shape[0]
+    gloo["fp32"]["against_the_whole_batch_backbone"] = {
+        "loss_rel_diff": abs(two["fp32"]["metrics"]["loss_total"]
+                             - one["fp32"]["metrics"]["loss_total"])
+        / abs(one["fp32"]["metrics"]["loss_total"]),
+        "backbone_grad_rel_l2": rel_l2(two["fp32"]["grads"], one["fp32"]["grads"]),
+        # the same gap without a group: one process, its backbone over halves
+        "one_process_halves_backbone_grad_rel_l2": rel_l2(one["fp32_ranks_parts"]["grads"],
+                                                          one["fp32"]["grads"]),
+        **{f"{k}_grad_rel_l2": rel_l2(v, one["fp32"]["probes"][k][:rows])
+           for k, v in two["fp32"]["probes"].items()}}
+    gloo["fp32"]["ranks_same_grads"] = _digest(two["fp32"]["grads"]) == other["fp32"]["grads"]
+    gloo["rn50"]["bn_stat_rel_l2_max"] = max(
+        rel_l2(two["rn50"]["buffers"][k], v) for k, v in one["rn50"]["buffers"].items())
+    gloo["rn50"]["ranks_same_bn_stats"] = _digest(two["rn50"]["buffers"]) \
+        == other["rn50"]["buffers"]
+    s1, s2, s1_protocol = one["slide_ranks_chunks"], two["slide"], one["slide"]
+    gloo["slide"] = {"seg_rel_l2": rel_l2(s2["seg_logits"], s1["seg_logits"]),
+                     "depth_rel_l2": rel_l2(s2["depth"], s1["depth"]),
+                     "seg_equal_share": float((s2["seg"] == s1["seg"]).float().mean()),
+                     "bitwise_equal": bool(torch.equal(s2["seg_logits"], s1["seg_logits"])),
+                     "protocol_chunk_seg_rel_l2": rel_l2(s2["seg_logits"],
+                                                         s1_protocol["seg_logits"]),
+                     "protocol_chunk_seg_equal_share": float(
+                         (s2["seg"] == s1_protocol["seg"]).float().mean()),
+                     "one_process_chunks_5_vs_protocol_seg_equal_share": float(
+                         (s1["seg"] == s1_protocol["seg"]).float().mean()),
+                     "ranks_same_frame": _digest(s2["seg_logits"]) == other["slide"]["seg_logits"],
+                     "k1_launches_one_process": s1_protocol["launches"]["qkv_attention"],
+                     "k1_launches_per_rank": [s2["launches"]["qkv_attention"],
+                                              other["slide"]["launches"]["qkv_attention"]]}
+    cm1, cm2 = one["eval"]["confusion"][0], two["eval"]["confusion"][0]
+    gloo["eval"] = {"confusion_equal": bool(torch.equal(cm1, cm2)),
+                    "ranks_agree": two["eval"]["mIoU"] == other["eval"]["mIoU"],
+                    "pixels": int(cm1.sum())}
+    res["gloo_two_ranks"] = gloo
+    res["seconds"] = {"torchrun_and_no_group": torchrun["wall_s"] + plain["wall_s"],
+                      "inputs": tick - phase_tick - torchrun["wall_s"] - plain["wall_s"],
+                      "two_ranks_and_one_process": gloo["wall_s"],
+                      "total_so_far": time.perf_counter() - phase_tick}
+
+    # (3) NCCL over two cards
+    if device != "cpu" and torch.cuda.device_count() >= 2:
+        nccl_dir = DDP_WORK_DIR + "_nccl"
+        os.makedirs(nccl_dir, exist_ok=True)
+        ranks = _ddp_spawn(2, "nccl", inputs_path, nccl_dir)()
+        two = ranks[0]["fp32"]
+        res["nccl_two_cards"] = {
+            "loss_rel_diff": abs(two["metrics"]["loss_total"] - one["fp32"]["metrics"]["loss_total"])
+            / abs(one["fp32"]["metrics"]["loss_total"]),
+            "backbone_grad_rel_l2": rel_l2(two["grads"], one["fp32"]["grads"]),
+            "timing_per_rank": [r["timing"] for r in ranks]}
+        shutil.rmtree(nccl_dir, ignore_errors=True)
+    else:
+        res["nccl_two_cards"] = (f"not run: {torch.cuda.device_count()} card visible, and NCCL "
+                                 "takes one card a rank")
+        print("ddp_path (3): NCCL over two cards not run: this machine shows "
+              f"{torch.cuda.device_count()} card, and NCCL cannot put two ranks on one card",
+              flush=True)
+    del one, ranks, two, other, inputs
+    shutil.rmtree(DDP_WORK_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(res)
+
+    problems = []
+    if not res["torchrun_world1"]["step1_loss_bitwise_equal"]:
+        problems.append("(1) torchrun's step-1 loss is not the no-group run's")
+    if "train_p0.log" in torchrun["logs"] or "train.log" not in torchrun["logs"]:
+        problems.append("(1) a world of 1 logs to train.log")
+    if not gloo["fp32"]["loss_rel_diff"] <= FP32_LOSS_TOL:
+        problems.append("(2) fp32 step-1 loss")
+    if not gloo["fp32"]["backbone_grad_rel_l2"] <= FP32_GRAD_TOL:
+        problems.append("(2) fp32 backbone gradients")
+    if not gloo["bf16"]["loss_rel_diff"] <= TRAIN_TOL:
+        problems.append("(2) bf16 step-1 loss")
+    if gloo["bf16"]["launches_per_rank"] != expected_launches(qkv_attention=12,
+                                                              qkv_attention_bwd=12):
+        problems.append("(2) a bf16 rank did not run 12 K1 + 12 K2")
+    if not gloo["rn50"]["bn_stat_rel_l2_max"] <= DDP_BN_TOL:
+        problems.append("(2) RN50 BatchNorm statistics")
+    if not max(gloo["slide"]["seg_rel_l2"], gloo["slide"]["depth_rel_l2"]) <= PATH_TOL:
+        problems.append("(2) sharded slide logits")
+    if not gloo["slide"]["seg_equal_share"] >= DDP_SEG_AGREE:
+        problems.append("(2) sharded slide seg")
+    if gloo["slide"]["k1_launches_per_rank"] != [12, 12]:
+        problems.append("(2) a rank of the sharded frame did not run its windows through K1")
+    if not gloo["eval"]["confusion_equal"]:
+        problems.append("(2) tools/test.py's confusion matrix")
+    if not all(gloo[c]["ranks_agree"] for c in ("fp32", "bf16", "rn50", "eval")) or not (
+            gloo["fp32"]["ranks_same_grads"] and gloo["rn50"]["ranks_same_bn_stats"]
+            and gloo["slide"]["ranks_same_frame"]):
+        problems.append("(2) the ranks disagree")
+    if isinstance(res["nccl_two_cards"], dict) and not (
+            res["nccl_two_cards"]["loss_rel_diff"] <= FP32_LOSS_TOL
+            and res["nccl_two_cards"]["backbone_grad_rel_l2"] <= FP32_GRAD_TOL):
+        problems.append("(3) the NCCL step")
+    if problems:
+        raise AssertionError(f"ddp_path: {problems}")
+    return res
+
+
 def phase_profile(run, frames, path: str = "slide_serving") -> dict:
     """Where the device time of one item of `path` goes (torch.profiler):
     `run` is called on each of `frames` (serving frames, training batches).
@@ -5459,9 +5997,18 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="cityscapes_smoke_") as tmp:
         city_res = timed("cityscapes_path", phase_cityscapes_path, tmp)
+        # The paths after it read the same arrays from filter-0 PNGs: Paeth's
+        # GIL-bound unfilter (cityscapes_path's measurement) took most of their
+        # time, and they measure the model paths (the cut that keeps the script
+        # inside its time limit with ddp_path).
+        from denseclip_vit_multimodal_tpu_torch.utils.png import encode_png
+
+        timed("cityscapes_tree_filter0", write_cityscapes_tree, os.path.join(tmp, "cityscapes"),
+              SEED, lambda arr: encode_png(arr, level=1))
         rn50_res = timed("rn50_path", phase_rn50_path, os.path.join(tmp, "cityscapes"))
         vitl_res = timed("vitl14_seg_path", phase_vitl14_seg_path, os.path.join(tmp, "cityscapes"))
     ade_res = timed("ade20k_path", phase_ade20k_path)
+    ddp_res = timed("ddp_path", phase_ddp_path)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
@@ -5483,6 +6030,8 @@ def main() -> int:
                                                   + ade_res["rn50"]["eval_whole"]["launches"][name]
                                                   + ade_res["rn101"]["launches"][name]),
                             "flash": flash_res["launches"][name],
+                            "ddp_training_per_rank": ddp_res["gloo_two_ranks"]["bf16"][
+                                "launches_per_rank"][name],
                             **{f"exported_{tag}_frame": export_res[tag]["launches_per_frame"].get(
                                 name, 0) for tag in ("logits", "int8", "fused")},
                             "serving_concurrency": export_res["launches"][name],

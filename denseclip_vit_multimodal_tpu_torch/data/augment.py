@@ -251,19 +251,27 @@ def augment_sample(image: torch.Tensor, seg: Optional[torch.Tensor], depth: Opti
     return out
 
 
-def augment_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig, gen: torch.Generator
+def augment_batch(batch: Dict[str, torch.Tensor], cfg: AugmentConfig, gen: torch.Generator,
+                  rows: Optional[Sequence[int]] = None, total: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """Augment every sample of `batch` ('image' [B,H,W,3]; optional 'seg',
     'depth' [B,H,W]) with geometry and jitter drawn from the host generator
-    `gen`, sample by sample."""
+    `gen`, sample by sample.
+
+    A data-parallel rank holds some rows of a global batch of `total` rows:
+    `rows[i]` is the global row of its sample i.  It draws every global
+    row's geometry and jitter in order (host scalars) and applies only its
+    own, so each global row gets what a one-process step draws for it.
+    Without `rows` the batch is the whole of it."""
     image = batch["image"]
     src_hw = (image.shape[1], image.shape[2])
-    samples = []
-    for i in range(image.shape[0]):
-        geometry = _sample_geometry(gen, src_hw, cfg)
-        samples.append(augment_sample(image[i], None if "seg" not in batch else batch["seg"][i],
-                                      None if "depth" not in batch else batch["depth"][i],
-                                      cfg, geometry, _sample_jitter(gen, cfg)))
+    if rows is None:
+        rows, total = range(image.shape[0]), image.shape[0]
+    draws = [(_sample_geometry(gen, src_hw, cfg), _sample_jitter(gen, cfg))
+             for _ in range(total)]
+    samples = [augment_sample(image[i], None if "seg" not in batch else batch["seg"][i],
+                              None if "depth" not in batch else batch["depth"][i],
+                              cfg, *draws[g]) for i, g in enumerate(rows)]
     return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
 
 

@@ -11,12 +11,17 @@ the backbone's patch, 32 for a ResNet.  `aug_test`
 stays on the device from the upload to the fetch: per scale one resize, one
 forward over both flip views (the flipped view rides the batch), unflip,
 resize to the frame size and a running fp32 sum.  Both resizes antialias when
-they shrink, as `jax.image.resize` does by default.  Window sharding and the
-HTTP server are not ported yet.
+they shrink, as `jax.image.resize` does by default.  `shard_windows=True`
+(JAX's `window_sharding`, `infer/engine.py:171-225`) spreads each frame's
+slide windows, the aug-test views' included, over the process group
+(`infer/slide.py`); every rank returns the same outputs.  It acts in slide
+mode only: in whole mode it warns and runs unsharded, as JAX's
+`_check_window_sharding` does.  The HTTP server is `infer/server.py`.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -57,7 +62,8 @@ class Inferencer:
 
     def _forward_logits(self, image: torch.Tensor, mode: str, crop: Tuple[int, int],
                         stride: Tuple[int, int], window_batch: int, cached_text,
-                        inverse_count: Optional[torch.Tensor] = None):
+                        inverse_count: Optional[torch.Tensor] = None,
+                        shard_windows: bool = False):
         """(seg [B,H,W,K] fp32, depth [B,H,W,1] fp32 or None) at the input size.
         `inverse_count`: `slide_inference`'s 1 / count map, when the caller
         holds it (an exported program keeps it as a buffer)."""
@@ -76,7 +82,8 @@ class Inferencer:
             return torch.cat([p.float() for p in parts], dim=-1)
 
         fused = slide_inference(window_forward, image, n_out, crop=crop, stride=stride,
-                                window_batch=window_batch, inverse_count=inverse_count)
+                                window_batch=window_batch, inverse_count=inverse_count,
+                                shard_windows=shard_windows)
         seg = fused[..., : self.num_classes]
         depth = fused[..., self.num_classes :] if self.with_depth else None
         return seg, depth
@@ -91,27 +98,43 @@ class Inferencer:
             images = torch.from_numpy(np.ascontiguousarray(images))
         return images.to(self.device)
 
+    @staticmethod
+    def _check_shard_windows(shard_windows: bool, mode: str) -> bool:
+        """Window sharding acts in slide mode only: warn and run unsharded
+        otherwise, so that predict and aug_test behave alike (JAX's rule)."""
+        if shard_windows and mode != "slide":
+            warnings.warn(f"window_sharding is only honored in slide mode (got mode={mode!r}); "
+                          "running unsharded", stacklevel=3)
+            return False
+        return shard_windows
+
     def predict(self, images, mode: str = "whole", crop: Tuple[int, int] = (640, 640),
                 stride: Tuple[int, int] = (426, 426), window_batch: int = 0,
-                preprocessed: bool = False, fetch: str = "logits") -> Dict[str, object]:
-        """Forward one batch; returns {'seg_logits'?, 'seg', 'depth'?} per `fetch`."""
+                preprocessed: bool = False, fetch: str = "logits",
+                shard_windows: bool = False) -> Dict[str, object]:
+        """Forward one batch; returns {'seg_logits'?, 'seg', 'depth'?} per
+        `fetch`.  `shard_windows` spreads each frame's slide windows over the
+        process group."""
         if mode not in ("whole", "slide"):
             raise ValueError(f"Unknown inference mode: {mode}")
+        shard_windows = self._check_shard_windows(shard_windows, mode)
         with torch.inference_mode():
             image = self._to_device(images).float() if preprocessed else self.preprocess(images)
             seg, depth = self._forward_logits(image, mode, tuple(crop), tuple(stride),
-                                              window_batch, self._text_base())
+                                              window_batch, self._text_base(),
+                                              shard_windows=shard_windows)
             return package_outputs(seg, depth, fetch)
 
     def _aug_view(self, image0: torch.Tensor, scaled_hw: Tuple[int, int], flip: bool,
                   mode: str, crop: Tuple[int, int], stride: Tuple[int, int],
-                  window_batch: int, cached_text):
+                  window_batch: int, cached_text, shard_windows: bool = False):
         """One scale: resize -> forward both views in one batch -> unflip ->
         resize to the frame size -> sum of the views (seg, depth or None)."""
         b, h, w, _ = image0.shape
         scaled = resize_bilinear(image0, scaled_hw, antialias=True)
         batch = torch.cat([scaled, scaled.flip(2)]) if flip else scaled
-        seg, depth = self._forward_logits(batch, mode, crop, stride, window_batch, cached_text)
+        seg, depth = self._forward_logits(batch, mode, crop, stride, window_batch, cached_text,
+                                          shard_windows=shard_windows)
 
         def fold(x):
             if flip:
@@ -123,13 +146,14 @@ class Inferencer:
     def aug_test(self, images, scales: Sequence[float] = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75),
                  flip: bool = True, mode: str = "whole", crop: Tuple[int, int] = (640, 640),
                  stride: Tuple[int, int] = (426, 426), window_batch: int = 0,
-                 fetch: str = "logits") -> Dict[str, object]:
+                 fetch: str = "logits", shard_windows: bool = False) -> Dict[str, object]:
         """Multi-scale + flip test on raw images: fp32 logits averaged over
         every view at the frame size.  Scaled sizes are rounded to the patch
         grid; in slide mode the window is clamped to views smaller than the
-        crop."""
+        crop.  `shard_windows` spreads every view's windows over the group."""
         if mode not in ("whole", "slide"):
             raise ValueError(f"Unknown inference mode: {mode}")
+        shard_windows = self._check_shard_windows(shard_windows, mode)
         patch = int(getattr(self.model.backbone, "patch_size", 32) or 32)
         with torch.inference_mode():
             image0 = self.preprocess(images)
@@ -141,7 +165,8 @@ class Inferencer:
                 sh = max(int(round(h * s / patch)) * patch, patch)
                 sw = max(int(round(w * s / patch)) * patch, patch)
                 seg_sum, depth_sum = self._aug_view(image0, (sh, sw), flip, mode, tuple(crop),
-                                                    tuple(stride), window_batch, cached_text)
+                                                    tuple(stride), window_batch, cached_text,
+                                                    shard_windows)
                 acc_seg = seg_sum if acc_seg is None else acc_seg.add_(seg_sum)
                 if depth_sum is not None:
                     acc_depth = depth_sum if acc_depth is None else acc_depth.add_(depth_sum)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from denseclip_vit_multimodal_tpu_torch.models.layers import resize_bilinear
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 
 
 def window_origins(size: int, crop: int, stride: int) -> List[int]:
@@ -65,6 +66,17 @@ def inverse_count_map(
     return torch.from_numpy(1.0 / count_map(hw, crop, stride)).to(device)
 
 
+def _forward_windows(forward, flat: torch.Tensor, window_batch: int) -> torch.Tensor:
+    """`forward` over the windows, in chunks of `window_batch` where that is
+    smaller (the last chunk padded with duplicate windows)."""
+    total = flat.shape[0]
+    if window_batch and window_batch < total:
+        pad = (-total) % window_batch
+        padded = torch.cat([flat, flat[:pad]], dim=0) if pad else flat
+        return torch.cat([forward(chunk) for chunk in padded.split(window_batch)])[:total]
+    return forward(flat)
+
+
 def slide_inference(
     forward: Callable[[torch.Tensor], torch.Tensor],
     image: torch.Tensor,  # [B, H, W, 3] preprocessed
@@ -73,12 +85,14 @@ def slide_inference(
     stride: Tuple[int, int] = (426, 426),
     window_batch: int = 0,
     inverse_count: Optional[torch.Tensor] = None,
+    shard_windows: bool = False,
 ) -> torch.Tensor:
     """Slide `forward` (windows [N, ch, cw, 3] -> logits [N, h', w', K]) over
     `image`; returns [B, H, W, num_outputs] fp32 averaged logits.
     `inverse_count` is `inverse_count_map` of this grid where the caller
     holds it, as an exported program does (the cache below would keep a
-    traced tensor)."""
+    traced tensor).  `shard_windows` spreads the windows over the process
+    group (module docstring)."""
     b, h, w, _ = image.shape
     ch, cw = min(crop[0], h), min(crop[1], w)
     crop = (ch, cw)
@@ -89,12 +103,15 @@ def slide_inference(
     flat = windows.reshape(b * n_win, ch, cw, -1)
 
     total = b * n_win
-    if window_batch and window_batch < total:
-        pad = (-total) % window_batch
-        padded = torch.cat([flat, flat[:pad]], dim=0) if pad else flat
-        logits = torch.cat([forward(chunk) for chunk in padded.split(window_batch)])[:total]
+    if shard_windows and mesh_lib.is_distributed():
+        world, rank = mesh_lib.world_size(), mesh_lib.rank()
+        counts = [total // world + (r < total % world) for r in range(world)]
+        lo = sum(counts[:rank])
+        # a rank with no window runs one and keeps none, to learn the shape
+        mine = _forward_windows(forward, flat[lo:lo + max(counts[rank], 1)], window_batch)
+        logits = mesh_lib.gather_rows(mine[:counts[rank]].float(), counts)
     else:
-        logits = forward(flat)
+        logits = _forward_windows(forward, flat, window_batch)
     lh, lw = logits.shape[1:3]
     logits = logits.reshape(b, n_win, lh, lw, num_outputs).float()
 

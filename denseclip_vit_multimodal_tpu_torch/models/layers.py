@@ -29,7 +29,12 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     `TypeError`, and off CUDA `flash` takes the `auto` rules.  With
     `DENSECLIP_FUSED_LNQKV=1` the block's LayerNorm, the qkv projection and
     the attention run as one kernel (`ops/lnqkv_kernel.py`, K6) on the
-    inference path, where the rule below holds.
+    inference path, where the rule below holds.  `attn_impl="ring"` (JAX's
+    sequence-parallel ring) skips the qkv kernel, as `xla` does, and its
+    core falls back to `auto` where JAX's does: for causal or cross
+    attention and in a one-process world, exactly.  Over a process group
+    of more than one it raises `NotImplementedError`: the ring itself is
+    not ported (ROADMAP §1 item 1).
   * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
@@ -53,6 +58,7 @@ streams either: a forward is deterministic unless it is handed a generator.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Any, List, Optional, Sequence, Tuple
@@ -76,12 +82,14 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     mha_qkv_attention_int8,
     qkv_supported,
 )
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as _mesh
 
 ATTN_XLA = "xla"  # plain PyTorch attention everywhere (name kept from the JAX package)
 ATTN_AUTO = "auto"  # the kernels where the dispatch rules hold
 ATTN_INT8 = "int8"  # the opt-in quantized serving path (K5; inference only)
 ATTN_FLASH = "flash"  # the kernels at every length they take, on CUDA
-ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA, ATTN_INT8, ATTN_FLASH)
+ATTN_RING = "ring"  # sequence-parallel ring attention: `auto` in a one-process world
+ATTN_IMPLS = (ATTN_AUTO, ATTN_XLA, ATTN_INT8, ATTN_FLASH, ATTN_RING)
 
 
 # --------------------------------------------------------------------------
@@ -244,7 +252,15 @@ def attention_core(
     this core (causal, more than 8448 tokens, the CPU) takes `auto`.
     `flash` takes `flash_attention` for every call on CUDA and `auto` off
     CUDA.  A CUDA tensor of a dtype the kernels do not take (they take bf16
-    and fp32) raises `TypeError` in their wrappers."""
+    and fp32) raises `TypeError` in their wrappers.  `ring` takes `auto`
+    for causal or cross attention and in a one-process world (JAX's
+    `_ring_attention_core` returns None there) and raises over a group."""
+    if impl == ATTN_RING:
+        if not causal and q.shape[1] == k.shape[1] and _mesh.world_size() > 1:
+            raise NotImplementedError(
+                f"attn_impl: ring over {_mesh.world_size()} processes is not ported yet "
+                f"(parallel/ring_attention.py, {_mesh.ROADMAP_ITEM})")
+        impl = ATTN_AUTO
     if impl == ATTN_INT8:
         impl = ATTN_AUTO
     if impl == ATTN_FLASH:
@@ -298,7 +314,7 @@ class MultiHeadAttention(nn.Module):
         """The JAX rule: the regime takes any dtype, as the model's two
         compute dtypes (bf16, fp32) have kernels; a CUDA tensor of another
         dtype raises `TypeError` in the kernel's wrapper."""
-        if self.attn_impl == ATTN_XLA or self.causal:
+        if self.attn_impl in (ATTN_XLA, ATTN_RING) or self.causal:
             return False
         n = qkv.shape[1]
         if self.attn_impl in (ATTN_INT8, ATTN_FLASH):  # no 1024-token floor
@@ -380,8 +396,31 @@ class MLP(nn.Module):
         return self.c_proj(quick_gelu(self.c_fc(x)))
 
 
+# (first global row, global rows) of the batch this process holds while a
+# data-parallel training forward runs (`batch_rows`), else None.
+_BATCH_ROWS: Optional[Tuple[int, int]] = None
+
+
+@contextlib.contextmanager
+def batch_rows(first: int, total: int):
+    """Within the block, every dropout and drop-path mask is drawn at the
+    global batch's shape (`total` rows) and this process keeps its rows
+    from `first` on, so that each global row sees the mask a one-process
+    forward of the whole batch draws for it (`train/step.py`)."""
+    global _BATCH_ROWS
+    prev, _BATCH_ROWS = _BATCH_ROWS, (int(first), int(total))
+    try:
+        yield
+    finally:
+        _BATCH_ROWS = prev
+
+
 def _keep_mask(shape, rate: float, gen: torch.Generator, device) -> torch.Tensor:
-    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    if _BATCH_ROWS is None:
+        return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+    first, total = _BATCH_ROWS
+    full = torch.rand((total,) + tuple(shape[1:]), generator=gen, device=device)
+    return full[first:first + shape[0]] < 1.0 - rate
 
 
 def drop_path(x: torch.Tensor, rate: float, gen: Optional[torch.Generator],
@@ -520,7 +559,8 @@ class Transformer(nn.Module):
 
 def set_attn_impl(module: nn.Module, impl: str) -> None:
     """Switch every attention layer under `module` to `impl` ("auto", "xla",
-    "int8" or "flash"; a causal layer under "int8" keeps the `auto` rules)."""
+    "int8", "flash" or "ring"; a causal layer under "int8" keeps the `auto`
+    rules)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl {impl!r} not yet ported (have {ATTN_IMPLS})")
     for m in module.modules():
@@ -542,13 +582,25 @@ def batch_norm_nhwc(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) ->
     one-pass E[x^2] - E[x]^2, clamped at 0) and updates the running
     statistics in place as Flax does, momentum 0.9 on the old value and the
     biased variance.  `F.batch_norm` would store the unbiased variance.
+    Over a process group the statistics are the global batch's, as Flax's
+    under a data-sharded `jit`: the per-channel sums, sums of squares and
+    counts are all-reduced with autograd, and every rank updates its running
+    statistics with the same values.
     """
     xf = x.float()
     if not train:
         mean, var = bn.running_mean, bn.running_var
+    elif _mesh.is_distributed():
+        c = xf.shape[-1]
+        count = xf.new_full((1,), float(xf.numel() // c))
+        sums = _mesh.all_reduce_sum(torch.cat([xf.sum(dim=(0, 1, 2)),
+                                               (xf * xf).sum(dim=(0, 1, 2)), count]))
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0.0)
     else:
         mean = xf.mean(dim=(0, 1, 2))
         var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean, min=0.0)
+    if train:
         with torch.no_grad():
             bn.running_mean.mul_(0.9).add_(0.1 * mean.detach())
             bn.running_var.mul_(0.9).add_(0.1 * var.detach())

@@ -1,3 +1,4 @@
-"""Parallelism of the port: `mesh` resolves the `tpu.mesh` spec as the JAX
-package does and refuses a mesh over more than one device (the port trains
-on one)."""
+"""Parallelism of the port: `mesh` resolves the `tpu.mesh` spec over a
+`torch.distributed` process group (one card a rank) and carries the group's
+reductions; the data axis trains, and the other axes, FSDP and the ring
+are refused."""

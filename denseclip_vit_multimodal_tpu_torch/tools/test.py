@@ -1,4 +1,4 @@
-"""Evaluation CLI of the port (the JAX package's `tools/test.py`, on one device).
+"""Evaluation CLI of the port (the JAX package's `tools/test.py`).
 
     python3 -m denseclip_vit_multimodal_tpu_torch.tools.test CONFIG CHECKPOINT \
         --aug-test --mode whole --eval mIoU depth
@@ -20,10 +20,20 @@ FILE.npz` saves every frame's prediction in one `np.savez_compressed`
 submission PNGs (`frame_00000_labelIds.png`, 8-bit gray, trainId ->
 labelId by `data/cityscapes.py::labelids_from_trainids`).  These fetch each
 batch's predictions to the host.  `--fetch-logits` also copies the fp32
-logit canvas to the host every batch.  `--shard-windows` runs unsharded,
-with a warning, on one device (or outside slide mode); spreading windows
-over several devices is not ported (parallelism) and raises.  Orbax
-checkpoints are not ported.
+logit canvas to the host every batch.  Orbax checkpoints are not ported.
+
+Over a process group (`tools/dist_test.sh`, one card a rank under
+`torchrun`): each rank scores its rank-strided shard of the val set (the
+tail wrap-padded so every rank has the same count, duplicates counted as
+JAX counts them), and the confusion matrix and the depth-error sums are
+summed over the ranks after the throughput clock stops (JAX `:268-285`);
+`images_per_sec` is rank 0's own.  The outputs are written by the rank that
+scores the frame, named by dataset index, duplicates skipped; `--out`'s
+arrays are gathered to rank 0.  `--shard-windows` (slide mode, JAX
+`:139-150`) instead spreads each frame's windows over the ranks: every rank
+reads every frame, and the metrics are every rank's own (the same on
+each); outside slide mode or in a one-process world it warns and runs
+unsharded.  Results are printed on rank 0.
 """
 
 from __future__ import annotations
@@ -86,24 +96,30 @@ def main(argv=None):
     from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
     from denseclip_vit_multimodal_tpu_torch.infer.engine import Inferencer
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import build_denseclip
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
     from denseclip_vit_multimodal_tpu_torch.train.checkpoint import load_model_weights
     from denseclip_vit_multimodal_tpu_torch.train.loop import class_names_for
     from denseclip_vit_multimodal_tpu_torch.train.metrics import (
         accuracy_from_confusion,
         finalize_depth_errors,
         miou_from_confusion,
+        sum_confusion,
+        sum_depth_errors,
     )
     from denseclip_vit_multimodal_tpu_torch.utils.png import encode_png
     from denseclip_vit_multimodal_tpu_torch.utils.visualize import save_multi_task_panel
 
-    if args.shard_windows:
-        devices = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
-        if args.mode == "slide" and devices > 1:
-            raise NotImplementedError(
-                f"--shard-windows over {devices} devices is not ported yet (parallelism, "
-                "ROADMAP §1 item 6)")
-        print("WARNING: --shard-windows needs --mode slide and >1 device; running unsharded",
-              file=sys.stderr)
+    mesh_lib.maybe_initialize_distributed(device=args.device)
+    device = mesh_lib.local_device(args.device)
+    world, rank = mesh_lib.world_size(), mesh_lib.rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
+    shard_windows = bool(args.shard_windows and args.mode == "slide" and world > 1)
+    if shard_windows:
+        say(f"sharding slide windows over {world} processes"
+            + (" (aug-test views included)" if args.aug_test else ""))
+    elif args.shard_windows:
+        say("WARNING: --shard-windows needs --mode slide and >1 device; running unsharded",
+            file=sys.stderr)
     cfg = load_config(resolve_config_path(args.config), overrides=args.overrides)
     args.crop, args.stride, args.window_batch = resolve_test_protocol(
         cfg, args.crop, args.stride, args.window_batch)
@@ -114,21 +130,30 @@ def main(argv=None):
         str(tpu_cfg.get("compute_dtype", "bfloat16"))]
     model, texts = build_denseclip(cfg.model, class_names, dtype=dtype,
                                    attn_impl=str(tpu_cfg.get("attn_impl", "auto")),
-                                   device=args.device)
+                                   device=device)
     epoch = load_model_weights(args.checkpoint, model)
-    print(f"restored checkpoint at epoch {epoch}")
+    say(f"restored checkpoint at epoch {epoch}")
     aug_cfg = augment_config_from_data_cfg(data_cfg, train=False)
-    loader = DataLoader(build_dataset(data_cfg, "val"), batch_size=args.batch_size,
-                        shuffle=False, drop_last=False)
+    val_ds = build_dataset(data_cfg, "val")
+    # sharded windows: every rank reads every frame; else a rank-strided shard
+    procs, proc = (1, 0) if shard_windows else (world, rank)
+    loader = DataLoader(val_ds, batch_size=args.batch_size, shuffle=False, drop_last=False,
+                        process_index=proc, process_count=procs)
     infer = Inferencer(model, texts, aug_cfg, num_classes=len(class_names))
     max_depth = float(data_cfg.get("depth_max", 80.0))
 
     def save_artifacts(batch, out, seen: int, out_arrays: dict) -> None:
-        """--show-dir / --out / --format-dir for one batch (a host fetch)."""
+        """--show-dir / --out / --format-dir for one batch (a host fetch), on
+        the rank that scores the frames (rank 0 where every rank reads all)."""
+        if shard_windows and rank != 0:
+            return
         seg_np = out["seg"].to(torch.int32).cpu().numpy()
         depth_np = out["depth"].float().cpu().numpy() if "depth" in out else None
         for b in range(seg_np.shape[0]):
-            idx = seen + b
+            pos = proc + procs * (seen + b)  # position in the wrap-padded order
+            if pos >= len(val_ds):
+                continue  # a duplicate of a frame another rank scored
+            idx = pos
             if args.show_dir:
                 save_multi_task_panel(
                     os.path.join(args.show_dir, f"frame_{idx:05d}.png"), batch["image"][b],
@@ -164,8 +189,9 @@ def main(argv=None):
                 out["seg"].flatten()[0].item()
 
         for batch in loader.epoch(0):
-            out = (infer.aug_test(batch["image"], **kw) if args.aug_test
-                   else infer.predict(batch["image"], **kw))
+            out = (infer.aug_test(batch["image"], **kw, shard_windows=shard_windows)
+                   if args.aug_test else
+                   infer.predict(batch["image"], **kw, shard_windows=shard_windows))
             if args.fetch_logits:
                 out["seg_logits"].float().cpu().numpy()  # the opt-in canvas copy
             if artifacts and (args.show_dir or args.out or args.format_dir):
@@ -195,7 +221,10 @@ def main(argv=None):
         results = {}
         if seen:
             drain()
-        t_end = time.perf_counter()
+        t_end = time.perf_counter()  # before the reduction, which waits on the slowest rank
+        if not shard_windows:  # each rank scored its own shard: sum the totals
+            cm = sum_confusion(cm)
+            d_sums, d_count = sum_depth_errors(d_sums, d_count)
         if seen > seen_at_t0:
             dt = t_end - t0
             results["images_per_sec"] = (seen - seen_at_t0) / dt if dt > 0 else float("inf")
@@ -208,14 +237,17 @@ def main(argv=None):
         if d_sums is not None:
             results.update({f"depth/{k}": float(v)
                             for k, v in finalize_depth_errors(d_sums, d_count).items()})
-        if artifacts and args.out and out_arrays:
-            np.savez_compressed(args.out, **out_arrays)
-            print(f"saved {sum(k.startswith('seg') for k in out_arrays)} frames to {args.out}")
+        if artifacts and args.out:
+            merged = {k: v for part in mesh_lib.all_gather_object(out_arrays) for k, v in
+                      part.items()}
+            if merged and rank == 0:
+                np.savez_compressed(args.out, **merged)
+                print(f"saved {sum(k.startswith('seg') for k in merged)} frames to {args.out}")
         return results
 
     results = evaluate(args.crop, args.stride, args.window_batch, artifacts=True)
     for k, v in results.items():
-        print(f"{k}: {v:.4f}")
+        say(f"{k}: {v:.4f}")
 
     # When the config's slide crop departs from the reference protocol, score
     # the reference protocol too, so that a protocol change can never hide a
@@ -224,15 +256,15 @@ def main(argv=None):
     ref_crop = list(test_cfg.get("reference_crop", [640, 640]))
     ref_stride = list(test_cfg.get("reference_stride", [426, 426]))
     if args.mode == "slide" and not args.single_protocol and list(args.crop) != ref_crop:
-        print(f"--- reference protocol (crop {ref_crop[0]}x{ref_crop[1]}, "
-              f"stride {ref_stride[0]}x{ref_stride[1]}) ---")
+        say(f"--- reference protocol (crop {ref_crop[0]}x{ref_crop[1]}, "
+            f"stride {ref_stride[0]}x{ref_stride[1]}) ---")
         ref_results = evaluate(ref_crop, ref_stride, args.window_batch)
         for k, v in ref_results.items():
-            print(f"ref/{k}: {v:.4f}")
+            say(f"ref/{k}: {v:.4f}")
         results.update({f"ref/{k}": v for k, v in ref_results.items()})
         if "mIoU" in results and "ref/mIoU" in results:
             delta = results["mIoU"] - results["ref/mIoU"]
-            print(f"protocol_delta_mIoU: {delta:+.4f}")
+            say(f"protocol_delta_mIoU: {delta:+.4f}")
             results["protocol_delta_mIoU"] = delta
     return results
 

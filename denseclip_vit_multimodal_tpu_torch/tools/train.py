@@ -1,4 +1,4 @@
-"""Training CLI of the port (the JAX package's `tools/train.py`, on one device).
+"""Training CLI of the port (the JAX package's `tools/train.py`).
 
     python3 -m denseclip_vit_multimodal_tpu_torch.tools.train \
         configs/denseclip_vitb16_640x640_80k.yaml --no-validate --max-steps 10 \
@@ -12,6 +12,10 @@ has them).  `--resume` continues a run from its checkpoint (weights,
 optimizer, step); `--load` warm-starts from a checkpoint's weights and
 BatchNorm statistics alone, with a fresh optimizer at step 0 (a work dir of
 `tools/train.py` or of `tools/import_checkpoint.py`).
+
+Under `torchrun` (`tools/dist_train.sh`: one process a card) it trains over
+the process group with JAX's global-batch semantics (`train/loop.py`):
+NCCL on CUDA, Gloo with `--device cpu`.
 """
 
 from __future__ import annotations
@@ -55,7 +59,10 @@ def main(argv=None):
         "work_dirs", os.path.splitext(os.path.basename(str(args.config)))[0])
     metrics = train(cfg, work_dir, resume=args.resume, max_steps=args.max_steps,
                     no_validate=args.no_validate, device=args.device, load=args.load)
-    print({k: round(v, 4) for k, v in metrics.items()})
+    from denseclip_vit_multimodal_tpu_torch.parallel.mesh import rank
+
+    if rank() == 0:
+        print({k: round(v, 4) for k, v in metrics.items()})
     return metrics
 
 

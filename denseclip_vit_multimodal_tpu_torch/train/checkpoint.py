@@ -9,6 +9,12 @@ symlinks repointed atomically, so a crash never leaves a torn file.  The
 newest five epoch files are kept, and any an alias points at; `best` is the
 epoch with the highest validation mIoU.  `load_model_weights` restores the
 model alone (evaluation: `tools/test.py`).
+
+Over a process group the state is the same on every rank: rank 0 writes the
+file and repoints `latest` / `best`, and every rank waits at a barrier
+before it returns (JAX `train/checkpoint.py:128-152`), so no rank reads a
+checkpoint before it is whole; `restore_checkpoint` / `load_model_weights`
+give every rank the same file's state.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 from denseclip_vit_multimodal_tpu_torch.train.state import TrainState
 
 
@@ -38,11 +45,22 @@ _KEEP = 5
 
 def save_checkpoint(work_dir: str, state: TrainState, epoch: int,
                     best_metric: Optional[float] = None, is_best: bool = False) -> str:
-    """Save `epoch_{N}.pt`, repoint `latest` (and `best`), prune old epoch files."""
+    """Save `epoch_{N}.pt`, repoint `latest` (and `best`), prune old epoch
+    files: on rank 0, with every rank waiting until it is done."""
     base = _ckpt_dir(work_dir)
-    os.makedirs(base, exist_ok=True)
     name = f"epoch_{epoch}.pt"
     path = os.path.join(base, name)
+    try:
+        if mesh_lib.rank() == 0:
+            _write(base, name, path, state, epoch, best_metric, is_best)
+    finally:
+        mesh_lib.barrier()
+    return path
+
+
+def _write(base: str, name: str, path: str, state: TrainState, epoch: int,
+           best_metric: Optional[float], is_best: bool) -> None:
+    os.makedirs(base, exist_ok=True)
     payload = {
         "model": state.model.state_dict(),
         "optimizer": state.optimizer.state_dict(),
@@ -62,7 +80,6 @@ def save_checkpoint(work_dir: str, state: TrainState, epoch: int,
     for old in epochs[:-_KEEP]:
         if f"epoch_{old}.pt" not in pinned:
             os.remove(os.path.join(base, f"epoch_{old}.pt"))
-    return path
 
 
 def _load_payload(path_or_work_dir: str, which: str, device) -> dict:

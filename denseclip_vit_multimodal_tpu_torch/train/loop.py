@@ -1,8 +1,8 @@
 """Training orchestration (PyTorch port of the JAX package's `train/loop.py`:
 `train` and `validate`).
 
-config -> data -> model -> train state -> epoch loop, on one device.  What
-carries over from the reference loop:
+process group -> config -> data -> model -> train state -> epoch loop, on
+one card a process.  What carries over from the reference loop:
 
   * `training.iters` makes the run iteration-based (ceil(iters / steps per
     epoch) epochs, at most `iters` steps); `max_steps` caps it further.  Both
@@ -30,10 +30,25 @@ on the host to its losses read back, and `data_s`, the host seconds spent
 waiting for that batch) go to `<work_dir>/train_log.jsonl`, and every
 `log_interval` steps to the log; validation metrics to the log, and, under
 `training.save_visualizations` (default true), the validation panels to
-`<work_dir>/visualizations/` (`validate`).  The `tpu.mesh` spec is resolved
-as JAX resolves it (`parallel/mesh.py`), before the data and the model are
-built, and a mesh over more than one device raises: the FSDP, tensor,
-pipeline and multi-host branches and Orbax checkpoints are not ported.
+`<work_dir>/visualizations/` (`validate`).
+
+Data parallelism (`parallel/mesh.py`): `train` first joins the process group
+`torchrun` describes (`tools/dist_train.sh`; none: one process), as JAX's
+`:303` bootstraps.  The `tpu.mesh` spec resolves over the group's world
+size, one card a rank, with JAX's `ValueError` texts, before the data and
+the model are built; what the port does not do over several devices (FSDP,
+tensor, pipeline and ring parallelism) raises `NotImplementedError`.
+`training.batch_size` is the GLOBAL batch: it must divide by the data axis
+(JAX's `ValueError`), and each rank's loader reads its rank-strided share
+(`data/loader.py`).  Every rank checks that `model.clip_pretrained` exists
+on every rank, starts from rank 0's weights (`replicate`), and logs to
+`train_p{rank}.log` (the console on rank 0); rank 0 alone writes
+`train_log.jsonl`, the config dump, the panels and the checkpoints, behind
+a barrier.  Validation scores each rank's shard and sums the confusion
+matrix and the depth-error sums over the group before any division.  In a
+one-process world the log is `train.log` and the run is the one-process
+port's.  A SIGTERM on any rank stops every rank after the same step.
+Orbax checkpoints are not ported.
 """
 
 from __future__ import annotations
@@ -59,13 +74,19 @@ from denseclip_vit_multimodal_tpu_torch.train.metrics import (
     accuracy_from_confusion,
     finalize_depth_errors,
     miou_from_confusion,
+    sum_confusion,
+    sum_depth_errors,
 )
 from denseclip_vit_multimodal_tpu_torch.train.state import (
     count_params,
     create_train_state,
     frozen_modules_from_cfg,
 )
-from denseclip_vit_multimodal_tpu_torch.train.step import make_eval_step, make_train_step
+from denseclip_vit_multimodal_tpu_torch.train.step import (
+    make_eval_step,
+    make_train_step,
+    microbatch_rows,
+)
 from denseclip_vit_multimodal_tpu_torch.utils.env import collect_env_info
 from denseclip_vit_multimodal_tpu_torch.utils.visualize import (
     save_comparison_panel,
@@ -110,6 +131,9 @@ class GracefulShutdown:
 
 
 def setup_logger(work_dir: str) -> logging.Logger:
+    """`train.log` and the console in a one-process world; over a group a
+    file a process, `train_p{rank}.log`, and the console on rank 0 (JAX's
+    `setup_logger`)."""
     logger = logging.getLogger("denseclip_torch")
     logger.setLevel(logging.INFO)
     logger.propagate = False
@@ -118,8 +142,12 @@ def setup_logger(work_dir: str) -> logging.Logger:
         logger.removeHandler(handler)
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s", "%H:%M:%S")
     os.makedirs(work_dir, exist_ok=True)
-    for handler in (logging.FileHandler(os.path.join(work_dir, "train.log")),
-                    logging.StreamHandler()):
+    rank = mesh_lib.rank()
+    name = f"train_p{rank}.log" if mesh_lib.is_distributed() else "train.log"
+    handlers = [logging.FileHandler(os.path.join(work_dir, name))]
+    if rank == 0:
+        handlers.append(logging.StreamHandler())
+    for handler in handlers:
         handler.setFormatter(fmt)
         logger.addHandler(handler)
     return logger
@@ -149,7 +177,10 @@ def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger,
     highest seg accuracy) and, where there is seg ground truth,
     `comparison_<name>` (`utils/visualize.py`).  The best batch is tracked
     on the device (`torch.where` over the sample's tensors) and fetched
-    once.  A failed panel is logged as a warning, as in the JAX package."""
+    once.  A failed panel is logged as a warning, as in the JAX package.
+    Over a process group `val_loader` reads this rank's shard; the
+    confusion matrix and the depth-error sums are summed over the ranks
+    before any division, and the per-batch losses are global already."""
     device = next(state.model.parameters()).device
     cm_total = depth_sums = depth_count = None
     loss_sums: Dict[str, torch.Tensor] = {}
@@ -190,6 +221,8 @@ def validate(state, eval_step, val_loader: DataLoader, logger: logging.Logger,
                 loss_sums[k] = results[k] if k not in loss_sums else loss_sums[k] + results[k]
         n_batches += 1
 
+    cm_total = sum_confusion(cm_total)  # each rank scored its own shard
+    depth_sums, depth_count = sum_depth_errors(depth_sums, depth_count)
     metrics: Dict[str, float] = {}
     if cm_total is not None:
         miou, _ = miou_from_confusion(cm_total)
@@ -246,15 +279,18 @@ def train_step_from_cfg(texts, training_cfg, data_cfg, seed: int = 0):
 def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[int] = None,
           no_validate: bool = False, device="cuda", load: Optional[str] = None
           ) -> Dict[str, float]:
-    """Train from a config on one device; returns the last epoch's mean
-    training metrics, the last validation's metrics and the global `step`.
-    `resume` continues a run (weights, optimizer, step); `load` warm-starts
-    from a checkpoint's weights alone."""
+    """Train from a config, on one card a process; returns the last epoch's
+    mean training metrics, the last validation's metrics and the global
+    `step`.  `resume` continues a run (weights, optimizer, step); `load`
+    warm-starts from a checkpoint's weights alone.  Under `torchrun` it
+    joins the group first (NCCL on CUDA, Gloo on the CPU)."""
+    mesh_lib.maybe_initialize_distributed(device=device)
+    device = mesh_lib.local_device(device)
     logger = setup_logger(work_dir)
     shutdown = GracefulShutdown(logger)  # before the build: a SIGTERM then still stops cleanly
     try:
-        return _train(cfg, work_dir, resume, load, max_steps, no_validate, torch.device(device),
-                      logger, shutdown)
+        return _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger,
+                      shutdown)
     finally:
         shutdown.restore()
         for handler in list(logger.handlers):
@@ -269,21 +305,43 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     data_cfg = cfg.get("data", {}) or {}
     seed = int(training_cfg.get("seed", 42))
     class_names = class_names_for(data_cfg)
-    logger.info("environment:\n%s", collect_env_info())
-    mesh = mesh_lib.mesh_from_config(tpu_cfg, mesh_lib.device_count(device))
+    world, rank = mesh_lib.world_size(), mesh_lib.rank()
+    is_main = rank == 0
+    if is_main:
+        logger.info("environment:\n%s", collect_env_info())
+    mesh = mesh_lib.mesh_over_group(tpu_cfg)
     logger.info("mesh %s over %d devices (%s)", mesh, math.prod(mesh.values()), device.type)
-    mesh_lib.check_single_device(mesh, tpu_cfg)
+    if world == 1 and device.type == "cuda" and torch.cuda.device_count() > 1:
+        logger.info("%d cards visible, one process trains on one: tools/dist_train.sh runs "
+                    "a process a card", torch.cuda.device_count())
+    mesh_lib.check_ported(mesh, tpu_cfg)
+    if not mesh_lib.data_axis_is_process_local(mesh):
+        raise ValueError(
+            f"tpu.mesh {mesh} does not give each process a contiguous slice of the data axis "
+            "— order the mesh data-first (e.g. {data: N, pipe: S}), which keeps pipeline/model "
+            "hops intra-process, or feed full global batches via "
+            "shard_batch(process_local=False) in a custom loop")
 
     train_ds = build_dataset(data_cfg, "train")
-    loader = DataLoader(train_ds, batch_size=int(training_cfg.get("batch_size", 8)), seed=seed,
-                        num_threads=int(training_cfg.get("workers", 8)))
+    global_batch = int(training_cfg.get("batch_size", 8))
+    data_ways = mesh.get(mesh_lib.DATA_AXIS, 1)
+    if global_batch % data_ways:
+        raise ValueError(
+            f"training.batch_size={global_batch} must be divisible by the data mesh axis "
+            f"({data_ways} ways); adjust batch_size or tpu.mesh (batch_size is GLOBAL, unlike "
+            "torch's per-process)")
+    local_batch = mesh_lib.local_batch_size(global_batch)
+    accum = int(training_cfg.get("grad_accum_steps", 1))
+    microbatch_rows(local_batch, accum, world, rank)  # raises where the grouping cannot hold
+    loader = DataLoader(train_ds, batch_size=local_batch, seed=seed,
+                        num_threads=int(training_cfg.get("workers", 8)),
+                        microbatches=accum if world > 1 else 1)
     val_loader = None
     if not no_validate:
         val_split = "validation" if "ADE20K" in str(data_cfg.get("dataset_type", "")) else "val"
         try:
-            val_loader = DataLoader(build_dataset(data_cfg, val_split),
-                                    batch_size=int(training_cfg.get("batch_size", 8)), seed=seed,
-                                    num_threads=int(training_cfg.get("workers", 8)),
+            val_loader = DataLoader(build_dataset(data_cfg, val_split), batch_size=local_batch,
+                                    seed=seed, num_threads=int(training_cfg.get("workers", 8)),
                                     shuffle=False, drop_last=False)
         except Exception as e:  # as in the JAX loop: train on without validation
             logger.warning("no validation data (%s); skipping validation", e)
@@ -307,6 +365,16 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                     n_vis, n_txt)
     elif clip_path:
         logger.warning("clip_pretrained %s not found; training from scratch", clip_path)
+    if world > 1:
+        # every rank builds its replica from its own disk: a file that some
+        # ranks lack would leave the replicas different
+        flags = mesh_lib.all_gather_object(bool(clip_path and os.path.exists(str(clip_path))))
+        if any(flags) and not all(flags):
+            raise RuntimeError(
+                f"clip_pretrained {clip_path} exists on only {sum(flags)}/{len(flags)} processes "
+                "— put the checkpoint on shared storage (or every host) so all replicas "
+                "initialize identically")
+    mesh_lib.replicate(model)
 
     state = create_train_state(model, training_cfg, steps_per_epoch)
     logger.info("frozen modules: %s", list(frozen_modules_from_cfg(training_cfg)))
@@ -327,7 +395,7 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
         loaded_epoch = ckpt_lib.load_model_weights(load, state.model)
         logger.info("warm-started weights from %s (its epoch %d); optimizer fresh, step 0",
                     load, loaded_epoch)
-    if hasattr(cfg, "dump"):
+    if is_main and hasattr(cfg, "dump"):
         cfg.dump(os.path.join(work_dir, "final_config.yaml"))
 
     eval_interval = int(training_cfg.get("eval_interval", 1))
@@ -337,7 +405,11 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     epoch_means: Dict[str, float] = {}
     last_val: Dict[str, float] = {}
     reached_epoch = None
-    with open(os.path.join(work_dir, "train_log.jsonl"), "a") as log_file:
+    stop_requested = lambda: (mesh_lib.sum_across(torch.tensor(
+        [float(shutdown.requested)], device=device)).item() > 0 if world > 1
+        else shutdown.requested)
+    log_path = os.path.join(work_dir, "train_log.jsonl" if is_main else os.devnull)
+    with open(log_path, "a") as log_file:
         for epoch in range(start_epoch, epochs):
             if budget_met():
                 break
@@ -358,21 +430,21 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                 if state.step % log_interval == 0:
                     logger.info("epoch %d step %d: %s", epoch, state.step,
                                 {k: round(v, 4) for k, v in metrics.items()})
-                if budget_met() or shutdown.requested:
+                if budget_met() or stop_requested():
                     break
                 tock = time.perf_counter()
             epoch_means = {k: v / max(steps, 1) for k, v in sums.items()}
             logger.info("epoch %d done in %.1fs: %s", epoch, time.time() - t_epoch,
                         {k: round(v, 4) for k, v in epoch_means.items()})
             reached_epoch = epoch
-            if shutdown.requested:
+            if stop_requested():
                 ckpt_lib.save_checkpoint(work_dir, state, epoch, best_metric)
                 logger.info("shutdown requested: checkpoint saved at epoch %d, step %d",
                             epoch, state.step)
                 break
             if val_loader is not None and (epoch + 1) % eval_interval == 0:
                 vis_path = None
-                if bool(training_cfg.get("save_visualizations", True)):
+                if is_main and bool(training_cfg.get("save_visualizations", True)):
                     vis_path = os.path.join(work_dir, "visualizations", f"epoch_{epoch}.png")
                 last_val = validate(state, eval_step, val_loader, logger,
                                     visualize_to=vis_path, epoch=epoch)
@@ -382,6 +454,6 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                     ckpt_lib.save_checkpoint(work_dir, state, epoch, best_metric, is_best=True)
             if (epoch + 1) % save_interval == 0:
                 ckpt_lib.save_checkpoint(work_dir, state, epoch, best_metric)
-    if reached_epoch is not None and not shutdown.requested:
+    if reached_epoch is not None and not stop_requested():
         ckpt_lib.save_checkpoint(work_dir, state, reached_epoch, best_metric)
     return {**epoch_means, **last_val, "step": float(state.step)}

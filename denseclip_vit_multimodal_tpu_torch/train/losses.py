@@ -8,6 +8,13 @@
 
 Both reduce in fp32 whatever the activations' dtype, and mask with `where`
 instead of boolean indexing, so they never synchronise with the host.
+
+Over a process group both are the global batch's loss, as JAX's under a
+data-sharded batch: the sums are all-reduced with autograd and the valid
+counts without (`parallel/mesh.py`), so every rank holds the same value and
+the sum of the ranks' gradients is world size times the gradient of the
+global loss, which the step's gradient average divides back out.  In a
+one-process world the arithmetic is the one-process port's.
 """
 
 from __future__ import annotations
@@ -16,6 +23,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 
 
 def cross_entropy_loss(
@@ -31,6 +40,9 @@ def cross_entropy_loss(
     picked = (logits * F.one_hot(safe, logits.shape[-1]).to(logits.dtype)).sum(dim=-1)
     nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
     count = valid.sum()
+    if mesh_lib.is_distributed():
+        total, count = mesh_lib.all_reduce_sum(nll.sum()), mesh_lib.sum_across(count)
+        return torch.where(count > 0, total / count.clamp(min=1), total.new_zeros(()))
     return torch.where(count > 0, nll.sum() / count.clamp(min=1), nll.new_zeros(()))
 
 
@@ -55,6 +67,10 @@ def silog_loss(
         count = mask.sum().float()
     else:
         count = torch.tensor(float(log_diff.numel()), device=log_diff.device)
+    sq_sum, sum_ = log_diff.square().sum(), log_diff.sum()
+    if mesh_lib.is_distributed():
+        sq_sum, sum_ = mesh_lib.all_reduce_sum(torch.stack([sq_sum, sum_])).unbind()
+        count = mesh_lib.sum_across(count)
     safe = count.clamp(min=1.0)
-    loss = log_diff.square().sum() / safe - lambd * log_diff.sum().square() / safe.square()
+    loss = sq_sum / safe - lambd * sum_.square() / safe.square()
     return torch.where(count > 0, loss, torch.zeros_like(loss))

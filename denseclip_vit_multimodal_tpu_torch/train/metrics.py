@@ -12,13 +12,18 @@
     the ground-truth range mask and the prediction clamped to it, returned as
     (sums, count) so that batches aggregate exactly; `finalize_depth_errors`
     divides (and takes the roots) after aggregation.
+  * `sum_confusion` / `sum_depth_errors` — those totals summed over the
+    process group (each rank scored its own shard), before any division;
+    the identity in a one-process world.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 
 
 def confusion_matrix(
@@ -103,3 +108,19 @@ def finalize_depth_errors(sums: Dict[str, torch.Tensor], count: torch.Tensor
         "a2": sums["a2"] / n,
         "a3": sums["a3"] / n,
     }
+
+
+def sum_confusion(cm: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The confusion matrix summed over the ranks (exact: int32 counts)."""
+    return None if cm is None else mesh_lib.sum_across(cm)
+
+
+def sum_depth_errors(sums: Optional[Dict[str, torch.Tensor]], count: Optional[torch.Tensor]):
+    """The depth error sums and count summed over the ranks, in one all-reduce."""
+    if sums is None:
+        return None, count
+    keys = sorted(sums)
+    flat = mesh_lib.sum_across(torch.stack([sums[k].float() for k in keys]
+                                           + [torch.as_tensor(count, dtype=torch.float32,
+                                                              device=sums[keys[0]].device)]))
+    return dict(zip(keys, flat[:-1].unbind())), flat[-1]

@@ -4,8 +4,8 @@ branch (K1 at any N up to 8448, no 1024-token floor) and of the fused
 LN + qkv branch (K6) at N below and above 1024 and above 8448; every call
 that reaches `attention_core` goes to `flash_attention` on CUDA and to the
 `auto` rules off it; a CUDA fp32 tensor takes the fp32 kernels as JAX's
-does, and another dtype than bf16 or fp32 raises `TypeError`; `ring` still
-raises; and one bf16 layer under `flash` against the JAX layer, whose K1
+does, and another dtype than bf16 or fp32 raises `TypeError`; `ring` is a
+known name and an unknown one raises; and one bf16 layer under `flash` against the JAX layer, whose K1
 runs in Pallas interpret mode.
 
 The tests mark tensors as on CUDA by patching `ops.attention._on_cuda`, and
@@ -149,14 +149,19 @@ def test_fp32_off_cuda_under_flash_runs_auto(monkeypatch):
 
 
 def test_impl_names_and_ring_still_raises():
-    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8", "flash")
+    """`ring` is a name the port takes now (one process: `auto`; over a
+    group it raises, `tests/test_torch_ring_fallback.py`); a name neither
+    package has still raises."""
+    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8", "flash", "ring")
     tm = t_layers.MultiHeadAttention(128, 2)
     t_layers.set_attn_impl(tm, "flash")
     assert tm.attn_impl == "flash"
+    t_layers.set_attn_impl(tm, "ring")
+    assert t_layers.MultiHeadAttention(128, 2, attn_impl="ring").attn_impl == "ring"
     with pytest.raises(ValueError, match="not yet ported"):
-        t_layers.set_attn_impl(tm, "ring")
+        t_layers.set_attn_impl(tm, "sparse")
     with pytest.raises(ValueError, match="not yet ported"):
-        t_layers.MultiHeadAttention(128, 2, attn_impl="ring")
+        t_layers.MultiHeadAttention(128, 2, attn_impl="sparse")
 
 
 def test_only_the_vit_reads_attn_impl():

@@ -148,11 +148,21 @@ def test_test_cli_outputs_match_jax(setup, capsys):
                                       jv.colorize_depth(sample["depth"], max_depth))
 
 
-def test_shard_windows_over_several_devices_is_not_ported(setup, monkeypatch):
+def test_shard_windows_over_several_devices_is_not_ported(setup, monkeypatch, capsys):
+    """Several cards seen by one process are not a mesh in the port: windows
+    are spread over the ranks of a process group (one card a rank,
+    `tools/dist_test.sh`; `tests/test_torch_ddp_loop.py`).  Without a group
+    `--shard-windows` warns, as JAX does on one device, and scores unsharded:
+    the results of the run without the flag."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
-        test_cli.main([CONFIG, setup["work_dir"], "--mode", "slide", "--shard-windows",
-                       "--set", *TINY])
+    argv = [CONFIG, setup["work_dir"], "--mode", "slide", "--device", "cpu", "--single-protocol",
+            "--set", *TINY]
+    results = test_cli.main(argv + ["--shard-windows"])
+    assert "--shard-windows needs --mode slide and >1 device; running unsharded" in \
+        capsys.readouterr().err
+    plain = test_cli.main(argv)
+    assert {k: v for k, v in results.items() if k != "images_per_sec"} == \
+        {k: v for k, v in plain.items() if k != "images_per_sec"}
 
 
 def _write_inputs(folder, rs):

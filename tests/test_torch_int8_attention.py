@@ -280,8 +280,8 @@ def test_int8_dispatch_needs_cuda_and_attn_impl_names():
     t_layers.set_attn_impl(tm, "auto")
     assert tm.attn_impl == "auto"
     with pytest.raises(ValueError, match="not yet ported"):
-        t_layers.set_attn_impl(tm, "ring")
-    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8", "flash")
+        t_layers.set_attn_impl(tm, "sparse")
+    assert t_layers.ATTN_IMPLS == ("auto", "xla", "int8", "flash", "ring")
 
 
 @pytest.mark.parametrize("valid_len", [None, 120])
