@@ -314,7 +314,30 @@ phases that each print one JSON line:
                   fp32 step under NCCL over them, with ms per step per rank
                   and the all-reduce's share of the device time
                   (torch.profiler); else one line says why it was not run.
+ 31. shard_path — tensor parallelism and ZeRO-3 (`parallel/fsdp.py`) over
+                  Gloo ranks sharing this card: the heritage preset at full
+                  width on a seeded synthetic global batch of 4 under (a)
+                  `{data: 2}` + `tpu.fsdp` (2 ranks), (b) `{model: 2}` (2
+                  ranks), (c) `{data: 2, model: 2}` + `tpu.fsdp` (4 ranks),
+                  1 warm-up step and 2 more each in fp32 (seg loss alone,
+                  deterministic algorithms) and bf16, held against this
+                  process on the same weights and batch: the step-1 fp32
+                  loss <= 1e-5 relative, the backbone gradients <= 5e-3 rel.
+                  L2 (the one process's own batch-variance gap beside), the
+                  bf16 loss <= 5e-2, 12 K1 + 12 K2 a rank a step at the local
+                  heads (fp32: their fp32 kernels), each rank's parameter +
+                  Adam elements equal to what the sharding rules put on a JAX
+                  device, peak memory and ms a step beside one process's;
+                  (c)'s checkpoint has the one-process file's keys and shapes
+                  and restores bitwise into one process; NCCL over two cards
+                  only where two are visible.
 
+After the build phase every `build_denseclip` of this process goes through
+`seeded_build`: a configuration's seeded weights are drawn once and later
+builds load them, the Gloo ranks of ddp_path and shard_path load them from a
+file, and the ranks start from a fork server that imported the script,
+torch and the port while the kernels built (the cuts that make room for
+shard_path).
 rn50_path and cityscapes_path's `tools/train.py` run 2 steps each (1
 warm-up + 1 timed; 3 before the ViT-L/14 phase came), cityscapes_path's
 profiled step warms up on a batch it already decoded and its `--load` run
@@ -584,6 +607,7 @@ def qkv_attention_case(b: int, n: int, heads: int, head_dim: int, valid_len, ite
 def phase_kernels() -> dict:
     cases = [
         (10, 1536, 12, 64, 1522, 50),  # slide window batch (crop 624, padded once)
+        (2, 1664, 6, 64, 1601, 50),  # shard_path's local heads: 2 rows a rank, 12 / 2 heads
         (4, 1664, 12, 64, 1601, 50, True),  # heritage training: batch 4, crop 640, NaN pad keys
         (1, 8320, 12, 64, 8193, 10),  # whole 1024x2048 frame (and aug-test scale 1.0, at B 2)
         (2, 2176, 12, 64, 2049, 20),  # aug-test scale 0.5 with its flipped view
@@ -659,6 +683,7 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
 
 BWD_CASES = [
     (4, 1664, 12, 64, 1601, 20),  # heritage training: batch 4, crop 640 (1601 tokens, padded once)
+    (2, 1664, 6, 64, 1601, 20),  # shard_path's local heads: 2 rows a rank, 12 / 2 heads
     (10, 1536, 12, 64, 1522, 10),  # slide window batch shape
     (2, 640, 8, 128, None, 20),  # head dim 128
     (4, 777, 12, 64, None, 20),  # ragged N, valid_len None
@@ -5604,13 +5629,15 @@ def _ddp_rank(rank: int, world: int, port: int, backend: str, inputs_path: str,
                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
         if not mesh.maybe_initialize_distributed(backend, inputs["device"], DDP_TIMEOUT_S):
             raise AssertionError("the rank did not join its group")
+        load_seeded(inputs["seeded"])
         res = _ddp_work(inputs) if backend == "gloo" else _ddp_nccl_work(inputs)
-        if rank:  # the other ranks keep their numbers; rank 0's tensors are compared
-            for case in res.values():
+        for case in res.values():  # every rank's digests, taken alike, show they agree;
+            keys = [k for k in ("grads", "buffers", "seg_logits", "depth", "seg") if k in case]
+            case["digests"] = {k: _digest(case[k]) for k in keys}
+            if rank:  # rank 0's tensors are compared
                 case.pop("probes", None)
-                for key in ("grads", "buffers", "seg_logits", "depth", "seg"):
-                    if key in case:
-                        case[key] = _digest(case[key])
+                for k in keys:
+                    del case[k]
         torch.save(res, out)
     except BaseException:
         with open(out + ".err", "w") as f:
@@ -5632,9 +5659,7 @@ def _digest(x):
 
 
 def _ddp_spawn(world: int, backend: str, inputs_path: str, out_dir: str):
-    import multiprocessing as mp
-
-    ctx = mp.get_context("spawn")
+    ctx = rank_context()
     port = _ddp_free_port()
     procs = [ctx.Process(target=_ddp_rank, args=(r, world, port, backend, inputs_path, out_dir),
                          daemon=True) for r in range(world)]
@@ -5782,13 +5807,17 @@ def phase_ddp_path(device: str = "cuda", sets=(), rn50_sets=()) -> dict:
     ckpt = os.path.join(DDP_WORK_DIR, "eval")
     save_checkpoint(ckpt, create_train_state(model, eval_cfg.training, 1), 0)
     del model
-    inputs = {"heritage": global_batch(heritage, 4),
-              "rn50": global_batch(load_config(RN50_CONFIG,
-                                               overrides=DDP_RN50_SETS + list(rn50_sets)), 16),
+    rn50 = load_config(RN50_CONFIG, overrides=DDP_RN50_SETS + list(rn50_sets))
+    inputs = {"heritage": global_batch(heritage, 4), "rn50": global_batch(rn50, 16),
               "frame": np.random.RandomState(SEED).randint(0, 256, (1, 1024, 2048, 3),
                                                            dtype=np.uint8),
               "checkpoint": ckpt, "device": device, "sets": sets, "rn50_sets": list(rn50_sets),
               "ranks": 2}
+    install_seeded_builds()
+    inputs["seeded"] = os.path.join(DDP_WORK_DIR, "seeded.pt")
+    save_seeded(inputs["seeded"], [
+        (heritage.model, CITYSCAPES_CLASSES, int(heritage.training.get("seed", 42))),
+        (rn50.model, CITYSCAPES_CLASSES, int(rn50.training.get("seed", 42)))])
     inputs_path = os.path.join(DDP_WORK_DIR, "inputs.pt")
     torch.save(inputs, inputs_path)
     tick = time.perf_counter()
@@ -5821,11 +5850,12 @@ def phase_ddp_path(device: str = "cuda", sets=(), rn50_sets=()) -> dict:
                                                           one["fp32"]["grads"]),
         **{f"{k}_grad_rel_l2": rel_l2(v, one["fp32"]["probes"][k][:rows])
            for k, v in two["fp32"]["probes"].items()}}
-    gloo["fp32"]["ranks_same_grads"] = _digest(two["fp32"]["grads"]) == other["fp32"]["grads"]
+    gloo["fp32"]["ranks_same_grads"] = two["fp32"]["digests"]["grads"] == \
+        other["fp32"]["digests"]["grads"]
     gloo["rn50"]["bn_stat_rel_l2_max"] = max(
         rel_l2(two["rn50"]["buffers"][k], v) for k, v in one["rn50"]["buffers"].items())
-    gloo["rn50"]["ranks_same_bn_stats"] = _digest(two["rn50"]["buffers"]) \
-        == other["rn50"]["buffers"]
+    gloo["rn50"]["ranks_same_bn_stats"] = two["rn50"]["digests"]["buffers"] \
+        == other["rn50"]["digests"]["buffers"]
     s1, s2, s1_protocol = one["slide_ranks_chunks"], two["slide"], one["slide"]
     gloo["slide"] = {"seg_rel_l2": rel_l2(s2["seg_logits"], s1["seg_logits"]),
                      "depth_rel_l2": rel_l2(s2["depth"], s1["depth"]),
@@ -5837,7 +5867,8 @@ def phase_ddp_path(device: str = "cuda", sets=(), rn50_sets=()) -> dict:
                          (s2["seg"] == s1_protocol["seg"]).float().mean()),
                      "one_process_chunks_5_vs_protocol_seg_equal_share": float(
                          (s1["seg"] == s1_protocol["seg"]).float().mean()),
-                     "ranks_same_frame": _digest(s2["seg_logits"]) == other["slide"]["seg_logits"],
+                     "ranks_same_frame": s2["digests"]["seg_logits"]
+                     == other["slide"]["digests"]["seg_logits"],
                      "k1_launches_one_process": s1_protocol["launches"]["qkv_attention"],
                      "k1_launches_per_rank": [s2["launches"]["qkv_attention"],
                                               other["slide"]["launches"]["qkv_attention"]]}
@@ -5911,6 +5942,499 @@ def phase_ddp_path(device: str = "cuda", sets=(), rn50_sets=()) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# Seeded builds, drawn once per configuration
+# --------------------------------------------------------------------------
+
+_SEEDED: dict = {}  # (model section, classes, seed) -> its seeded state_dict on the host
+_BUILD = None  # the port's own build_denseclip
+
+
+def _plain(x):
+    if hasattr(x, "items"):
+        return {str(k): _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x
+
+
+@contextlib.contextmanager
+def skip_init():
+    """A build whose weights are loaded right after it: the port's
+    initialisers return uninitialised tensors of their shapes, and
+    torch.nn.init's in-place draws (nn.Linear's own reset) do nothing."""
+    from torch.nn import init
+
+    from denseclip_vit_multimodal_tpu_torch.models import layers
+
+    empty = lambda shape, *args, **kwargs: torch.empty(tuple(shape))
+    keep = lambda tensor, *args, **kwargs: tensor
+    patched = []
+    for name in ("trunc_normal", "xavier_uniform", "normal"):
+        original = getattr(layers, name)
+        for module in list(sys.modules.values()):
+            if (getattr(module, "__name__", "").startswith("denseclip_vit_multimodal_tpu_torch.")
+                    and getattr(module, name, None) is original):
+                patched.append((module, name, original))
+                setattr(module, name, empty)
+    for name in ("kaiming_uniform_", "uniform_", "normal_", "trunc_normal_"):
+        patched.append((init, name, getattr(init, name)))
+        setattr(init, name, keep)
+    try:
+        yield
+    finally:
+        for module, name, original in patched:
+            setattr(module, name, original)
+
+
+def seeded_build(model_cfg, class_names, dtype=torch.float32, attn_impl="auto", device="cuda",
+                 seed=0, remat=False):
+    """`build_denseclip` whose seeded weights are drawn once per (model
+    section, classes, seed): later builds of the same weights skip the draws
+    (a seeded ViT-B build takes ~6 s of host time) and load the first
+    build's state_dict.  Each call returns a fresh model."""
+    key = seeded_key(model_cfg, class_names, seed)
+    kwargs = dict(dtype=dtype, attn_impl=attn_impl, seed=seed, remat=remat)
+    cached = _SEEDED.get(key)
+    if cached is None:
+        model, texts = _BUILD(model_cfg, class_names, device=device, **kwargs)
+        _SEEDED[key] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        return model, texts
+    with skip_init():
+        model, texts = _BUILD(model_cfg, class_names, device="cpu", **kwargs)
+    model.load_state_dict(cached)
+    return model.to(device).eval(), texts
+
+
+def seeded_key(model_cfg, class_names, seed) -> tuple:
+    return (json.dumps(_plain(model_cfg), sort_keys=True, default=str), tuple(class_names),
+            int(seed))
+
+
+def load_seeded(path: str) -> None:
+    """Install `seeded_build` in this process with the seeded weights a
+    parent saved (`save_seeded`): a spawned rank's builds then skip the draws."""
+    install_seeded_builds()
+    _SEEDED.update(torch.load(path, map_location="cpu", weights_only=False, mmap=True))
+
+
+def save_seeded(path: str, builds) -> None:
+    """Save the seeded weights of `builds` ((model section, classes, seed)
+    each, drawn here first where they are not yet) for `load_seeded`."""
+    keys = []
+    for model_cfg, class_names, seed in builds:
+        key = seeded_key(model_cfg, class_names, seed)
+        if key not in _SEEDED:
+            seeded_build(model_cfg, class_names, device="cpu", seed=seed)
+        keys.append(key)
+    torch.save({k: _SEEDED[k] for k in keys}, path)
+
+
+def install_seeded_builds() -> None:
+    """Every later `build_denseclip` of this process (the phases' own and
+    the entry points' they call in-process) goes through `seeded_build`."""
+    global _BUILD
+    import importlib
+
+    from denseclip_vit_multimodal_tpu_torch.models import denseclip
+
+    if _BUILD is None:
+        _BUILD = denseclip.build_denseclip
+    for name in ("models", "models.denseclip", "train.loop", "tools.test", "tools.serve",
+                 "tools.export", "tools.infer", "tools.exp_serving_concurrency", "bench"):
+        module = importlib.import_module(f"denseclip_vit_multimodal_tpu_torch.{name}")
+        if getattr(module, "build_denseclip", None) is _BUILD:
+            module.build_denseclip = seeded_build
+
+
+# --------------------------------------------------------------------------
+# shard_path: tensor parallelism and FSDP over Gloo ranks on this card
+# --------------------------------------------------------------------------
+
+SHARD_WORK_DIR = "build/shard_smoke"  # gitignored; removed at the end of the phase
+SHARD_LAYOUTS = {  # name -> (tpu.mesh, tpu.fsdp, ranks)
+    "a_data2_fsdp": ({"data": 2}, True, 2),
+    "b_model2": ({"model": 2}, False, 2),
+    "c_data2_model2_fsdp": ({"data": 2, "model": 2}, True, 4),
+}
+SHARD_STEPS = 3  # the first (step 1, held against one process) is also the warm-up
+SHARD_GRAD_TOL = 5e-3  # rel. L2 of the fp32 backbone seg-loss gradients, ranks vs one process
+SHARD_TIMEOUT_S = 240  # one layout's ranks, rendezvous included
+
+
+def _shard_run(cfg, dtype, model, texts, batch: dict, device: str, save_to=None) -> dict:
+    """SHARD_STEPS train steps of the heritage preset on this process's rows
+    of the global `batch` (every row without a group), the state sharded by
+    the current layout's mesh where it has one (`shard_train_state`): step
+    1's metrics, launches, K1 / K2 shapes and full backbone gradients, the
+    parameter and Adam elements this rank holds after it, ms a step over
+    the others (CUDA events), the peak memory of the steps, and rank 0's
+    checkpoint at `save_to`."""
+    from denseclip_vit_multimodal_tpu_torch.data.loader import to_device
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import (
+        resident_elements,
+        shard_train_state,
+    )
+    from denseclip_vit_multimodal_tpu_torch.parallel.sharding_rules import FSDP_MIN_SIZE
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.step import microbatch_rows
+
+    seed = int(cfg.training.get("seed", 42))
+    state = create_train_state(model, cfg.training, 1)
+    layout = mesh.layout()
+    sharding = None
+    if layout is not None:
+        tpu = cfg.get("tpu", {}) or {}
+        sharding = shard_train_state(state, layout.mesh, fsdp=bool(tpu.get("fsdp", False)),
+                                     fsdp_min_size=int(tpu.get("fsdp_min_size", FSDP_MIN_SIZE)))
+    names = [n for n, _ in model.named_parameters() if n.startswith("backbone.")]
+    params = dict(model.named_parameters())
+    captured, inner = {}, state.optimizer.step
+
+    def capture():  # the gradients the first update applies, put back together
+        if not captured:
+            parts = []
+            for n in names:  # None on every rank alike (nothing reads backbone.proj)
+                g = params[n].grad
+                if g is None:
+                    continue
+                if sharding is not None:
+                    g = sharding.shards[n].full(g, sharding.shapes[n])
+                parts.append(g.float().flatten())
+            captured["backbone"] = torch.cat(parts).cpu()
+        inner()
+
+    state.optimizer.step = capture
+    step = train_step_from_cfg(texts, cfg.training, cfg.data, seed)
+    local = batch["image"].shape[0] // mesh.data_size()
+    rows = microbatch_rows(local, 1, mesh.data_size(), mesh.data_rank())[0]
+    host = to_device({k: v[rows] for k, v in batch.items()}, device)
+    guard = deterministic_algorithms() if dtype == torch.float32 else contextlib.nullcontext()
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    with guard, recorded_k1_k2_shapes() as seen:
+        reset_launches()
+        first = step(state, host)  # reads its losses back: the card is done with it
+        launches = read_launches()
+        shapes = shapes_json(seen)
+        resident = resident_elements(model, state.optimizer)
+        tick = time.perf_counter()
+        later = [step(state, host) for _ in range(SHARD_STEPS - 1)]
+        ms = (time.perf_counter() - tick) * 1e3 / (SHARD_STEPS - 1)
+    out = {"metrics": first, "later_losses": [m["loss_total"] for m in later],
+           "launches": launches, "k1_k2_shapes": shapes, "grads": captured["backbone"],
+           "resident_elements": resident,
+           "resident_bytes": (sum(p.numel() * p.element_size() for p in model.parameters())
+                              + sum(v.numel() * v.element_size()
+                                    for e in state.optimizer.inner.state.values()
+                                    for v in e.values() if torch.is_tensor(v) and v.dim())),
+           "ms_per_step": ms,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0}
+    if sharding is not None:
+        frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
+        out["jax_elements"] = sharding.jax_elements(frozen)
+        out["sharded_leaves"] = len([s for s in sharding.jax_specs.values() if s])
+    if save_to:
+        save_checkpoint(save_to, state, 0)
+    return out
+
+
+def _shard_work(inputs: dict, layout: str) -> dict:
+    """The fp32 (seg loss alone, deterministic algorithms) and bf16 runs of
+    the heritage preset under `layout`'s mesh (none: one process)."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES
+
+    sets = []
+    if layout:
+        mesh_spec, fsdp, _ = SHARD_LAYOUTS[layout]
+        sets = [f"tpu.mesh={json.dumps(mesh_spec)}", f"tpu.fsdp={str(fsdp).lower()}"]
+    res, device, seconds = {}, inputs["device"], {}
+    for tag, dtype, extra in (("fp32", torch.float32, DDP_FP32_SETS), ("bf16", torch.bfloat16, [])):
+        tick = time.perf_counter()
+        cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + extra + sets + inputs["sets"])
+        model, texts = seeded_build(cfg.model, CITYSCAPES_CLASSES, dtype=dtype, device=device,
+                                    seed=int(cfg.training.get("seed", 42)))
+        save_to = inputs.get("save_to") if tag == "fp32" else None
+        built = time.perf_counter()
+        res[tag] = _shard_run(cfg, dtype, model, texts, inputs["batch"], device, save_to)
+        seconds[tag] = {"build": built - tick, "steps_and_save": time.perf_counter() - built}
+        del model
+        torch.cuda.empty_cache()
+    res["seconds"] = seconds
+    return res
+
+
+def _shard_rank(rank: int, world: int, port: int, layout: str, inputs_path: str,
+                out_dir: str, backend: str) -> None:
+    """One rank of `layout`: Gloo ranks go round the visible cards (all on
+    card 0 of a one-card machine), NCCL takes card `rank`.  Joins the group
+    as torchrun's workers do, makes the mesh's layout, runs `_shard_work`
+    and saves its numbers."""
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+
+    entered = time.time()
+    out = os.path.join(out_dir, f"rank{rank}.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets the parent
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        inputs = torch.load(inputs_path, weights_only=False)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if not mesh.maybe_initialize_distributed(backend, inputs["device"], SHARD_TIMEOUT_S):
+            raise AssertionError("the rank did not join its group")
+        mesh.setup_layout(SHARD_LAYOUTS[layout][0])
+        joined = time.time()
+        load_seeded(inputs["weights"])
+        res = _shard_work(inputs, layout)
+        res["coords"] = [mesh.data_rank(), mesh.model_rank()]
+        for tag in ("fp32", "bf16"):  # rank 0's tensors are compared; every rank's digest
+            res[tag]["digest"] = _digest(res[tag]["grads"])  # shows they hold the same
+            if rank:
+                del res[tag]["grads"]
+        res["seconds"].update(start=entered - inputs["spawned_at"], join=joined - entered,
+                              total=time.time() - inputs["spawned_at"])
+        torch.save(res, out)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def rank_context():
+    """The multiprocessing context the phases' ranks start from: a fork
+    server that imported this script, torch and the port once (`main()`
+    starts it before the build phase), so that a rank starts in about a
+    second instead of importing them again (~8 s)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["__main__", "chip_smoke", "torch", "numpy",
+                                "denseclip_vit_multimodal_tpu_torch.train.loop",
+                                "denseclip_vit_multimodal_tpu_torch.parallel.fsdp"])
+    return ctx
+
+
+def start_rank_server() -> None:
+    from multiprocessing import forkserver
+
+    rank_context()
+    forkserver.ensure_running()
+
+
+def _shard_spawn(layout: str, inputs_path: str, out_dir: str, backend: str = "gloo") -> list:
+    world = SHARD_LAYOUTS[layout][2]
+    ctx = rank_context()
+    port = _ddp_free_port()
+    procs = [ctx.Process(target=_shard_rank, args=(r, world, port, layout, inputs_path, out_dir,
+                                                   backend), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.1))
+    hung = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    errors = [open(os.path.join(out_dir, f"rank{i}.pt.err")).read() for i in range(world)
+              if os.path.exists(os.path.join(out_dir, f"rank{i}.pt.err"))]
+    if errors or hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"shard_path {layout}: ranks failed (hung: {hung}, exit codes "
+                             f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+    return [torch.load(os.path.join(out_dir, f"rank{i}.pt"), weights_only=False)
+            for i in range(world)]
+
+
+def phase_shard_path(device: str = "cuda", sets=()) -> dict:
+    """Tensor parallelism and ZeRO-3 over Gloo ranks sharing this card, the
+    heritage preset at full width on a seeded synthetic global batch of 4:
+    (a) `{data: 2}` + `tpu.fsdp`, (b) `{model: 2}`, (c) `{data: 2, model: 2}`
+    + `tpu.fsdp`, each held against this process on the same weights and
+    batch (fp32, seg loss alone, deterministic algorithms: the step-1 loss
+    and the backbone gradients; bf16: the loss and 12 K1 + 12 K2 a rank a
+    step at the local heads), with each rank's parameter + Adam bytes
+    against what the sharding rules put on a JAX device, peak memory and ms
+    a step beside one process's, and (c)'s checkpoint restored bitwise into
+    one process.  `device="cpu"` with `sets` that cut the widths rehearses
+    the phase's control flow on a machine with no card."""
+    import shutil
+
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import restore_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+
+    tick = time.perf_counter()
+    shutil.rmtree(SHARD_WORK_DIR, ignore_errors=True)
+    os.makedirs(SHARD_WORK_DIR)
+    torch.cuda.empty_cache()
+    sets = list(sets)
+    heritage = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + sets)
+    seed = int(heritage.training.get("seed", 42))
+    install_seeded_builds()
+    weights = os.path.join(SHARD_WORK_DIR, "weights.pt")
+    save_seeded(weights, [(heritage.model, CITYSCAPES_CLASSES, seed)])
+    loader = DataLoader(build_dataset(heritage.data, "train"), batch_size=4, seed=seed,
+                        num_threads=4, process_index=0, process_count=1)
+    inputs = {"weights": weights, "batch": next(loader.epoch(0)), "device": device,
+              "sets": sets}
+    res = {"phase": "shard_path", "config": TRAIN_CONFIG, "global_batch": 4,
+           "steps": SHARD_STEPS}
+
+    # the one process first, alone on the card: its times are the baseline
+    one_dir = os.path.join(SHARD_WORK_DIR, "one")
+    one = _shard_work({**inputs, "save_to": one_dir}, "")
+    cfg32 = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS + sets)
+    halves = _ddp_train_case(cfg32, torch.float32, inputs["batch"], True, device,
+                             built=seeded_build(cfg32.model, CITYSCAPES_CLASSES,
+                                                dtype=torch.float32, device=device, seed=seed),
+                             backbone_parts=2)
+    res["one_process"] = {tag: {k: one[tag][k] for k in (
+        "ms_per_step", "peak_gib", "resident_elements", "resident_bytes")}
+        for tag in ("fp32", "bf16")}
+    res["one_process"]["fp32"]["loss_step1"] = one["fp32"]["metrics"]["loss_total"]
+    res["one_process"]["batch_variance_gap_backbone_grad_rel_l2"] = rel_l2(
+        halves["grads"].cpu(), one["fp32"]["grads"])
+    seconds = {"inputs_and_one_process": time.perf_counter() - tick}
+    problems = []
+    for layout, (mesh_spec, fsdp, world) in SHARD_LAYOUTS.items():
+        t0 = time.perf_counter()
+        out_dir = os.path.join(SHARD_WORK_DIR, layout)
+        os.makedirs(out_dir)
+        path = os.path.join(out_dir, "inputs.pt")
+        save_to = os.path.join(out_dir, "ckpt") if layout.startswith("c_") else None
+        torch.save({**inputs, "save_to": save_to, "spawned_at": time.time()}, path)
+        ranks = _shard_spawn(layout, path, out_dir)
+        r0 = ranks[0]
+        entry = {"mesh": mesh_spec, "fsdp": fsdp, "ranks": world,
+                 "coords": [r["coords"] for r in ranks], "rank0_seconds": r0["seconds"]}
+        loss1 = one["fp32"]["metrics"]["loss_total"]
+        entry["fp32"] = {
+            "loss_step1": r0["fp32"]["metrics"]["loss_total"],
+            "loss_rel_diff": abs(r0["fp32"]["metrics"]["loss_total"] - loss1) / abs(loss1),
+            "backbone_grad_rel_l2": rel_l2(r0["fp32"]["grads"], one["fp32"]["grads"]),
+            "one_process_batch_variance_gap": res["one_process"][
+                "batch_variance_gap_backbone_grad_rel_l2"],
+            "ranks_agree": all(r["fp32"]["metrics"] == r0["fp32"]["metrics"] for r in ranks)
+            and all(r["fp32"]["digest"] == r0["fp32"]["digest"] for r in ranks)}
+        loss1b = one["bf16"]["metrics"]["loss_total"]
+        entry["bf16"] = {"loss_step1": r0["bf16"]["metrics"]["loss_total"],
+                         "loss_rel_diff": abs(r0["bf16"]["metrics"]["loss_total"] - loss1b)
+                         / abs(loss1b),
+                         "ranks_agree": all(r["bf16"]["metrics"] == r0["bf16"]["metrics"]
+                                            for r in ranks)}
+        for tag in ("fp32", "bf16"):
+            entry[tag].update({
+                "launches_per_rank": [{k: v for k, v in r[tag]["launches"].items() if v}
+                                      for r in ranks],
+                "k1_k2_shapes_rank0": r0[tag]["k1_k2_shapes"],
+                "resident_elements_per_rank": [r[tag]["resident_elements"] for r in ranks],
+                "jax_device_elements": r0[tag]["jax_elements"],
+                "resident_bytes_per_rank": [r[tag]["resident_bytes"] for r in ranks],
+                "resident_bytes_one_process": one[tag]["resident_bytes"],
+                "ms_per_step_per_rank": [r[tag]["ms_per_step"] for r in ranks],
+                "ms_per_step_one_process": one[tag]["ms_per_step"],
+                "peak_gib_per_rank": [r[tag]["peak_gib"] for r in ranks],
+                "peak_gib_one_process": one[tag]["peak_gib"]})
+        heads = 12 // mesh_spec.get("model", 1)
+        rows = 4 // mesh_spec.get("data", 1)
+        want_shape = [rows, 1664, 3 * heads * 64]
+        for tag, names in (("bf16", ("qkv_attention", "qkv_attention_bwd")),
+                           ("fp32", ("qkv_attention_fp32", "qkv_attention_bwd_fp32"))):
+            want = expected_launches(**{n: 12 for n in names})
+            if device != "cpu" and any(r[tag]["launches"] != want for r in ranks):
+                problems.append(f"{layout}: a {tag} rank did not run 12 K1 + 12 K2 a step")
+            shapes = entry[tag]["k1_k2_shapes_rank0"]
+            if device != "cpu" and any(s["shape"] != want_shape for k in shapes
+                                       for s in shapes[k]):
+                problems.append(f"{layout}: {tag} K1 / K2 not at {want_shape}")
+        if not entry["fp32"]["loss_rel_diff"] <= FP32_LOSS_TOL:
+            problems.append(f"{layout}: fp32 step-1 loss")
+        if not entry["fp32"]["backbone_grad_rel_l2"] <= SHARD_GRAD_TOL:
+            problems.append(f"{layout}: fp32 backbone gradients")
+        if not entry["bf16"]["loss_rel_diff"] <= TRAIN_TOL:
+            problems.append(f"{layout}: bf16 step-1 loss")
+        if not (entry["fp32"]["ranks_agree"] and entry["bf16"]["ranks_agree"]):
+            problems.append(f"{layout}: the ranks disagree")
+        for tag in ("fp32", "bf16"):
+            if any(tuple(e) != tuple(entry[tag]["jax_device_elements"])
+                   for e in entry[tag]["resident_elements_per_rank"]):
+                problems.append(f"{layout}: {tag} resident elements are not JAX's per device")
+        if save_to:
+            file = torch.load(os.path.join(save_to, "checkpoints", "latest"), map_location="cpu",
+                              weights_only=True)
+            ref = torch.load(os.path.join(one_dir, "checkpoints", "latest"), map_location="cpu",
+                             weights_only=True)
+            cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS + sets)
+            fresh, _ = seeded_build(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
+                                    device=device, seed=seed)
+            state = create_train_state(fresh, cfg.training, 1)
+            restore_checkpoint(os.path.join(save_to, "checkpoints", "latest"), state)
+            got = {k: v.cpu() for k, v in fresh.state_dict().items()}
+            opt = state.optimizer.state_dict()["inner"]["state"]
+            same = lambda a, b: a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+                a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+            entry["checkpoint"] = {
+                "keys_and_shapes_equal_one_process": _shape_tree(file) == _shape_tree(ref),
+                "restores_bitwise_into_one_process": all(
+                    same(got[k], file["model"][k]) for k in file["model"]) and all(
+                    same(opt[i][k].cpu(), v) for i, e in file["optimizer"]["inner"]["state"].items()
+                    for k, v in e.items() if torch.is_tensor(v))}
+            if not all(entry["checkpoint"].values()):
+                problems.append(f"{layout}: checkpoint {entry['checkpoint']}")
+            del fresh, state
+        seconds[layout] = time.perf_counter() - t0
+        res[layout] = entry
+        shutil.rmtree(out_dir, ignore_errors=True)
+    if device != "cpu" and torch.cuda.device_count() >= 2:  # (a) under NCCL, a card a rank
+        out_dir = os.path.join(SHARD_WORK_DIR, "nccl")
+        os.makedirs(out_dir)
+        path = os.path.join(out_dir, "inputs.pt")
+        torch.save({**inputs, "spawned_at": time.time()}, path)
+        r0 = _shard_spawn("a_data2_fsdp", path, out_dir, "nccl")[0]
+        res["nccl_a_data2_fsdp"] = {
+            "loss_rel_diff": abs(r0["fp32"]["metrics"]["loss_total"] - loss1) / abs(loss1),
+            "backbone_grad_rel_l2": rel_l2(r0["fp32"]["grads"], one["fp32"]["grads"]),
+            "ms_per_step_per_rank0": {t: r0[t]["ms_per_step"] for t in ("fp32", "bf16")}}
+        if not (res["nccl_a_data2_fsdp"]["loss_rel_diff"] <= FP32_LOSS_TOL
+                and res["nccl_a_data2_fsdp"]["backbone_grad_rel_l2"] <= SHARD_GRAD_TOL):
+            problems.append("NCCL (a): the fp32 step")
+    else:
+        res["nccl_a_data2_fsdp"] = (f"not run: {torch.cuda.device_count()} card visible, and "
+                                    "NCCL takes one card a rank")
+        print("shard_path: NCCL over two cards not run: this machine shows "
+              f"{torch.cuda.device_count()} card", flush=True)
+    seconds["total"] = time.perf_counter() - tick
+    res["seconds"] = seconds
+    shutil.rmtree(SHARD_WORK_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(res)
+    if problems:
+        raise AssertionError(f"shard_path: {problems}")
+    return res
+
+
+def _shape_tree(x):
+    if isinstance(x, dict):
+        return {k: _shape_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_shape_tree(v) for v in x]
+    return (tuple(x.shape), str(x.dtype)) if torch.is_tensor(x) else type(x).__name__
+
+
 def phase_profile(run, frames, path: str = "slide_serving") -> dict:
     """Where the device time of one item of `path` goes (torch.profiler):
     `run` is called on each of `frames` (serving frames, training batches).
@@ -5964,12 +6488,16 @@ def main() -> int:
             seconds[name] = round(time.perf_counter() - tick, 1)
 
     smi = timed("device", phase_device)
+    start_rank_server()  # imports in its own process while the kernels build
     timed("build", phase_build)
+    install_seeded_builds()
     k1_cases = timed("kernel", phase_kernels)
     slide, k1_city, k1_ade, k1_ade_eval = k1_cases[0], k1_cases[-7], k1_cases[-6], k1_cases[-5]
+    k1_local = k1_cases[1]
     k1_vitl_train, k1_vitl, k1_vitl_ref, k1_flash = k1_cases[-4:]
     k2_cases = timed("kernel_bwd", phase_kernel_bwd)
     train_shape, k2_city, k2_ade, k2_vitl = k2_cases[0], k2_cases[-3], k2_cases[-2], k2_cases[-1]
+    k2_local = k2_cases[1]
     flashes = timed("kernel_flash", phase_kernel_flash)
     longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
     serving = timed("kernel_int8", phase_kernel_int8)[0]
@@ -6009,6 +6537,7 @@ def main() -> int:
         vitl_res = timed("vitl14_seg_path", phase_vitl14_seg_path, os.path.join(tmp, "cityscapes"))
     ade_res = timed("ade20k_path", phase_ade20k_path)
     ddp_res = timed("ddp_path", phase_ddp_path)
+    shard_res = timed("shard_path", phase_shard_path)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
@@ -6032,6 +6561,9 @@ def main() -> int:
                             "flash": flash_res["launches"][name],
                             "ddp_training_per_rank": ddp_res["gloo_two_ranks"]["bf16"][
                                 "launches_per_rank"][name],
+                            **{f"shard_{layout}_{tag}_per_rank": shard_res[layout][tag][
+                                "launches_per_rank"][0].get(name, 0)
+                               for layout in SHARD_LAYOUTS for tag in ("bf16", "fp32")},
                             **{f"exported_{tag}_frame": export_res[tag]["launches_per_frame"].get(
                                 name, 0) for tag in ("logits", "int8", "fused")},
                             "serving_concurrency": export_res["launches"][name],
@@ -6069,11 +6601,14 @@ def main() -> int:
          "ade20k_training_shape": at_shape(k1_ade), "ade20k_eval_shape": at_shape(k1_ade_eval),
          "vitl14_training_shape": at_shape(k1_vitl_train), "vitl14_eval_shape": at_shape(k1_vitl),
          "vitl14_reference_protocol_shape": at_shape(k1_vitl_ref),
-         "flash_below_1024_shape": at_shape(k1_flash), **knob_fields(knobs_res, "qkv_attention")},
+         "flash_below_1024_shape": at_shape(k1_flash),
+         "tensor_parallel_local_heads_shape": at_shape(k1_local),
+         **knob_fields(knobs_res, "qkv_attention")},
         {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
                  train_shape, train_res["launches"]["qkv_attention_bwd"]),
          "cityscapes_training_shape": at_shape(k2_city),
          "ade20k_training_shape": at_shape(k2_ade), "vitl14_training_shape": at_shape(k2_vitl),
+         "tensor_parallel_local_heads_shape": at_shape(k2_local),
          **knob_fields(knobs_res, "qkv_attention_bwd")},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),

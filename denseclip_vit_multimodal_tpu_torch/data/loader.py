@@ -8,7 +8,9 @@
   * per-process sharding as JAX's: the epoch's order tiled by `np.resize`
     to ceil(n / P) * P indices, and rank r reads `order[r::P]`, so every
     rank has the same count (the tail wraps round, duplicates included);
-    `process_index` / `process_count` default to the process group's;
+    `process_index` / `process_count` default to the data coordinate and the
+    data axis's size (`parallel/mesh.py`: the ranks of a model group read the
+    same rows);
   * `microbatches` > 1 (gradient accumulation over a group): the global
     batch b is the ranks' JAX batches in rank order, its microbatch i the
     global rows [i m, (i+1) m), and rank r reads its m / P rows of each, in
@@ -47,8 +49,8 @@ class DataLoader:
         self.num_threads = max(1, num_threads)
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.process_index = mesh_lib.rank() if process_index is None else process_index
-        self.process_count = mesh_lib.world_size() if process_count is None else process_count
+        self.process_index = mesh_lib.data_rank() if process_index is None else process_index
+        self.process_count = mesh_lib.data_size() if process_count is None else process_count
         self.microbatches = int(microbatches)
         if self.microbatches > 1 and (batch_size % self.microbatches or not drop_last):
             raise ValueError(f"batch {batch_size} a process does not split into "

@@ -34,8 +34,10 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     core falls back to `auto` where JAX's does: for causal or cross
     attention and in a one-process world, exactly.  Over a process group
     of more than one it raises `NotImplementedError`: the ring itself is
-    not ported (ROADMAP §1 item 1).
-  * `MLP`, `ResidualAttentionBlock` (pre-LN; per-sample drop path when
+    not ported (ROADMAP §1 item 1).  Under tensor parallelism
+    (`parallel/tensor_parallel.py` sets `tp_group`) the layer holds its
+    model rank's heads and runs K1 / K2 on them (not K6).
+  * `MLP` (column- and row-parallel under `tp_group`), `ResidualAttentionBlock` (pre-LN; per-sample drop path when
     training) and `Transformer`, a loop over its blocks that returns
     `(final, taps[L, B, N, D])`, with drop-path rates rising linearly over
     the layers.  `Transformer(remat=...)` takes the `tpu.remat` value
@@ -83,6 +85,7 @@ from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
     qkv_supported,
 )
 from denseclip_vit_multimodal_tpu_torch.parallel import mesh as _mesh
+from denseclip_vit_multimodal_tpu_torch.parallel import tensor_parallel as _tp
 
 ATTN_XLA = "xla"  # plain PyTorch attention everywhere (name kept from the JAX package)
 ATTN_AUTO = "auto"  # the kernels where the dispatch rules hold
@@ -309,6 +312,7 @@ class MultiHeadAttention(nn.Module):
         else:
             self.qkv = proj(3)
         self.out = Linear(dim, dim, dtype=dtype, kernel_init=xavier, gen=gen)
+        self.tp_group = None  # the model group under tensor parallelism
 
     def _qkv_kernel_applicable(self, qkv: torch.Tensor, dim: int) -> bool:
         """The JAX rule: the regime takes any dtype, as the model's two
@@ -349,30 +353,40 @@ class MultiHeadAttention(nn.Module):
         built with `cross=True`).  `pre_ln=(scale, bias, eps)` hands the
         preceding LayerNorm's affine parameters in unapplied, so that K6 can
         serve the whole chain; where it does not, the norm is applied here and
-        the other routes follow.  The parameters are the same either way."""
+        the other routes follow.  The parameters are the same either way.
+        Under tensor parallelism (`tp_group`, `parallel/tensor_parallel.py`)
+        the layer holds its heads' q, k, v rows and out columns: Megatron's f
+        before the projection, its g after the out-projection, K1 / K2 on the
+        local heads; K6 is not taken."""
         if self.cross != (kv is not None):
             raise ValueError("a cross-attention layer takes kv=, a self-attention layer none")
         if kv is not None:
             return self._cross(x, kv)
-        b, n, dim = x.shape
+        b, n, _ = x.shape
+        width = self.qkv.weight.shape[0] // 3  # the local heads' under tensor parallelism
         if pre_ln is not None:
             ln_scale, ln_bias, ln_eps = pre_ln
-            if self._lnqkv_applicable(x, dim):
+            if self.tp_group is None and self._lnqkv_applicable(x, width):
                 out = ln_qkv_attention(x.to(self.qkv.compute_dtype), ln_scale, ln_bias,
                                        self.qkv.weight.t(), self.qkv.bias, self.num_heads,
                                        eps=ln_eps, valid_len=valid_len)
                 return self.out(out)
             x = layer_norm_apply(x, ln_scale, ln_bias, ln_eps).to(self.qkv.compute_dtype)
-        qkv = self.qkv(x)
-        if self._qkv_kernel_applicable(qkv, dim):
+        qkv = self.qkv(_tp.copy_to_model(x, self.tp_group))
+        if self._qkv_kernel_applicable(qkv, width):
             attn = mha_qkv_attention_int8 if self.attn_impl == ATTN_INT8 else mha_qkv_attention
-            return self.out(attn(qkv, self.num_heads, valid_len=valid_len))
-        # strided views of the fused projection (row stride 3 * dim), no copy
-        heads = lambda t: t.view(b, n, self.num_heads, dim // self.num_heads)
-        q, k, v = (heads(t) for t in qkv.split(dim, dim=-1))
+            return self._project(attn(qkv, self.num_heads, valid_len=valid_len))
+        # strided views of the fused projection (row stride 3 * width), no copy
+        heads = lambda t: t.view(b, n, self.num_heads, width // self.num_heads)
+        q, k, v = (heads(t) for t in qkv.split(width, dim=-1))
         out = attention_core(q, k, v, causal=self.causal, impl=self.attn_impl,
                              valid_len=valid_len)
-        return self.out(out.reshape(b, n, dim))
+        return self._project(out.reshape(b, n, width))
+
+    def _project(self, out: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is None:
+            return self.out(out)
+        return _tp.row_parallel(self.out, out, self.tp_group)
 
     def _cross(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
         b, n, dim = x.shape
@@ -391,9 +405,15 @@ class MLP(nn.Module):
         super().__init__()
         self.c_fc = Linear(dim, hidden_mult * dim, dtype=dtype, gen=gen)
         self.c_proj = Linear(hidden_mult * dim, dim, dtype=dtype, gen=gen)
+        self.tp_group = None  # the model group under tensor parallelism
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        """Under tensor parallelism c_fc is column- and c_proj row-parallel
+        over `tp_group` (Megatron's f before, g after)."""
+        if self.tp_group is None:
+            return self.c_proj(quick_gelu(self.c_fc(x)))
+        h = quick_gelu(self.c_fc(_tp.copy_to_model(x, self.tp_group)))
+        return _tp.row_parallel(self.c_proj, h, self.tp_group)
 
 
 # (first global row, global rows) of the batch this process holds while a
@@ -584,13 +604,13 @@ def batch_norm_nhwc(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False) ->
     biased variance.  `F.batch_norm` would store the unbiased variance.
     Over a process group the statistics are the global batch's, as Flax's
     under a data-sharded `jit`: the per-channel sums, sums of squares and
-    counts are all-reduced with autograd, and every rank updates its running
-    statistics with the same values.
+    counts are all-reduced over the data group with autograd, and every rank
+    updates its running statistics with the same values.
     """
     xf = x.float()
     if not train:
         mean, var = bn.running_mean, bn.running_var
-    elif _mesh.is_distributed():
+    elif _mesh.data_size() > 1:
         c = xf.shape[-1]
         count = xf.new_full((1,), float(xf.numel() // c))
         sums = _mesh.all_reduce_sum(torch.cat([xf.sum(dim=(0, 1, 2)),

@@ -14,16 +14,32 @@ the world is one process and ``{data: -1}`` resolves to ``{data: 1}``.
     `WORLD_SIZE`, `LOCAL_RANK`, `MASTER_ADDR` / `MASTER_PORT`) and joins the
     group: NCCL for CUDA, Gloo for the CPU, or the backend it is given.  It
     is a no-op without that environment;
+  * a rank's mesh coordinates are the row-major index of its rank over the
+    spec's axis order (JAX's reshape of the device list); `setup_layout`
+    makes, on every rank and in the same order, one sub-group for each data
+    group (the ranks that share a model coordinate) and for each model
+    group.  `data_rank` / `data_size` and `model_rank` / `model_size` read
+    that layout; without one the data axis is the whole world;
   * `rank` / `world_size` read the group (0 / 1 without one), and every
     reduction below is the identity in a one-process world, so a run
-    without a group is the one-process port's, bit for bit;
+    without a group is the one-process port's, bit for bit.  The batch
+    reductions (`all_reduce_sum`, `sum_across`) run over the data group:
+    the ranks of one model group hold the same rows;
+  * `all_gather` / `reduce_scatter` over a sub-group are the backend's own
+    collectives under NCCL and under Gloo on CPU tensors; under Gloo on
+    CUDA tensors, which takes only `all_reduce` and `broadcast`, the gather
+    is one broadcast of each rank's part and the scatter an all-reduce then
+    a slice.  The choice is made from the group's backend
+    and the tensor's device;
   * `local_batch_size`, `data_axis_is_process_local` and `replicate` follow
-    JAX's `parallel/mesh.py:150-262`;
-  * `check_ported` refuses what this slice does not do, with
-    `NotImplementedError` naming ROADMAP §1 item 1: a `model` or `pipe`
-    axis (or any other axis) over more than one device, `tpu.fsdp` over a
-    data axis of more than one, `attn_impl: ring` over more than one
-    process.  The data axis itself trains (`train/step.py`).
+    JAX's `parallel/mesh.py:150-262` over the data coordinate;
+  * `check_ported` refuses what the port does not do yet, with
+    `NotImplementedError` naming ROADMAP §1 item 1 (the ring, then GPipe):
+    a `pipe` axis (or any axis but `data` and `model`) over more than one
+    device, `tpu.pipeline` over a pipe axis of more than one, and
+    `attn_impl: ring` over more than one process.  The data axis, `tpu.fsdp`
+    and the model axis train (`train/step.py`, `parallel/fsdp.py`,
+    `parallel/tensor_parallel.py`).
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ import torch
 import torch.distributed as dist
 
 DATA_AXIS = "data"
+MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
 ROADMAP_ITEM = "ROADMAP §1 item 1"
 LAUNCH_HINT = ("the port runs one process per card: launch one rank per card with "
@@ -126,37 +143,145 @@ def mesh_over_group(tpu_cfg: Optional[Mapping[str, Any]]) -> Dict[str, int]:
 def check_ported(mesh: Mapping[str, int], tpu_cfg: Optional[Mapping[str, Any]],
                  world: Optional[int] = None) -> None:
     """Raise NotImplementedError for what the port does not do yet over
-    more than one device: any axis but `data`, FSDP, the ring."""
+    more than one device: a pipe axis (any axis but data and model), the
+    GPipe pipeline, the ring."""
     tpu_cfg = tpu_cfg or {}
     world = world_size() if world is None else world
-    acting = [f"tpu.mesh axis {name!r} over {size} devices (tensor / pipeline parallelism)"
-              for name, size in mesh.items() if name != DATA_AXIS and size > 1]
-    data = mesh.get(DATA_AXIS, 1)
-    if tpu_cfg.get("fsdp") and data > 1:
-        acting.append(f"tpu.fsdp over the {data}-way data axis")
+    acting = [f"tpu.mesh axis {name!r} over {size} devices (pipeline parallelism)"
+              for name, size in mesh.items()
+              if name not in (DATA_AXIS, MODEL_AXIS) and size > 1]
     if tpu_cfg.get("pipeline") is not None and mesh.get(PIPE_AXIS, 1) > 1:
         acting.append(f"tpu.pipeline over the {mesh[PIPE_AXIS]}-way pipe axis")
     if str(tpu_cfg.get("attn_impl", "auto")) == "ring" and world > 1:
         acting.append(f"attn_impl: ring over {world} processes")
     if acting:
         raise NotImplementedError(
-            f"{', '.join(acting)}: not ported yet (parallel/, {ROADMAP_ITEM}); the port trains "
-            "over the data axis only")
+            f"{', '.join(acting)}: not ported yet (parallel/ring_attention.py, then "
+            f"parallel/pipeline.py: {ROADMAP_ITEM}); the port trains over the data and model "
+            "axes, with tpu.fsdp")
+
+
+# --------------------------------------------------------------------------
+# The mesh over the ranks: coordinates, sub-groups
+# --------------------------------------------------------------------------
+
+
+def mesh_coords(mesh: Mapping[str, int], rank_: int) -> Dict[str, int]:
+    """Rank `rank_`'s coordinate on each axis: the row-major index over the
+    spec's axis order, as JAX reshapes its device list into the mesh."""
+    coords = {}
+    for name in reversed(list(mesh)):
+        coords[name] = rank_ % mesh[name]
+        rank_ //= mesh[name]
+    return {name: coords[name] for name in mesh}
+
+
+def axis_ranks(mesh: Mapping[str, int], rank_: int, axis: str) -> list:
+    """The ranks that share every coordinate of `rank_` but `axis`'s, in
+    the order of that axis (`rank_`'s group along `axis`)."""
+    names = list(mesh)
+    stride = math.prod(mesh[n] for n in names[names.index(axis) + 1:]) if axis in mesh else 1
+    first = rank_ - mesh_coords(mesh, rank_).get(axis, 0) * stride
+    return [first + i * stride for i in range(mesh.get(axis, 1))]
+
+
+class Layout:
+    """This rank's place on the mesh: its data and model coordinates and the
+    sub-groups of its data and model axes (None: the axis is the world, or
+    the rank is alone on it)."""
+
+    def __init__(self, mesh: Mapping[str, int], rank_: int, data_group=None, model_group=None):
+        self.mesh = dict(mesh)
+        self.coords = mesh_coords(self.mesh, rank_)
+        self.data_size = self.mesh.get(DATA_AXIS, 1)
+        self.model_size = self.mesh.get(MODEL_AXIS, 1)
+        self.data_rank = self.coords.get(DATA_AXIS, 0)
+        self.model_rank = self.coords.get(MODEL_AXIS, 0)
+        self.data_group, self.model_group = data_group, model_group
+
+
+_LAYOUT: Optional[Layout] = None
+
+
+def setup_layout(mesh: Mapping[str, int]) -> Layout:
+    """Make the layout of `mesh` over the group current: every rank creates,
+    in the same order, one `dist.new_group` for each data group and then one
+    for each model group (a group of one rank, or the whole world, is not
+    created).  In a one-process world the layout is the trivial one."""
+    global _LAYOUT
+    world, me = world_size(), rank()
+    if math.prod(mesh.values()) != world:
+        raise ValueError(f"mesh {dict(mesh)} does not span the {world} processes")
+    groups = {}
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        size = mesh.get(axis, 1)
+        if world == 1 or size == 1:
+            continue
+        if size == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        seen = set()
+        for r in range(world):
+            ranks = tuple(axis_ranks(mesh, r, axis))
+            if ranks in seen:
+                continue
+            seen.add(ranks)
+            group = dist.new_group(list(ranks))
+            if me in ranks:
+                groups[axis] = group
+    _LAYOUT = Layout(mesh, me, groups.get(DATA_AXIS), groups.get(MODEL_AXIS))
+    return _LAYOUT
+
+
+def reset_layout() -> None:
+    """Forget the layout: the data axis is the whole world again."""
+    global _LAYOUT
+    _LAYOUT = None
+
+
+def layout() -> Optional[Layout]:
+    return _LAYOUT
+
+
+def data_size() -> int:
+    return _LAYOUT.data_size if _LAYOUT is not None else world_size()
+
+
+def data_rank() -> int:
+    return _LAYOUT.data_rank if _LAYOUT is not None else rank()
+
+
+def model_size() -> int:
+    return _LAYOUT.model_size if _LAYOUT is not None else 1
+
+
+def model_rank() -> int:
+    return _LAYOUT.model_rank if _LAYOUT is not None else 0
+
+
+def data_group():
+    """The data axis's group (None: the default group, the whole world)."""
+    return _LAYOUT.data_group if _LAYOUT is not None else None
+
+
+def model_group():
+    return _LAYOUT.model_group if _LAYOUT is not None else None
 
 
 def data_axis_is_process_local(mesh: Mapping[str, int], axis: str = DATA_AXIS) -> bool:
-    """True iff each process owns a contiguous, disjoint 1/P slice of the
-    `axis`-sharded batch: one device a process, `axis` over every process."""
+    """True iff each process owns one device of the mesh, so that the ranks
+    of data coordinate i read the contiguous, disjoint i-th 1/D slice of the
+    `axis`-sharded batch (the ranks of one model group read the same rows)."""
     nproc = world_size()
-    return nproc == 1 or mesh.get(axis, 1) == nproc
+    return nproc == 1 or math.prod(mesh.values()) == nproc
 
 
 def local_batch_size(global_batch: int) -> int:
     """Per-process batch size for a global batch sharded over the data axis."""
-    nproc = world_size()
-    if global_batch % nproc:
-        raise ValueError(f"global batch {global_batch} not divisible by {nproc} processes")
-    return global_batch // nproc
+    ways = data_size()
+    if global_batch % ways:
+        raise ValueError(f"global batch {global_batch} not divisible by {ways} processes")
+    return global_batch // ways
 
 
 def replicate(module: torch.nn.Module) -> torch.nn.Module:
@@ -179,37 +304,40 @@ def replicate(module: torch.nn.Module) -> torch.nn.Module:
 
 
 # --------------------------------------------------------------------------
-# Reductions over the group: each is the identity in a one-process world
+# Reductions over the data group (the batch): each is the identity where the
+# data axis is one process
 # --------------------------------------------------------------------------
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad)
+        return _AllReduceSum.apply(grad, ctx.group), None
 
 
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks, differentiable: its backward sums the ranks'
-    gradients, so that each rank's gradient is that of the sum of every
-    rank's copy of a loss built on it (`train/losses.py`)."""
-    if not is_distributed():
+    """The sum over the data group, differentiable: its backward sums the
+    ranks' gradients, so that each rank's gradient is that of the sum of
+    every rank's copy of a loss built on it (`train/losses.py`)."""
+    if data_size() == 1:
         return x
-    return _AllReduceSum.apply(x)
+    return _AllReduceSum.apply(x, data_group())
 
 
-def sum_across(x: torch.Tensor) -> torch.Tensor:
-    """The sum over ranks of a tensor outside autograd (metric sums, counts)."""
-    if not is_distributed():
+def sum_across(x: torch.Tensor, world: bool = False) -> torch.Tensor:
+    """The sum over the data group (with `world`, over every rank) of a
+    tensor outside autograd (metric sums, counts, votes)."""
+    if (world_size() if world else data_size()) == 1:
         return x
     x = x.detach().clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=None if world else data_group())
     return x
 
 
@@ -227,6 +355,58 @@ def gather_rows(x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
     full[offsets[r]:offsets[r + 1]] = x
     dist.all_reduce(full)
     return full
+
+
+# --------------------------------------------------------------------------
+# Collectives over a sub-group (FSDP, tensor parallelism)
+# --------------------------------------------------------------------------
+
+
+def group_size(group) -> int:
+    return dist.get_world_size(group) if dist.is_available() and dist.is_initialized() else 1
+
+
+def _native(x: torch.Tensor, group) -> bool:
+    """Whether the group's backend runs all-gather / reduce-scatter on `x`:
+    NCCL, or Gloo on a CPU tensor (Gloo on CUDA tensors takes only
+    all_reduce and broadcast)."""
+    return dist.get_backend(group) != "gloo" or x.device.type == "cpu"
+
+
+def all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's ranks' `x` concatenated along dim 0 in group-rank order."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    if _native(x, group):
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+    rows = x.shape[0]
+    for i in range(n):  # each rank's part by one broadcast: exact, and half an all-reduce's bytes
+        part = out[i * rows:(i + 1) * rows]
+        if i == dist.get_rank(group):
+            part.copy_(x)
+        dist.broadcast(part, src=dist.get_global_rank(group or dist.group.WORLD, i), group=group)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of `x`, of which this rank keeps its 1/n along dim 0."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    x = x.contiguous()
+    rows = x.shape[0] // n
+    if _native(x, group):
+        out = x.new_empty((rows,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    x = x.clone()
+    dist.all_reduce(x, group=group)
+    me = dist.get_rank(group)
+    return x[me * rows:(me + 1) * rows].clone()
 
 
 def all_gather_object(obj) -> list:

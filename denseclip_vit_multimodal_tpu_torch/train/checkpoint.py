@@ -15,6 +15,13 @@ file and repoints `latest` / `best`, and every rank waits at a barrier
 before it returns (JAX `train/checkpoint.py:128-152`), so no rank reads a
 checkpoint before it is whole; `restore_checkpoint` / `load_model_weights`
 give every rank the same file's state.
+
+A sharded state (`parallel/fsdp.py`: tensor parallelism, `tpu.fsdp`) saves
+the file a one-process run writes: every rank takes part in putting each
+tensor back together (`full_state_dict`, `full_optimizer_state`: full
+tensors, the same keys, the optimizer's state keyed in the unsharded
+order), and rank 0 writes it.  A restore slices that file for the layout it
+is loaded into, whichever layout wrote it (JAX's topology portability).
 """
 
 from __future__ import annotations
@@ -51,23 +58,24 @@ def save_checkpoint(work_dir: str, state: TrainState, epoch: int,
     name = f"epoch_{epoch}.pt"
     path = os.path.join(base, name)
     try:
+        sharding = state.sharding
+        if sharding is not None:  # every rank takes part in putting the tensors together
+            model = sharding.full_state_dict(state.model)
+            optimizer = sharding.full_optimizer_state(state.model, state.optimizer)
         if mesh_lib.rank() == 0:
-            _write(base, name, path, state, epoch, best_metric, is_best)
+            if sharding is None:
+                model, optimizer = state.model.state_dict(), state.optimizer.state_dict()
+            _write(base, name, path, {
+                "model": model, "optimizer": optimizer, "step": int(state.step),
+                "epoch": int(epoch),
+                "best_metric": -1.0 if best_metric is None else float(best_metric)}, is_best)
     finally:
         mesh_lib.barrier()
     return path
 
 
-def _write(base: str, name: str, path: str, state: TrainState, epoch: int,
-           best_metric: Optional[float], is_best: bool) -> None:
+def _write(base: str, name: str, path: str, payload: dict, is_best: bool) -> None:
     os.makedirs(base, exist_ok=True)
-    payload = {
-        "model": state.model.state_dict(),
-        "optimizer": state.optimizer.state_dict(),
-        "step": int(state.step),
-        "epoch": int(epoch),
-        "best_metric": -1.0 if best_metric is None else float(best_metric),
-    }
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -95,8 +103,12 @@ def restore_checkpoint(path_or_work_dir: str, state: TrainState, which: str = "l
     """Load a checkpoint file, or a work dir's `checkpoints/{which}` (latest
     or best), into `state` in place.  Returns (epoch, best_metric)."""
     payload = _load_payload(path_or_work_dir, which, next(state.model.parameters()).device)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if state.sharding is not None:
+        state.sharding.load_state_dict(state.model, payload["model"])
+        state.sharding.load_optimizer_state(state.model, state.optimizer, payload["optimizer"])
+    else:
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return int(payload["epoch"]), float(payload["best_metric"])
 
@@ -105,6 +117,12 @@ def load_model_weights(path_or_work_dir: str, model: torch.nn.Module, which: str
                        ) -> int:
     """Load only the model's weights and BatchNorm statistics from a
     checkpoint (no optimizer); returns the checkpoint's epoch."""
+    from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import sharding_of
+
     payload = _load_payload(path_or_work_dir, which, next(model.parameters()).device)
-    model.load_state_dict(payload["model"])
+    sharding = sharding_of(model)
+    if sharding is not None:
+        sharding.load_state_dict(model, payload["model"])
+    else:
+        model.load_state_dict(payload["model"])
     return int(payload["epoch"])

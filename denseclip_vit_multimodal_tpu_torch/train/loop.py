@@ -36,8 +36,12 @@ Data parallelism (`parallel/mesh.py`): `train` first joins the process group
 `torchrun` describes (`tools/dist_train.sh`; none: one process), as JAX's
 `:303` bootstraps.  The `tpu.mesh` spec resolves over the group's world
 size, one card a rank, with JAX's `ValueError` texts, before the data and
-the model are built; what the port does not do over several devices (FSDP,
-tensor, pipeline and ring parallelism) raises `NotImplementedError`.
+the model are built; what the port does not do over several devices
+(pipeline and ring parallelism) raises `NotImplementedError`.  A `model`
+axis and `tpu.fsdp` shard the train state after it is built, as JAX's
+`:462-485` does (`parallel/fsdp.py::shard_train_state`: tensor parallelism
+over the model groups, ZeRO-3 over the data groups); the data coordinate
+then takes the place of the rank below.
 `training.batch_size` is the GLOBAL batch: it must divide by the data axis
 (JAX's `ValueError`), and each rank's loader reads its rank-strided share
 (`data/loader.py`).  Every rank checks that `model.clip_pretrained` exists
@@ -68,6 +72,8 @@ from denseclip_vit_multimodal_tpu_torch.data.augment import augment_config_from_
 from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset, to_device
 from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES, build_denseclip
 from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
+from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import shard_train_state
+from denseclip_vit_multimodal_tpu_torch.parallel.sharding_rules import FSDP_MIN_SIZE
 from denseclip_vit_multimodal_tpu_torch.train import checkpoint as ckpt_lib
 from denseclip_vit_multimodal_tpu_torch.train.clip_import import load_clip_into_model
 from denseclip_vit_multimodal_tpu_torch.train.metrics import (
@@ -293,6 +299,7 @@ def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[
                       shutdown)
     finally:
         shutdown.restore()
+        mesh_lib.reset_layout()
         for handler in list(logger.handlers):
             handler.close()
             logger.removeHandler(handler)
@@ -315,6 +322,8 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
         logger.info("%d cards visible, one process trains on one: tools/dist_train.sh runs "
                     "a process a card", torch.cuda.device_count())
     mesh_lib.check_ported(mesh, tpu_cfg)
+    mesh_lib.setup_layout(mesh)
+    world, rank = mesh_lib.data_size(), mesh_lib.data_rank()  # the batch goes by data coordinate
     if not mesh_lib.data_axis_is_process_local(mesh):
         raise ValueError(
             f"tpu.mesh {mesh} does not give each process a contiguous slice of the data axis "
@@ -365,7 +374,7 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                     n_vis, n_txt)
     elif clip_path:
         logger.warning("clip_pretrained %s not found; training from scratch", clip_path)
-    if world > 1:
+    if mesh_lib.is_distributed():
         # every rank builds its replica from its own disk: a file that some
         # ranks lack would leave the replicas different
         flags = mesh_lib.all_gather_object(bool(clip_path and os.path.exists(str(clip_path))))
@@ -377,6 +386,16 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     mesh_lib.replicate(model)
 
     state = create_train_state(model, training_cfg, steps_per_epoch)
+    fsdp = bool(tpu_cfg.get("fsdp", False))
+    if mesh_lib.MODEL_AXIS in mesh or fsdp:
+        shard_train_state(state, mesh, fsdp=fsdp,
+                          fsdp_min_size=int(tpu_cfg.get("fsdp_min_size", FSDP_MIN_SIZE)))
+        if mesh_lib.MODEL_AXIS in mesh:
+            logger.info("tensor-parallel params over %d-way model axis",
+                        mesh[mesh_lib.MODEL_AXIS])
+        if fsdp:
+            logger.info("FSDP: params + optimizer state sharded over the %d-way data axis "
+                        "(tpu.fsdp)", mesh.get(mesh_lib.DATA_AXIS, 1))
     logger.info("frozen modules: %s", list(frozen_modules_from_cfg(training_cfg)))
     silog_cfg = training_cfg.get("silog_loss", {}) or {}
     train_step = train_step_from_cfg(texts, training_cfg, data_cfg, seed)
@@ -406,8 +425,8 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
     last_val: Dict[str, float] = {}
     reached_epoch = None
     stop_requested = lambda: (mesh_lib.sum_across(torch.tensor(
-        [float(shutdown.requested)], device=device)).item() > 0 if world > 1
-        else shutdown.requested)
+        [float(shutdown.requested)], device=device), world=True).item() > 0
+        if mesh_lib.is_distributed() else shutdown.requested)
     log_path = os.path.join(work_dir, "train_log.jsonl" if is_main else os.devnull)
     with open(log_path, "a") as log_file:
         for epoch in range(start_epoch, epochs):

@@ -10,9 +10,10 @@ Both reduce in fp32 whatever the activations' dtype, and mask with `where`
 instead of boolean indexing, so they never synchronise with the host.
 
 Over a process group both are the global batch's loss, as JAX's under a
-data-sharded batch: the sums are all-reduced with autograd and the valid
-counts without (`parallel/mesh.py`), so every rank holds the same value and
-the sum of the ranks' gradients is world size times the gradient of the
+data-sharded batch: the sums are all-reduced over the data group with
+autograd and the valid counts without (`parallel/mesh.py`; the ranks of a
+model group hold the same rows), so every rank holds the same value and the
+sum of the data group's gradients is its size times the gradient of the
 global loss, which the step's gradient average divides back out.  In a
 one-process world the arithmetic is the one-process port's.
 """
@@ -40,7 +41,7 @@ def cross_entropy_loss(
     picked = (logits * F.one_hot(safe, logits.shape[-1]).to(logits.dtype)).sum(dim=-1)
     nll = torch.where(valid, lse - picked, torch.zeros_like(lse))
     count = valid.sum()
-    if mesh_lib.is_distributed():
+    if mesh_lib.data_size() > 1:
         total, count = mesh_lib.all_reduce_sum(nll.sum()), mesh_lib.sum_across(count)
         return torch.where(count > 0, total / count.clamp(min=1), total.new_zeros(()))
     return torch.where(count > 0, nll.sum() / count.clamp(min=1), nll.new_zeros(()))
@@ -68,7 +69,7 @@ def silog_loss(
     else:
         count = torch.tensor(float(log_diff.numel()), device=log_diff.device)
     sq_sum, sum_ = log_diff.square().sum(), log_diff.sum()
-    if mesh_lib.is_distributed():
+    if mesh_lib.data_size() > 1:
         sq_sum, sum_ = mesh_lib.all_reduce_sum(torch.stack([sq_sum, sum_])).unbind()
         count = mesh_lib.sum_across(count)
     safe = count.clamp(min=1.0)

@@ -111,12 +111,13 @@ def finalize_depth_errors(sums: Dict[str, torch.Tensor], count: torch.Tensor
 
 
 def sum_confusion(cm: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """The confusion matrix summed over the ranks (exact: int32 counts)."""
+    """The confusion matrix summed over the data group (exact: int32
+    counts; the ranks of a model group scored the same rows)."""
     return None if cm is None else mesh_lib.sum_across(cm)
 
 
 def sum_depth_errors(sums: Optional[Dict[str, torch.Tensor]], count: Optional[torch.Tensor]):
-    """The depth error sums and count summed over the ranks, in one all-reduce."""
+    """The depth error sums and count summed over the data group, in one all-reduce."""
     if sums is None:
         return None, count
     keys = sorted(sums)

@@ -22,6 +22,12 @@ parameters with no path to the loss are left so: on the flagship `contexts`,
 `vis_proj` and `global_proj` (nothing reads the score map); with a context
 decoder or score concatenation (the ResNet presets) they, `gamma` and the
 decoder get their real gradients, through the frozen text tower.
+
+Over a sharded state (`parallel/fsdp.py`: tensor parallelism, ZeRO-3) the
+optimizer runs on each rank's parts of the parameters as they are (AdamW
+and SGD are elementwise, so its moments take the same parts); the decay
+mask and the lr multipliers follow the full parameter's name, and the
+clip's norm stays the one global norm (`_squares`).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 from torch import nn
 
 from denseclip_vit_multimodal_tpu_torch.models.layers import LayerNorm
+from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 
 FROZEN = "frozen"
 DEFAULT_FROZEN_MODULES = ("backbone", "text_encoder")
@@ -84,6 +91,7 @@ class Optimizer:
             raise ValueError(f"Unsupported optimizer type: {opt_type}")
         lr_mults = dict(lr_mults or {})
         self.schedule = schedule
+        self.sharding = None  # parallel/fsdp.py::Sharding, once the state is sharded
         self.clip_grad_norm = float(clip_grad_norm) if clip_grad_norm else None
         self.count = 0  # updates applied so far
         groups: Dict[Tuple[str, bool], list] = {}
@@ -94,6 +102,7 @@ class Optimizer:
                 decay = opt_type == "sgd" or decays(model, name, p)
                 groups.setdefault((label, decay), []).append(p)
         self.params = [p for ps in groups.values() for p in ps]
+        self._names = {n: p for n, p in model.named_parameters() if p.requires_grad}
         param_groups = [
             {"params": ps, "mult": float(lr_mults.get(label, 1.0)),
              "weight_decay": weight_decay if decay else 0.0}
@@ -120,7 +129,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         if self.clip_grad_norm:
-            norm = torch.sqrt(sum((p.grad.float() ** 2).sum() for p in self.params))
+            norm = torch.sqrt(self._squares())
             factor = torch.where(norm < self.clip_grad_norm, torch.ones_like(norm),
                                  self.clip_grad_norm / norm)
             for p in self.params:
@@ -130,6 +139,16 @@ class Optimizer:
             group["lr"] = lr * group["mult"]
         self.inner.step()
         self.count += 1
+
+    def _squares(self) -> torch.Tensor:
+        """The sum of squares of every trainable gradient: over a sharded
+        state each rank adds its parts, each value once (a part held by k
+        ranks weighs 1/k), and the sum is all-reduced over every rank."""
+        if self.sharding is None:
+            return sum((p.grad.float() ** 2).sum() for p in self.params)
+        weights = {id(p): self.sharding.norm_weight(n) for n, p in self._names.items()}
+        total = sum((p.grad.float() ** 2).sum() * weights[id(p)] for p in self.params)
+        return mesh_lib.sum_across(total, world=True)
 
     def state_dict(self) -> dict:
         return {"inner": self.inner.state_dict(), "count": self.count}
@@ -173,6 +192,7 @@ class TrainState:
     model: nn.Module
     optimizer: Optimizer
     step: int = 0
+    sharding: Optional[object] = None  # parallel/fsdp.py::Sharding over a model / data axis
 
 
 def create_train_state(model: nn.Module, training_cfg, steps_per_epoch: int,

@@ -38,6 +38,19 @@ refuses, and the one reduction per step is JAX's (`psum` of the
 accumulated gradients).  On a skip no rank reduces anything.  In a
 one-process world nothing of this runs: the step is the one-process port's.
 
+With a model axis (`tpu.mesh: {data: D, model: M}`) P is the data axis:
+the rows, the masks, the losses, BatchNorm and the gradient mean go by the
+rank's data coordinate and over its data group, and the M ranks of a model
+group hold the same rows (tensor parallelism, `parallel/tensor_parallel.py`).
+Under `tpu.fsdp` the gradients of the parameters sharded over `data` are
+reduce-scattered as the backward reaches them (`parallel/fsdp.py`; they are
+reduced on a skip too), and the all-reduce takes the rest.  What a model
+group holds whole (LayerNorms, biases after a row-parallel layer, the neck,
+the heads) each of its ranks computes from the same values, but not to the
+same bits on CUDA (the bilinear resizes' backward adds by atomics): those
+gradients are averaged over the model group too, so that the copies never
+drift apart (`Sharding.gradient_groups`).
+
 The eval step follows the reference's validate protocol: the input resized to
 the crop, predictions resized back to the labels' size, then the confusion
 matrix, the depth error sums and the validation losses, all on the device.
@@ -72,11 +85,17 @@ def _step_seed(seed: int, step: int, stream: int) -> int:
 _BUCKET = 1 << 24  # elements of one gradient all-reduce (64 MiB in fp32)
 
 
-def average_gradients(params) -> None:
-    """All-reduce the parameters' gradients over the group and divide by
-    its size, in flat buckets of one dtype; gradients that are None stay
-    None (they are None on every rank).  The identity in a one-process world."""
-    world = mesh_lib.world_size()
+_GROUPS = {"data": lambda: (mesh_lib.data_group(), mesh_lib.data_size()),
+           "model": lambda: (mesh_lib.model_group(), mesh_lib.model_size()),
+           "world": lambda: (None, mesh_lib.world_size())}
+
+
+def average_gradients(params, over: str = "data") -> None:
+    """All-reduce the parameters' gradients over the data group (`over`:
+    or the model group, or every rank) and divide by its size, in flat
+    buckets of one dtype; gradients that are None stay None (they are None
+    on every rank).  The identity where the group is one process."""
+    group, world = _GROUPS[over]()
     if world == 1:
         return
     grads = [p.grad for p in params if p.grad is not None]
@@ -88,7 +107,7 @@ def average_gradients(params) -> None:
         buckets[-1].append(g)
     for bucket in buckets:
         flat = _flatten_dense_tensors(bucket)
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=group)
         flat.div_(world)
         for g, reduced in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
             g.copy_(reduced)
@@ -144,7 +163,7 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         model, opt = state.model, state.optimizer
         device = batch["image"].device
-        world, rank = mesh_lib.world_size(), mesh_lib.rank()
+        world, rank = mesh_lib.data_size(), mesh_lib.data_rank()
         aug_gen = torch.Generator().manual_seed(_step_seed(seed, state.step, 0))
         drop_gen = torch.Generator(device=device).manual_seed(_step_seed(seed, state.step, 1))
         rows, total, micro, per = microbatch_rows(batch["image"].shape[0], grad_accum_steps,
@@ -162,12 +181,18 @@ def make_train_step(
             (total_loss / grad_accum_steps).backward()
             for k, v in parts.items():
                 sums[k] = sums.get(k, 0.0) + v.detach() / grad_accum_steps
+        if state.sharding is not None:  # the data-sharded gradients, reduce-scattered
+            state.sharding.finish_backward()
         names = sorted(sums)
         values = dict(zip(names, torch.stack([sums[k] for k in names]).tolist()))
         finite = math.isfinite(values["loss_total"])  # global: the same on every rank
         lr = opt.lr
         if finite:
-            average_gradients(opt.params)
+            if state.sharding is None:
+                average_gradients(opt.params)
+            else:
+                for over, params in state.sharding.gradient_groups(opt._names).items():
+                    average_gradients(params, over)
             opt.step()
         else:
             with torch.no_grad():

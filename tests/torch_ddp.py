@@ -112,13 +112,13 @@ def start(payload: dict, world: int = 2, timeout: float = 300.0) -> Ranks:
 # --------------------------------------------------------------------------
 
 
-def _model(cfg, state_dict=None, seed: int = 0):
+def _model(cfg, state_dict=None, seed: int = 0, remat=False):
     from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
         CITYSCAPES_CLASSES,
         build_denseclip,
     )
 
-    model, texts = build_denseclip(cfg, CITYSCAPES_CLASSES, device="cpu", seed=seed)
+    model, texts = build_denseclip(cfg, CITYSCAPES_CLASSES, device="cpu", seed=seed, remat=remat)
     if state_dict is not None:
         model.load_state_dict(state_dict)
     return model, texts
@@ -238,3 +238,78 @@ def train_and_resume(rank: int, world: int, p: dict) -> dict:
         loop.ckpt_lib.save_checkpoint = inner
     return {"saved": saved, "first": first, "then": then,
             "files": sorted(os.listdir(p["work_dir"]))}
+
+
+def sharded_steps(rank: int, world: int, p: dict) -> dict:
+    """`len(p["batches"])` train steps of the port with the state sharded
+    over `p["mesh"]` (tensor parallelism over a model axis, ZeRO-3 over the
+    data axis under `p["fsdp"]`), each on this rank's rows by its data
+    coordinate: every step's metrics, the full state after them (put back
+    together from the ranks' parts), the elements this rank holds and the
+    elements JAX's specs put on a device.  A checkpoint is saved to
+    `p["save_to"]` where it is given; `p["remat"]` is the `tpu.remat` value.  In the parent (one process) the state
+    is not sharded: the reference."""
+    from denseclip_vit_multimodal_tpu_torch.data.augment import AugmentConfig
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import (
+        resident_elements,
+        shard_train_state,
+    )
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import save_checkpoint
+    from denseclip_vit_multimodal_tpu_torch.train.step import make_train_step
+
+    model, texts = _model(p["cfg"], p["state_dict"], remat=p.get("remat", False))
+    state = _state(model, p)
+    sharding = None
+    if world > 1:
+        mesh.setup_layout(p["mesh"])
+        sharding = shard_train_state(state, p["mesh"], fsdp=p["fsdp"],
+                                     fsdp_min_size=p.get("min_size", 2 ** 15))
+    try:
+        step = make_train_step(texts, AugmentConfig(**p["aug"]), grad_accum_steps=p["accum"],
+                               seed=p.get("seed", 0))
+        metrics = [step(state, _local_rows(b, mesh.data_rank(), mesh.data_size(), p["accum"]))
+                   for b in p["batches"]]
+        full = (sharding.full_state_dict(model) if sharding is not None
+                else {k: v.clone() for k, v in model.state_dict().items()})
+        out = {"metrics": metrics, "state": full, "count": state.optimizer.count,
+               "resident": resident_elements(model, state.optimizer),
+               "coords": (mesh.data_rank(), mesh.model_rank())}
+        if sharding is not None:
+            frozen = {n for n, q in model.named_parameters() if not q.requires_grad}
+            out["jax_elements"] = sharding.jax_elements(frozen)
+            out["heads"] = {n: m.num_heads for n, m in model.named_modules()
+                            if hasattr(m, "tp_group") and hasattr(m, "num_heads")}
+        if p.get("save_to"):
+            save_checkpoint(p["save_to"], state, 0)
+        return out
+    finally:
+        mesh.reset_layout()
+
+
+def restore_sharded(rank: int, world: int, p: dict) -> dict:
+    """`restore_checkpoint` of `p["path"]` into a fresh state sharded over
+    `p["mesh"]` (one process: not sharded), then the full model and
+    optimizer state put back together, and this rank's own tensors."""
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import shard_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.checkpoint import restore_checkpoint
+
+    model, _ = _model(p["cfg"], p["state_dict"])
+    state = _state(model, p)
+    sharding = None
+    if world > 1:
+        mesh.setup_layout(p["mesh"])
+        sharding = shard_train_state(state, p["mesh"], fsdp=p["fsdp"],
+                                     fsdp_min_size=p.get("min_size", 2 ** 15))
+    try:
+        epoch, _ = restore_checkpoint(p["path"], state)
+        local = {k: v.clone() for k, v in model.state_dict().items()}
+        if sharding is None:
+            return {"model": local, "optimizer": state.optimizer.state_dict(), "epoch": epoch,
+                    "step": state.step}
+        return {"model": sharding.full_state_dict(model),
+                "optimizer": sharding.full_optimizer_state(model, state.optimizer),
+                "local": local, "epoch": epoch, "step": state.step}
+    finally:
+        mesh.reset_layout()
