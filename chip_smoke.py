@@ -331,6 +331,26 @@ phases that each print one JSON line:
                   (c)'s checkpoint has the one-process file's keys and shapes
                   and restores bitwise into one process; NCCL over two cards
                   only where two are visible.
+ 32. ring_path  — `attn_impl: ring` (`parallel/ring_attention.py`) over two
+                  Gloo ranks sharing this card: K3 and K3's backward on one
+                  of the ring's blocks ([2, 4672, 12, 64], kv 4545, the
+                  backward under statistics merged with a kv-4672 block)
+                  against their plain versions in bf16 and fp32; the ring at
+                  [2, 9344, 12, 64], valid 9217, against one process's
+                  `flash_attention` (K4 / K4b), output and dq / dk / dv, 2
+                  K3 + 2 K3 backward a rank a call; the heritage preset at
+                  crop 1536 with `ring` under `{data: 2}`, fp32, against one
+                  process: the step-1 loss and backbone gradients, 24 K3 fp32
+                  + 24 K3 backward fp32 a rank, ms of the step, peak memory.
+ 33. pipe_path  — GPipe (`parallel/pipeline.py`) over Gloo ranks sharing this
+                  card: the heritage preset at crop 640, global batch 4,
+                  under `{pipe: 2}` and `{data: 2, pipe: 2}` with 2
+                  microbatches, fp32 and bf16, against shard_path's one
+                  process: the step-1 loss (fp32 <= 1e-5, bf16 <= 5e-2), the
+                  fp32 backbone gradients <= 5e-3 rel. L2, 12 K1 + 12 K2 a
+                  rank at [2, 1664, 2304] / [1, 1664, 2304], parameter + Adam
+                  bytes a rank, ms a step; the bf16 gradients printed beside
+                  shard_path's `{data: 2}` ones.
 
 After the build phase every `build_denseclip` of this process goes through
 `seeded_build`: a configuration's seeded weights are drawn once and later
@@ -345,8 +365,9 @@ decodes on one thread, to keep the script near 700 s; since ddp_path came,
 cityscapes_path times its loader over one batch a thread count (not the
 epoch), and the paths after it (rn50_path, vitl14_seg_path) read the tree's
 arrays from filter-0 PNGs (Paeth's unfilter, which cityscapes_path measures,
-took most of their time); the seconds of every phase are printed before the
-`kernels` line.
+took most of their time); since ring_path and pipe_path came, the tree's two
+writes encode their files on threads and the ring's model runs one step; the
+seconds of every phase are printed before the `kernels` line.
 
 Then the `kernels` line, the nvidia-smi line and, last, the result line.
 Exits non-zero, printing no result, when there is no CUDA device or any
@@ -608,6 +629,8 @@ def phase_kernels() -> dict:
     cases = [
         (10, 1536, 12, 64, 1522, 50),  # slide window batch (crop 624, padded once)
         (2, 1664, 6, 64, 1601, 50),  # shard_path's local heads: 2 rows a rank, 12 / 2 heads
+        (2, 1664, 12, 64, 1601, 50),  # pipe_path {pipe: 2}: a microbatch of 2 rows a stage
+        (1, 1664, 12, 64, 1601, 50),  # pipe_path {data: 2, pipe: 2}: a microbatch of 1 row
         (4, 1664, 12, 64, 1601, 50, True),  # heritage training: batch 4, crop 640, NaN pad keys
         (1, 8320, 12, 64, 8193, 10),  # whole 1024x2048 frame (and aug-test scale 1.0, at B 2)
         (2, 2176, 12, 64, 2049, 20),  # aug-test scale 0.5 with its flipped view
@@ -684,6 +707,8 @@ def qkv_attention_bwd_case(b: int, n: int, heads: int, head_dim: int, valid_len,
 BWD_CASES = [
     (4, 1664, 12, 64, 1601, 20),  # heritage training: batch 4, crop 640 (1601 tokens, padded once)
     (2, 1664, 6, 64, 1601, 20),  # shard_path's local heads: 2 rows a rank, 12 / 2 heads
+    (2, 1664, 12, 64, 1601, 20),  # pipe_path {pipe: 2}: a microbatch of 2 rows a stage
+    (1, 1664, 12, 64, 1601, 20),  # pipe_path {data: 2, pipe: 2}: a microbatch of 1 row
     (10, 1536, 12, 64, 1522, 10),  # slide window batch shape
     (2, 640, 8, 128, None, 20),  # head dim 128
     (4, 777, 12, 64, None, 20),  # ragged N, valid_len None
@@ -2400,9 +2425,12 @@ def write_cityscapes_tree(root: str, seed: int, encode=None) -> None:
     Paeth-filtered (`encode` another encoder of the same arrays):
     `leftImg8bit` RGB, `gtFine_labelIds` 8-bit gray over ids 0..33,
     `disparity` uint16 with zeros (a fifth of the pixels)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     encode = encode or _paeth_png
     rs = np.random.RandomState(seed)
     h, w = CITY_HW
+    files = []  # (path, array), drawn in order; encoded on threads (numpy and zlib drop the GIL)
     for split, n, cities in (("train", CITY_TRAIN, ("aachen", "bochum")),
                              ("val", CITY_VAL, ("frankfurt", "lindau"))):
         for i in range(n):
@@ -2415,8 +2443,14 @@ def write_cityscapes_tree(root: str, seed: int, encode=None) -> None:
                     ("disparity", "disparity", disparity)):
                 folder = os.path.join(root, top, split, city)
                 os.makedirs(folder, exist_ok=True)
-                with open(os.path.join(folder, f"{city}_{i:06d}_000019_{suffix}.png"), "wb") as f:
-                    f.write(encode(arr))
+                files.append((os.path.join(folder, f"{city}_{i:06d}_000019_{suffix}.png"), arr))
+
+    def write(job):
+        with open(job[0], "wb") as f:
+            f.write(encode(job[1]))
+
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        list(pool.map(write, files))
 
 
 def _stub_draws(seed: int):
@@ -4590,9 +4624,10 @@ FP32_ENTRIES = (
 )
 
 
-def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict) -> list:
+def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict, extra: dict) -> list:
     """The seven fp32 kernels' entries: the first case of each (a path's
-    shape) in the entry, the rest by shape, and the knob variants' fields."""
+    shape) in the entry, the rest by shape, the knob variants' fields and
+    `extra`'s fields for the kernel (by name)."""
     out = []
     for name, source, replaces, path in FP32_ENTRIES:
         first, *rest = fp32_res["kernels"][name]
@@ -4606,7 +4641,7 @@ def fp32_entries(entry, at_shape, fp32_res: dict, knobs_res: dict) -> list:
                     "valid_len": first["valid_len"],
                     "other_shapes": [at_shape(r) for r in rest],
                     **({"split": first["split"]} if "split" in first else {}),
-                    **knob_fields(knobs_res, name)})
+                    **knob_fields(knobs_res, name), **extra.get(name, {})})
     return out
 
 
@@ -6057,7 +6092,9 @@ SHARD_LAYOUTS = {  # name -> (tpu.mesh, tpu.fsdp, ranks)
     "b_model2": ({"model": 2}, False, 2),
     "c_data2_model2_fsdp": ({"data": 2, "model": 2}, True, 4),
 }
-SHARD_STEPS = 3  # the first (step 1, held against one process) is also the warm-up
+SHARD_STEPS = 2  # step 1 (held against one process, also the warm-up), then one timed step
+HERITAGE_ONE_DIR = "build/heritage_one"  # gitignored; the reference's checkpoint, removed
+_HERITAGE_RUNS: dict = {}  # heritage_one_process's runs by (sets, device, batch digest)
 SHARD_GRAD_TOL = 5e-3  # rel. L2 of the fp32 backbone seg-loss gradients, ranks vs one process
 SHARD_TIMEOUT_S = 240  # one layout's ranks, rendezvous included
 
@@ -6142,6 +6179,32 @@ def _shard_run(cfg, dtype, model, texts, batch: dict, device: str, save_to=None)
     if save_to:
         save_checkpoint(save_to, state, 0)
     return out
+
+
+def heritage_one_process(batch: dict, device: str, sets=()) -> dict:
+    """The heritage preset's fp32 and bf16 runs in this process on the whole
+    global `batch` (`_shard_work` without a layout), alone on the card: the
+    one-process reference of shard_path and pipe_path, run once for a batch,
+    device and set of overrides and reused after.  Its fp32 checkpoint's
+    tree of keys and shapes is kept (`checkpoint_shapes`), the file is not."""
+    import hashlib
+    import shutil
+
+    digest = hashlib.sha256()
+    for name in sorted(batch):
+        digest.update(name.encode())
+        digest.update(np.ascontiguousarray(batch[name]).tobytes())
+    key = (tuple(sets), device, digest.hexdigest())
+    if key not in _HERITAGE_RUNS:
+        shutil.rmtree(HERITAGE_ONE_DIR, ignore_errors=True)
+        one = _shard_work({"batch": batch, "device": device, "sets": list(sets),
+                           "save_to": HERITAGE_ONE_DIR}, "")
+        file = torch.load(os.path.join(HERITAGE_ONE_DIR, "checkpoints", "latest"),
+                          map_location="cpu", weights_only=True)
+        one["checkpoint_shapes"] = _shape_tree(file)
+        shutil.rmtree(HERITAGE_ONE_DIR, ignore_errors=True)
+        _HERITAGE_RUNS[key] = one
+    return _HERITAGE_RUNS[key]
 
 
 def _shard_work(inputs: dict, layout: str) -> dict:
@@ -6233,14 +6296,22 @@ def start_rank_server() -> None:
 
 
 def _shard_spawn(layout: str, inputs_path: str, out_dir: str, backend: str = "gloo") -> list:
-    world = SHARD_LAYOUTS[layout][2]
+    return spawn_ranks(f"shard_path {layout}", SHARD_LAYOUTS[layout][2], _shard_rank,
+                       (layout, inputs_path, out_dir, backend), out_dir, SHARD_TIMEOUT_S)
+
+
+def spawn_ranks(label: str, world: int, target, args: tuple, out_dir: str, timeout: float) -> list:
+    """`world` ranks of `target(rank, world, port, *args)` from the fork
+    server, waited for at most `timeout` s (a hung rank is killed); each
+    rank's saved results, in rank order, or AssertionError with every
+    rank's traceback."""
     ctx = rank_context()
     port = _ddp_free_port()
-    procs = [ctx.Process(target=_shard_rank, args=(r, world, port, layout, inputs_path, out_dir,
-                                                   backend), daemon=True) for r in range(world)]
+    procs = [ctx.Process(target=target, args=(r, world, port, *args), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(deadline - time.monotonic(), 0.1))
     hung = [i for i, p in enumerate(procs) if p.is_alive()]
@@ -6251,7 +6322,7 @@ def _shard_spawn(layout: str, inputs_path: str, out_dir: str, backend: str = "gl
     errors = [open(os.path.join(out_dir, f"rank{i}.pt.err")).read() for i in range(world)
               if os.path.exists(os.path.join(out_dir, f"rank{i}.pt.err"))]
     if errors or hung or any(p.exitcode for p in procs):
-        raise AssertionError(f"shard_path {layout}: ranks failed (hung: {hung}, exit codes "
+        raise AssertionError(f"{label}: ranks failed (hung: {hung}, exit codes "
                              f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
     return [torch.load(os.path.join(out_dir, f"rank{i}.pt"), weights_only=False)
             for i in range(world)]
@@ -6295,8 +6366,7 @@ def phase_shard_path(device: str = "cuda", sets=()) -> dict:
            "steps": SHARD_STEPS}
 
     # the one process first, alone on the card: its times are the baseline
-    one_dir = os.path.join(SHARD_WORK_DIR, "one")
-    one = _shard_work({**inputs, "save_to": one_dir}, "")
+    one = heritage_one_process(inputs["batch"], device, sets)
     cfg32 = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS + sets)
     halves = _ddp_train_case(cfg32, torch.float32, inputs["batch"], True, device,
                              built=seeded_build(cfg32.model, CITYSCAPES_CLASSES,
@@ -6334,6 +6404,8 @@ def phase_shard_path(device: str = "cuda", sets=()) -> dict:
         entry["bf16"] = {"loss_step1": r0["bf16"]["metrics"]["loss_total"],
                          "loss_rel_diff": abs(r0["bf16"]["metrics"]["loss_total"] - loss1b)
                          / abs(loss1b),
+                         # the total loss's (seg + SILog): printed, not held
+                         "backbone_grad_rel_l2": rel_l2(r0["bf16"]["grads"], one["bf16"]["grads"]),
                          "ranks_agree": all(r["bf16"]["metrics"] == r0["bf16"]["metrics"]
                                             for r in ranks)}
         for tag in ("fp32", "bf16"):
@@ -6376,8 +6448,6 @@ def phase_shard_path(device: str = "cuda", sets=()) -> dict:
         if save_to:
             file = torch.load(os.path.join(save_to, "checkpoints", "latest"), map_location="cpu",
                               weights_only=True)
-            ref = torch.load(os.path.join(one_dir, "checkpoints", "latest"), map_location="cpu",
-                             weights_only=True)
             cfg = load_config(TRAIN_CONFIG, overrides=TRAIN_OVERRIDES + DDP_FP32_SETS + sets)
             fresh, _ = seeded_build(cfg.model, CITYSCAPES_CLASSES, dtype=torch.float32,
                                     device=device, seed=seed)
@@ -6388,7 +6458,7 @@ def phase_shard_path(device: str = "cuda", sets=()) -> dict:
             same = lambda a, b: a.shape == b.shape and a.dtype == b.dtype and torch.equal(
                 a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
             entry["checkpoint"] = {
-                "keys_and_shapes_equal_one_process": _shape_tree(file) == _shape_tree(ref),
+                "keys_and_shapes_equal_one_process": _shape_tree(file) == one["checkpoint_shapes"],
                 "restores_bitwise_into_one_process": all(
                     same(got[k], file["model"][k]) for k in file["model"]) and all(
                     same(opt[i][k].cpu(), v) for i, e in file["optimizer"]["inner"]["state"].items()
@@ -6424,6 +6494,497 @@ def phase_shard_path(device: str = "cuda", sets=()) -> dict:
     emit(res)
     if problems:
         raise AssertionError(f"shard_path: {problems}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# ring_path and pipe_path: the ring and GPipe over Gloo ranks on this card
+# --------------------------------------------------------------------------
+
+PAR_WORK_DIR = "build/par_smoke"  # gitignored; removed at the end of each phase
+PAR_TIMEOUT_S = 300  # one layout's ranks, rendezvous included
+RING_SHAPE = (2, 9344, 12, 64)  # the 1536-crop attention: 9217 tokens padded to 9344
+RING_VALID = 9217
+RING_MESH = {"data": 2}  # the ring rides the data axis: one row a rank
+RING_SETS = LONG_OVERRIDES + DDP_FP32_SETS + ["tpu.attn_impl=ring"]
+RING_TOL = {torch.bfloat16: (3e-2, 1e-2), torch.float32: (1e-4, 1e-5)}  # max abs, rel. L2
+RING_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # rel. L2 of dq / dk / dv
+PAR_STEPS = 2  # step 1 (held against one process), then one timed step
+RING_STEPS = 1  # the ring's model step (~9 s on Gloo's host path): step 1, held and timed
+PIPE_LAYOUTS = {  # name -> (tpu.mesh, ranks); tpu.pipeline: {microbatches: 2}
+    "pipe2": ({"pipe": 2}, 2),
+    "data2_pipe2": ({"data": 2, "pipe": 2}, 4),
+}
+PIPE_MICROBATCHES = 2
+
+
+def _par_run(cfg, dtype, model, texts, batch: dict, device: str, mesh_spec=None,
+             steps: int = PAR_STEPS) -> dict:
+    """`steps` train steps of `cfg` on this process's rows of the global
+    `batch` (every row without a group); under a pipe axis GPipe is on and
+    each block lives on its stage.  Step 1's metrics, launches, K1 / K2
+    shapes and full backbone gradients, the parameter + Adam bytes this rank
+    holds, ms a step over the steps after the first (of step 1 where there
+    is no other) and the peak memory."""
+    from denseclip_vit_multimodal_tpu_torch.data.loader import to_device
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import (
+        enable_pipeline_from_config,
+        shard_pipeline_stages,
+    )
+    from denseclip_vit_multimodal_tpu_torch.train.loop import train_step_from_cfg
+    from denseclip_vit_multimodal_tpu_torch.train.state import create_train_state
+    from denseclip_vit_multimodal_tpu_torch.train.step import microbatch_rows
+
+    state = create_train_state(model, cfg.training, 1)
+    sharding = None
+    if mesh_spec and mesh_spec.get("pipe", 1) > 1:
+        enable_pipeline_from_config({"pipeline": {"microbatches": PIPE_MICROBATCHES}}, mesh_spec)
+        sharding = shard_pipeline_stages(state, mesh_spec)
+    params = dict(model.named_parameters())
+    names = [n for n in params if n.startswith("backbone.")]
+    captured, inner = {}, state.optimizer.step
+
+    def capture():  # the gradients the first update applies, each block from its stage
+        if not captured:
+            parts = []
+            for n in names:
+                g = params[n].grad
+                if sharding is not None and sharding.staged(n):
+                    g = sharding.shards[n].full(params[n] if g is None else g, sharding.shapes[n])
+                elif g is None:  # on every rank alike (nothing reads backbone.proj)
+                    continue
+                parts.append(g.float().flatten())
+            captured["backbone"] = torch.cat(parts).cpu()
+        inner()
+
+    state.optimizer.step = capture
+    try:
+        step = train_step_from_cfg(texts, cfg.training, cfg.data, int(cfg.training.get("seed", 42)))
+        local = batch["image"].shape[0] // mesh.data_size()
+        rows = microbatch_rows(local, 1, mesh.data_size(), mesh.data_rank())[0]
+        host = to_device({k: v[rows] for k, v in batch.items()}, device)
+        guard = deterministic_algorithms() if dtype == torch.float32 else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with guard, recorded_k1_k2_shapes() as seen:
+            reset_launches()
+            tick = time.perf_counter()
+            first = step(state, host)  # reads its losses back: the card is done with it
+            ms = (time.perf_counter() - tick) * 1e3
+            launches = read_launches()
+            shapes = shapes_json(seen)
+            tick = time.perf_counter()
+            later = [step(state, host) for _ in range(steps - 1)]
+            if later:
+                ms = (time.perf_counter() - tick) * 1e3 / len(later)
+        return {"metrics": first, "later_losses": [m["loss_total"] for m in later],
+                "launches": launches, "k1_k2_shapes": shapes, "grads": captured["backbone"],
+                "resident_bytes": (sum(p.numel() * p.element_size() for p in model.parameters())
+                                   + sum(v.numel() * v.element_size()
+                                         for e in state.optimizer.inner.state.values()
+                                         for v in e.values() if torch.is_tensor(v) and v.dim())),
+                "ms_per_step": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        enable_pipeline_from_config({}, {})
+
+
+def ring_block_case(dtype, iters: int) -> dict:
+    """K3 and K3's backward on one ring block at the shape each rank hands
+    them in ring_path: a query shard [2, 4672, 12, 64] against the second
+    K/V shard, whose keys past valid 9217 are masked (kv 4545), seeded
+    inputs.  The forward with its row statistics against
+    `mha_attention_reference(with_stats=True)`; the backward under the
+    statistics merged with the first shard's block (kv 4672), with the
+    merged output and a seeded dO (`parallel/ring_attention.py`'s
+    `block_forward` / `merge_block` / `block_backward`), against
+    `mha_attention_bwd_reference(stats=)` on the same inputs; at K3's
+    limits for the dtype (bf16: the kernel phases', fp32: fp32_path's)."""
+    import torch.nn.functional as F
+
+    from denseclip_vit_multimodal_tpu_torch.ops.mha_kernel import (
+        mha_attention_bwd_reference,
+        mha_attention_reference,
+    )
+    from denseclip_vit_multimodal_tpu_torch.parallel.ring_attention import (
+        block_backward,
+        block_forward,
+        empty_merge,
+        merge_block,
+        merged_output,
+    )
+
+    b, total, heads, d = RING_SHAPE
+    n, kv, scale = total // 2, RING_VALID - total // 2, d**-0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k0, v0, k1, v1, dout = (torch.randn(b, n, heads, d, generator=gen, device="cuda")
+                               .to(dtype) for _ in range(6))
+    run = lambda: block_forward(q, k1, v1, scale, kv)
+    plain = lambda: mha_attention_reference(q, k1, v1, sm_scale=scale, valid_len=kv,
+                                            with_stats=True)
+    (o1, s1), (r1, rs1) = run(), plain()
+    merged = merge_block(merge_block(empty_merge(q), *block_forward(q, k0, v0, scale, n)), o1, s1)
+    out, stats = merged_output(merged, dtype)
+    bwd = lambda: block_backward(q, k1, v1, out, dout, stats, scale, kv)
+    plain_bwd = lambda: mha_attention_bwd_reference(q, k1, v1, out, dout, sm_scale=scale,
+                                                    valid_len=kv, stats=stats)
+    got, ref = bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    err = o1.float() - r1.float()
+    elem = q.element_size()
+    lib = [t.transpose(1, 2).contiguous() for t in (q, k1[:, :kv], v1[:, :kv])]
+    fwd_flops, bwd_flops = 4.0 * b * heads * n * kv * d, 10.0 * b * heads * n * kv * d
+    fwd_bytes = elem * (2 * q.numel() + 2 * b * kv * heads * d) + 4.0 * s1.numel()  # + stats
+    # q, O, dO and the valid keys of k, v in; dq, dk, dv out
+    bwd_bytes = elem * (6 * q.numel() + 2 * b * kv * heads * d) + 4.0 * stats.numel()
+    forward = {
+        "phase": "ring_path", "part": "block_forward", "name": mha_name(dtype),
+        "shape": [b, n, heads, d], "valid_len": kv, "merged_with_kv": n,
+        "max_abs_err": float(err.abs().max()), "mean_abs_err": float(err.abs().mean()),
+        "rel_l2_err": float(err.norm() / r1.float().norm()),
+        "stats_m_max_abs_err": float((s1[..., 0] - rs1[..., 0]).abs().max()),
+        "stats_l_max_rel_err": float(((s1[..., 1] - rs1[..., 1]).abs() / rs1[..., 1]).max()),
+        "finite": bool(torch.isfinite(o1.float()).all()),
+        "ms": cuda_ms(run, iters), "plain_ms": cuda_ms(plain, 1, warmup=1),
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(*lib), iters),
+        **kernel_bounds(dtype, fwd_flops, fwd_bytes)}
+    backward = {
+        "phase": "ring_path", "part": "block_backward", "name": mha_name(dtype, "_bwd"),
+        "shape": [b, n, heads, d], "valid_len": kv, "stats": f"merged over kv {n} + {kv}",
+        "finite": all(bool(torch.isfinite(g.float()).all()) for g in got),
+        "masked_dkdv_exact_zero": not (got[1][:, kv:].any() or got[2][:, kv:].any()),
+        "rerun_bitwise_equal": rerun_bitwise_equal(bwd, got)}
+    grad_errors(backward, got, ref, n, kv)
+    del got, ref
+    lib = [t.requires_grad_(True) for t in lib]
+    lib_out = F.scaled_dot_product_attention(*lib)
+    lib_grad = dout.transpose(1, 2).contiguous()
+    backward.update({
+        "ms": cuda_ms(bwd, iters), "plain_ms": cuda_ms(plain_bwd, 1, warmup=1),
+        "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, lib, lib_grad,
+                                                          retain_graph=True), iters),
+        **kernel_bounds(dtype, bwd_flops, bwd_bytes)})
+    emit(forward)
+    emit(backward)
+    fp32 = dtype == torch.float32
+    max_tol, rel_tol = (FP32_MAX_TOL, FP32_REL_TOL) if fp32 else (KERNEL_TOL, KERNEL_REL_TOL)
+    if not (forward["finite"] and forward["max_abs_err"] <= max_tol
+            and forward["rel_l2_err"] <= rel_tol and stats_in_limits(forward)
+            and (fp32 or forward["mean_abs_err"] <= KERNEL_MEAN_TOL)):
+        raise AssertionError(f"{forward['name']} at the ring's block disagrees with its plain "
+                             f"version: {forward}")
+    grad_rel, grad_max = ((FP32_BWD_REL_TOL, FP32_BWD_MAX_TOL) if fp32
+                          else (KERNEL_BWD_REL_TOL, KERNEL_BWD_MAX_TOL))
+    bad = [p for p in ("dq", "dk", "dv")
+           if not (backward[p]["rel_l2_err"] <= grad_rel
+                   and backward[p]["max_abs_err"] <= grad_max * backward[p]["max_abs_ref"])]
+    if bad or not (backward["finite"] and backward["masked_dkdv_exact_zero"]
+                   and backward["rerun_bitwise_equal"]):
+        raise AssertionError(f"{backward['name']} at the ring's block under merged statistics "
+                             f"disagrees with its plain version ({bad}): {backward}")
+    return {"forward": forward, "backward": backward}
+
+
+def mha_name(dtype, part: str = "") -> str:
+    """K3's launch counter name for `dtype` (`part` "_bwd": its backward's)."""
+    return f"mha_attention{part}" + ("_fp32" if dtype == torch.float32 else "")
+
+
+def _ring_kernel_case(dtype) -> dict:
+    """`ring_attention` over the group at RING_SHAPE on inputs every rank
+    draws alike (seeded), forward and backward: the launches of the call,
+    ms of a second call (CUDA events), and on rank 0 the errors against one
+    process's `flash_attention` (K4 / K4b) on the same inputs."""
+    from denseclip_vit_multimodal_tpu_torch.ops.attention import flash_attention
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.ring_attention import ring_attention
+
+    gen = torch.Generator().manual_seed(SEED)
+    q, k, v, dout = (torch.randn(RING_SHAPE, generator=gen).to("cuda", dtype) for _ in range(4))
+    dout[:, RING_VALID:] = 0  # the pad rows are cut off: K4b and the ring agree on them then
+
+    def call():
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = ring_attention(*leaves, valid_len=RING_VALID)
+        out.backward(dout)
+        return out.detach(), [x.grad for x in leaves]
+
+    reset_launches()
+    out, grads = call()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mesh.barrier()
+    start.record()
+    call()
+    end.record()
+    torch.cuda.synchronize()
+    res = {"shape": list(RING_SHAPE), "valid_len": RING_VALID, "launches": launches,
+           "ms_forward_backward": start.elapsed_time(end)}
+    if mesh.rank() == 0:
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        want = flash_attention(*leaves, valid_len=RING_VALID)
+        want.backward(dout)
+        rows = slice(0, RING_VALID)  # the rows the model keeps
+        res["max_abs_err"] = float((out - want.detach())[:, rows].float().abs().max())
+        res["rel_l2_err"] = rel_l2(out[:, rows].float(), want.detach()[:, rows].float())
+        res["grad_rel_l2"] = {name: rel_l2(g.float(), x.grad.float())
+                              for name, g, x in zip("qkv", grads, leaves)}
+    res["digest"] = _digest(out)
+    return res
+
+
+def _par_rank(rank: int, world: int, port: int, job: str, inputs_path: str, out_dir: str) -> None:
+    """One Gloo rank of `job` ("ring", or a PIPE_LAYOUTS name) on card 0:
+    joins the group as torchrun's workers do, makes the mesh's layout, runs
+    the job and saves its numbers."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+
+    out = os.path.join(out_dir, f"rank{rank}.pt")
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets the parent
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        inputs = torch.load(inputs_path, weights_only=False)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        if not mesh.maybe_initialize_distributed("gloo", "cuda", PAR_TIMEOUT_S):
+            raise AssertionError("the rank did not join its group")
+        spec = RING_MESH if job == "ring" else PIPE_LAYOUTS[job][0]
+        mesh.setup_layout(spec)
+        load_seeded(inputs["weights"])
+        res = {"coords": mesh.layout().coords}
+        runs = [("fp32", torch.float32, DDP_FP32_SETS), ("bf16", torch.bfloat16, [])]
+        if job == "ring":
+            res["kernel"] = {tag: _ring_kernel_case(dtype) for tag, dtype, _ in runs}
+            runs = [("fp32", torch.float32, [])]
+        for tag, dtype, extra in runs:
+            sets = (RING_SETS if job == "ring" else TRAIN_OVERRIDES + extra)
+            cfg = load_config(TRAIN_CONFIG, overrides=sets)
+            model, texts = seeded_build(cfg.model, CITYSCAPES_CLASSES, dtype=dtype, device="cuda",
+                                        seed=int(cfg.training.get("seed", 42)),
+                                        attn_impl=str(cfg.get("tpu", {}).get("attn_impl", "auto")))
+            res[tag] = _par_run(cfg, dtype, model, texts, inputs["batch"][job], "cuda", spec,
+                                RING_STEPS if job == "ring" else PAR_STEPS)
+            res[tag]["digest"] = _digest(res[tag]["grads"])
+            if rank:
+                del res[tag]["grads"]
+            del model
+            torch.cuda.empty_cache()
+        torch.save(res, out)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _par_inputs(job: str, batch_size: int, sets: list) -> dict:
+    """The seeded weights (drawn once) and the global batch of `job`."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dataset
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES
+
+    cfg = load_config(TRAIN_CONFIG, overrides=sets)
+    seed = int(cfg.training.get("seed", 42))
+    weights = os.path.join(PAR_WORK_DIR, "weights.pt")
+    save_seeded(weights, [(cfg.model, CITYSCAPES_CLASSES, seed)])
+    loader = DataLoader(build_dataset(cfg.data, "train"), batch_size=batch_size, seed=seed,
+                        num_threads=4, process_index=0, process_count=1)
+    return {"weights": weights, "batch": next(loader.epoch(0))}
+
+
+def _par_one_process(job_sets: list, runs, batch: dict) -> dict:
+    """The one-process reference of `_par_run` on the whole batch, alone on
+    the card."""
+    from denseclip_vit_multimodal_tpu_torch.core.config import load_config
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES
+
+    out = {}
+    for tag, dtype, extra in runs:
+        cfg = load_config(TRAIN_CONFIG, overrides=job_sets + extra)
+        model, texts = seeded_build(cfg.model, CITYSCAPES_CLASSES, dtype=dtype, device="cuda",
+                                    seed=int(cfg.training.get("seed", 42)),
+                                    attn_impl=str(cfg.get("tpu", {}).get("attn_impl", "auto")))
+        out[tag] = _par_run(cfg, dtype, model, texts, batch, "cuda")
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _par_launches(ranks: list, tag: str) -> list:
+    return [{k: v for k, v in r[tag]["launches"].items() if v} for r in ranks]
+
+
+def phase_ring_path() -> dict:
+    """`attn_impl: ring` over two Gloo ranks sharing this card: the ring
+    (K3 and K3's backward on each block) at the 1536-crop shape
+    [2, 9344, 12, 64], valid 9217, in bf16 and fp32 against one process's
+    `flash_attention` (K4 / K4b): the output and dq / dk / dv, 2 K3 + 2 K3
+    backward launches a rank a call at [2, 4672, 12, 64]; and the heritage
+    preset at crop 1536 built with `ring` under `{data: 2}` (one row a rank:
+    the rows gathered over the ring), fp32 with the seg loss alone, against
+    one process (which runs K4 / K4b): the step-1 loss, the backbone
+    gradients, ms of step 1 and peak memory a rank (one step: the ring's
+    Gloo host path takes ~9 s of it; one process: 1 warm-up + 1 step).
+    First, in this process, K3 and K3's backward on one of the ring's
+    blocks against their plain versions (`ring_block_case`)."""
+    import shutil
+
+    tick = time.perf_counter()
+    shutil.rmtree(PAR_WORK_DIR, ignore_errors=True)
+    os.makedirs(PAR_WORK_DIR)
+    torch.cuda.empty_cache()
+    blocks = {"bf16": ring_block_case(torch.bfloat16, 10),
+              "fp32": ring_block_case(torch.float32, 3)}
+    inputs = _par_inputs("ring", LONG_BATCH, RING_SETS)
+    inputs["batch"] = {"ring": inputs["batch"]}
+    one = _par_one_process(RING_SETS, [("fp32", torch.float32, [])], inputs["batch"]["ring"])
+    path = os.path.join(PAR_WORK_DIR, "inputs.pt")
+    torch.save(inputs, path)
+    ranks = spawn_ranks("ring_path", 2, _par_rank, ("ring", path, PAR_WORK_DIR), PAR_WORK_DIR,
+                        PAR_TIMEOUT_S)
+    r0 = ranks[0]
+    res = {"phase": "ring_path", "config": TRAIN_CONFIG, "crop": LONG_CROP, "global_batch":
+           LONG_BATCH, "mesh": RING_MESH, "ranks": 2, "blocks": blocks, "kernel": {}}
+    problems = []
+    for tag, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        k = r0["kernel"][tag]
+        suffix = "_fp32" if dtype == torch.float32 else ""
+        want = expected_launches(**{f"mha_attention{suffix}": 2, f"mha_attention_bwd{suffix}": 2})
+        res["kernel"][tag] = {**{x: k[x] for x in ("shape", "valid_len", "max_abs_err",
+                                                     "rel_l2_err", "grad_rel_l2")},
+                              "launches_per_rank": [{n: c for n, c in r["kernel"][tag][
+                                  "launches"].items() if c} for r in ranks],
+                              "ms_forward_backward_per_rank": [r["kernel"][tag][
+                                  "ms_forward_backward"] for r in ranks],
+                              "ranks_agree": all(r["kernel"][tag]["digest"] == k["digest"]
+                                                 for r in ranks)}
+        abs_tol, rel_tol = RING_TOL[dtype]
+        if any(r["kernel"][tag]["launches"] != want for r in ranks):
+            problems.append(f"{tag}: a rank did not run 2 K3 + 2 K3 backward a call")
+        if not (k["max_abs_err"] <= abs_tol and k["rel_l2_err"] <= rel_tol):
+            problems.append(f"{tag}: the ring's output against flash_attention")
+        if not all(e <= RING_GRAD_TOL[dtype] for e in k["grad_rel_l2"].values()):
+            problems.append(f"{tag}: the ring's dq / dk / dv against flash_attention's")
+        if not res["kernel"][tag]["ranks_agree"]:
+            problems.append(f"{tag}: the ranks' outputs differ")
+    loss1 = one["fp32"]["metrics"]["loss_total"]
+    res["model_fp32"] = {
+        "loss_step1": r0["fp32"]["metrics"]["loss_total"], "loss_step1_one_process": loss1,
+        "loss_rel_diff": abs(r0["fp32"]["metrics"]["loss_total"] - loss1) / abs(loss1),
+        "backbone_grad_rel_l2_rank0": rel_l2(r0["fp32"]["grads"], one["fp32"]["grads"]),
+        "launches_per_rank": _par_launches(ranks, "fp32"),
+        "launches_one_process": {n: c for n, c in one["fp32"]["launches"].items() if c},
+        "ms_per_step_per_rank": [r["fp32"]["ms_per_step"] for r in ranks],
+        "ms_per_step_one_process": one["fp32"]["ms_per_step"],
+        "ms_per_step_of": "step 1 on the ranks (RING_STEPS), step 2 in one process",
+        "peak_gib_per_rank": [r["fp32"]["peak_gib"] for r in ranks],
+        "peak_gib_one_process": one["fp32"]["peak_gib"]}
+    want = expected_launches(mha_attention_fp32=24, mha_attention_bwd_fp32=24)
+    if any(r["fp32"]["launches"] != want for r in ranks):
+        problems.append("model: a rank did not run 24 K3 fp32 + 24 K3 backward fp32 a step")
+    if not res["model_fp32"]["loss_rel_diff"] <= FP32_LOSS_TOL:
+        problems.append("model: fp32 step-1 loss")
+    if not res["model_fp32"]["backbone_grad_rel_l2_rank0"] <= SHARD_GRAD_TOL:
+        problems.append("model: fp32 backbone gradients")
+    res["seconds"] = time.perf_counter() - tick
+    shutil.rmtree(PAR_WORK_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(res)
+    if problems:
+        raise AssertionError(f"ring_path: {problems}")
+    return res
+
+
+def phase_pipe_path(shard_res=None) -> dict:
+    """GPipe over Gloo ranks sharing this card: the heritage preset at crop
+    640 with a global batch of 4 under `{pipe: 2}` (2 ranks) and
+    `{data: 2, pipe: 2}` (4 ranks), `tpu.pipeline: {microbatches: 2}`, in
+    fp32 (seg loss alone, deterministic algorithms) and bf16, against one
+    process on the same weights and batch: the step-1 loss, the backbone
+    gradients (each block from its stage), 12 K1 + 12 K2 a rank (6 blocks x
+    2 microbatches) at [2,1664,2304] / [1,1664,2304], the parameter + Adam
+    bytes a rank holds, ms a step (1 warm-up + 1 step).  The one process is
+    `heritage_one_process` (shard_path's, where it ran on this batch).
+    Beside `{data: 2, pipe: 2}`'s bf16 gradients (printed, not held), from
+    `shard_res` where given: shard_path's `{data: 2}` bf16 gradients on the
+    same batch against the same one process."""
+    import shutil
+
+    tick = time.perf_counter()
+    shutil.rmtree(PAR_WORK_DIR, ignore_errors=True)
+    os.makedirs(PAR_WORK_DIR)
+    torch.cuda.empty_cache()
+    inputs = _par_inputs("pipe", 4, TRAIN_OVERRIDES)
+    batch = inputs["batch"]
+    inputs["batch"] = {name: batch for name in PIPE_LAYOUTS}
+    runs = [("fp32", torch.float32, DDP_FP32_SETS), ("bf16", torch.bfloat16, [])]
+    one = heritage_one_process(batch, "cuda")
+    path = os.path.join(PAR_WORK_DIR, "inputs.pt")
+    torch.save(inputs, path)
+    res = {"phase": "pipe_path", "config": TRAIN_CONFIG, "global_batch": 4,
+           "microbatches": PIPE_MICROBATCHES, "steps": PAR_STEPS,
+           "one_process_from": "heritage_one_process",
+           "one_process": {tag: {k: one[tag][k] for k in ("ms_per_step", "peak_gib",
+                                                         "resident_bytes")}
+                           for tag in ("fp32", "bf16")}}
+    problems = []
+    for name, (spec, world) in PIPE_LAYOUTS.items():
+        t0 = time.perf_counter()
+        out_dir = os.path.join(PAR_WORK_DIR, name)
+        os.makedirs(out_dir)
+        ranks = spawn_ranks(f"pipe_path {name}", world, _par_rank, (name, path, out_dir),
+                            out_dir, PAR_TIMEOUT_S)
+        r0 = ranks[0]
+        entry = {"mesh": spec, "ranks": world, "coords": [r["coords"] for r in ranks]}
+        rows = 4 // spec.get("data", 1) // PIPE_MICROBATCHES
+        for tag, dtype, _ in runs:
+            loss1 = one[tag]["metrics"]["loss_total"]
+            entry[tag] = {
+                "loss_step1": r0[tag]["metrics"]["loss_total"],
+                "loss_rel_diff": abs(r0[tag]["metrics"]["loss_total"] - loss1) / abs(loss1),
+                "backbone_grad_rel_l2": rel_l2(r0[tag]["grads"], one[tag]["grads"]),
+                "ranks_agree": all(r[tag]["metrics"] == r0[tag]["metrics"]
+                                   and r[tag]["digest"] == r0[tag]["digest"] for r in ranks),
+                "launches_per_rank": _par_launches(ranks, tag),
+                "k1_k2_shapes_rank0": r0[tag]["k1_k2_shapes"],
+                "resident_bytes_per_rank": [r[tag]["resident_bytes"] for r in ranks],
+                "ms_per_step_per_rank": [r[tag]["ms_per_step"] for r in ranks],
+                "peak_gib_per_rank": [r[tag]["peak_gib"] for r in ranks]}
+            suffix = "_fp32" if dtype == torch.float32 else ""
+            want = expected_launches(**{f"qkv_attention{suffix}": 12,
+                                        f"qkv_attention_bwd{suffix}": 12})
+            if any(r[tag]["launches"] != want for r in ranks):
+                problems.append(f"{name}: a {tag} rank did not run 12 K1 + 12 K2 a step")
+            shapes = entry[tag]["k1_k2_shapes_rank0"]
+            if any(sh["shape"] != [rows, 1664, 2304] for kk in shapes for sh in shapes[kk]):
+                problems.append(f"{name}: {tag} K1 / K2 not at [{rows}, 1664, 2304]")
+            tol = FP32_LOSS_TOL if dtype == torch.float32 else TRAIN_TOL
+            if not entry[tag]["loss_rel_diff"] <= tol:
+                problems.append(f"{name}: {tag} step-1 loss")
+            if dtype == torch.bfloat16 and spec.get("data", 1) > 1 and shard_res is not None:
+                entry[tag]["data2_backbone_grad_rel_l2_witness"] = {
+                    "from": "shard_path a_data2_fsdp, the same batch and one process",
+                    "value": shard_res["a_data2_fsdp"]["bf16"]["backbone_grad_rel_l2"]}
+            if dtype == torch.float32 and not entry[tag]["backbone_grad_rel_l2"] <= SHARD_GRAD_TOL:
+                problems.append(f"{name}: fp32 backbone gradients")
+            if not entry[tag]["ranks_agree"]:
+                problems.append(f"{name}: {tag} the ranks disagree")
+        entry["seconds"] = time.perf_counter() - t0
+        res[name] = entry
+        shutil.rmtree(out_dir, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - tick
+    shutil.rmtree(PAR_WORK_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit(res)
+    if problems:
+        raise AssertionError(f"pipe_path: {problems}")
     return res
 
 
@@ -6493,11 +7054,11 @@ def main() -> int:
     install_seeded_builds()
     k1_cases = timed("kernel", phase_kernels)
     slide, k1_city, k1_ade, k1_ade_eval = k1_cases[0], k1_cases[-7], k1_cases[-6], k1_cases[-5]
-    k1_local = k1_cases[1]
+    k1_local, k1_pipe = k1_cases[1], k1_cases[2:4]
     k1_vitl_train, k1_vitl, k1_vitl_ref, k1_flash = k1_cases[-4:]
     k2_cases = timed("kernel_bwd", phase_kernel_bwd)
     train_shape, k2_city, k2_ade, k2_vitl = k2_cases[0], k2_cases[-3], k2_cases[-2], k2_cases[-1]
-    k2_local = k2_cases[1]
+    k2_local, k2_pipe = k2_cases[1], k2_cases[2:4]
     flashes = timed("kernel_flash", phase_kernel_flash)
     longest, flash_256 = flashes[2], flashes[-1]  # the aug-test scale 1.75 shape; head dim 256
     serving = timed("kernel_int8", phase_kernel_int8)[0]
@@ -6538,6 +7099,8 @@ def main() -> int:
     ade_res = timed("ade20k_path", phase_ade20k_path)
     ddp_res = timed("ddp_path", phase_ddp_path)
     shard_res = timed("shard_path", phase_shard_path)
+    ring_res = timed("ring_path", phase_ring_path)
+    pipe_res = timed("pipe_path", phase_pipe_path, shard_res)
     emit({"phase_seconds": seconds, "total": round(sum(seconds.values()), 1)})
     by_path = lambda name: {"slide_serving": main_res["launches"][name],
                             "training": train_res["launches"][name],
@@ -6564,6 +7127,13 @@ def main() -> int:
                             **{f"shard_{layout}_{tag}_per_rank": shard_res[layout][tag][
                                 "launches_per_rank"][0].get(name, 0)
                                for layout in SHARD_LAYOUTS for tag in ("bf16", "fp32")},
+                            **{f"ring_call_{tag}_per_rank": ring_res["kernel"][tag][
+                                "launches_per_rank"][0].get(name, 0) for tag in ("bf16", "fp32")},
+                            "ring_training_fp32_per_rank": ring_res["model_fp32"][
+                                "launches_per_rank"][0].get(name, 0),
+                            **{f"pipe_{layout}_{tag}_per_rank": pipe_res[layout][tag][
+                                "launches_per_rank"][0].get(name, 0)
+                               for layout in PIPE_LAYOUTS for tag in ("bf16", "fp32")},
                             **{f"exported_{tag}_frame": export_res[tag]["launches_per_frame"].get(
                                 name, 0) for tag in ("logits", "int8", "fused")},
                             "serving_concurrency": export_res["launches"][name],
@@ -6603,12 +7173,14 @@ def main() -> int:
          "vitl14_reference_protocol_shape": at_shape(k1_vitl_ref),
          "flash_below_1024_shape": at_shape(k1_flash),
          "tensor_parallel_local_heads_shape": at_shape(k1_local),
+         "pipeline_microbatch_shapes": [at_shape(r) for r in k1_pipe],
          **knob_fields(knobs_res, "qkv_attention")},
         {**entry("qkv_attention_bwd", "qkv_attention_bwd.cu", "ops/mha_kernel.py:240",
                  train_shape, train_res["launches"]["qkv_attention_bwd"]),
          "cityscapes_training_shape": at_shape(k2_city),
          "ade20k_training_shape": at_shape(k2_ade), "vitl14_training_shape": at_shape(k2_vitl),
          "tensor_parallel_local_heads_shape": at_shape(k2_local),
+         "pipeline_microbatch_shapes": [at_shape(r) for r in k2_pipe],
          **knob_fields(knobs_res, "qkv_attention_bwd")},
         {**entry("flash_attention", "flash_attention.cu", "ops/attention.py:130", longest,
                  eval_res["launches"]["flash_attention"]),
@@ -6625,6 +7197,7 @@ def main() -> int:
          "design_bytes_ms": serving["prologue"]["design_bytes_ms"]},
         {**entry("mha_attention", "mha_attention.cu", "ops/mha_kernel.py:164", oneshot,
                  selftest_res["launches"]["mha_attention"]),
+         "ring_block_shape": at_shape(ring_res["blocks"]["bf16"]["forward"]),
          **knob_fields(knobs_res, "mha_attention")},
         {**entry("ln_qkv_attention", "ln_qkv_attention.cu", "ops/lnqkv_kernel.py:81", fused,
                  lnqkv_res["launches"]["ln_qkv_attention"]),
@@ -6639,7 +7212,9 @@ def main() -> int:
         {**entry("mha_attention_bwd", "qkv_attention_bwd.cu",
                  "ops/mha_kernel.py:240 (via :308, :359)", oneshot_bwd,
                  pab_res["launches"]["mha_attention_bwd"]),
-         "head_dim_256": at_shape(oneshot_bwd_256), **knob_fields(knobs_res, "mha_attention_bwd")},
+         "head_dim_256": at_shape(oneshot_bwd_256),
+         "ring_block_merged_stats_shape": at_shape(ring_res["blocks"]["bf16"]["backward"]),
+         **knob_fields(knobs_res, "mha_attention_bwd")},
         {**entry("qkv_out_attention", "qkv_out_attention.cu", "tools/exp_outproj_epilogue.py:46",
                  outproj_res, outproj_res["launches"]["qkv_out_attention"]),
          "design": "attention on TMA + wgmma with every head's output kept in shared memory, "
@@ -6647,7 +7222,11 @@ def main() -> int:
          **{k: outproj_res[k] for k in ("a_ms", "A_k1_ms", "A_matmul_ms", "A_cast_ms",
                                         "tflops_b", "verdict")},
          **knob_fields(knobs_res, "qkv_out_attention")},
-        *fp32_entries(entry, at_shape, fp32_res, knobs_res),
+        *fp32_entries(entry, at_shape, fp32_res, knobs_res, {
+            "mha_attention_fp32": {"ring_block_shape": at_shape(
+                ring_res["blocks"]["fp32"]["forward"])},
+            "mha_attention_bwd_fp32": {"ring_block_merged_stats_shape": at_shape(
+                ring_res["blocks"]["fp32"]["backward"])}}),
         {**entry("qkv_out_attention_fp32", "qkv_out_attention_fp32.cu",
                  "tools/exp_outproj_epilogue.py:46", outproj_res["fp32"],
                  outproj_res["fp32"]["launches"]["qkv_out_attention_fp32"]),

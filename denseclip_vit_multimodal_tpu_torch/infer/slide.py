@@ -107,8 +107,12 @@ def slide_inference(
         world, rank = mesh_lib.world_size(), mesh_lib.rank()
         counts = [total // world + (r < total % world) for r in range(world)]
         lo = sum(counts[:rank])
-        # a rank with no window runs one and keeps none, to learn the shape
-        mine = _forward_windows(forward, flat[lo:lo + max(counts[rank], 1)], window_batch)
+        # every rank runs as many windows as the busiest one (a short rank
+        # repeats its last window and keeps none of the repeats): the ranks
+        # make the same forward calls, which the ring's collectives need, and
+        # a rank with no window learns the shape
+        idx = [min(lo + i, total - 1) for i in range(counts[0])]
+        mine = _forward_windows(forward, flat[idx], window_batch)
         logits = mesh_lib.gather_rows(mine[:counts[rank]].float(), counts)
     else:
         logits = _forward_windows(forward, flat, window_batch)

@@ -33,8 +33,9 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     sequence-parallel ring) skips the qkv kernel, as `xla` does, and its
     core falls back to `auto` where JAX's does: for causal or cross
     attention and in a one-process world, exactly.  Over a process group
-    of more than one it raises `NotImplementedError`: the ring itself is
-    not ported (ROADMAP §1 item 1).  Under tensor parallelism
+    of more than one it runs `parallel/ring_attention.py` (K3 and K3's
+    backward on each block) over the ring's group (`_ring_attention_core`).
+    Under tensor parallelism
     (`parallel/tensor_parallel.py` sets `tp_group`) the layer holds its
     model rank's heads and runs K1 / K2 on them (not K6).
   * `MLP` (column- and row-parallel under `tp_group`), `ResidualAttentionBlock` (pre-LN; per-sample drop path when
@@ -44,7 +45,9 @@ cast to the module's compute `dtype` at each use, as Flax's `param_dtype` /
     (`resolve_remat_policy`: false, or true / "full") and recomputes each
     block in the backward (`torch.utils.checkpoint`) while autograd records;
     drop-path masks are drawn before each block, so a recompute sees the
-    same masks.
+    same masks.  While a GPipe pipeline is active
+    (`parallel/pipeline.py`) a non-causal stack runs as one, or warns and
+    runs replicated where its layers or batch do not divide.
   * `ConvBNReLU` — conv + BatchNorm + ReLU on NHWC tensors; BatchNorm in
     training normalises by the batch statistics and updates the running
     ones with Flax's rule (`batch_norm_nhwc`).
@@ -63,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import warnings
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -239,6 +243,63 @@ class Conv2d(nn.Conv2d):
 # --------------------------------------------------------------------------
 
 
+def _ring_group(causal: bool):
+    """The group `attn_impl: ring` runs over (`parallel/ring_attention.py::
+    current_ring_mesh`), or None where JAX's `_ring_attention_core` returns
+    None for a self-attention: causal attention, a one-process world."""
+    if causal:
+        return None
+    from denseclip_vit_multimodal_tpu_torch.parallel.ring_attention import current_ring_mesh
+
+    return current_ring_mesh()
+
+
+def check_ring_rows(x: torch.Tensor, group) -> None:
+    """Every rank of the ring's group must make the same attention calls on
+    the same [B, N] (the ring's collectives pair them up): one exchange of
+    the shapes, made once a forward by `Transformer.forward`, raises
+    ValueError on every rank where they differ."""
+    shapes = _mesh.all_gather(torch.tensor([list(x.shape[:2])], device=x.device), group).tolist()
+    if any(s != shapes[0] for s in shapes):
+        raise ValueError(f"attn_impl: ring needs the same rows and sequence length on every "
+                         f"rank of its group, got [B, N] {shapes}")
+
+
+def _ring_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                         valid_len: Optional[int] = None) -> Optional[torch.Tensor]:
+    """Sequence-parallel ring attention (`attn_impl: ring`) over the ring's
+    group, or None where JAX's `_ring_attention_core` returns None: causal
+    or cross attention, a one-process world.
+
+    JAX's `shard_map` replicates the global batch over the ring (in_specs
+    P(None, axis)); here each rank of the ring holds its own rows (the data
+    axis).  So the rows are first made the same on every rank: q, k and v
+    stacked and all-gathered over the ring's group, the sequence padded to a
+    multiple of the ring size with `valid_len` set, as JAX pads it; the
+    ring's output is cut back to N and each rank keeps its own rows.  The
+    backward of that keep all-gathers the ranks' output gradients, so the
+    ring sees every row's dO, and the gather's backward keeps the rank's
+    rows of the replicated gradient (no sum).  Every rank holds the same
+    [B, N] (`check_ring_rows`, once a forward of the stack)."""
+    if q.shape[1] != k.shape[1]:
+        return None
+    group = _ring_group(causal)
+    if group is None:
+        return None
+    from denseclip_vit_multimodal_tpu_torch.parallel.ring_attention import ring_attention
+
+    size = _mesh.group_size(group)
+    n = q.shape[1]
+    qkv = _mesh.gather_replicated(torch.stack((q, k, v)), 1, group)
+    n_pad = -(-n // size) * size
+    if n_pad != n:
+        qkv = F.pad(qkv, (0, 0, 0, 0, 0, n_pad - n))
+        if valid_len is None:
+            valid_len = n
+    out = ring_attention(qkv[0], qkv[1], qkv[2], group, valid_len=valid_len)[:, :n]
+    return _mesh.split_replicated(out, 0, group)
+
+
 def attention_core(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -257,12 +318,12 @@ def attention_core(
     CUDA.  A CUDA tensor of a dtype the kernels do not take (they take bf16
     and fp32) raises `TypeError` in their wrappers.  `ring` takes `auto`
     for causal or cross attention and in a one-process world (JAX's
-    `_ring_attention_core` returns None there) and raises over a group."""
+    `_ring_attention_core` returns None there) and runs the ring over a
+    group."""
     if impl == ATTN_RING:
-        if not causal and q.shape[1] == k.shape[1] and _mesh.world_size() > 1:
-            raise NotImplementedError(
-                f"attn_impl: ring over {_mesh.world_size()} processes is not ported yet "
-                f"(parallel/ring_attention.py, {_mesh.ROADMAP_ITEM})")
+        out = _ring_attention_core(q, k, v, causal, valid_len)
+        if out is not None:
+            return out
         impl = ATTN_AUTO
     if impl == ATTN_INT8:
         impl = ATTN_AUTO
@@ -553,6 +614,7 @@ class Transformer(nn.Module):
                  remat: Any = False):
         super().__init__()
         self.remat = resolve_remat_policy(remat)
+        self.causal = causal
         self.drop_path_rates = [float(r) for r in torch.linspace(0.0, drop_path_rate, layers)]
         self.blocks = nn.ModuleList(
             ResidualAttentionBlock(width, heads, causal=causal, attn_impl=attn_impl,
@@ -562,19 +624,105 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, valid_len: Optional[int] = None,
                 gen: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not self.causal:  # text towers never pipeline: their batch is the class count
+            from denseclip_vit_multimodal_tpu_torch.parallel import pipeline as _pipeline
+
+            ctx = _pipeline.current_pipeline()
+            if ctx is not None and self._pipeline_divides(ctx, x.shape[0]):
+                taps = self._pipelined(x, valid_len, gen, ctx)
+                return taps[-1], taps
+        if any(b.attn.attn_impl == ATTN_RING for b in self.blocks):
+            group = _ring_group(self.causal)
+            if group is not None:
+                check_ring_rows(x, group)
         taps: List[torch.Tensor] = []
         remat = self.remat is not None and torch.is_grad_enabled()
+        staged = getattr(self, "_pipe_staged", False)
         for block, rate in zip(self.blocks, self.drop_path_rates):
             keep = None
             if gen is not None and rate > 0.0:
                 keep = tuple(drop_path_mask(x.shape, rate, gen, x.device) for _ in range(2))
-            if remat:
+            if staged:  # the blocks live on their stages: each broadcast from its own
+                x = self._from_stage(block, x, valid_len, rate, gen, keep, remat)
+            elif remat:
                 x = torch.utils.checkpoint.checkpoint(block, x, valid_len, rate, gen, keep,
                                                       use_reentrant=False)
             else:
                 x = block(x, valid_len=valid_len, drop_path_rate=rate, gen=gen, keep=keep)
             taps.append(x)
         return x, torch.stack(taps)
+
+    def _pipeline_divides(self, ctx, batch: int) -> bool:
+        """JAX's test of a pipelined stack: its layers divide by the stages and
+        the batch by the microbatches; else a warning (once a shape) and the
+        replicated stack."""
+        micro = ctx.microbatches or ctx.stages
+        blockers = []
+        if len(self.blocks) % ctx.stages:
+            blockers.append(f"{len(self.blocks)} layers % {ctx.stages} stages != 0")
+        if batch % micro:
+            blockers.append(f"batch {batch} % {micro} microbatches != 0")
+        if not blockers:
+            return True
+        key = (len(self.blocks), batch, ctx.stages, micro)
+        if key not in _PIPELINE_FALLBACK_WARNED:
+            _PIPELINE_FALLBACK_WARNED.add(key)
+            warnings.warn("pipeline parallelism requested but this transformer stack falls back "
+                          f"to the plain scan ({'; '.join(blockers)}) — it runs REPLICATED over "
+                          "the pipe axis", stacklevel=3)
+        return False
+
+    def _pipelined(self, x: torch.Tensor, valid_len: Optional[int],
+                   gen: Optional[torch.Generator], ctx) -> torch.Tensor:
+        """The stack as a GPipe pipeline (`parallel/pipeline.py`): each
+        (layer, microbatch) draws its drop-path masks from a generator
+        seeded from one draw of `gen` a layer (none where every rate is 0,
+        so that `gen` then goes on as the plain stack leaves it), and each
+        block is recomputed in the backward under `tpu.remat`."""
+        from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import pipeline_blocks
+
+        seeds = [None] * len(self.blocks)
+        if gen is not None and any(rate > 0.0 for rate in self.drop_path_rates):
+            seeds = torch.randint(2**62, (len(self.blocks),), generator=gen,
+                                  device=gen.device).tolist()
+        remat = self.remat is not None and torch.is_grad_enabled()
+
+        def block_apply(block, h, aux, microbatch):
+            rate, seed = aux
+            g, keep = gen, None
+            if seed is not None:
+                g = torch.Generator(device=h.device).manual_seed(
+                    (seed + 1_000_003 * (microbatch + 1)) % 2**63)
+                if rate > 0.0:
+                    keep = tuple(drop_path_mask(h.shape, rate, g, h.device) for _ in range(2))
+            if remat:
+                return torch.utils.checkpoint.checkpoint(block, h, valid_len, rate, g, keep,
+                                                         use_reentrant=False)
+            return block(h, valid_len=valid_len, drop_path_rate=rate, gen=g, keep=keep)
+
+        return pipeline_blocks(block_apply, list(self.blocks), x,
+                               list(zip(self.drop_path_rates, seeds)), ctx.mesh,
+                               axis=ctx.axis, microbatches=ctx.microbatches)
+
+    @staticmethod
+    def _from_stage(block, x, valid_len, rate, gen, keep, remat):
+        """A block held by its stage alone, run on every rank of the pipe
+        group: its parameters broadcast from the stage (differentiable)."""
+        from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import gathered_block_params
+
+        params = gathered_block_params(block)
+        run = lambda h, *ts: torch.func.functional_call(
+            block, dict(zip(params, ts)), (h,),
+            dict(valid_len=valid_len, drop_path_rate=rate, gen=gen, keep=keep))
+        if remat:
+            return torch.utils.checkpoint.checkpoint(run, x, *params.values(),
+                                                     use_reentrant=False)
+        return run(x, *params.values())
+
+
+# The (layers, batch, stages, microbatches) shapes that have warned of the
+# replicated fallback (once a shape, as JAX's).
+_PIPELINE_FALLBACK_WARNED: set = set()
 
 
 def set_attn_impl(module: nn.Module, impl: str) -> None:

@@ -240,7 +240,8 @@ def _kv_len(valid_len: Optional[int], n: int) -> int:
 
 
 def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_len: int, exp_mode: int = EXP_EXACT) -> torch.Tensor:
+                        kv_len: int, exp_mode: int = EXP_EXACT,
+                        stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The one-shot kernels' attention in plain PyTorch, on a q already
     multiplied by scale * log2 e and rounded to its dtype.
 
@@ -249,7 +250,8 @@ def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rest), exp2 softmax (`softmax_exp` under `exp_mode`, against
     `row_max`), P rounded to q's dtype for P V with fp32 accumulation, one
     division by the fp32 row sum.  One head and at most `_REF_CHUNK` query
-    rows at a time bound the fp32 scores.
+    rows at a time bound the fp32 scores.  `stats` (fp32 [B, H, N, 2]), where
+    given, receives each row's max and sum, as the kernels write them.
     """
     b, n, heads, d = q.shape
     dtype = q.dtype
@@ -259,10 +261,13 @@ def attention_prescaled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         for r0 in range(0, n, _REF_CHUNK):
             r1 = min(r0 + _REF_CHUNK, n)
             s = q[:, r0:r1, h].float() @ kh.transpose(-1, -2)
-            p = softmax_exp(s - row_max(s, exp_mode), exp_mode)
+            m = row_max(s, exp_mode)
+            p = softmax_exp(s - m, exp_mode)
             denom = p.sum(dim=-1, keepdim=True)
             o = p.to(dtype).float() @ vh
             out[:, r0:r1, h] = (o / denom).to(dtype)
+            if stats is not None:
+                stats[:, h, r0:r1] = torch.cat((m, denom), dim=-1)
     return out
 
 
@@ -565,19 +570,25 @@ def mha_attention_reference(
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
     exp_mode: int = EXP_EXACT,
-) -> torch.Tensor:
+    with_stats: bool = False,
+):
     """Plain PyTorch version of K3; [B, N, H, D] -> [B, N, H, D] in q's dtype.
 
     K3's rounding points (the JAX `_kernel`): q * (scale * log2 e) rounded to
     the input dtype (the constant kept in fp32, as for K1), fp32 scores,
     keys at or beyond `valid_len` masked, exp2 softmax, P rounded to the
     input dtype for P V with fp32 accumulation, one division; the exp under
-    `exp_mode`.
+    `exp_mode`.  With `with_stats` it returns (out, stats): each row's max
+    (log2 units) and sum in K3's fp32 [B, H, N, 2], as the kernel writes them.
     """
     _, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
     qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
-    return attention_prescaled(qs, k, v, kv_len, exp_mode)
+    b, n, heads, _ = q.shape
+    stats = (torch.empty(b, heads, n, 2, dtype=torch.float32, device=q.device)
+             if with_stats else None)
+    out = attention_prescaled(qs, k, v, kv_len, exp_mode, stats)
+    return (out, stats) if with_stats else out
 
 
 def mha_attention_bwd_reference(
@@ -590,6 +601,7 @@ def mha_attention_bwd_reference(
     sm_scale: Optional[float] = None,
     valid_len: Optional[int] = None,
     exp_mode: int = EXP_EXACT,
+    stats: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of K3: (dq, dk, dv) [B, N, H, D] in q's dtype.
 
@@ -602,7 +614,11 @@ def mha_attention_bwd_reference(
     beyond `valid_len` get dk = dv = 0 exactly; every query row (pad rows
     too) contributes its dO.  Under `exp_mode` (EXP_POLY or EXP_POLY_ZEROED,
     as JAX's backward reads FAST_EXP2) p = `softmax_exp(s - row_max(s))`;
-    `out` must then be the forward's output under the same mode.
+    `out` must then be the forward's output under the same mode.  Given
+    `stats` (fp32 [B, H, N, 2], the kernels' row max and sum), p = exp2(s -
+    max) and r = 1 / sum come from them, as the backward kernel reads them:
+    the ring (`parallel/ring_attention.py`) hands in the statistics of every
+    key shard merged, so that each shard's (dq, dk, dv) is its exact part.
     """
     _, kv_len = check_bnhd(q, k, v, valid_len)
     scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
@@ -613,8 +629,12 @@ def mha_attention_bwd_reference(
         kh, vh = k[:, :kv_len, h].float(), v[:, :kv_len, h].float()
         doh = dout[:, :, h].to(dtype).float()
         s = qs[:, :, h].float() @ kh.transpose(-1, -2)
-        p = softmax_exp(s - row_max(s, exp_mode), exp_mode)
-        r = 1.0 / p.sum(dim=-1, keepdim=True)
+        if stats is None:
+            p = softmax_exp(s - row_max(s, exp_mode), exp_mode)
+            r = 1.0 / p.sum(dim=-1, keepdim=True)
+        else:
+            p = softmax_exp(s - stats[:, h, :, :1], exp_mode)
+            r = 1.0 / stats[:, h, :, 1:]
         dp = doh @ vh.transpose(-1, -2)
         dc = (doh * out[:, :, h].to(dtype).float()).sum(dim=-1, keepdim=True)
         ds = (p * (dp - dc) * (scale * r)).to(dtype).float()

@@ -221,7 +221,72 @@ class FSDP:
         self.grads = {}
 
 
-class Sharding:
+class ShardedState:
+    """The checkpoint side of a train state held in parts (`Sharding` here,
+    `parallel/pipeline.py::StageSharding`): `shards[name]` puts a
+    parameter's (or a moment's) tensor whole from every rank's part
+    (`full(local, shape)`, collective) and cuts this rank's part from the
+    whole (`local`); `shapes[name]` is the whole tensor's shape; a name
+    without a shard is replicated."""
+
+    # -- checkpoints ------------------------------------------------------------
+
+    def full_state_dict(self, model: nn.Module) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with full tensors (collective)."""
+        self.finish_backward()
+        out = {}
+        for name, t in model.state_dict().items():
+            shard = self.shards.get(name)
+            out[name] = t if shard is None else shard.full(t, self.shapes[name])
+        return out
+
+    def load_state_dict(self, model: nn.Module, full: Mapping[str, torch.Tensor]) -> None:
+        """Load a full state_dict (a one-process checkpoint) into this layout."""
+        self.finish_backward()
+        local = {k: (v if k not in self.shards else self.shards[k].local(
+            v.to(self._device(model)))) for k, v in full.items()}
+        params = dict(model.named_parameters())
+        with torch.no_grad():
+            for name, p in params.items():  # shapes change with the layout
+                p.data = torch.empty_like(local[name])
+        model.load_state_dict(local)
+
+    @staticmethod
+    def _device(model: nn.Module) -> torch.device:
+        return next(model.buffers(), next(model.parameters())).device
+
+    def finish_backward(self) -> None:
+        pass
+
+    def _optimizer_params(self, model: nn.Module, inner) -> List[Tuple[str, nn.Parameter]]:
+        names = {id(p): n for n, p in model.named_parameters()}
+        return [(names[id(p)], p) for g in inner.param_groups for p in g["params"]]
+
+    def full_optimizer_state(self, model: nn.Module, optimizer) -> dict:
+        """The optimizer's state_dict with full moments (collective), keyed
+        in the unsharded order."""
+        sd = optimizer.state_dict()
+        params = self._optimizer_params(model, optimizer.inner)
+        state = {}
+        for idx, entry in sd["inner"]["state"].items():
+            name, p = params[idx]
+            state[idx] = {k: (self.shards[name].full(v, self.shapes[name])
+                              if torch.is_tensor(v) and v.dim() > 0 else v)
+                          for k, v in entry.items()}
+        return {**sd, "inner": {**sd["inner"], "state": state}}
+
+    def load_optimizer_state(self, model: nn.Module, optimizer, full: dict) -> None:
+        params = self._optimizer_params(model, optimizer.inner)
+        state = {}
+        for idx, entry in full["inner"]["state"].items():
+            name, p = params[int(idx)]
+            state[idx] = {k: (self.shards[name].local(v.to(p.device))
+                              if torch.is_tensor(v) and v.dim() > 0 else v)
+                          for k, v in entry.items()}
+        optimizer.load_state_dict({**full, "inner": {**full["inner"], "state": state}})
+
+
+class Sharding(ShardedState):
     """The layout of a train state over the mesh: each parameter's
     `ParamShard`, the FSDP hooks, and the JAX specs they follow."""
 
@@ -294,59 +359,6 @@ class Sharding:
     def finish_backward(self) -> None:
         if self.fsdp_hooks is not None:
             self.fsdp_hooks.finish_backward()
-
-    # -- checkpoints ------------------------------------------------------------
-
-    def full_state_dict(self, model: nn.Module) -> Dict[str, torch.Tensor]:
-        """The model's state_dict with full tensors (collective)."""
-        self.finish_backward()
-        out = {}
-        for name, t in model.state_dict().items():
-            shard = self.shards.get(name)
-            out[name] = t if shard is None else shard.full(t, self.shapes[name])
-        return out
-
-    def load_state_dict(self, model: nn.Module, full: Mapping[str, torch.Tensor]) -> None:
-        """Load a full state_dict (a one-process checkpoint) into this layout."""
-        self.finish_backward()
-        local = {k: (v if k not in self.shards else self.shards[k].local(
-            v.to(self._device(model)))) for k, v in full.items()}
-        params = dict(model.named_parameters())
-        with torch.no_grad():
-            for name, p in params.items():  # shapes change with the layout
-                p.data = torch.empty_like(local[name])
-        model.load_state_dict(local)
-
-    @staticmethod
-    def _device(model: nn.Module) -> torch.device:
-        return next(model.buffers(), next(model.parameters())).device
-
-    def _optimizer_params(self, model: nn.Module, inner) -> List[Tuple[str, nn.Parameter]]:
-        names = {id(p): n for n, p in model.named_parameters()}
-        return [(names[id(p)], p) for g in inner.param_groups for p in g["params"]]
-
-    def full_optimizer_state(self, model: nn.Module, optimizer) -> dict:
-        """The optimizer's state_dict with full moments (collective), keyed
-        in the unsharded order."""
-        sd = optimizer.state_dict()
-        params = self._optimizer_params(model, optimizer.inner)
-        state = {}
-        for idx, entry in sd["inner"]["state"].items():
-            name, p = params[idx]
-            state[idx] = {k: (self.shards[name].full(v, self.shapes[name])
-                              if torch.is_tensor(v) and v.dim() > 0 else v)
-                          for k, v in entry.items()}
-        return {**sd, "inner": {**sd["inner"], "state": state}}
-
-    def load_optimizer_state(self, model: nn.Module, optimizer, full: dict) -> None:
-        params = self._optimizer_params(model, optimizer.inner)
-        state = {}
-        for idx, entry in full["inner"]["state"].items():
-            name, p = params[int(idx)]
-            state[idx] = {k: (self.shards[name].local(v.to(p.device))
-                              if torch.is_tensor(v) and v.dim() > 0 else v)
-                          for k, v in entry.items()}
-        optimizer.load_state_dict({**full, "inner": {**full["inner"], "state": state}})
 
     # -- what a device holds ----------------------------------------------------
 

@@ -17,29 +17,39 @@ the world is one process and ``{data: -1}`` resolves to ``{data: 1}``.
   * a rank's mesh coordinates are the row-major index of its rank over the
     spec's axis order (JAX's reshape of the device list); `setup_layout`
     makes, on every rank and in the same order, one sub-group for each data
-    group (the ranks that share a model coordinate) and for each model
-    group.  `data_rank` / `data_size` and `model_rank` / `model_size` read
-    that layout; without one the data axis is the whole world;
+    group (the ranks that share every other coordinate), then for each model
+    group, then for each pipe group (a stage chain).  `data_rank` /
+    `data_size`, `model_rank` / `model_size` and `pipe_rank` / `pipe_size`
+    read that layout; without one the data axis is the whole world;
   * `rank` / `world_size` read the group (0 / 1 without one), and every
     reduction below is the identity in a one-process world, so a run
     without a group is the one-process port's, bit for bit.  The batch
     reductions (`all_reduce_sum`, `sum_across`) run over the data group:
-    the ranks of one model group hold the same rows;
+    the ranks of one model or pipe group hold the same rows;
   * `all_gather` / `reduce_scatter` over a sub-group are the backend's own
     collectives under NCCL and under Gloo on CPU tensors; under Gloo on
     CUDA tensors, which takes only `all_reduce` and `broadcast`, the gather
     is one broadcast of each rank's part and the scatter an all-reduce then
-    a slice.  The choice is made from the group's backend
-    and the tensor's device;
+    a slice.  The point-to-point exchanges of the ring and the pipeline
+    (`exchange`) are `batch_isend_irecv` pairs, through a host copy under
+    Gloo on CUDA tensors (Gloo sends CPU tensors only).  The choice is made
+    from the group's backend and the tensor's device;
+  * `gather_replicated` / `split_replicated` are the pair of differentiable
+    collectives the ring and the pipeline build on: one all-gathers along
+    a dim and its backward keeps this rank's part of a gradient that every
+    rank holds alike; the other keeps this rank's part and its backward
+    all-gathers the parts;
   * `local_batch_size`, `data_axis_is_process_local` and `replicate` follow
     JAX's `parallel/mesh.py:150-262` over the data coordinate;
   * `check_ported` refuses what the port does not do yet, with
-    `NotImplementedError` naming ROADMAP §1 item 1 (the ring, then GPipe):
-    a `pipe` axis (or any axis but `data` and `model`) over more than one
-    device, `tpu.pipeline` over a pipe axis of more than one, and
-    `attn_impl: ring` over more than one process.  The data axis, `tpu.fsdp`
-    and the model axis train (`train/step.py`, `parallel/fsdp.py`,
-    `parallel/tensor_parallel.py`).
+    `NotImplementedError` naming ROADMAP §1 item 2: an axis other than
+    `data`, `model` and `pipe` over more than one device, a pipe axis
+    together with a model axis or `tpu.fsdp`, and `attn_impl: ring` over
+    more than one process together with a model or pipe axis.  The data
+    axis, `tpu.fsdp`, the model axis (`train/step.py`, `parallel/fsdp.py`,
+    `parallel/tensor_parallel.py`), the ring over the data axis
+    (`parallel/ring_attention.py`) and GPipe over a pipe axis
+    (`parallel/pipeline.py`) train.
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 PIPE_AXIS = "pipe"
-ROADMAP_ITEM = "ROADMAP §1 item 1"
+ROADMAP_ITEM = "ROADMAP §1 item 2"
 LAUNCH_HINT = ("the port runs one process per card: launch one rank per card with "
                "tools/dist_train.sh (torchrun)")
 
@@ -143,22 +153,26 @@ def mesh_over_group(tpu_cfg: Optional[Mapping[str, Any]]) -> Dict[str, int]:
 def check_ported(mesh: Mapping[str, int], tpu_cfg: Optional[Mapping[str, Any]],
                  world: Optional[int] = None) -> None:
     """Raise NotImplementedError for what the port does not do yet over
-    more than one device: a pipe axis (any axis but data and model), the
-    GPipe pipeline, the ring."""
+    more than one device: an axis but data, model and pipe; a pipe axis with
+    a model axis or with tpu.fsdp; the ring with a model or pipe axis."""
     tpu_cfg = tpu_cfg or {}
     world = world_size() if world is None else world
-    acting = [f"tpu.mesh axis {name!r} over {size} devices (pipeline parallelism)"
+    acting = [f"tpu.mesh axis {name!r} over {size} devices"
               for name, size in mesh.items()
-              if name not in (DATA_AXIS, MODEL_AXIS) and size > 1]
-    if tpu_cfg.get("pipeline") is not None and mesh.get(PIPE_AXIS, 1) > 1:
-        acting.append(f"tpu.pipeline over the {mesh[PIPE_AXIS]}-way pipe axis")
+              if name not in (DATA_AXIS, MODEL_AXIS, PIPE_AXIS) and size > 1]
+    pipe, model = mesh.get(PIPE_AXIS, 1), mesh.get(MODEL_AXIS, 1)
+    if pipe > 1 and model > 1:
+        acting.append(f"a {pipe}-way pipe axis with a {model}-way model axis")
+    if pipe > 1 and tpu_cfg.get("fsdp", False):
+        acting.append(f"a {pipe}-way pipe axis with tpu.fsdp")
     if str(tpu_cfg.get("attn_impl", "auto")) == "ring" and world > 1:
-        acting.append(f"attn_impl: ring over {world} processes")
+        acting += [f"attn_impl: ring over {world} processes with a {size}-way {name} axis"
+                   for name, size in ((MODEL_AXIS, model), (PIPE_AXIS, pipe)) if size > 1]
     if acting:
         raise NotImplementedError(
-            f"{', '.join(acting)}: not ported yet (parallel/ring_attention.py, then "
-            f"parallel/pipeline.py: {ROADMAP_ITEM}); the port trains over the data and model "
-            "axes, with tpu.fsdp")
+            f"{', '.join(acting)}: not ported yet ({ROADMAP_ITEM}); the port trains over the "
+            "data and model axes with tpu.fsdp, the ring over the data axis, and GPipe over "
+            "{data, pipe}")
 
 
 # --------------------------------------------------------------------------
@@ -186,18 +200,22 @@ def axis_ranks(mesh: Mapping[str, int], rank_: int, axis: str) -> list:
 
 
 class Layout:
-    """This rank's place on the mesh: its data and model coordinates and the
-    sub-groups of its data and model axes (None: the axis is the world, or
-    the rank is alone on it)."""
+    """This rank's place on the mesh: its data, model and pipe coordinates
+    and the sub-groups of those axes (None: the axis is the world, or the
+    rank is alone on it)."""
 
-    def __init__(self, mesh: Mapping[str, int], rank_: int, data_group=None, model_group=None):
+    def __init__(self, mesh: Mapping[str, int], rank_: int, data_group=None, model_group=None,
+                 pipe_group=None):
         self.mesh = dict(mesh)
         self.coords = mesh_coords(self.mesh, rank_)
         self.data_size = self.mesh.get(DATA_AXIS, 1)
         self.model_size = self.mesh.get(MODEL_AXIS, 1)
+        self.pipe_size = self.mesh.get(PIPE_AXIS, 1)
         self.data_rank = self.coords.get(DATA_AXIS, 0)
         self.model_rank = self.coords.get(MODEL_AXIS, 0)
+        self.pipe_rank = self.coords.get(PIPE_AXIS, 0)
         self.data_group, self.model_group = data_group, model_group
+        self.pipe_group = pipe_group
 
 
 _LAYOUT: Optional[Layout] = None
@@ -205,15 +223,16 @@ _LAYOUT: Optional[Layout] = None
 
 def setup_layout(mesh: Mapping[str, int]) -> Layout:
     """Make the layout of `mesh` over the group current: every rank creates,
-    in the same order, one `dist.new_group` for each data group and then one
-    for each model group (a group of one rank, or the whole world, is not
-    created).  In a one-process world the layout is the trivial one."""
+    in the same order, one `dist.new_group` for each data group, then one
+    for each model group, then one for each pipe group (a group of one
+    rank, or the whole world, is not created).  In a one-process world the
+    layout is the trivial one."""
     global _LAYOUT
     world, me = world_size(), rank()
     if math.prod(mesh.values()) != world:
         raise ValueError(f"mesh {dict(mesh)} does not span the {world} processes")
     groups = {}
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in (DATA_AXIS, MODEL_AXIS, PIPE_AXIS):
         size = mesh.get(axis, 1)
         if world == 1 or size == 1:
             continue
@@ -229,7 +248,8 @@ def setup_layout(mesh: Mapping[str, int]) -> Layout:
             group = dist.new_group(list(ranks))
             if me in ranks:
                 groups[axis] = group
-    _LAYOUT = Layout(mesh, me, groups.get(DATA_AXIS), groups.get(MODEL_AXIS))
+    _LAYOUT = Layout(mesh, me, groups.get(DATA_AXIS), groups.get(MODEL_AXIS),
+                     groups.get(PIPE_AXIS))
     return _LAYOUT
 
 
@@ -257,6 +277,18 @@ def model_size() -> int:
 
 def model_rank() -> int:
     return _LAYOUT.model_rank if _LAYOUT is not None else 0
+
+
+def pipe_size() -> int:
+    return _LAYOUT.pipe_size if _LAYOUT is not None else 1
+
+
+def pipe_rank() -> int:
+    return _LAYOUT.pipe_rank if _LAYOUT is not None else 0
+
+
+def pipe_group():
+    return _LAYOUT.pipe_group if _LAYOUT is not None else None
 
 
 def data_group():
@@ -420,3 +452,96 @@ def all_gather_object(obj) -> list:
 def barrier() -> None:
     if is_distributed():
         dist.barrier()
+
+
+def global_rank(group, group_rank: int) -> int:
+    """The global rank of `group`'s rank `group_rank` (None: the world)."""
+    if group is None:
+        return group_rank
+    return dist.get_global_rank(group, group_rank)
+
+
+class Exchange:
+    """Point-to-point sends and receives posted together (`exchange`);
+    `wait()` returns the received tensors, on their requested device."""
+
+    def __init__(self, works, received, targets):
+        self.works, self.received, self.targets = works, received, targets
+
+    def wait(self) -> list:
+        for w in self.works:
+            w.wait()
+        return [r if r.device == t.device else t.copy_(r)
+                for r, t in zip(self.received, self.targets)]
+
+
+def exchange(sends: Sequence, recvs: Sequence, group=None) -> Exchange:
+    """Post `sends` ((tensor, group rank) each) and `recvs` ((tensor to fill,
+    group rank) each) as one `batch_isend_irecv`; the i-th send of a rank
+    meets the i-th receive of its peer (tag i).  Under Gloo a CUDA tensor
+    travels through a host copy (Gloo sends CPU tensors only); NCCL sends it
+    as it is."""
+    ops, received, targets = [], [], []
+    host = lambda t: not _native(t, group)
+    for tag, (t, peer) in enumerate(sends):
+        t = t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t.cpu() if host(t) else t,
+                              global_rank(group, peer), group, tag))
+    for tag, (t, peer) in enumerate(recvs):
+        buf = torch.empty(t.shape, dtype=t.dtype) if host(t) else t
+        ops.append(dist.P2POp(dist.irecv, buf, global_rank(group, peer), group, tag))
+        received.append(buf)
+        targets.append(t)
+    return Exchange(dist.batch_isend_irecv(ops) if ops else [], received, targets)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return all_gather(x.movedim(dim, 0).contiguous(), group).movedim(0, dim)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_part(grad, ctx.dim, ctx.group), None, None
+
+
+class _SplitReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _own_part(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_dim(grad, ctx.dim, ctx.group), None, None
+
+
+def _own_part(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = group_size(group)
+    part = x.shape[dim] // n
+    me = dist.get_rank(group) if n > 1 else 0
+    return x.narrow(dim, me * part, part).contiguous()
+
+
+def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ranks' `x` concatenated along `dim` in group-rank order.
+    Its backward takes a gradient that every rank of the group holds alike
+    (a replicated consumer) and keeps this rank's part: no sum, which would
+    count it once a rank."""
+    if group_size(group) == 1:
+        return x
+    return _GatherReplicated.apply(x, dim, group)
+
+
+def split_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's 1/n of `x` along `dim`, where every rank of the group
+    holds the same `x`; its backward all-gathers the ranks' gradients of
+    their parts into the gradient of the whole, the same on every rank."""
+    if group_size(group) == 1:
+        return x
+    return _SplitReplicated.apply(x, dim, group)

@@ -37,11 +37,15 @@ Data parallelism (`parallel/mesh.py`): `train` first joins the process group
 `:303` bootstraps.  The `tpu.mesh` spec resolves over the group's world
 size, one card a rank, with JAX's `ValueError` texts, before the data and
 the model are built; what the port does not do over several devices
-(pipeline and ring parallelism) raises `NotImplementedError`.  A `model`
+(`parallel/mesh.py::check_ported`) raises `NotImplementedError`.  A `model`
 axis and `tpu.fsdp` shard the train state after it is built, as JAX's
 `:462-485` does (`parallel/fsdp.py::shard_train_state`: tensor parallelism
 over the model groups, ZeRO-3 over the data groups); the data coordinate
-then takes the place of the rank below.
+then takes the place of the rank below.  `tpu.pipeline` over a `pipe` axis
+turns the GPipe pipeline on after the layout is made, as JAX's `:332-340`
+does (`parallel/pipeline.py`), and the ViT's blocks then live on their
+stages (`shard_pipeline_stages`); `attn_impl: ring` runs the ring over the
+data axis (`parallel/ring_attention.py`).
 `training.batch_size` is the GLOBAL batch: it must divide by the data axis
 (JAX's `ValueError`), and each rank's loader reads its rank-strided share
 (`data/loader.py`).  Every rank checks that `model.clip_pretrained` exists
@@ -73,6 +77,10 @@ from denseclip_vit_multimodal_tpu_torch.data.loader import DataLoader, build_dat
 from denseclip_vit_multimodal_tpu_torch.models.denseclip import CITYSCAPES_CLASSES, build_denseclip
 from denseclip_vit_multimodal_tpu_torch.parallel import mesh as mesh_lib
 from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import shard_train_state
+from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import (
+    enable_pipeline_from_config,
+    shard_pipeline_stages,
+)
 from denseclip_vit_multimodal_tpu_torch.parallel.sharding_rules import FSDP_MIN_SIZE
 from denseclip_vit_multimodal_tpu_torch.train import checkpoint as ckpt_lib
 from denseclip_vit_multimodal_tpu_torch.train.clip_import import load_clip_into_model
@@ -300,6 +308,7 @@ def train(cfg, work_dir: str, resume: Optional[str] = None, max_steps: Optional[
     finally:
         shutdown.restore()
         mesh_lib.reset_layout()
+        enable_pipeline_from_config({}, {})
         for handler in list(logger.handlers):
             handler.close()
             logger.removeHandler(handler)
@@ -323,6 +332,10 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
                     "a process a card", torch.cuda.device_count())
     mesh_lib.check_ported(mesh, tpu_cfg)
     mesh_lib.setup_layout(mesh)
+    pipelined = enable_pipeline_from_config(tpu_cfg, mesh)
+    if pipelined:
+        logger.info("pipeline parallelism: %d stages over the pipe axis",
+                    mesh[mesh_lib.PIPE_AXIS])
     world, rank = mesh_lib.data_size(), mesh_lib.data_rank()  # the batch goes by data coordinate
     if not mesh_lib.data_axis_is_process_local(mesh):
         raise ValueError(
@@ -396,6 +409,8 @@ def _train(cfg, work_dir, resume, load, max_steps, no_validate, device, logger, 
         if fsdp:
             logger.info("FSDP: params + optimizer state sharded over the %d-way data axis "
                         "(tpu.fsdp)", mesh.get(mesh_lib.DATA_AXIS, 1))
+    elif pipelined:
+        shard_pipeline_stages(state, mesh)
     logger.info("frozen modules: %s", list(frozen_modules_from_cfg(training_cfg)))
     silog_cfg = training_cfg.get("silog_loss", {}) or {}
     train_step = train_step_from_cfg(texts, training_cfg, data_cfg, seed)

@@ -49,7 +49,11 @@ group holds whole (LayerNorms, biases after a row-parallel layer, the neck,
 the heads) each of its ranks computes from the same values, but not to the
 same bits on CUDA (the bilinear resizes' backward adds by atomics): those
 gradients are averaged over the model group too, so that the copies never
-drift apart (`Sharding.gradient_groups`).
+drift apart (`Sharding.gradient_groups`).  Under GPipe (`tpu.mesh: {data:
+D, pipe: S}`, `parallel/pipeline.py`) the S ranks of a pipe group hold the
+same rows: a block's gradient stays on its stage and is averaged over the
+data group, and what every stage holds is averaged over every rank
+(`StageSharding.gradient_groups`).
 
 The eval step follows the reference's validate protocol: the input resized to
 the crop, predictions resized back to the labels' size, then the confusion
@@ -188,8 +192,8 @@ def make_train_step(
         finite = math.isfinite(values["loss_total"])  # global: the same on every rank
         lr = opt.lr
         if finite:
-            if state.sharding is None:
-                average_gradients(opt.params)
+            if state.sharding is None:  # a pipe axis without a pipeline: its ranks are copies
+                average_gradients(opt.params, "world" if mesh_lib.pipe_size() > 1 else "data")
             else:
                 for over, params in state.sharding.gradient_groups(opt._names).items():
                     average_gradients(params, over)

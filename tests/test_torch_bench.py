@@ -109,8 +109,17 @@ def test_bench_frame_matches_jax_slide_inference(jax_model):
 
 @pytest.fixture(scope="module")
 def suite_run(tmp_path_factory):
+    """The suite at tiny widths on one intra-op thread: its device-timed
+    workloads run thousands of small operators, and with a thread a core on
+    a machine whose cores other processes keep busy each of them waits for
+    its slowest thread (the suite took 30x its time alone there)."""
     out = tmp_path_factory.mktemp("suite") / "results.json"
-    results = bench_suite.main([*SUITE_ARGS, "--out", str(out)])
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        results = bench_suite.main([*SUITE_ARGS, "--out", str(out)])
+    finally:
+        torch.set_num_threads(threads)
     return results, out
 
 

@@ -113,14 +113,15 @@ def test_every_kernel_source_is_built():
                                     "tools.import_checkpoint", "tools.infer",
                                     "utils.visualize", "ops._library", "infer.outputs",
                                     "infer.exported", "tools.export",
-                                    "tools.exp_serving_concurrency", "parallel.mesh"])
+                                    "tools.exp_serving_concurrency", "parallel.mesh",
+                                    "parallel.ring_attention", "parallel.pipeline"])
 def test_new_modules_import_without_jax_or_a_gpu(module):
     """The kernel wrappers (K6; K4b; K7 in its experiment tool), the kernel
     tools, the timing helpers, the remat-aware layers, the Cityscapes readers
     with their host ops, the CLIP import, the checkpoint import tool, the
     kernel ops' registration, the export and its loader, the concurrency
-    tool and the mesh check import on a machine with neither JAX nor a card
-    (nothing is compiled or built at import)."""
+    tool, the mesh check, the ring and the pipeline import on a machine
+    with neither JAX nor a card (nothing is compiled or built at import)."""
     code = (
         "import importlib, sys\n"
         f"importlib.import_module('denseclip_vit_multimodal_tpu_torch.{module}')\n"

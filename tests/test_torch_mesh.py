@@ -62,8 +62,10 @@ def test_mesh_from_config_matches_jax_over_every_device(tpu_cfg):
 
 def test_a_mesh_over_several_devices_is_refused_with_what_would_act():
     """The data axis, a model axis and FSDP train over any number of
-    processes; a pipe axis, the pipeline and the ring over more than one are
-    refused, naming what acts and ROADMAP §1 item 1."""
+    processes, so do GPipe over `{data, pipe}` and the ring over the data
+    axis; another axis, a pipe axis with a model axis or FSDP, and the ring
+    with a model or pipe axis are refused, naming what acts and ROADMAP §1
+    item 2."""
     port_mesh.check_ported({"data": 1}, {"fsdp": True}, world=1)  # one device: the identity
     port_mesh.check_ported({"data": 2}, {}, world=2)
     port_mesh.check_ported({"data": 8}, {"attn_impl": "auto"}, world=8)
@@ -72,14 +74,18 @@ def test_a_mesh_over_several_devices_is_refused_with_what_would_act():
     port_mesh.check_ported({"data": 1, "model": 2}, {}, world=2)
     port_mesh.check_ported({"model": 2, "data": 2}, {"fsdp": True}, world=4)
     port_mesh.check_ported({"data": 2, "pipe": 1}, {"pipeline": {"microbatches": 4}}, world=2)
-    with pytest.raises(NotImplementedError, match=r"tpu.mesh axis 'pipe' over 2 devices .*, "
-                                                  r"tpu.pipeline over the 2-way pipe axis.*"
-                                                  r"ROADMAP §1 item 1"):
+    port_mesh.check_ported({"data": 4, "pipe": 2}, {"pipeline": {"microbatches": 4}}, world=8)
+    port_mesh.check_ported({"pipe": 2}, {}, world=2)
+    port_mesh.check_ported({"data": 2}, {"attn_impl": "ring"}, world=2)
+    with pytest.raises(NotImplementedError, match=r"a 2-way pipe axis with tpu.fsdp: not "
+                                                  r"ported yet \(ROADMAP §1 item 2\)"):
         port_mesh.check_ported({"data": 4, "pipe": 2},
                                {"fsdp": True, "pipeline": {"microbatches": 4}}, world=8)
-    with pytest.raises(NotImplementedError, match="attn_impl: ring over 2 processes"):
-        port_mesh.check_ported({"data": 2}, {"attn_impl": "ring"}, world=2)
-    with pytest.raises(NotImplementedError, match="attn_impl: ring over 4 processes"):
+    with pytest.raises(NotImplementedError, match=r"tpu.mesh axis 'seq' over 2 devices, a 2-way "
+                                                  r"pipe axis with a 2-way model axis.*item 2"):
+        port_mesh.check_ported({"seq": 2, "pipe": 2, "model": 2}, {"pipeline": {}}, world=8)
+    with pytest.raises(NotImplementedError, match="attn_impl: ring over 4 processes with a "
+                                                  "2-way model axis"):
         port_mesh.check_ported({"data": 2, "model": 2}, {"attn_impl": "ring"}, world=4)
 
 
@@ -88,25 +94,31 @@ def test_training_refuses_a_mesh_it_cannot_honour(tmp_path, monkeypatch, spec):
     """On one process the spec needs more devices than there are: JAX's
     ValueError and the launcher's hint, before any data or model is built.
     Over a group of two the mesh spans it (FSDP over the data axis and the
-    model axis train), and what the port does not do over two (here the
-    ring) raises NotImplementedError."""
+    model axis train, and so does the ring over the data axis), and what the
+    port does not do over two (here the ring with a model axis) raises
+    NotImplementedError before anything is built."""
     cfg = _cfg(f"tpu.mesh={spec}", "tpu.fsdp=true", "tpu.attn_impl=ring")
     with pytest.raises(ValueError, match="needs 2 devices, have 1 .*tools/dist_train.sh"):
         loop.train(cfg, str(tmp_path / "one"), max_steps=1, no_validate=True, device="cpu")
     assert not os.path.exists(tmp_path / "one" / "train_log.jsonl")
     monkeypatch.setattr(port_mesh, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="attn_impl: ring over 2 processes"):
+    if "model" not in spec:
+        port_mesh.check_ported(port_mesh.mesh_over_group(cfg.tpu), cfg.tpu)
+        return
+    with pytest.raises(NotImplementedError, match="attn_impl: ring over 2 processes with a "
+                                                  "2-way model axis"):
         loop.train(cfg, str(tmp_path / "two"), max_steps=1, no_validate=True, device="cpu")
     assert not os.path.exists(tmp_path / "two" / "train_log.jsonl")
 
 
 def test_training_refuses_a_pipe_axis(tmp_path, monkeypatch):
-    """A pipe axis over two processes (GPipe, not ported) is refused before
-    anything is built, naming ROADMAP §1 item 1."""
+    """A pipe axis with tpu.fsdp over two processes (not ported) is refused
+    before anything is built, naming ROADMAP §1 item 2."""
     monkeypatch.setattr(port_mesh, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="axis 'pipe' over 2 devices.*ROADMAP §1 item 1"):
-        loop.train(_cfg("tpu.mesh={data: 1, pipe: 2}"), str(tmp_path), max_steps=1,
-                   no_validate=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="2-way pipe axis with tpu.fsdp.*ROADMAP §1 "
+                                                  "item 2"):
+        loop.train(_cfg("tpu.mesh={data: 1, pipe: 2}", "tpu.fsdp=true"), str(tmp_path),
+                   max_steps=1, no_validate=True, device="cpu")
     assert not os.path.exists(tmp_path / "train_log.jsonl")
 
 

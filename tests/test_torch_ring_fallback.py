@@ -2,12 +2,12 @@
 
 JAX's `ring` shards the sequence over a ring mesh (`models/layers.py:171-222`):
 over conftest's 8 virtual devices it runs the ring, exactly.  The port runs
-one process a card and has no ring yet: in a one-process world, and for
-causal or cross attention, its `ring` takes `auto`, which is exact as well,
-so the tiny seg+depth ViT built with `ring` in both packages agrees at the
-fp32 module limits; over a group of more than one process the port refuses
-it (`NotImplementedError` naming ROADMAP §1 item 1), in the attention core
-and in the training loop's check.
+one process a card: in a one-process world, and for causal or cross
+attention, its `ring` takes `auto`, which is exact as well, so the tiny
+seg+depth ViT built with `ring` in both packages agrees at the fp32 module
+limits.  Over a group the port runs its ring (`test_torch_ring_attention.py`)
+over the data axis; with a model or pipe axis the training loop's check
+refuses it (`NotImplementedError` naming ROADMAP §1 item 2).
 """
 
 import jax
@@ -48,21 +48,25 @@ def test_ring_model_matches_jax_ring_over_eight_devices(tiny_model_cfg):
 
 
 def test_ring_core_falls_back_and_refuses_over_a_group(monkeypatch):
+    """One process: `ring` is `auto`.  Over a group causal and cross
+    attention take `auto` too, as in JAX (no collective is made); the ring
+    with a model or pipe axis is refused, with the data axis it is taken."""
     q, k, v = (torch.randn(1, 10, 2, 8) for _ in range(3))
     want = t_layers.attention_core(q, k, v, impl="auto")
     assert torch.equal(t_layers.attention_core(q, k, v, impl="ring"), want)
     monkeypatch.setattr(port_mesh, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match=r"attn_impl: ring over 2 processes is not "
-                                                  r"ported yet .*ROADMAP §1 item 1"):
-        t_layers.attention_core(q, k, v, impl="ring")
-    # causal and cross attention take auto over a group too, as in JAX
     assert torch.equal(t_layers.attention_core(q, k, v, impl="ring", causal=True),
                        t_layers.attention_core(q, k, v, impl="auto", causal=True))
     kv = torch.randn(1, 6, 2, 8)
     assert torch.equal(t_layers.attention_core(q, kv, kv, impl="ring"),
                        t_layers.attention_core(q, kv, kv, impl="auto"))
-    with pytest.raises(NotImplementedError, match="ring over 2 processes"):
-        port_mesh.check_ported({"data": 2}, {"attn_impl": "ring"})
+    port_mesh.check_ported({"data": 2}, {"attn_impl": "ring"})
+    with pytest.raises(NotImplementedError, match=r"attn_impl: ring over 2 processes with a "
+                                                  r"2-way model axis.*ROADMAP §1 item 2"):
+        port_mesh.check_ported({"model": 2}, {"attn_impl": "ring"})
+    with pytest.raises(NotImplementedError, match=r"attn_impl: ring over 2 processes with a "
+                                                  r"2-way pipe axis.*ROADMAP §1 item 2"):
+        port_mesh.check_ported({"pipe": 2}, {"attn_impl": "ring", "pipeline": {}})
 
 
 def test_ring_never_takes_the_qkv_kernel(monkeypatch):

@@ -313,3 +313,142 @@ def restore_sharded(rank: int, world: int, p: dict) -> dict:
                 "local": local, "epoch": epoch, "step": state.step}
     finally:
         mesh.reset_layout()
+
+
+def ring_cases(rank: int, world: int, p: dict) -> list:
+    """`ring_attention` over the world on each case's q, k, v (the same on
+    every rank): the output and the gradients of sum(out ** 2)."""
+    from denseclip_vit_multimodal_tpu_torch.parallel.ring_attention import ring_attention
+
+    out = []
+    for case in p["cases"]:
+        q, k, v = (torch.from_numpy(case[x]).requires_grad_(True) for x in "qkv")
+        o = ring_attention(q, k, v, valid_len=case["valid_len"])
+        (o ** 2).sum().backward()
+        out.append({"out": o.detach(), "grads": [x.grad for x in (q, k, v)]})
+    return out
+
+
+def ring_model_rows(rank: int, world: int, p: dict) -> dict:
+    """The ViT of `p["cfg"]` built with `attn_impl: ring` on this rank's row
+    of `p["images"]` (eval mode, with autograd): its seg and depth outputs and
+    the backbone's gradients of a loss on them."""
+    from denseclip_vit_multimodal_tpu_torch.models.denseclip import (
+        CITYSCAPES_CLASSES,
+        build_denseclip,
+    )
+
+    model, texts = build_denseclip(p["cfg"], CITYSCAPES_CLASSES, device="cpu", attn_impl="ring")
+    model.load_state_dict(p["state_dict"])
+    model.eval()
+    rows = p["rows"][rank] if world > 1 else p["rows"][p.get("as_rank", 0)]
+    out = model(torch.from_numpy(p["images"][rows]), texts)
+    (out["seg"].float().square().mean() + out["depth"].float().mean()).backward()
+    return {"seg": out["seg"].detach(), "depth": out["depth"].detach(),
+            "grads": {n: q.grad.clone() for n, q in model.named_parameters()
+                      if n.startswith("backbone.") and q.grad is not None}}
+
+
+def ring_rows_mismatch(rank: int, world: int, p: dict) -> list:
+    """A stack built with `ring` on [B, N] that differ between the ranks
+    (`p["shapes"]`: a list of per-rank shapes a case): each rank's error
+    text, or None where the forward ran."""
+    from denseclip_vit_multimodal_tpu_torch.models.layers import Transformer
+
+    stack = Transformer(32, 2, 4, attn_impl="ring", gen=torch.Generator().manual_seed(0))
+    out = []
+    for shapes in p["shapes"]:
+        b, n = shapes[rank]
+        try:
+            stack(torch.ones(b, n, 32))
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def toy_layers(p: dict):
+    """`tests/test_pipeline.py`'s toy as the port's pipeline takes it: the
+    stacked leaves (requiring grad), the L layers as views of them, x."""
+    w, b = (torch.from_numpy(p[k]).requires_grad_(True) for k in ("w", "b"))
+    return w, b, [(w[i], b[i]) for i in range(w.shape[0])]
+
+
+def toy_block(layer, h, aux, microbatch=0):
+    w, b = layer
+    return torch.tanh(h @ w + b + aux)
+
+
+def pipeline_toy(rank: int, world: int, p: dict) -> dict:
+    """`pipeline_blocks` on the toy over `{pipe: world}` for each M of
+    `p["microbatches"]`: the taps and the gradients of (taps[-1] ** 2).sum()
+    + taps.sum() of w, b (this stage's layers) and x (every rank)."""
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import pipeline_blocks
+
+    spec = {"pipe": world}
+    mesh.setup_layout(spec)
+    try:
+        out = {}
+        for m in p["microbatches"]:
+            w, b, layers = toy_layers(p)
+            x = torch.from_numpy(p["x"]).requires_grad_(True)
+            taps = pipeline_blocks(toy_block, layers, x, torch.from_numpy(p["rates"]), spec,
+                                   microbatches=m)
+            ((taps[-1] ** 2).sum() + taps.sum()).backward()
+            out[m] = {"taps": taps.detach(), "w": w.grad, "b": b.grad, "x": x.grad,
+                      "stage": mesh.pipe_rank()}
+        return out
+    finally:
+        mesh.reset_layout()
+
+
+def pipelined_steps(rank: int, world: int, p: dict) -> dict:
+    """`len(p["batches"])` train steps of the port under GPipe over
+    `p["mesh"]` (`tpu.pipeline: {microbatches: p["microbatches"]}`), each on
+    this rank's rows by its data coordinate: every step's metrics, the full
+    state after them (each block from its stage), the parameter and moment
+    elements this rank holds.  In the parent (one process): no pipeline,
+    the reference."""
+    from denseclip_vit_multimodal_tpu_torch.data.augment import AugmentConfig
+    from denseclip_vit_multimodal_tpu_torch.parallel import mesh
+    from denseclip_vit_multimodal_tpu_torch.parallel.fsdp import resident_elements
+    from denseclip_vit_multimodal_tpu_torch.parallel.pipeline import (
+        enable_pipeline_from_config,
+        shard_pipeline_stages,
+    )
+    from denseclip_vit_multimodal_tpu_torch.train.step import make_train_step
+
+    model, texts = _model(p["cfg"], p["state_dict"], remat=p.get("remat", False))
+    state = _state(model, p)
+    sharding = None
+    if world > 1:
+        mesh.setup_layout(p["mesh"])
+        enable_pipeline_from_config({"pipeline": {"microbatches": p["microbatches"]}}, p["mesh"])
+        sharding = shard_pipeline_stages(state, p["mesh"])
+    from denseclip_vit_multimodal_tpu_torch.models.layers import _PIPELINE_FALLBACK_WARNED
+
+    warned = len(_PIPELINE_FALLBACK_WARNED)
+    try:
+        step = make_train_step(texts, AugmentConfig(**p["aug"]), seed=p.get("seed", 0))
+        metrics = [step(state, _local_rows(b, mesh.data_rank(), mesh.data_size(), 1))
+                   for b in p["batches"]]
+        full = (sharding.full_state_dict(model) if sharding is not None
+                else {k: v.clone() for k, v in model.state_dict().items()})
+        out = {"metrics": metrics, "state": full,
+               "resident": resident_elements(model, state.optimizer),
+               "fallbacks": len(_PIPELINE_FALLBACK_WARNED) - warned}
+        if p.get("odd_rows") is not None:  # 3 rows % 2 microbatches: the replicated stack
+            seg = model.eval()(torch.from_numpy(p["odd_rows"]), texts)["seg"]
+            seg.float().square().mean().backward()
+            grads = {}
+            for n, q in model.named_parameters():
+                if n.startswith("backbone.transformer."):
+                    g = q.grad if q.grad is not None else q.new_zeros(q.shape)
+                    grads[n] = g if sharding is None else sharding.shards[n].full(
+                        g, sharding.shapes[n])
+            out["odd"] = {"seg": seg.detach(), "grads": grads}
+        return out
+    finally:
+        enable_pipeline_from_config({}, {})
+        mesh.reset_layout()
